@@ -1,0 +1,43 @@
+// Shared helpers for the pwcnet_tpu_torch kernels (sm_90a).
+//
+// Model tensors are float32 or bfloat16; every kernel converts to float32
+// on load, accumulates in float32 and rounds to the model dtype on store
+// (round-to-nearest-even, as PyTorch's .to(torch.bfloat16) does).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace pwc {
+
+// dtype codes passed from Python
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// value as the model dtype would hold it, back in float32
+template <typename T>
+__device__ __forceinline__ float round_to(float v) { return to_f32(from_f32<T>(v)); }
+
+// LeakyReLU(0.1), as jnp.where(v >= 0, v, v * 0.1)
+__device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : v * 0.1f; }
+
+}  // namespace pwc
+
+// Each library is one translation unit, so this definition is not duplicated.
+extern "C" const char* pwc_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
