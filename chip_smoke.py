@@ -266,11 +266,11 @@ def serve(torch, np, device):
     from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     preds = {
-        (dt, k): FlowPredictor(dtype=dt, use_kernels=k, device=device, seed=0)
+        (dt, k): FlowPredictor(dtype=dt, use_kernels=k, device=device)
         for dt in (torch.bfloat16, torch.float32) for k in (True, False)
     }
     pad_preds = {
-        k: FlowPredictor(dtype=torch.bfloat16, use_kernels=k, device=device, seed=0, size_handling="pad")
+        k: FlowPredictor(dtype=torch.bfloat16, use_kernels=k, device=device, size_handling="pad")
         for k in (True, False)
     }
     req = [smooth_pair(np, 448, 1024, seed) for seed in (1, 2)]
@@ -316,7 +316,7 @@ def serve(torch, np, device):
 
     # -- small pair against the float32 CPU path (plain ops, CPU convs)
     small = smooth_pair(np, 64, 128, 4)
-    cpu_pred = FlowPredictor(dtype=torch.float32, device="cpu", seed=0)
+    cpu_pred = FlowPredictor(dtype=torch.float32, device="cpu")
     flow_close("f32 64x128 card kernels vs CPU plain", preds[(torch.float32, True)](*small)[0],
                cpu_pred(*small)[0], 1e-4)
 

@@ -71,20 +71,18 @@ class FlowPredictor:
         use_kernels: str | bool = "auto",
         size_handling: str = "crop",
         device=None,
-        seed: int = 0,
     ):
         """``use_kernels``: 'auto' runs the CUDA kernels on a CUDA device;
-        on the CPU their wrappers run the plain versions anyway.
-        ``seed`` seeds the random init used when there is no checkpoint."""
+        on the CPU their wrappers run the plain versions anyway. Without a
+        checkpoint the weights are the flax-style init from seed 0."""
         if size_handling not in ("crop", "pad"):
             raise ValueError(f"size_handling must be crop|pad: {size_handling!r}")
         self.size_handling = size_handling
         self.device = resolve_device(device)
         if use_kernels == "auto":
             use_kernels = self.device.type == "cuda"
-        self.use_kernels = bool(use_kernels)
         hooks = {}
-        if self.use_kernels:
+        if use_kernels:
             from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
             from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
 
@@ -99,7 +97,6 @@ class FlowPredictor:
             warp_type=warp_type,
             use_dc=use_dc,
             output_level=output_level,
-            generator=torch.Generator().manual_seed(seed),
             **hooks,
         )
         if checkpoint is not None:
@@ -110,7 +107,8 @@ class FlowPredictor:
         self.num_levels = num_levels
         self.crop_factor = 2**num_levels
 
-    def _prepare(self, image: np.ndarray) -> np.ndarray:
+    def prepare(self, image: np.ndarray) -> np.ndarray:
+        """Crop (or edge-pad) a frame to a multiple of ``2**num_levels``."""
         if self.size_handling == "pad":
             f = self.crop_factor
             h, w = image.shape[:2]
@@ -141,7 +139,7 @@ class FlowPredictor:
         pixel units, the prepared frames normalised (2, H', W', 3) float32).
         """
         orig_h, orig_w = image_0.shape[:2]
-        stacked = np.stack([self._prepare(image_0), self._prepare(image_1)])
+        stacked = np.stack([self.prepare(image_0), self.prepare(image_1)])
         images = stacked.astype(np.float32) / 255.0
         # uint8 travels as it is and is normalised on the device
         flow_final, pyramid = self.raw_forward((stacked if stacked.dtype == np.uint8 else images)[None])

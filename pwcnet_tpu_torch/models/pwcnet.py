@@ -18,8 +18,8 @@ Hooks, with the JAX package's meaning:
 - ``cost_volume_fn(f0, f1, d)`` on NHWC tensors (K2 on the card);
 - ``warp_cv_fn(f0, f1, flow_px, d)``, the fused bilinear warp + cost volume
   at the warped levels (K1); requires ``warp_type='bilinear'``;
-- ``fused_pyramid_levels``: the N finest pyramid levels through
-  ``pyramid_level_fn`` (default K3's wrapper).
+- ``fused_pyramid_levels``: the N finest pyramid levels through K3's
+  wrapper.
 """
 
 from __future__ import annotations
@@ -63,7 +63,6 @@ class PWCDCNet(nn.Module):
         cost_volume_fn: Optional[Callable] = None,
         warp_cv_fn: Optional[Callable] = None,
         fused_pyramid_levels: int = 0,
-        pyramid_level_fn: Optional[Callable] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -82,9 +81,7 @@ class PWCDCNet(nn.Module):
         self.cost_volume_fn = cost_volume_fn
         self.warp_cv_fn = warp_cv_fn
 
-        self.fp_extractor = FeaturePyramidExtractor(
-            num_levels, fused_levels=fused_pyramid_levels, level_fn=pyramid_level_fn
-        )
+        self.fp_extractor = FeaturePyramidExtractor(num_levels, fused_levels=fused_pyramid_levels)
         taps = (2 * search_range + 1) ** 2
         feat = 0
         for l in range(output_level + 1):

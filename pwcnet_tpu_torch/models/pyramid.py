@@ -7,13 +7,13 @@ right, so the stride-2 conv runs on ``F.pad(x, same_pad_stride2(...))``
 with ``padding=0``.
 
 ``fused_levels``: compute the N finest levels with one fused kernel call
-each (K3, ``ops.cuda.pyramid_conv.pyramid_level_fused``, or ``level_fn``)
-on the same parameters.
+each (K3, ``ops.cuda.pyramid_conv.pyramid_level_fused``) on the same
+parameters.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -33,12 +33,10 @@ class FeaturePyramidExtractor(nn.Module):
         num_levels: int = 6,
         filters: Sequence[int] = DEFAULT_FILTERS,
         fused_levels: int = 0,
-        level_fn: Optional[Callable] = None,
     ):
         super().__init__()
         self.num_levels = num_levels
         self.fused_levels = fused_levels
-        self.level_fn = level_fn
         cin = 3
         for level in range(num_levels):
             for i, stride in enumerate((2, 1, 1)):
@@ -53,9 +51,8 @@ class FeaturePyramidExtractor(nn.Module):
         for level in range(self.num_levels):
             convs = [getattr(self, conv_name(3 * level + i)) for i in range(3)]
             if level < self.fused_levels:
-                fn = self.level_fn or pyramid_level_fused
                 params = [t for c in convs for t in (c.weight, c.bias)]
-                x = to_nchw(fn(to_nhwc(x), *params))
+                x = to_nchw(pyramid_level_fused(to_nhwc(x), *params))
             else:
                 x = F.pad(x, same_pad_stride2(x.shape[2], x.shape[3]))
                 for conv in convs:

@@ -19,9 +19,7 @@ import torch.nn.functional as F
 __all__ = ["cost_volume"]
 
 
-def cost_volume(
-    f0: torch.Tensor, f1: torch.Tensor, search_range: int = 4, activate: bool = True
-) -> torch.Tensor:
+def cost_volume(f0: torch.Tensor, f1: torch.Tensor, search_range: int = 4) -> torch.Tensor:
     """Correlation of ``f0`` against shifted ``f1`` -> (B, H, W, (2d+1)**2)."""
     b, h, w, c = f0.shape
     d = int(search_range)
@@ -33,7 +31,4 @@ def cost_volume(
         for v in range(2 * d + 1)
         for u in range(2 * d + 1)
     ]
-    cv = torch.stack(costs, -1)
-    if activate:
-        cv = F.leaky_relu(cv, 0.1)
-    return cv.to(f0.dtype)
+    return F.leaky_relu(torch.stack(costs, -1), 0.1).to(f0.dtype)

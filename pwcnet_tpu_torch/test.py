@@ -102,7 +102,7 @@ def main(argv=None):
     flow_final, _, _ = predictor(img0, img1)
 
     if args.time:
-        batch = np.stack([predictor._prepare(img0), predictor._prepare(img1)])[None]
+        batch = np.stack([predictor.prepare(img0), predictor.prepare(img1)])[None]
         sec = time_forward(predictor, batch, args.iters)
         clock = "CUDA events" if predictor.device.type == "cuda" else "host clock"
         print(f"Inference time: {sec} sec (averaged over {args.iters} iterations, "

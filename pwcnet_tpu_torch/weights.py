@@ -24,13 +24,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params", "to_jax_params", "load_params", "param_count"]
-
-
-def param_count(num_levels: int = 6, output_level: int = 4) -> int:
-    """Tensors in the PWCDCNet tree: 3 convs per pyramid level, 6 per
-    estimator, 7 in the context net, each a kernel and a bias."""
-    return 2 * (3 * num_levels + 6 * (output_level + 1) + 7)
+__all__ = ["from_jax_params", "to_jax_params", "load_params"]
 
 
 def _leaves(tree, path=()):

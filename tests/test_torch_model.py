@@ -30,7 +30,7 @@ from pwcnet_tpu_torch.models import PWCDCNet
 from pwcnet_tpu_torch.models.conv import glorot_init_
 from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
 from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
-from pwcnet_tpu_torch.weights import from_jax_params, load_params, param_count, to_jax_params
+from pwcnet_tpu_torch.weights import from_jax_params, load_params, to_jax_params
 
 torch.set_num_threads(1)
 
@@ -81,7 +81,7 @@ def full_tree():
 class TestWeights:
     def test_round_trip_is_bit_exact_on_the_full_tree(self, full_tree):
         state = from_jax_params(full_tree)
-        assert len(state) == param_count() == 110
+        assert len(state) == 110  # 18 pyramid + 5 x 6 estimator + 7 context convs, kernel and bias
         port_keys = PWCDCNet().state_dict()
         assert {k: tuple(v.shape) for k, v in state.items()} == {k: tuple(v.shape) for k, v in port_keys.items()}
         assert state["fp_extractor.conv2d.weight"].shape == (16, 3, 3, 3)  # OIHW
@@ -210,6 +210,18 @@ class TestFlowPredictor:
         assert flow.shape == (2, 16, 24, 2) and [p.shape[:3] for p in pyramid] == [(2, 2, 3), (2, 4, 6)]
         one, _ = pred.raw_forward(batch[1:])
         torch.testing.assert_close(one[0], flow[1], rtol=1e-5, atol=1e-6)
+
+    def test_float_frames_are_normalised(self):
+        """Raw frames as floats on the 0..255 scale give the uint8 result."""
+        from pwcnet_tpu_torch.inference import FlowPredictor
+
+        pred = FlowPredictor(device="cpu", **SMALL)
+        img0 = (np.random.default_rng(9).random((16, 24, 3)) * 255).astype(np.uint8)
+        img1 = np.roll(img0, 1, 1)
+        want = pred(img0, img1)
+        got = pred(img0.astype(np.float32), img1.astype(np.float32))
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(got[2], want[2])
 
     def test_no_device_without_cuda_raises(self, monkeypatch):
         from pwcnet_tpu_torch.inference import FlowPredictor

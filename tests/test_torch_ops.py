@@ -101,12 +101,6 @@ class TestCostVolume:
         want = np.asarray(cost_volume_pallas(jnp.asarray(f0), jnp.asarray(f1), d, None, True))
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
-    def test_without_activation(self, rng):
-        f0, f1 = _normal(rng, (1, 5, 6, 3)), _normal(rng, (1, 5, 6, 3))
-        got = cost_volume(_t(f0), _t(f1), 2, activate=False).numpy()
-        np.testing.assert_allclose(got, oracles.cost_volume(f0, f1, 2, activate=False), rtol=RTOL, atol=ATOL)
-        assert (got < 0).any()
-
     def test_bfloat16_accumulates_in_float32(self, rng):
         """bf16 inputs: float32 products and sums, one rounding at the end."""
         f0, f1 = _normal(rng, (1, 4, 5, 64)), _normal(rng, (1, 4, 5, 64))
