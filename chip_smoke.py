@@ -58,6 +58,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def require(ok: bool, what: str) -> None:
+    """Fail the run (an assert would vanish under python -O)."""
+    if not ok:
+        raise AssertionError(what)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -168,8 +174,7 @@ def check_kernels(torch, device, batches=(1, 8), dtypes=None):
             tol = scale / (32.0 if kid == "K3" else 64.0)
         ok = got.shape == want.shape and torch.isfinite(got.float()).all().item() and err <= tol
         log(f"  {kid} {label}: max_abs_err {err:.3e} (tol {tol:.3e}, scale {scale:.3e})")
-        if not ok:
-            raise AssertionError(f"{kid} {label} disagrees with its plain version")
+        require(ok, f"{kid} {label} disagrees with its plain version")
         key = str(dtype).replace("torch.", "")
         errs[kid][key] = max(errs[kid].get(key, 0.0), err)
 
@@ -255,8 +260,7 @@ def flow_close(kind, got, want, rtol):
     scale = float(abs(want).max())
     tol = rtol * scale + 1e-4
     log(f"  {kind}: max |diff| {err:.3e} px (tol {tol:.3e}, max |flow| {scale:.3e})")
-    if not err <= tol:
-        raise AssertionError(f"{kind}: kernel path and reference disagree")
+    require(err <= tol, f"{kind}: kernel path and reference disagree")
     return err
 
 
@@ -291,15 +295,14 @@ def serve(torch, np, device):
     n_fwd = len(req) + 1 + 2
     log(f"  main path: {n_fwd} forwards in {time.perf_counter() - t0:.2f} s, launches {counts}")
     for kid, per in PER_FORWARD.items():
-        if counts[kid] != per * n_fwd:
-            raise AssertionError(f"{kid} launched {counts[kid]}x, want {per}x per forward x {n_fwd}")
+        require(counts[kid] == per * n_fwd, f"{kid} launched {counts[kid]}x, want {per}x per forward x {n_fwd}")
 
     # -- outputs: shapes, finiteness, agreement with the plain path
     for flow, pyr, imgs in out_req:
-        assert flow.shape == (448, 1024, 2) and np.isfinite(flow).all(), flow.shape
-        assert len(pyr) == 5 and imgs.shape == (2, 448, 1024, 3)
-    assert out_pad[0].shape == (436, 1024, 2) and np.isfinite(out_pad[0]).all()
-    assert out_pad[2].shape == (2, 448, 1024, 3)
+        require(flow.shape == (448, 1024, 2) and bool(np.isfinite(flow).all()), f"request flow {flow.shape}")
+        require(len(pyr) == 5 and imgs.shape == (2, 448, 1024, 3), "request pyramid and frames")
+    require(out_pad[0].shape == (436, 1024, 2) and bool(np.isfinite(out_pad[0]).all()), "padded flow")
+    require(out_pad[2].shape == (2, 448, 1024, 3), "padded frames")
     with torch.inference_mode():
         ref_b16 = preds[(torch.bfloat16, False)].raw_forward(batch_dev)
         ref_f32 = preds[(torch.float32, False)].raw_forward(batch_dev)

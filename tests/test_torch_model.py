@@ -99,8 +99,12 @@ class TestWeights:
 
         tree = _jax_tree(SMALL, 16, seed=1)
         payload = tree
-        if wrap == "train_state":
-            payload = {"step": np.int32(12), "params": tree, "opt_state": {"mu": tree, "count": np.int32(3)}}
+        if wrap == "train_state":  # what the JAX trainer checkpoints: params + Adam state + step
+            import optax
+
+            from pwcnet_tpu.train_lib.step import TrainState
+
+            payload = TrainState.create(apply_fn=None, params=tree, tx=optax.adam(1e-4))
         path = tmp_path / "ckpt.msgpack"
         path.write_bytes(serialization.to_bytes(payload))
         got = load_params(path)
