@@ -6,6 +6,8 @@
 // g is what the Loader stages: frame-1 features for K2, the bilinear-warped
 // frame-1 features for K1. g is zero outside the frame (the cost volume's
 // zero padding). All tensors are NHWC; the output keeps the taps innermost.
+// A Loader has `float operator()(b, y, x, c)` and `void save(b, y, x, c, v)`,
+// called once for every in-frame value of the block's own tile.
 //
 // Design. One block of 256 threads owns a TH x TW = 8 x 32 tile of output
 // pixels of one batch element, one thread per pixel, one warp per tile
@@ -69,7 +71,12 @@ __global__ void __launch_bounds__(kCorrThreads)
       const int gx = x0 - D + p % WW;
       const int gc = c0 + c;
       float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && gc < C) v = load(b, gy, gx, gc);
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W && gc < C) {
+        v = load(b, gy, gx, gc);
+        // the tile's own pixels, each staged by exactly one block: the
+        // Loader may keep them as a residual for the backward
+        if (gy >= y0 && gy < y0 + kCorrTH && gx >= x0 && gx < x0 + kCorrTW) load.save(b, gy, gx, gc, v);
+      }
       s_win[c * WPLANE + p] = v;
     }
     for (int i = tid; i < kCorrTH * kCorrTW * kCorrCC; i += kCorrThreads) {

@@ -19,6 +19,7 @@ struct PlainLoader {
   __device__ __forceinline__ float operator()(int b, int gy, int gx, int gc) const {
     return to_f32(f1[(((size_t)b * H + gy) * W + gx) * C + gc]);
   }
+  __device__ __forceinline__ void save(int, int, int, int, float) const {}  // f1 is its own residual
 };
 
 template <typename T>

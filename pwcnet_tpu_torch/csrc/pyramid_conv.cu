@@ -3,7 +3,10 @@
 //   conv3x3 (SAME) + b2, LeakyReLU(0.1)           -> s2
 //   conv3x3 (SAME) + b3, LeakyReLU(0.1)           -> out
 // with float32 accumulation and s1, s2 rounded to the model dtype between
-// the convs.
+// the convs. When a gradient is wanted the caller passes s1_out and s2_out
+// and each block also writes its own tile of s1 and s2 there, the residuals
+// of the backward (K6), as _plevel_fwd saves them; serving passes null and
+// keeps s1 and s2 in shared memory only.
 //
 // Replaces pwcnet_tpu/ops/pallas/pyramid_conv.py::pyramid_level_fused
 // (banded bodies _plevel_kernel_banded / _plevel_kernel_banded_infer and
@@ -45,14 +48,12 @@
 // loads and wgmma are later work.
 #include <mma.h>
 
-#include "common.cuh"
+#include "conv_fma.cuh"
 
 namespace pwc {
 
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
-
-constexpr int kPlThreads = 256;
 
 // OIHW kernel [C][CI][3][3] -> shared [tap][ci][co] float32.
 template <typename T, int CI, int C>
@@ -68,19 +69,6 @@ __device__ __forceinline__ void stage_weights_f32(float* w_s, const T* __restric
 template <typename T, int C>
 __device__ __forceinline__ void stage_bias(float* b_s, const T* __restrict__ bias) {
   for (int i = threadIdx.x; i < C; i += kPlThreads) b_s[i] = to_f32(bias[i]);
-}
-
-// acc[co] += v * w[co] for co < C, weights read as float4 broadcasts
-template <int C>
-__device__ __forceinline__ void axpy(float (&acc)[C], float v, const float* w) {
-#pragma unroll
-  for (int co = 0; co < C; co += 4) {
-    const float4 w4 = *reinterpret_cast<const float4*>(w + co);
-    acc[co + 0] = fmaf(v, w4.x, acc[co + 0]);
-    acc[co + 1] = fmaf(v, w4.y, acc[co + 1]);
-    acc[co + 2] = fmaf(v, w4.z, acc[co + 2]);
-    acc[co + 3] = fmaf(v, w4.w, acc[co + 3]);
-  }
 }
 
 // conv1 (3x3, stride 2, bottom/right SAME pad) at half-res (gy, gx), no bias
@@ -106,9 +94,6 @@ __device__ __forceinline__ void conv1_at(float (&acc)[C], const T* __restrict__ 
 }
 
 // ------------------------------------------------------------ float32
-constexpr int kPlTH = 8;
-constexpr int kPlTW = 32;
-
 template <int CIN, int C>
 struct PlevelLayout {
   static_assert(CIN <= C && C % 4 == 0, "weights buffer sized for the C x C convs");
@@ -118,20 +103,19 @@ struct PlevelLayout {
   static constexpr size_t kBytes = (size_t)(W_FLOATS + C + C * (S1 + S2)) * sizeof(float);
 };
 
-// 3x3 stride-1 conv at one position of a channel-major shared plane set;
-// `src` points at the top-left tap of channel 0.
+// The tile's own part of a channel-major halo plane set -> NHWC device memory.
 template <int C>
-__device__ __forceinline__ void conv_s1(float (&acc)[C], const float* src, int plane, int row,
-                                        const float* w_s) {
-#pragma unroll
-  for (int ky = 0; ky < 3; ++ky) {
-#pragma unroll
-    for (int kx = 0; kx < 3; ++kx) {
-      const float* sp = src + ky * row + kx;
-      const float* w = w_s + (ky * 3 + kx) * C * C;
-#pragma unroll 4
-      for (int ci = 0; ci < C; ++ci) axpy<C>(acc, sp[ci * plane], w + ci * C);
-    }
+__device__ __forceinline__ void store_tile_planes(float* __restrict__ dst, const float* s, int plane,
+                                                  int row, int halo, int b, int r0, int q0, int HH,
+                                                  int WH) {
+  for (int i = threadIdx.x; i < kPlTH * kPlTW * C; i += kPlThreads) {
+    const int co = i % C;
+    const int oy = (i / C) / kPlTW;
+    const int ox = (i / C) % kPlTW;
+    const int gy = r0 + oy;
+    const int gx = q0 + ox;
+    if (gy < HH && gx < WH)
+      dst[(((size_t)b * HH + gy) * WH + gx) * C + co] = s[co * plane + (oy + halo) * row + ox + halo];
   }
 }
 
@@ -140,7 +124,8 @@ __global__ void __launch_bounds__(kPlThreads)
     pyramid_level_kernel(const float* __restrict__ x, const float* __restrict__ k1,
                          const float* __restrict__ b1, const float* __restrict__ k2,
                          const float* __restrict__ b2, const float* __restrict__ k3,
-                         const float* __restrict__ b3, float* __restrict__ out, int H, int W) {
+                         const float* __restrict__ b3, float* __restrict__ out,
+                         float* __restrict__ s1_out, float* __restrict__ s2_out, int H, int W) {
   using L = PlevelLayout<CIN, C>;
   extern __shared__ float4 smem_f4[];
   float* w_s = reinterpret_cast<float*>(smem_f4);
@@ -170,6 +155,7 @@ __global__ void __launch_bounds__(kPlThreads)
     for (int co = 0; co < C; ++co) s1[co * L::S1 + p] = inside ? leaky(acc[co] + b_s[co]) : 0.f;
   }
   __syncthreads();
+  if (s1_out != nullptr) store_tile_planes<C>(s1_out, s1, L::S1, L::S1W, 2, b, r0, q0, HH, WH);
 
   // ---- conv2 on the tile + 1-pixel halo, from s1
   stage_weights_f32<float, C, C>(w_s, k2);
@@ -188,6 +174,7 @@ __global__ void __launch_bounds__(kPlThreads)
     for (int co = 0; co < C; ++co) s2[co * L::S2 + p] = inside ? leaky(acc[co] + b_s[co]) : 0.f;
   }
   __syncthreads();
+  if (s2_out != nullptr) store_tile_planes<C>(s2_out, s2, L::S2, L::S2W, 1, b, r0, q0, HH, WH);
 
   // ---- conv3 on the tile, from s2, to the NHWC output
   stage_weights_f32<float, C, C>(w_s, k3);
@@ -209,8 +196,8 @@ __global__ void __launch_bounds__(kPlThreads)
 
 template <int CIN, int C>
 cudaError_t run_f32(const void* x, const void* k1, const void* b1, const void* k2, const void* b2,
-                    const void* k3, const void* b3, void* out, int B, int H, int W,
-                    cudaStream_t stream) {
+                    const void* k3, const void* b3, void* out, void* s1_out, void* s2_out, int B,
+                    int H, int W, cudaStream_t stream) {
   using L = PlevelLayout<CIN, C>;
   auto kernel = pyramid_level_kernel<CIN, C>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -220,7 +207,8 @@ cudaError_t run_f32(const void* x, const void* k1, const void* b1, const void* k
   kernel<<<grid, kPlThreads, L::kBytes, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(k1), static_cast<const float*>(b1),
       static_cast<const float*>(k2), static_cast<const float*>(b2), static_cast<const float*>(k3),
-      static_cast<const float*>(b3), static_cast<float*>(out), H, W);
+      static_cast<const float*>(b3), static_cast<float*>(out), static_cast<float*>(s1_out),
+      static_cast<float*>(s2_out), H, W);
   return cudaGetLastError();
 }
 
@@ -288,12 +276,29 @@ __device__ __forceinline__ void conv_tile_tc(const bf16* src, const bf16* wt, fl
   __syncwarp();
 }
 
+// The tile's own part of a position-major [rows][kTcW][C] halo plane -> NHWC
+// device memory.
+template <int C>
+__device__ __forceinline__ void store_tile_rows(bf16* __restrict__ dst, const bf16* s, int halo, int b,
+                                                int r0, int q0, int HH, int WH) {
+  for (int i = threadIdx.x; i < kTcTH * kTcTW * C; i += kPlThreads) {
+    const int co = i % C;
+    const int oy = (i / C) / kTcTW;
+    const int ox = (i / C) % kTcTW;
+    const int gy = r0 + oy;
+    const int gx = q0 + ox;
+    if (gy < HH && gx < WH)
+      dst[(((size_t)b * HH + gy) * WH + gx) * C + co] = s[((oy + halo) * kTcW + ox + halo) * C + co];
+  }
+}
+
 template <int CIN, int C>
 __global__ void __launch_bounds__(kPlThreads)
     pyramid_level_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k1,
                             const bf16* __restrict__ b1, const bf16* __restrict__ k2,
                             const bf16* __restrict__ b2, const bf16* __restrict__ k3,
-                            const bf16* __restrict__ b3, bf16* __restrict__ out, int H, int W) {
+                            const bf16* __restrict__ b3, bf16* __restrict__ out,
+                            bf16* __restrict__ s1_out, bf16* __restrict__ s2_out, int H, int W) {
   using L = TcLayout<CIN, C>;
   extern __shared__ float4 smem_f4[];
   char* smem = reinterpret_cast<char*>(smem_f4);
@@ -331,6 +336,7 @@ __global__ void __launch_bounds__(kPlThreads)
     for (int co = 0; co < C; ++co) dst[co] = from_f32<bf16>(inside ? leaky(acc[co] + bias[co]) : 0.f);
   }
   __syncthreads();
+  if (s1_out != nullptr) store_tile_rows<C>(s1_out, s1, 2, b, r0, q0, HH, WH);
 
   // ---- conv2 (tensor cores) on the tile + 1-pixel halo: 10 rows x 32 columns
   stage_weights_bf16<C>(wt, k2);
@@ -351,6 +357,7 @@ __global__ void __launch_bounds__(kPlThreads)
     __syncwarp();  // scratch is reused by this warp's next tile
   }
   __syncthreads();
+  if (s2_out != nullptr) store_tile_rows<C>(s2_out, s2, 1, b, r0, q0, HH, WH);
 
   // ---- conv3 (tensor cores) on the tile, to the NHWC output. Columns 30
   // and 31 of the second M tile read s2 columns 32..33, which conv2 did not
@@ -378,8 +385,8 @@ __global__ void __launch_bounds__(kPlThreads)
 
 template <int CIN, int C>
 cudaError_t run_bf16(const void* x, const void* k1, const void* b1, const void* k2, const void* b2,
-                     const void* k3, const void* b3, void* out, int B, int H, int W,
-                     cudaStream_t stream) {
+                     const void* k3, const void* b3, void* out, void* s1_out, void* s2_out, int B,
+                     int H, int W, cudaStream_t stream) {
   using L = TcLayout<CIN, C>;
   auto kernel = pyramid_level_tc_kernel<CIN, C>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -389,24 +396,29 @@ cudaError_t run_bf16(const void* x, const void* k1, const void* b1, const void* 
   kernel<<<grid, kPlThreads, L::kBytes, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(k1), static_cast<const bf16*>(b1),
       static_cast<const bf16*>(k2), static_cast<const bf16*>(b2), static_cast<const bf16*>(k3),
-      static_cast<const bf16*>(b3), static_cast<bf16*>(out), H, W);
+      static_cast<const bf16*>(b3), static_cast<bf16*>(out), static_cast<bf16*>(s1_out),
+      static_cast<bf16*>(s2_out), H, W);
   return cudaGetLastError();
 }
 
 }  // namespace pwc
 
 // x: (B, H, W, cin) with H, W even; k1: (c, cin, 3, 3); k2, k3: (c, c, 3, 3) (OIHW);
-// b1..b3: (c,); out: (B, H/2, W/2, c). All contiguous and of one dtype: 0 f32 / 1 bf16.
+// b1..b3: (c,); out: (B, H/2, W/2, c); s1_out, s2_out: like out, or both null. All
+// contiguous and of one dtype: 0 f32 / 1 bf16.
 // (cin, c) is (3, 16) or (16, 32), the two finest PWCDCNet pyramid levels.
 extern "C" int pwc_pyramid_level(const void* x, const void* k1, const void* b1, const void* k2,
-                                 const void* b2, const void* k3, const void* b3, void* out, int B,
-                                 int H, int W, int cin, int c, int dtype, void* stream) {
+                                 const void* b2, const void* k3, const void* b3, void* out,
+                                 void* s1_out, void* s2_out, int B, int H, int W, int cin, int c,
+                                 int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const bool l0 = cin == 3 && c == 16;
   const bool l1 = cin == 16 && c == 32;
-  if (dtype == pwc::kF32 && l0) return pwc::run_f32<3, 16>(x, k1, b1, k2, b2, k3, b3, out, B, H, W, s);
-  if (dtype == pwc::kF32 && l1) return pwc::run_f32<16, 32>(x, k1, b1, k2, b2, k3, b3, out, B, H, W, s);
-  if (dtype == pwc::kBF16 && l0) return pwc::run_bf16<3, 16>(x, k1, b1, k2, b2, k3, b3, out, B, H, W, s);
-  if (dtype == pwc::kBF16 && l1) return pwc::run_bf16<16, 32>(x, k1, b1, k2, b2, k3, b3, out, B, H, W, s);
+#define PWC_LEVEL_ARGS x, k1, b1, k2, b2, k3, b3, out, s1_out, s2_out, B, H, W, s
+  if (dtype == pwc::kF32 && l0) return pwc::run_f32<3, 16>(PWC_LEVEL_ARGS);
+  if (dtype == pwc::kF32 && l1) return pwc::run_f32<16, 32>(PWC_LEVEL_ARGS);
+  if (dtype == pwc::kBF16 && l0) return pwc::run_bf16<3, 16>(PWC_LEVEL_ARGS);
+  if (dtype == pwc::kBF16 && l1) return pwc::run_bf16<16, 32>(PWC_LEVEL_ARGS);
+#undef PWC_LEVEL_ARGS
   return cudaErrorInvalidValue;
 }

@@ -18,9 +18,11 @@
 // block gathers directly: for each pixel of the (tile + 2d halo) window it
 // reads that pixel's flow and the four clamped corners from device memory
 // (L1/L2 serve the reuse between neighbours), blends and stores the result
-// in the shared-memory window that correlation.cuh correlates. The warped
-// map never goes to device memory. The forward-only kernel writes no
-// warped-map residual; the training backward will need one.
+// in the shared-memory window that correlation.cuh correlates. In serving
+// the warped map never goes to device memory. When a gradient is wanted the
+// caller passes `f1w`, and each block also writes the warped values of its
+// own tile there (the values it rounded into shared memory): the residual
+// the backward (K4 over f0 and f1w, then K5) needs, as _wcv_fwd saves it.
 //
 // Bound: as correlation.cuh, plus the flow (2 values per pixel) and the
 // corner gathers, which stay in L1/L2 when the flow is smooth.
@@ -32,7 +34,11 @@ template <typename T>
 struct WarpLoader {
   const T* f1;
   const T* flow;
+  T* f1w;  // (B, H, W, C) warped-map residual, or nullptr
   int H, W, C;
+  __device__ __forceinline__ void save(int b, int gy, int gx, int gc, float v) const {
+    if (f1w != nullptr) f1w[(((size_t)b * H + gy) * W + gx) * C + gc] = from_f32<T>(v);
+  }
   __device__ __forceinline__ float operator()(int b, int gy, int gx, int gc) const {
     const T* fl = flow + (((size_t)b * H + gy) * W + gx) * 2;
     const float fx = to_f32(fl[0]);
@@ -63,23 +69,25 @@ struct WarpLoader {
 };
 
 template <typename T>
-cudaError_t run(const void* f0, const void* f1, const void* flow, void* out, int B, int H, int W,
-                int C, int d, cudaStream_t stream) {
-  const WarpLoader<T> load{static_cast<const T*>(f1), static_cast<const T*>(flow), H, W, C};
+cudaError_t run(const void* f0, const void* f1, const void* flow, void* out, void* f1w, int B, int H,
+                int W, int C, int d, cudaStream_t stream) {
+  const WarpLoader<T> load{static_cast<const T*>(f1), static_cast<const T*>(flow),
+                           static_cast<T*>(f1w), H, W, C};
   return launch_correlation<T>(static_cast<const T*>(f0), static_cast<T*>(out), B, H, W, C, d,
                                load, stream);
 }
 
 }  // namespace pwc
 
-// f0, f1: (B, H, W, C); flow: (B, H, W, 2) pixels, x first; out: (B, H, W, (2d+1)^2).
-// All contiguous and of one dtype: 0 f32 / 1 bf16.
+// f0, f1: (B, H, W, C); flow: (B, H, W, 2) pixels, x first; out: (B, H, W, (2d+1)^2);
+// f1w: (B, H, W, C) or null. All contiguous and of one dtype: 0 f32 / 1 bf16.
 extern "C" int pwc_warped_cost_volume(const void* f0, const void* f1, const void* flow, void* out,
-                                      int B, int H, int W, int C, int d, int dtype, void* stream) {
+                                      void* f1w, int B, int H, int W, int C, int d, int dtype,
+                                      void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case pwc::kF32: return pwc::run<float>(f0, f1, flow, out, B, H, W, C, d, s);
-    case pwc::kBF16: return pwc::run<__nv_bfloat16>(f0, f1, flow, out, B, H, W, C, d, s);
+    case pwc::kF32: return pwc::run<float>(f0, f1, flow, out, f1w, B, H, W, C, d, s);
+    case pwc::kBF16: return pwc::run<__nv_bfloat16>(f0, f1, flow, out, f1w, B, H, W, C, d, s);
     default: return cudaErrorInvalidValue;
   }
 }

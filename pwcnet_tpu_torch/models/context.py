@@ -9,10 +9,10 @@ dilation d pads d on each side.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from pwcnet_tpu_torch.models.conv import conv_name
+from pwcnet_tpu_torch.models.conv import Conv2d, conv_name
+from pwcnet_tpu_torch.ops.activation import leaky_relu
 
 __all__ = ["CONTEXT_DILATIONS", "CONTEXT_FILTERS", "ContextNetwork"]
 
@@ -25,7 +25,7 @@ class ContextNetwork(nn.Module):
         super().__init__()
         cin = in_channels
         for idx, (f, d) in enumerate(zip(CONTEXT_FILTERS, CONTEXT_DILATIONS)):
-            self.add_module(conv_name(idx), nn.Conv2d(cin, f, 3, padding=d, dilation=d))
+            self.add_module(conv_name(idx), Conv2d(cin, f, 3, padding=d, dilation=d))
             cin = f
 
     def forward(self, flows: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
@@ -34,5 +34,5 @@ class ContextNetwork(nn.Module):
         for idx in range(n):
             x = getattr(self, conv_name(idx))(x)
             if idx < n - 1:
-                x = F.leaky_relu(x, 0.1)
+                x = leaky_relu(x, 0.1)
         return flows + x

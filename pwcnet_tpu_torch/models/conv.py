@@ -3,16 +3,40 @@
 Conv layers are named ``conv2d``, ``conv2d_1``, ... in TF auto-numbering
 order, as in the JAX package and the reference checkpoints, so state-dict
 keys read ``fp_extractor.conv2d_3.weight``. Weights are PyTorch's OIHW.
+
+``Conv2d`` is ``nn.Conv2d`` with a ``compute_dtype``: when set, weight and
+bias are cast to it at every use, as flax casts ``param_dtype`` parameters
+to the module's ``dtype``. Float32 master parameters then get float32
+gradients from a bfloat16 forward. (``torch.autocast`` would pick dtypes
+per op from its own lists, not the JAX model's.)
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
-__all__ = ["conv_name", "glorot_init_", "to_nchw", "to_nhwc"]
+__all__ = ["Conv2d", "cast_params", "conv_name", "glorot_init_", "to_nchw", "to_nhwc"]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype`` (None: the parameters' dtype)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, *cast_params(self))
+
+
+def cast_params(conv: Conv2d) -> tuple[torch.Tensor, torch.Tensor]:
+    """``conv``'s weight and bias in its compute dtype."""
+    dt = conv.compute_dtype
+    if dt is None or dt == conv.weight.dtype:
+        return conv.weight, conv.bias
+    return conv.weight.to(dt), conv.bias.to(dt)
 
 
 def conv_name(idx: int) -> str:

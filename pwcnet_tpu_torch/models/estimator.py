@@ -13,10 +13,10 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from pwcnet_tpu_torch.models.conv import conv_name
+from pwcnet_tpu_torch.models.conv import Conv2d, conv_name
+from pwcnet_tpu_torch.ops.activation import leaky_relu
 
 __all__ = ["DEFAULT_EST_FILTERS", "FlowEstimator"]
 
@@ -35,9 +35,9 @@ class FlowEstimator(nn.Module):
         self.n_hidden = len(filters)
         cin = in_channels
         for idx, f in enumerate(filters):
-            self.add_module(conv_name(idx), nn.Conv2d(cin, f, 3, padding=1))
+            self.add_module(conv_name(idx), Conv2d(cin, f, 3, padding=1))
             cin = f + cin if use_dc else f
-        self.add_module(conv_name(len(filters)), nn.Conv2d(cin, 2, 3, padding=1))
+        self.add_module(conv_name(len(filters)), Conv2d(cin, 2, 3, padding=1))
         self.out_channels = cin  # width of the returned features
 
     def forward(
@@ -51,7 +51,7 @@ class FlowEstimator(nn.Module):
         parts = [t for t in (cv, features_0, flows_up_prev, features_up_prev) if t is not None]
         features = torch.cat(parts, 1)
         for idx in range(self.n_hidden):
-            conv = F.leaky_relu(getattr(self, conv_name(idx))(features), 0.1)
+            conv = leaky_relu(getattr(self, conv_name(idx))(features), 0.1)
             features = torch.cat([conv, features], 1) if self.use_dc else conv
         flows = getattr(self, conv_name(self.n_hidden))(features)
         if flows_up_prev is not None:

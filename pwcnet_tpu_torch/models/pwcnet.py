@@ -10,8 +10,11 @@
 
 Inputs and outputs are NHWC as in the JAX package; inside, tensors are
 NCHW in ``channels_last`` memory, so the NHWC views handed to the kernels
-need no copy. The model computes in the dtype of its parameters
-(``model.to(torch.bfloat16)`` is bf16 serving).
+need no copy. The model computes in ``compute_dtype``; by default that is
+the dtype of its parameters (``model.to(torch.bfloat16)`` is bf16 serving).
+Training keeps float32 parameters and sets ``compute_dtype=torch.bfloat16``:
+every conv casts its weight and bias at use, so the gradients arrive in
+float32 (the JAX model's ``dtype`` with float32 ``param_dtype``).
 
 Hooks, with the JAX package's meaning:
 
@@ -30,7 +33,7 @@ import torch
 from torch import nn
 
 from pwcnet_tpu_torch.models.context import ContextNetwork
-from pwcnet_tpu_torch.models.conv import glorot_init_, to_nchw, to_nhwc
+from pwcnet_tpu_torch.models.conv import Conv2d, glorot_init_, to_nchw, to_nhwc
 from pwcnet_tpu_torch.models.estimator import FlowEstimator
 from pwcnet_tpu_torch.models.pyramid import DEFAULT_FILTERS, FeaturePyramidExtractor
 from pwcnet_tpu_torch.ops.cost_volume import cost_volume
@@ -64,6 +67,7 @@ class PWCDCNet(nn.Module):
         warp_cv_fn: Optional[Callable] = None,
         fused_pyramid_levels: int = 0,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if output_level >= num_levels:
@@ -91,13 +95,17 @@ class PWCDCNet(nn.Module):
             feat = est.out_channels
         self.context = ContextNetwork(2 + feat)
         glorot_init_(self, generator or torch.Generator().manual_seed(0))
+        self.compute_dtype = compute_dtype
+        for m in self.modules():
+            if isinstance(m, Conv2d):
+                m.compute_dtype = compute_dtype
 
     def forward(self, images_0: torch.Tensor, images_1: torch.Tensor):
         """``images_*`` (B, H, W, 3) in [0, 1], H and W multiples of
         ``2**num_levels``. Returns ``(flows_final (B, H, W, 2) pixels,
         flows_pyramid)``, the pyramid deep -> output level in internal
         units (pixels / 20 at full resolution), each (B, h, w, 2)."""
-        dtype = self.fp_extractor.conv2d.weight.dtype
+        dtype = self.compute_dtype or self.fp_extractor.conv2d.weight.dtype
         pyramid_0 = self.fp_extractor(to_nchw(images_0.to(dtype)))
         pyramid_1 = self.fp_extractor(to_nchw(images_1.to(dtype)))
         scales = flow_scales(self.num_levels)

@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pwcnet_tpu_torch.models.conv import conv_name, to_nchw, to_nhwc
+from pwcnet_tpu_torch.models.conv import Conv2d, cast_params, conv_name, to_nchw, to_nhwc
+from pwcnet_tpu_torch.ops.activation import leaky_relu
 from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_fused, same_pad_stride2
 
 __all__ = ["DEFAULT_FILTERS", "FeaturePyramidExtractor"]
@@ -40,7 +41,7 @@ class FeaturePyramidExtractor(nn.Module):
         cin = 3
         for level in range(num_levels):
             for i, stride in enumerate((2, 1, 1)):
-                conv = nn.Conv2d(cin, filters[level], 3, stride=stride, padding=0 if stride == 2 else 1)
+                conv = Conv2d(cin, filters[level], 3, stride=stride, padding=0 if stride == 2 else 1)
                 self.add_module(conv_name(3 * level + i), conv)
                 cin = filters[level]
 
@@ -51,11 +52,11 @@ class FeaturePyramidExtractor(nn.Module):
         for level in range(self.num_levels):
             convs = [getattr(self, conv_name(3 * level + i)) for i in range(3)]
             if level < self.fused_levels:
-                params = [t for c in convs for t in (c.weight, c.bias)]
+                params = [t for c in convs for t in cast_params(c)]
                 x = to_nchw(pyramid_level_fused(to_nhwc(x), *params))
             else:
                 x = F.pad(x, same_pad_stride2(x.shape[2], x.shape[3]))
                 for conv in convs:
-                    x = F.leaky_relu(conv(x), 0.1)
+                    x = leaky_relu(conv(x), 0.1)
             pyramid.append(x)
         return pyramid[::-1]

@@ -29,8 +29,11 @@ __all__ = ["SOURCES", "build", "load", "library_path"]
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("cost_volume", "warped_cv", "pyramid_conv")
-HEADERS = ("common.cuh",)
+SOURCES = (
+    "cost_volume", "warped_cv", "pyramid_conv",  # K2, K1, K3
+    "cost_volume_bwd", "warp_bwd", "pyramid_conv_bwd",  # K4, K5, K6
+)
+HEADERS = ("common.cuh", "correlation.cuh", "conv_fma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

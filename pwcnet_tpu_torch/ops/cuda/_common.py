@@ -16,8 +16,7 @@ I = ctypes.c_int
 
 def check_tensors(name: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of one dtype
-    the kernels take (float32 or bfloat16) on one device, with no gradient
-    asked for: the kernels are forward-only."""
+    the kernels take (float32 or bfloat16) on one device."""
     first = tensors[0]
     if first.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype must be float32 or bfloat16, got {first.dtype}")
@@ -28,15 +27,12 @@ def check_tensors(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: mixed dtypes {first.dtype} and {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous (NHWC)")
-    check_no_grad(name, *tensors)
 
 
-def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} is forward-only: call it under torch.no_grad() or "
-            "torch.inference_mode() (the backward kernels are not ported yet)"
-        )
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd will ask for a gradient of any of ``tensors``: the
+    forward kernels write their residuals only then."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def kernel(lib_name: str, fn_name: str, argtypes: list):

@@ -1,11 +1,13 @@
-"""TF1-compatible bilinear resizing (align_corners=False, no half-pixel centres).
+"""TF1-compatible image resizing (align_corners=False, no half-pixel centres).
 
 The reference model's numerics depend on TF 1.8's ``resize_bilinear``:
 
 - the source coordinate of output index ``i`` is ``i * (in_size / out_size)``
   in float32, with no +0.5 offset;
-- top index ``floor(src)``, bottom index ``min(ceil(src), in - 1)``, lerp
-  weight ``src - floor(src)``.
+- bilinear: top index ``floor(src)``, bottom index ``min(ceil(src), in - 1)``,
+  lerp weight ``src - floor(src)``;
+- nearest (``resize_nearest_neighbor``, the loss's ground-truth
+  downsampling): index ``min(floor(src), in - 1)``.
 
 ``F.interpolate(align_corners=False)`` uses half-pixel centres and is a
 different function. Tensors are NHWC (or HWC): the spatial axes are -3, -2.
@@ -22,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["resize_bilinear", "upsample2x_bilinear"]
+__all__ = ["resize_bilinear", "resize_nearest", "upsample2x_bilinear"]
 
 
 def _upsample_axis_int(x: torch.Tensor, f: int, axis: int) -> torch.Tensor:
@@ -76,6 +78,24 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     t = tl + (tr - tl) * wx
     b = bl + (br - bl) * wx
     return t + (b - t) * wy
+
+
+@functools.lru_cache(maxsize=None)
+def _nearest_table(in_size: int, out_size: int):
+    scale = np.float32(in_size) / np.float32(out_size)
+    src = np.arange(out_size, dtype=np.float32) * scale
+    return np.minimum(np.floor(src), in_size - 1).astype(np.int64)
+
+
+def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of NHWC (or HWC) ``x`` to ``size=(H, W)``, TF1 semantics."""
+    out_h, out_w = int(size[0]), int(size[1])
+    in_h, in_w = x.shape[-3], x.shape[-2]
+    if (out_h, out_w) == (in_h, in_w):
+        return x
+    y_idx = torch.from_numpy(_nearest_table(in_h, out_h)).to(x.device)
+    x_idx = torch.from_numpy(_nearest_table(in_w, out_w)).to(x.device)
+    return x.index_select(-3, y_idx).index_select(-2, x_idx)
 
 
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:

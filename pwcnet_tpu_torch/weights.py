@@ -12,8 +12,17 @@ with OIHW weights. Both directions are transposes, so a round trip is
 bit-exact.
 
 ``load_params`` reads a flax msgpack file (params only, or a whole
-TrainState) with ``msgpack`` and numpy alone. Orbax directories and TF
-``.ckpt`` conversion are not read yet.
+TrainState) with ``msgpack`` and numpy alone; ``save_tree`` writes that
+encoding, so a file written by either package restores in the other.
+``to_jax_state`` / ``from_jax_state`` carry a whole training state
+(parameters, Adam moments, counts) across as numpy arrays in the layout
+flax gives ``TrainState`` with ``optax.adam``::
+
+    {"step", "params": tree,
+     "opt_state": {"0": {"count", "mu": tree, "nu": tree},
+                   "1": {"count"} under a schedule, {} at a constant rate}}
+
+Orbax directories and TF ``.ckpt`` conversion are not read yet.
 """
 
 from __future__ import annotations
@@ -24,7 +33,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params", "to_jax_params", "load_params"]
+__all__ = [
+    "from_jax_params", "to_jax_params", "from_jax_state", "to_jax_state",
+    "load_params", "load_tree", "save_tree",
+]
 
 
 def _leaves(tree, path=()):
@@ -105,12 +117,8 @@ def _unchunk(tree):
     return {k: _unchunk(v) for k, v in tree.items()}
 
 
-def load_params(path: str | os.PathLike) -> dict:
-    """The parameter tree of a flax msgpack checkpoint.
-
-    A whole TrainState keeps the parameters under ``params`` next to
-    ``opt_state`` or ``step``; it is unwrapped.
-    """
+def load_tree(path: str | os.PathLike) -> dict:
+    """A flax msgpack file as nested dicts of numpy arrays and scalars."""
     import msgpack
 
     path = Path(path)
@@ -119,7 +127,72 @@ def load_params(path: str | os.PathLike) -> dict:
     if str(path).endswith((".ckpt", ".ckpt.index")):
         raise NotImplementedError(f"{path}: TF checkpoints must be converted first")
     raw = msgpack.unpackb(path.read_bytes(), ext_hook=_ext_hook, raw=False, strict_map_key=False)
-    raw = _unchunk(raw)
+    return _unchunk(raw)
+
+
+def load_params(path: str | os.PathLike) -> dict:
+    """The parameter tree of a flax msgpack checkpoint.
+
+    A whole TrainState keeps the parameters under ``params`` next to
+    ``opt_state`` or ``step``; it is unwrapped.
+    """
+    raw = load_tree(path)
     if isinstance(raw, dict) and "params" in raw and ("opt_state" in raw or "step" in raw):
         raw = raw["params"]
     return raw
+
+
+def _array_to_bytes(arr: np.ndarray) -> bytes:
+    import msgpack
+
+    return msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C")), use_bin_type=True)
+
+
+def _ext_pack(x):
+    import msgpack
+
+    if isinstance(x, np.ndarray):
+        return msgpack.ExtType(1, _array_to_bytes(x))
+    if isinstance(x, np.generic):
+        return msgpack.ExtType(3, _array_to_bytes(np.asarray(x)))
+    raise TypeError(f"cannot serialize {type(x).__name__}")
+
+
+def save_tree(path: str | os.PathLike, tree: dict) -> str:
+    """Write nested dicts of numpy arrays in flax's msgpack encoding,
+    through a ``.tmp`` file and an atomic rename (no torn checkpoints)."""
+    import msgpack
+
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    data = msgpack.packb(tree, default=_ext_pack, strict_types=True)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    tmp.write_bytes(data)
+    tmp.replace(path)
+    return str(path)
+
+
+def to_jax_state(params: dict, mu: dict, nu: dict, step: int, scheduled: bool) -> dict:
+    """Port state dicts (parameters and Adam moments by name, OIHW) and the
+    step count -> the tree flax serializes for the JAX package's TrainState.
+    ``scheduled``: the learning rate is a schedule, which keeps a count of
+    its own in ``opt_state``."""
+    count = np.asarray(step, np.int32)
+    return {
+        "step": int(step),
+        "params": to_jax_params(params),
+        "opt_state": {
+            "0": {"count": count, "mu": to_jax_params(mu), "nu": to_jax_params(nu)},
+            "1": {"count": count} if scheduled else {},
+        },
+    }
+
+
+def from_jax_state(tree: dict) -> tuple[dict, dict, dict, int]:
+    """The JAX package's serialized TrainState -> ``(params, mu, nu, step)``,
+    the three as port state dicts (float32 tensors, OIHW)."""
+    adam = tree["opt_state"]["0"]
+    step = int(np.asarray(tree["step"]))
+    if int(np.asarray(adam["count"])) != step:
+        raise ValueError(f"Adam count {int(np.asarray(adam['count']))} and step {step} disagree")
+    return from_jax_params(tree["params"]), from_jax_params(adam["mu"]), from_jax_params(adam["nu"]), step

@@ -1,16 +1,19 @@
 """The CUDA kernel wrappers (pwcnet_tpu_torch.ops.cuda) and K3's plain version.
 
-On the CPU each wrapper must hand a CPU tensor to its plain version and
-launch nothing; K3's plain version is held against the JAX package's fused
-pyramid-level kernel (interpret mode) and its XLA chain. The kernel-vs-
-plain tests need an NVIDIA card: they carry the ``cuda`` marker and skip
-here (``chip_smoke.py`` holds every kernel at the full-size shapes).
+On the CPU each wrapper must hand a CPU tensor to its plain version, let
+a gradient flow through it under ordinary autograd, and launch nothing;
+K3's plain version is held against the JAX package's fused pyramid-level
+kernel (interpret mode) and its XLA chain. The kernel-vs-plain tests (K1-K6,
+and the backward kernels under autograd) need an NVIDIA card: they carry
+the ``cuda`` marker and skip where there is none (``chip_smoke.py`` holds
+every kernel at the full-size shapes).
 
 Tolerances: float32 on the CPU differs only in summation order, rtol=1e-5
 and atol=1e-5 (the activations are O(1)). On the card, float32 with TF32
 off differs likewise (atol 1e-5 at O(1) outputs); bfloat16 outputs are
 rounded from float32 sums and may land one or two bf16 ulps apart
-(2/128 of the output's scale).
+(2/128 of the output's scale; 4/128 for K6, whose three stages each read
+the rounded cotangent of the stage before).
 
 The JAX package is imported inside the tests that compare with it, so the
 card-only tests also run where JAX is not installed:
@@ -23,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from pwcnet_tpu_torch.ops.cost_volume import cost_volume
-from pwcnet_tpu_torch.ops.cuda import _build, _common, launch_counts, reset_launch_counts
+from pwcnet_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
 from pwcnet_tpu_torch.ops.cuda.pyramid_conv import (
     pyramid_level_fused,
@@ -144,14 +147,61 @@ class TestWrappersOnCpu:
         x = torch.from_numpy(_normal(rng, (1, 8, 8, 3)))
         tp = _to_torch_params(_level_params(rng, 3, 16))
         assert torch.equal(pyramid_level_fused(x, *tp), pyramid_level_plain(x, *tp))
-        assert launch_counts() == {"K1": 0, "K2": 0, "K3": 0}
+        assert launch_counts() == {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
 
-    def test_kernels_refuse_a_gradient(self):
-        t = torch.zeros(2, requires_grad=True)
-        with pytest.raises(RuntimeError, match="forward-only"):
-            _common.check_no_grad("k", t)
-        with torch.no_grad():
-            _common.check_no_grad("k", t)
+    def test_a_gradient_flows_through_each_wrapper(self, rng):
+        """On CPU tensors autograd runs through the plain versions: every
+        wrapper's gradient equals its plain version's, and nothing launches."""
+        reset_launch_counts()
+
+        def leaf(shape, scale=1.0):
+            return torch.from_numpy(_normal(rng, shape, scale)).requires_grad_()
+
+        def grads(fn, args):
+            out = fn(*args)
+            g = torch.from_numpy(_normal(np.random.default_rng(1), tuple(out.shape)))
+            return torch.autograd.grad(out, [a for a in args if isinstance(a, torch.Tensor)], g)
+
+        f0, f1, flow = leaf((2, 6, 8, 4)), leaf((2, 6, 8, 4)), leaf((2, 6, 8, 2), 2.0)
+        cases = [
+            (cost_volume_cuda, cost_volume, (f0, f1, 2)),
+            (warped_cost_volume, warped_cost_volume_plain, (f0, f1, flow, 2)),
+            (pyramid_level_fused, pyramid_level_plain,
+             (leaf((1, 8, 8, 3)), *[p.requires_grad_() for p in _to_torch_params(_level_params(rng, 3, 16))])),
+        ]
+        for wrapper, plain, args in cases:
+            got, want = grads(wrapper, args), grads(plain, args)
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert a.abs().max() > 0 and torch.equal(a, b), wrapper.__name__
+        assert not any(launch_counts().values())
+
+    def test_backward_wrappers_route_cpu_to_plain(self, rng):
+        from pwcnet_tpu_torch.ops.cost_volume import cost_volume_bwd_plain
+        from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_bwd
+        from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_bwd_plain
+        from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd, warped_cost_volume_residual
+        from pwcnet_tpu_torch.ops.warp import bilinear_warp, warp_bwd_plain
+
+        reset_launch_counts()
+        f0 = torch.from_numpy(_normal(rng, (1, 6, 8, 4)))
+        f1 = torch.from_numpy(_normal(rng, (1, 6, 8, 4)))
+        flow = torch.from_numpy(_normal(rng, (1, 6, 8, 2), 2.0))
+        out, f1w = warped_cost_volume_residual(f0, f1, flow, 2)
+        assert torch.equal(f1w, bilinear_warp(f1, flow)) and torch.equal(out, cost_volume(f0, f1w, 2))
+        g = torch.from_numpy(_normal(rng, tuple(out.shape)))
+        for a, b in zip(cost_volume_bwd(f0, f1w, out, g, 2), cost_volume_bwd_plain(f0, f1w, out, g, 2)):
+            assert torch.equal(a, b)
+        for a, b in zip(warp_bwd(f1, flow, f0), warp_bwd_plain(f1, flow, f0)):
+            assert torch.equal(a, b)
+        x = torch.from_numpy(_normal(rng, (1, 8, 8, 3)))
+        k1, b1, k2, b2, k3, b3 = _to_torch_params(_level_params(rng, 3, 16))
+        o, s1, s2 = pyramid_level_plain(x, k1, b1, k2, b2, k3, b3, return_acts=True)
+        gl = torch.from_numpy(_normal(rng, tuple(o.shape)))
+        got = pyramid_level_bwd(x, k1, k2, k3, o, s1, s2, gl, need_dx=False)
+        want = pyramid_level_bwd_plain(x, k1, k2, k3, o, s1, s2, gl, need_dx=False)
+        assert got[3] is None and all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
+        assert not any(launch_counts().values())
 
     def test_build_raises_without_nvcc(self, monkeypatch, tmp_path):
         monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -207,6 +257,79 @@ class TestKernelsOnCard:
         assert pyramid_level_fused.launches == before + 1
         _assert_close(got, pyramid_level_plain(x, *tp), dtype)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape,d", [((2, 9, 37, 40), 4), ((1, 6, 7, 192), 4), ((1, 5, 6, 3), 2)])
+    def test_cost_volume_bwd(self, cuda_device, rng, dtype, shape, d):
+        from pwcnet_tpu_torch.ops.cost_volume import cost_volume_bwd_plain
+        from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_bwd
+
+        f0 = torch.from_numpy(_normal(rng, shape)).to(cuda_device, dtype)
+        f1 = torch.from_numpy(_normal(rng, shape)).to(cuda_device, dtype)
+        out = cost_volume(f0, f1, d)
+        g = torch.from_numpy(_normal(rng, tuple(out.shape))).to(cuda_device, dtype)
+        before = cost_volume_bwd.launches
+        got = cost_volume_bwd(f0, f1, out, g, d)
+        torch.cuda.synchronize()
+        assert cost_volume_bwd.launches == before + 1
+        for a, b in zip(got, cost_volume_bwd_plain(f0, f1, out, g, d)):
+            _assert_close(a, b, dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape,fscale", [((2, 14, 33, 32), 3.0), ((1, 10, 12, 5), 40.0), ((1, 12, 14, 128), 0.4)])
+    def test_warp_bwd(self, cuda_device, rng, dtype, shape, fscale):
+        from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd
+        from pwcnet_tpu_torch.ops.warp import warp_bwd_plain
+
+        f1 = torch.from_numpy(_normal(rng, shape)).to(cuda_device, dtype)
+        g = torch.from_numpy(_normal(rng, shape)).to(cuda_device, dtype)
+        flow = torch.from_numpy(_normal(rng, shape[:3] + (2,), fscale)).to(cuda_device, dtype)
+        before = warp_bwd.launches
+        got = warp_bwd(f1, flow, g)
+        torch.cuda.synchronize()
+        assert warp_bwd.launches == before + 1
+        for a, b in zip(got, warp_bwd_plain(f1, flow, g)):
+            _assert_close(a, b, dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape,c", [((2, 20, 70, 3), 16), ((1, 18, 36, 16), 32)])
+    def test_pyramid_level_bwd(self, cuda_device, rng, dtype, shape, c):
+        from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_bwd_plain
+
+        x = torch.from_numpy(_normal(rng, shape)).to(cuda_device, dtype)
+        k1, b1, k2, b2, k3, b3 = [p.to(cuda_device, dtype) for p in _to_torch_params(_level_params(rng, shape[-1], c))]
+        out, s1, s2 = pyramid_level_plain(x, k1, b1, k2, b2, k3, b3, return_acts=True)
+        g = torch.from_numpy(_normal(rng, tuple(out.shape))).to(cuda_device, dtype)
+        before = pyramid_level_bwd.launches
+        got = pyramid_level_bwd(x, k1, k2, k3, out, s1, s2, g)
+        torch.cuda.synchronize()
+        assert pyramid_level_bwd.launches == before + 1
+        for a, b in zip(got, pyramid_level_bwd_plain(x, k1, k2, k3, out, s1, s2, g)):
+            _assert_close(a, b, dtype, ulps=4)  # each stage reads the rounded cotangent before it
+
+    def test_autograd_runs_the_backward_kernels(self, cuda_device, rng):
+        """A gradient through K1-K3 on CUDA tensors launches K4-K6 and
+        equals ordinary autograd through the plain versions."""
+        def leaf(shape, scale=1.0):
+            return torch.from_numpy(_normal(rng, shape, scale)).to(cuda_device).requires_grad_()
+
+        f0, f1, flow = leaf((2, 12, 14, 32)), leaf((2, 12, 14, 32)), leaf((2, 12, 14, 2), 2.0)
+        params = [p.to(cuda_device).requires_grad_() for p in _to_torch_params(_level_params(rng, 3, 16))]
+        cases = [
+            (cost_volume_cuda, cost_volume, (f0, f1, 4), {"K2": 1, "K4": 1}),
+            (warped_cost_volume, warped_cost_volume_plain, (f0, f1, flow, 4), {"K1": 1, "K4": 1, "K5": 1}),
+            (pyramid_level_fused, pyramid_level_plain, (leaf((1, 16, 24, 3)), *params), {"K3": 1, "K6": 1}),
+        ]
+        for wrapper, plain, args, launches in cases:
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
+            reset_launch_counts()
+            out = wrapper(*args)
+            g = torch.randn(out.shape, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(0))
+            got = torch.autograd.grad(out, tensors, g)
+            assert {k: v for k, v in launch_counts().items() if v} == launches
+            want = torch.autograd.grad(plain(*args), tensors, g)
+            for a, b in zip(got, want):
+                _assert_close(a, b, torch.float32)
+
     def test_wrappers_refuse_what_the_kernels_do_not_take(self, cuda_device):
         x = torch.zeros((1, 8, 8, 16), device=cuda_device)
         with pytest.raises(ValueError):
@@ -222,9 +345,9 @@ class TestKernelsOnCard:
             pyramid_level_fused(x[:, :7], k, b, kk, b, kk, b)  # odd H
 
 
-def _assert_close(got, want, dtype):
+def _assert_close(got, want, dtype, ulps=2):
     assert got.shape == want.shape and got.dtype == want.dtype
     g, w = got.float(), want.float()
     scale = w.abs().max().item()
-    tol = 1e-5 * (1 + scale) if dtype == torch.float32 else 2 * scale / 128
+    tol = 1e-5 * (1 + scale) if dtype == torch.float32 else ulps * scale / 128
     assert (g - w).abs().max().item() <= tol

@@ -270,9 +270,11 @@ class TestNoJax:
             "import pkgutil, importlib, sys, pwcnet_tpu_torch\n"
             "names = [m.name for m in pkgutil.walk_packages(pwcnet_tpu_torch.__path__, 'pwcnet_tpu_torch.')]\n"
             "for n in names: importlib.import_module(n)\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pwcnet_tpu'))\n"
-            "print(len(names), bad)\n"
-            "sys.exit(1 if bad or len(names) < 15 else 0)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pwcnet_tpu'))\n"
+            "want = {'pwcnet_tpu_torch.losses', 'pwcnet_tpu_torch.ops.activation', 'pwcnet_tpu_torch.train_lib.step',\n"
+            "        'pwcnet_tpu_torch.train_lib.schedule', 'pwcnet_tpu_torch.train_lib.checkpoint'}\n"
+            "print(len(names), bad, want - set(names))\n"
+            "sys.exit(1 if bad or len(names) < 21 or want - set(names) else 0)\n"
         )
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
@@ -287,5 +289,5 @@ class TestNoJax:
                 roots.update(a.name.split(".")[0] for a in node.names)
             elif isinstance(node, ast.ImportFrom) and node.module:
                 roots.add(node.module.split(".")[0])
-        assert roots.isdisjoint({"jax", "jaxlib", "flax", "pwcnet_tpu"}), roots
+        assert roots.isdisjoint({"jax", "jaxlib", "flax", "optax", "pwcnet_tpu"}), roots
         assert "pwcnet_tpu_torch" in roots
