@@ -15,7 +15,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    versions on the card; then, at every shape of the 384x448 training
    step, the residuals K1 and K3 write for the backward (the warped map;
    s1 and s2) and the backward kernels K4 (cost volume), K5 (bilinear
-   warp) and K6 (pyramid level) against their plain versions;
+   warp) and K6 (pyramid level) against their plain versions; K7 (the
+   estimator's six-conv chain) forward, with and without residuals, and
+   backward (every cotangent, the weight and bias gradients taken from
+   them, and dxin) at the five estimator levels of both sizes;
 4. serving: FlowPredictor with seeded random weights answers 448x1024
    requests and a 1024x436 (Sintel-sized) request edge-padded to 448x1024,
    then batched raw_forward at B=8 in bf16 and f32; the launch counters
@@ -28,7 +31,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (ordinary autograd), five steps at B=8 with a finite falling loss, the
    launch counters (K1 4x, K2 1x, K3 4x, K4 5x, K5 4x, K6 4x per step),
    pairs/s of the step on both paths and the peak memory;
-6. timing: each kernel, its plain version and (K3, K6) the cuDNN conv
+6. trainer: a FlyingChairs-layout dataset (P6 .ppm pairs and .flo files,
+   384x512, a seeded texture shifted by a known flow) is written under a
+   temporary directory with numpy alone, and ``pwcnet_tpu_torch.train.main``
+   trains on it for two epochs (B=8, random crop 384x448, bfloat16,
+   ``--fused-estimator 2``): the loader must take the native path, every
+   kernel must be launched its number of times per step (K7 2 forward and
+   2 backward), the logged loss must be finite and falling, checkpoints and
+   metrics must exist, a run resumed from ``model_1.msgpack`` must see the
+   bytes of the first run's first batch of epoch 2, and
+   ``pwcnet_tpu_torch.evaluate.main`` must give the same EPE with the
+   kernels on and off; then the loader alone and one more epoch with
+   ``--fused-estimator 0`` are timed;
+7. timing: each kernel, its plain version and (K3, K6, K7) the cuDNN conv
    chain timed with CUDA events at the main-path shapes (B=8, bf16);
    pairs/s of the whole forward at 448x1024 B=8 bf16; device time by
    kernel for the forward and for the train step (torch.profiler).
@@ -40,9 +55,13 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # shapes at 448x1024 (per sample): level -> (H, W, C)
@@ -58,6 +77,16 @@ K1_TRAIN = ((12, 14, 128), (24, 28, 96), (48, 56, 64), (96, 112, 32))
 K2_TRAIN = ((6, 7, 192),)
 K3_TRAIN = ((384, 448, 3, 16), (192, 224, 16, 32))
 PER_STEP = {"K1": 4, "K2": 1, "K3": 4, "K4": 5, "K5": 4, "K6": 4}
+# the estimator chain: output widths, and (H, W, Cin) per level, deep to fine
+EST_COUTS = (128, 128, 96, 64, 32, 2)
+K7_TRAIN = ((6, 7, 273), (12, 14, 243), (24, 28, 211), (48, 56, 179), (96, 112, 147))
+K7_SERVE = ((7, 16, 273), (14, 32, 243), (28, 64, 211), (56, 128, 179), (112, 256, 147))
+FUSED_ESTIMATOR = 2  # the trainer run's --fused-estimator: levels 3 and 4
+# per trainer step with --fused-estimator 2; a validation batch is one forward
+TRAINER_PER_STEP = {**PER_STEP, "K7": FUSED_ESTIMATOR, "K7b": FUSED_ESTIMATOR}
+TRAINER_PER_FORWARD = {**PER_FORWARD, "K7": FUSED_ESTIMATOR}
+CHAIRS_SAMPLES = 200  # 180 train (22 batches of 8) and 20 val (2 batches) by the 1-in-10 split
+CHAIRS_HW = (384, 512)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 CUDA cores
 KERNEL_INFO = {
@@ -73,6 +102,10 @@ KERNEL_INFO = {
            "pwcnet_tpu/ops/pallas/warped_cv.py:594"),
     "K6": ("pyramid_level_bwd", "pwcnet_tpu_torch/csrc/pyramid_conv_bwd.cu",
            "pwcnet_tpu/ops/pallas/pyramid_conv.py:783"),
+    "K7": ("estimator_chain_fused", "pwcnet_tpu_torch/csrc/estimator_conv.cu",
+           "pwcnet_tpu/ops/pallas/estimator_conv.py:740"),
+    "K7b": ("estimator_chain_bwd", "pwcnet_tpu_torch/csrc/estimator_conv_bwd.cu",
+            "pwcnet_tpu/ops/pallas/estimator_conv.py:614"),
 }
 
 
@@ -121,6 +154,18 @@ def k3_inputs(torch, b, h, w, cin, c, dtype, device, gen):
     return x, k1, b1, k2, b2, k3, b3
 
 
+def k7_inputs(torch, b, h, w, cin, dtype, device, gen):
+    """xin and the chain's k1, b1, .., k6, b6 (OIHW, scaled by fan-in so
+    that every activation stays O(1))."""
+    xin = torch.randn((b, h, w, cin), generator=gen, device=device).to(dtype)
+    kbs = []
+    for c in EST_COUTS:
+        kbs.append((torch.randn((c, cin, 3, 3), generator=gen, device=device) / (9.0 * cin) ** 0.5).to(dtype))
+        kbs.append((0.1 * torch.randn((c,), generator=gen, device=device)).to(dtype))
+        cin = c
+    return xin, kbs
+
+
 # ------------------------------------------------------------ bounds
 def bound(dtype_name, n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S
@@ -163,6 +208,18 @@ def k6_work(b, h, w, cin, c, s, need_dx):
     return n_bytes, out_px * c * (2 * 2 * 9 * c + (2 * 9 * cin if need_dx else 0) + 3)
 
 
+def k7_work(b, h, w, cin, s, backward):
+    """The chain: 2 x 9 x sum(Cin_i x Cout_i) operations per pixel either way.
+    Forward (training): reads xin, writes s1..s5 and the flow. Backward:
+    reads both cotangents and s1..s5, writes gz1..gz5 and dxin."""
+    px = b * h * w
+    chans = (cin,) + EST_COUTS
+    macs = sum(ci * co for ci, co in zip(chans, chans[1:]))
+    acts = sum(EST_COUTS[:5])
+    per_px = (2 + EST_COUTS[4] + 2 * acts + cin) if backward else (cin + acts + 2)
+    return (px * per_px + 9 * macs) * s, px * 2 * 9 * macs
+
+
 # ------------------------------------------------------------ timing
 def cuda_ms(torch, fn, iters=20, warmup=3):
     for _ in range(warmup):
@@ -200,14 +257,16 @@ def make_compare(torch, errs):
     bfloat16 results are rounded from float32 sums, so the two can land one
     bf16 ulp apart, and more where a stage reads a rounded intermediate
     that itself flipped: ``ulps`` bf16 ulps of the result's scale
-    (scale * ulps / 128), where scale = max |plain result|.
+    (scale * ulps / 128), where scale = max |plain result|. ``f32_rel``
+    widens the float32 bound for a quantity derived from a kernel's result
+    by a long sum.
     """
 
-    def compare(kid, label, got, want, dtype, ulps=2):
+    def compare(kid, label, got, want, dtype, ulps=2, f32_rel=1e-5):
         want32 = want.float()
         scale = want32.abs().max().item()
         err = (got.float() - want32).abs().max().item()
-        tol = 1e-5 + 1e-5 * scale if dtype == torch.float32 else scale * ulps / 128.0
+        tol = 1e-5 + f32_rel * scale if dtype == torch.float32 else scale * ulps / 128.0
         ok = (got.shape == want.shape and got.dtype == want.dtype
               and torch.isfinite(got.float()).all().item() and err <= tol)
         log(f"  {kid} {label}: max_abs_err {err:.3e} (tol {tol:.3e}, scale {scale:.3e})")
@@ -444,6 +503,132 @@ def time_training_kernels(torch, device, b=8, dtype=None):
     return rows
 
 
+def check_estimator_kernels(torch, device, compare, batches=(1, 8), dtypes=None):
+    """K7 at the five estimator levels of the 384x448 training step and of
+    the 448x1024 serving forward: the forward with and without residuals
+    (flow, features, s1..s4) and the backward (gz1..gz5, dxin, and the
+    weight and bias gradients taken from the kernel's gz against those taken
+    from the plain gz), all against the plain versions.
+
+    bfloat16 tolerance: 8 ulps of the result's scale. Each of the six
+    stages reads an activation (or cotangent) the stage before rounded, so a
+    one-ulp flip of a float32 sum that lands on a rounding boundary feeds
+    every later stage: twice the 4 ulps of the three-stage K3 and K6.
+    float32: the weight and bias gradients are cuDNN sums over every pixel
+    of the batch (up to 229 376 terms) of cotangents that already differ in
+    their last bits, so they get 1e-4 of their scale, not 1e-5.
+    """
+    from pwcnet_tpu_torch.ops.cuda.estimator_conv import (
+        estimator_chain_bwd, estimator_chain_fused, estimator_chain_residuals)
+    from pwcnet_tpu_torch.ops.estimator_conv import (
+        chain_weight_grads, estimator_chain_bwd_plain, estimator_chain_plain)
+
+    dtypes = dtypes or (torch.float32, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(4)
+    with torch.inference_mode():
+        for dtype in dtypes:
+            for b in batches:
+                for h, w, cin in K7_TRAIN + K7_SERVE:
+                    label = f"{dtype} B={b} {h}x{w}x{cin}"
+                    xin, kbs = k7_inputs(torch, b, h, w, cin, dtype, device, gen)
+                    ks = kbs[0::2]
+                    want_flow, want_feat, want_acts = estimator_chain_plain(xin, *kbs, return_acts=True)
+                    flow, feat = estimator_chain_fused(xin, *kbs)
+                    compare("K7", f"flow {label}", flow, want_flow, dtype, ulps=8)
+                    compare("K7", f"features {label}", feat, want_feat, dtype, ulps=8)
+                    flow, feat, acts = estimator_chain_residuals(xin, *kbs)
+                    compare("K7", f"flow (residuals) {label}", flow, want_flow, dtype, ulps=8)
+                    for i, (a, e) in enumerate(zip([*acts, feat], [*want_acts, want_feat])):
+                        compare("K7", f"s{i + 1} {label}", a, e, dtype, ulps=8)
+                    g_flow = torch.randn(flow.shape, generator=gen, device=device).to(dtype)
+                    g_feat = torch.randn(feat.shape, generator=gen, device=device).to(dtype)
+                    saved = [*want_acts, want_feat]
+                    gzs, dxin = estimator_chain_bwd(ks, saved, g_flow, g_feat)
+                    want_gzs, want_dxin = estimator_chain_bwd_plain(ks, saved, g_flow, g_feat)
+                    for i, (a, e) in enumerate(zip(gzs, want_gzs)):
+                        compare("K7b", f"gz{i + 1} {label}", a, e, dtype, ulps=8)
+                    compare("K7b", f"dxin {label}", dxin, want_dxin, dtype, ulps=8)
+                    shapes = [k.shape for k in ks]
+                    got_w = chain_weight_grads(xin, saved, gzs, g_flow, shapes)
+                    want_w = chain_weight_grads(xin, saved, want_gzs, g_flow, shapes)
+                    for i, (a, e) in enumerate(zip(got_w, want_w)):
+                        name = f"{'dk' if i % 2 == 0 else 'db'}{i // 2 + 1}"
+                        compare("K7b", f"{name} {label}", a, e, dtype, ulps=8, f32_rel=1e-4)
+                    nodx = estimator_chain_bwd(ks, saved, g_flow, g_feat, need_dx=False)[1]
+                    require(nodx is None, f"K7b returned a dxin nobody asked for at {label}")
+                torch.cuda.synchronize()
+
+
+def cudnn_chain(F, x_nchw, kbs):
+    """K7's library yardstick: the cuDNN six-conv chain in the model dtype."""
+    y = x_nchw
+    for i in range(6):
+        y = F.conv2d(y, kbs[2 * i], kbs[2 * i + 1], padding=1)
+        if i < 5:
+            y = F.leaky_relu(y, 0.1)
+    return y
+
+
+def cudnn_chain_bwd(torch, ks, acts, g_flow, g_feat, cin):
+    """K7b's library yardstick: the cuDNN conv2d_input chain in the model dtype (NCHW views)."""
+    from torch.nn.grad import conv2d_input
+
+    b, _, h, w = g_flow.shape
+    gz = g_flow
+    for i in range(5, 0, -1):
+        ds = conv2d_input((b, ks[i].shape[1], h, w), ks[i], gz, padding=1)
+        if i == 5:
+            ds = ds + g_feat
+        gz = ds * torch.where(acts[i - 1] >= 0, 1.0, 0.1).to(ds.dtype)
+    return conv2d_input((b, cin, h, w), ks[0], gz, padding=1)
+
+
+def time_estimator_kernels(torch, F, device, b=8, dtype=None):
+    """K7 forward (with residuals, as the trainer runs it) and backward:
+    kernel, plain and library times at levels 3 and 4 of both sizes. The
+    rows of the 384x448 levels are the trainer's launches per step
+    (``times`` 1); the 448x1024 rows are listed and not summed."""
+    from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd, estimator_chain_residuals
+    from pwcnet_tpu_torch.ops.estimator_conv import estimator_chain_bwd_plain, estimator_chain_plain
+
+    dtype = dtype or torch.bfloat16
+    dname = dtype_name(dtype)
+    s = torch.tensor([], dtype=dtype).element_size()
+    gen = torch.Generator(device=device).manual_seed(5)
+    rows = {"K7": [], "K7b": []}
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    with torch.inference_mode():
+        for times, shapes in ((1, K7_TRAIN[-FUSED_ESTIMATOR:]), (0, K7_SERVE[-FUSED_ESTIMATOR:])):
+            for h, w, cin in shapes:
+                xin, kbs = k7_inputs(torch, b, h, w, cin, dtype, device, gen)
+                ks = kbs[0::2]
+                flow, feat, acts = estimator_chain_plain(xin, *kbs, return_acts=True)
+                saved = [*acts, feat]
+                g_flow = torch.randn(flow.shape, generator=gen, device=device).to(dtype)
+                g_feat = torch.randn(feat.shape, generator=gen, device=device).to(dtype)
+                x_nchw = nchw(xin)
+                lib_bwd = (ks, [nchw(a) for a in saved], nchw(g_flow), nchw(g_feat), cin)
+                shape = f"{b}x{h}x{w}x{cin}"
+                rows["K7"].append(dict(
+                    shape=shape, times=times,
+                    ms=cuda_ms(torch, lambda: estimator_chain_residuals(xin, *kbs), iters=10),
+                    plain_ms=cuda_ms(torch, lambda: estimator_chain_plain(xin, *kbs), iters=5, warmup=1),
+                    library_ms=cuda_ms(torch, lambda: cudnn_chain(F, x_nchw, kbs), iters=10),
+                    work=k7_work(b, h, w, cin, s, False)))
+                rows["K7b"].append(dict(
+                    shape=shape, times=times,
+                    ms=cuda_ms(torch, lambda: estimator_chain_bwd(ks, saved, g_flow, g_feat), iters=10),
+                    plain_ms=cuda_ms(torch, lambda: estimator_chain_bwd_plain(ks, saved, g_flow, g_feat),
+                                     iters=5, warmup=1),
+                    library_ms=cuda_ms(torch, lambda: cudnn_chain_bwd(torch, *lib_bwd), iters=10),
+                    work=k7_work(b, h, w, cin, s, True)))
+    finish_rows(rows, dname)
+    return rows
+
+
 def finish_rows(rows, dname):
     for kid, rs in rows.items():
         for r in rs:
@@ -558,16 +743,18 @@ def train_batch(torch, np, device, b, seed=20):
     return images, torch.as_tensor(base + 0.5 * wobble).to(device)
 
 
-def train_model(torch, compute_dtype, use_kernels, seed=0):
+def train_model(torch, compute_dtype, use_kernels, seed=0, fused_estimator=0):
     """The default PWCDCNet as the JAX trainer builds it with --pallas: K2 at
-    level 0, K1 at levels 1-4, K3 on the two finest pyramid levels."""
+    level 0, K1 at levels 1-4, K3 on the two finest pyramid levels, and K7 on
+    the ``fused_estimator`` finest estimator levels."""
     from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
     from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
     from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
 
     hooks = {}
     if use_kernels:
-        hooks = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume, fused_pyramid_levels=2)
+        hooks = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume, fused_pyramid_levels=2,
+                     fused_estimator_levels=fused_estimator)
     return PWCDCNet(compute_dtype=compute_dtype, generator=torch.Generator().manual_seed(seed), **hooks)
 
 
@@ -646,7 +833,7 @@ def train(torch, np, device):
             require(state.step == 5, f"{name}: step counter {state.step}")
             for p in model.parameters():
                 require(p.dtype == torch.float32 and bool(torch.isfinite(p).all()), f"{name}: parameters")
-            want = {k: (5 * n if use_kernels else 0) for k, n in PER_STEP.items()}
+            want = {k: (5 * PER_STEP.get(k, 0) if use_kernels else 0) for k in got}
             require(got == want, f"{name}: launches {got}, want {want}")
             if use_kernels:
                 counts[dtype_name(dt)] = got
@@ -656,8 +843,193 @@ def train(torch, np, device):
             if use_kernels and dt == torch.bfloat16:
                 stats[name]["profile"] = profile_steps(
                     torch, lambda: step(state, images, flows_gt), 2, "train steps at 384x448 B=8 bf16", ms)
+    # the bare step as the trainer phase runs it (K7 on the two finest
+    # estimator levels), for the trainer's pairs/s to stand beside
+    model = train_model(torch, torch.bfloat16, True, fused_estimator=FUSED_ESTIMATOR)
+    state = create_train_state(model, device=device)
+    step = make_train_step(model)
+    ms = cuda_ms(torch, lambda: step(state, images, flows_gt), iters=10, warmup=3)
+    stats["bfloat16 kernels + K7"] = {"ms": ms, "pairs_per_s": 8e3 / ms}
+    log(f"  384x448 B=8 bfloat16 kernels + K7 on {FUSED_ESTIMATOR} levels: {ms:.2f} ms per step, {8e3 / ms:.1f} pairs/s")
+    stats["bfloat16 kernels + K7"]["profile"] = profile_steps(
+        torch, lambda: step(state, images, flows_gt), 2, "train steps at 384x448 B=8 bf16 with K7", ms)
     total_counts = {k: sum(c[k] for c in counts.values()) for k in PER_STEP}
     return total_counts, stats, grad_err
+
+
+def write_chairs(np, root, n=CHAIRS_SAMPLES, seed=100):
+    """A FlyingChairs-layout dataset written with numpy alone:
+    ``<root>/data/NNNNN_img1.ppm``, ``_img2.ppm`` (P6) and ``_flow.flo``.
+    Frame 2 is frame 1's texture moved by a whole-pixel flow near (3, -2),
+    so the flow is exact and its mean is something to learn."""
+    h, w = CHAIRS_HW
+    data = os.path.join(root, "data")
+    os.makedirs(data)
+    rng = np.random.default_rng(seed)
+    m = 16  # margin around the frame, more than any shift
+    header = f"P6\n{w} {h}\n255\n".encode()
+    for i in range(n):
+        coarse = rng.random(((h + 2 * m) // 8 + 1, (w + 2 * m) // 8 + 1, 3))
+        big = (np.kron(coarse, np.ones((8, 8, 1))) * 255).astype(np.uint8)
+        dx = 3 + int(rng.integers(-1, 2))
+        dy = -2 + int(rng.integers(-1, 2))
+        img1 = big[m : m + h, m : m + w]
+        img2 = big[m - dy : m - dy + h, m - dx : m - dx + w]  # img2(p + flow) = img1(p)
+        flow = np.empty((h, w, 2), np.float32)
+        flow[..., 0], flow[..., 1] = dx, dy
+        stem = os.path.join(data, f"{i + 1:05d}")
+        for name, img in (("img1", img1), ("img2", img2)):
+            with open(f"{stem}_{name}.ppm", "wb") as f:
+                f.write(header + np.ascontiguousarray(img).tobytes())
+        with open(f"{stem}_flow.flo", "wb") as f:
+            f.write(np.float32(202021.25).tobytes() + np.int32(w).tobytes() + np.int32(h).tobytes())
+            f.write(flow.tobytes())
+
+
+@contextlib.contextmanager
+def working_directory(path):
+    """The trainer writes ./model, ./logs and config.json where it runs."""
+    before = os.getcwd()
+    os.makedirs(path, exist_ok=True)
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(before)
+
+
+@contextlib.contextmanager
+def first_batches_recorded(record):
+    """While active, every shuffling DataLoader notes the SHA-1 of the first
+    batch of each epoch it yields in ``record[epoch]`` (the bytes of images
+    and flows as the loader hands them to the trainer)."""
+    from pwcnet_tpu_torch.data.pipeline import DataLoader
+
+    original = DataLoader.__iter__
+
+    def recording(self):
+        epoch = self.epoch
+        for i, batch in enumerate(original(self)):
+            if i == 0 and self.shuffle:
+                digest = hashlib.sha1()
+                for leaf in batch:
+                    digest.update(leaf.tobytes())
+                record[epoch] = digest.hexdigest()
+            yield batch
+
+    DataLoader.__iter__ = recording
+    try:
+        yield
+    finally:
+        DataLoader.__iter__ = original
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def trainer_phase(torch, np, card):
+    """pwcnet_tpu_torch.train.main and .evaluate.main on a written dataset."""
+    from pwcnet_tpu_torch import evaluate as evaluate_cli, train as train_cli
+    from pwcnet_tpu_torch.data import DataLoader, get_dataset
+    from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="pwc_smoke_") as tmp:
+        root = os.path.join(tmp, "chairs")
+        t0 = time.perf_counter()
+        write_chairs(np, root)
+        log(f"  wrote {CHAIRS_SAMPLES} samples of {CHAIRS_HW[0]}x{CHAIRS_HW[1]} in {time.perf_counter() - t0:.1f} s")
+        base = ["-d", "FlyingChairs", "-dd", root, "-b", "8", "-e", "2", "--crop_type", "random",
+                "--crop_shape", "384", "448", "--dtype", "bfloat16", "--no-visualize",
+                "--log_interval", "11", "-nw", "4"]
+        fused = ["--fused-estimator", str(FUSED_ESTIMATOR)]
+
+        # -- the main path, counted: two epochs through the CLI
+        first = {}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with working_directory(os.path.join(tmp, "run")), first_batches_recorded(first):
+            trainer = train_cli.main(base + fused)
+            logdir = os.path.abspath(trainer.logdir)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        steps, vals = 2 * len(trainer.tloader), 2 * len(trainer.vloader)
+        log(f"  trainer: {steps} steps and {vals} validation batches, launches {counts}")
+        require(trainer.tloader._native is not None and trainer.tloader._cache is None,
+                "the trainer's loader did not take the native path")
+        require(steps == 44 and vals == 4, f"{steps} steps and {vals} validation batches, want 44 and 4")
+        want = {k: n * steps + TRAINER_PER_FORWARD.get(k, 0) * vals for k, n in TRAINER_PER_STEP.items()}
+        require(counts == want, f"trainer launches {counts}, want {want}")
+        require(trainer.state.step == steps, f"step counter {trainer.state.step}")
+        ckpts = [os.path.join(logdir, "model", f"model_{e}.msgpack") for e in (1, 2)]
+        for path in ckpts + [os.path.join(logdir, d, "metrics.jsonl") for d in ("train", "val")]:
+            require(os.path.isfile(path) and os.path.getsize(path) > 0, f"{path} is missing")
+        logged = read_jsonl(os.path.join(logdir, "train", "metrics.jsonl"))
+        losses = [r["loss/pwc"] for r in logged]
+        val = [r["loss/pwc"] for r in read_jsonl(os.path.join(logdir, "val", "metrics.jsonl"))]
+        log(f"  logged train loss at steps {[r['step'] for r in logged]}: {' '.join(f'{v:.3f}' for v in losses)}; "
+            f"validation loss per epoch: {' '.join(f'{v:.3f}' for v in val)}")
+        require(len(losses) == 4 and all(np.isfinite(losses + val)), "the logged losses")
+        require(losses[-1] < losses[0], "the loss at the end of epoch 2 is not below the first logged loss")
+        stats["trainer_epochs"] = trainer.epoch_stats
+        stats["losses"] = losses
+        stats["val_losses"] = val
+
+        # -- resume from the first epoch's checkpoint: same first batch, same bytes
+        resumed = {}
+        for name, extra in (("resumed", fused), ("resumed_cudnn_estimator", ["--fused-estimator", "0"])):
+            seen = {}
+            with working_directory(os.path.join(tmp, name)), first_batches_recorded(seen):
+                again = train_cli.main(base + extra + ["-r", ckpts[0]])
+            require(again._resume_epoch == 1 and again.state.step == steps,
+                    f"{name}: resumed at epoch {again._resume_epoch}, ended at step {again.state.step}")
+            require(list(seen) == [1] and seen[1] == first[1],
+                    f"{name}: the first batch after --resume differs from the first run's first batch of epoch 2")
+            resumed[name] = again.epoch_stats[-1]
+        log(f"  --resume model_1.msgpack: first batch of epoch 2 has the bytes of the first run's (sha1 {first[1][:12]})")
+        stats["resumed_epochs"] = resumed
+
+        # -- evaluate the trained checkpoint, kernels on and off
+        epe = {}
+        for flag in ("--pallas", "--no-pallas"):
+            reset_launch_counts()
+            epe[flag] = evaluate_cli.main(["-d", "FlyingChairs", "-dd", root, "--split", "val", "-b", "8",
+                                           "-r", ckpts[1], "--dtype", "bfloat16", flag])
+            got = launch_counts()
+            per = PER_FORWARD if flag == "--pallas" else {}
+            require(all(got[k] == per.get(k, 0) * 3 for k in got), f"evaluate {flag}: launches {got}")
+        # the serving tolerance: the two paths round at different places
+        log(f"  evaluate on 20 val frames: EPE {epe['--pallas']:.4f} px with the kernels, "
+            f"{epe['--no-pallas']:.4f} px on the plain path")
+        require(all(np.isfinite(list(epe.values()))), "evaluate: EPE")
+        require(abs(epe["--pallas"] - epe["--no-pallas"]) <= 5e-2 * epe["--no-pallas"] + 1e-4,
+                "evaluate: kernel path and plain path disagree")
+        stats["epe"] = epe
+
+        # -- the loader alone: one epoch of host batches, no model
+        dset = get_dataset("FlyingChairs")(train_or_val="train", dataset_dir=root, crop_type="random",
+                                           crop_shape=(384, 448))
+        loader = DataLoader(dset, batch_size=8, shuffle=True, num_workers=4)
+        require(loader._native is not None, "the timed loader did not take the native path")
+        t0 = time.perf_counter()
+        n = sum(images.shape[0] for images, _ in loader)
+        stats["loader_pairs_per_s"] = n / (time.perf_counter() - t0)
+
+    def rate(e):
+        return e["steps"] * 8 / e["train_seconds"]
+
+    stats["pairs_per_s"] = {
+        "trainer epoch 1 (K7 on 2 levels)": rate(stats["trainer_epochs"][0]),
+        "trainer epoch 2 (K7 on 2 levels)": rate(stats["trainer_epochs"][1]),
+        "resumed epoch 2 (K7 on 2 levels)": rate(resumed["resumed"]),
+        "resumed epoch 2 (cuDNN estimators)": rate(resumed["resumed_cudnn_estimator"]),
+        "loader alone": stats["loader_pairs_per_s"],
+    }
+    for k, v in stats["pairs_per_s"].items():
+        log(f"  {k}: {v:.1f} pairs/s on {card}")
+    return counts, stats
 
 
 # device kernels by name: the port's own, the library's convolutions, PyTorch's elementwise tail
@@ -668,6 +1040,7 @@ PROFILE_GROUPS = (
     ("K4 cost_volume_bwd", ("cv_bwd_kernel",)),
     ("K5 warp_bwd", ("warp_bwd_kernel", "round_kernel")),
     ("K6 pyramid_level_bwd", ("gz3_kernel", "conv_t_s")),
+    ("K7 estimator chain, forward and backward", ("conv3x3_",)),
     ("cuDNN wgrad", ("wgrad",)),
     ("cuDNN dgrad", ("dgrad",)),
     ("cuDNN forward convs and layout kernels", ("xmma", "cutlass", "cudnn", "implicit_gemm", "nhwc", "nchw")),
@@ -757,6 +1130,7 @@ def main() -> int:
     compare = make_compare(torch, errs)
     check_kernels(torch, device, compare)
     atomics_rerun = check_training_kernels(torch, device, compare)
+    check_estimator_kernels(torch, device, compare)
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -769,10 +1143,17 @@ def main() -> int:
     train_counts, train_stats, grad_err = train(torch, np, device)
     log(f"[train] done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log("[trainer] pwcnet_tpu_torch.train and .evaluate on a written FlyingChairs-layout dataset")
+    trainer_counts, trainer_stats = trainer_phase(torch, np, card)
+    log(f"[trainer] done in {time.perf_counter() - t0:.1f} s")
+
     log("[time] kernels at B=8 bf16 (per forward: K1 4 levels, K2 1, K3 2 levels x 2 frames; "
-        "per train step: K4 5 shapes, K5 4, K6 2 levels x 2 frames)")
+        "per train step: K4 5 shapes, K5 4, K6 2 levels x 2 frames, K7 and K7b levels 3 and 4)")
     rows, dname = time_kernels(torch, F, device)
     rows.update(time_training_kernels(torch, device))
+    rows.update(time_estimator_kernels(torch, F, device))
+    time_estimator_kernels(torch, F, device, dtype=torch.float32)  # the FMA path: logged, not summed
     profile_steps(torch, lambda: pred.raw_forward(batch_dev), 3, "forwards at 448x1024 B=8 bf16",
                   8e3 / pairs["bfloat16 kernels"])
 
@@ -781,16 +1162,20 @@ def main() -> int:
         rs = rows[kid]
         lib = [r["library_ms"] for r in rs]
         on_serve = serve_counts.get(kid, 0)
-        require(train_counts[kid] > 0 and (on_serve > 0 or kid not in PER_FORWARD),
+        on_step = train_counts.get(kid, 0)
+        on_trainer = trainer_counts[kid]
+        require(on_trainer > 0 and (on_step > 0 or kid not in PER_STEP)
+                and (on_serve > 0 or kid not in PER_FORWARD),
                 f"{kid} was not launched on a path that runs it")
         kernels.append({
             "name": f"{kid} {name}",
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": on_serve + train_counts[kid],
+            "launches": on_serve + on_step + on_trainer,
             "launches_serving": on_serve,
-            "launches_training": train_counts[kid],
+            "launches_training": on_step,
+            "launches_trainer": on_trainer,
             "max_abs_err": max(errs[kid].values()),
             "max_abs_err_by_dtype": errs[kid],
             "ms": sum(r["ms"] * r["times"] for r in rs),
@@ -800,16 +1185,24 @@ def main() -> int:
             "library_ms": None if None in lib else sum(v * r["times"] for v, r in zip(lib, rs)),
             "timed_at": f"B=8 {dname}, summed over one "
                         + ("forward's launches at 448x1024" if kid in PER_FORWARD
-                           else "train step's launches at 384x448"),
+                           else "train step's launches at 384x448"
+                           + (f" with --fused-estimator {FUSED_ESTIMATOR}" if kid.startswith("K7") else "")),
             "shapes": rs,
         })
     log(f"[e2e] 448x1024 B=8 serving pairs/s: " + ", ".join(f"{k} {v:.1f}" for k, v in pairs.items())
         + f" on {card}")
     log(f"[e2e] 384x448 B=8 training pairs/s: "
         + ", ".join(f"{k} {v['pairs_per_s']:.1f}" for k, v in train_stats.items()) + f" on {card}")
+    bare = train_stats["bfloat16 kernels + K7"]["pairs_per_s"]
+    tp = trainer_stats["pairs_per_s"]
+    log(f"[e2e] trainer, 384x448 B=8 bf16, --fused-estimator {FUSED_ESTIMATOR}: "
+        f"{tp['trainer epoch 2 (K7 on 2 levels)']:.1f} pairs/s over the steps of epoch 2 (wall clock), the bare step "
+        f"{bare:.1f}, the loader alone {tp['loader alone']:.1f}; one epoch resumed from model_1: "
+        f"{tp['resumed epoch 2 (K7 on 2 levels)']:.1f} with K7, {tp['resumed epoch 2 (cuDNN estimators)']:.1f} "
+        f"with --fused-estimator 0 (cuDNN) on {card}")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"train": train_stats, "gradient_kernels_vs_plain": grad_err,
-                      "k5_df1_run_to_run": atomics_rerun}))
+    print(json.dumps({"card": card, "train": train_stats, "gradient_kernels_vs_plain": grad_err,
+                      "k5_df1_run_to_run": atomics_rerun, "trainer": trainer_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ units, ``20 / 2**(num_levels - l)`` times the internal flow.
 The predictor runs on CUDA unless the caller passes ``device='cpu'``; with
 no device and no CUDA it raises. On CUDA it runs the hand-written kernels
 (K1 warped cost volume, K2 cost volume, K3 fused pyramid level) unless
-``use_kernels=False`` picks the plain PyTorch path.
+``use_kernels=False`` picks the plain PyTorch path; ``fused_estimator=N``
+also sends the N finest estimator levels through K7 (off by default, as in
+the JAX package).
 """
 
 from __future__ import annotations
@@ -49,8 +51,8 @@ def resolve_device(device=None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "no CUDA device: the predictor runs on the GPU by default; "
-                "pass device='cpu' to run the plain PyTorch path on the CPU"
+                "no CUDA device: pwcnet_tpu_torch runs on the GPU by default; pass "
+                "device='cpu' (--device cpu) to run the plain PyTorch path on the CPU"
             )
         return torch.device("cuda")
     return torch.device(device)
@@ -69,12 +71,15 @@ class FlowPredictor:
         output_level: int = 4,
         dtype: torch.dtype = torch.float32,
         use_kernels: str | bool = "auto",
+        fused_estimator: str | int = "auto",
         size_handling: str = "crop",
         device=None,
     ):
         """``use_kernels``: 'auto' runs the CUDA kernels on a CUDA device;
         on the CPU their wrappers run the plain versions anyway. Without a
-        checkpoint the weights are the flax-style init from seed 0."""
+        checkpoint the weights are the flax-style init from seed 0.
+        ``fused_estimator``: the N finest estimator levels through K7;
+        'auto' is 0 (opt-in), and it needs ``use_kernels``."""
         if size_handling not in ("crop", "pad"):
             raise ValueError(f"size_handling must be crop|pad: {size_handling!r}")
         self.size_handling = size_handling
@@ -90,6 +95,7 @@ class FlowPredictor:
                 cost_volume_fn=cost_volume_cuda,
                 warp_cv_fn=warped_cost_volume if warp_type == "bilinear" else None,
                 fused_pyramid_levels=FUSED_PYRAMID_LEVELS,
+                fused_estimator_levels=0 if fused_estimator == "auto" else int(fused_estimator),
             )
         model = PWCDCNet(
             num_levels=num_levels,

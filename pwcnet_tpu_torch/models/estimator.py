@@ -6,6 +6,12 @@ optional dense connections (each conv's output concatenated in FRONT of
 the running stack) -> a 2-channel flow conv, plus the residual upsampled
 flow. Convs are ``conv2d`` .. ``conv2d_5``. The 2x upsampling of flow and
 features for the next level happens in PWCDCNet, as in the JAX package.
+
+``fused``: run the six-conv chain through K7's wrapper
+(``ops/cuda/estimator_conv.py``: the CUDA kernels on a CUDA tensor, the
+plain chain on the CPU) in place of six library convs; same parameters,
+same state-dict keys. Ignored with ``use_dc``, which the chain does not
+implement.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from pwcnet_tpu_torch.models.conv import Conv2d, conv_name
+from pwcnet_tpu_torch.models.conv import Conv2d, cast_params, conv_name, to_nchw, to_nhwc
 from pwcnet_tpu_torch.ops.activation import leaky_relu
 
 __all__ = ["DEFAULT_EST_FILTERS", "FlowEstimator"]
@@ -29,9 +35,11 @@ class FlowEstimator(nn.Module):
         in_channels: int,
         use_dc: bool = False,
         filters: Sequence[int] = DEFAULT_EST_FILTERS,
+        fused: bool = False,
     ):
         super().__init__()
         self.use_dc = use_dc
+        self.fused = fused and not use_dc
         self.n_hidden = len(filters)
         cin = in_channels
         for idx, f in enumerate(filters):
@@ -50,6 +58,17 @@ class FlowEstimator(nn.Module):
         """NCHW in; returns ``(flows, features)``."""
         parts = [t for t in (cv, features_0, flows_up_prev, features_up_prev) if t is not None]
         features = torch.cat(parts, 1)
+        if self.fused:
+            from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_fused
+
+            kbs = []
+            for idx in range(self.n_hidden + 1):
+                kbs.extend(cast_params(getattr(self, conv_name(idx))))
+            flows, features = estimator_chain_fused(to_nhwc(features), *kbs)
+            flows, features = to_nchw(flows), to_nchw(features)
+            if flows_up_prev is not None:
+                flows = flows + flows_up_prev
+            return flows, features
         for idx in range(self.n_hidden):
             conv = leaky_relu(getattr(self, conv_name(idx))(features), 0.1)
             features = torch.cat([conv, features], 1) if self.use_dc else conv

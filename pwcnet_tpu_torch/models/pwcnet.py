@@ -22,7 +22,9 @@ Hooks, with the JAX package's meaning:
 - ``warp_cv_fn(f0, f1, flow_px, d)``, the fused bilinear warp + cost volume
   at the warped levels (K1); requires ``warp_type='bilinear'``;
 - ``fused_pyramid_levels``: the N finest pyramid levels through K3's
-  wrapper.
+  wrapper;
+- ``fused_estimator_levels``: the N finest estimator levels (``l >
+  output_level - N``) through K7's wrapper; same parameters.
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ class PWCDCNet(nn.Module):
         cost_volume_fn: Optional[Callable] = None,
         warp_cv_fn: Optional[Callable] = None,
         fused_pyramid_levels: int = 0,
+        fused_estimator_levels: int = 0,
         generator: Optional[torch.Generator] = None,
         compute_dtype: Optional[torch.dtype] = None,
     ):
@@ -90,7 +93,7 @@ class PWCDCNet(nn.Module):
         feat = 0
         for l in range(output_level + 1):
             cin = taps + DEFAULT_FILTERS[num_levels - 1 - l] + (0 if l == 0 else 2 + feat)
-            est = FlowEstimator(cin, use_dc=use_dc)
+            est = FlowEstimator(cin, use_dc=use_dc, fused=l > output_level - fused_estimator_levels)
             self.add_module(f"optflow_{l}", est)
             feat = est.out_channels
         self.context = ContextNetwork(2 + feat)

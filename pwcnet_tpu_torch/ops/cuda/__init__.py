@@ -5,10 +5,13 @@
 - ``pyramid_conv.pyramid_level_fused``: K3, one 3-conv pyramid level;
 - ``cost_volume.cost_volume_bwd``: K4, the correlation's backward;
 - ``warped_cv.warp_bwd``: K5, the bilinear warp's backward;
-- ``pyramid_conv.pyramid_level_bwd``: K6, the pyramid level's backward.
+- ``pyramid_conv.pyramid_level_bwd``: K6, the pyramid level's backward;
+- ``estimator_conv.estimator_chain_fused``: K7, the estimator's six-conv
+  chain, and ``estimator_conv.estimator_chain_bwd``, its backward (K7b in
+  the launch counts).
 
-K1-K3 are ``torch.autograd.Function``s on CUDA tensors, with K4-K6 as
-their backward. Each wrapper sends a CPU tensor to its plain PyTorch
+K1-K3 and K7 are ``torch.autograd.Function``s on CUDA tensors, with K4-K6
+and K7b as their backward. Each wrapper sends a CPU tensor to its plain PyTorch
 version and a CUDA tensor to its kernel (or raises): nothing falls back.
 Each keeps a count of the calls in which it launched its kernel in
 ``<wrapper>.launches``.
@@ -22,6 +25,7 @@ __all__ = ["launch_counts", "reset_launch_counts", "wrappers"]
 def wrappers() -> dict:
     """Kernel id -> wrapper function."""
     from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_bwd, cost_volume_cuda
+    from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd, estimator_chain_fused
     from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_fused
     from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd, warped_cost_volume
 
@@ -32,6 +36,8 @@ def wrappers() -> dict:
         "K4": cost_volume_bwd,
         "K5": warp_bwd,
         "K6": pyramid_level_bwd,
+        "K7": estimator_chain_fused,
+        "K7b": estimator_chain_bwd,
     }
 
 

@@ -1,6 +1,15 @@
-"""Training: schedule, train/eval steps and checkpoints."""
+"""Training: schedule, train/eval steps, checkpoints, metrics and the Trainer
+(``trainer.Trainer`` is imported from its module: it pulls in the data package)."""
 
-from pwcnet_tpu_torch.train_lib.checkpoint import restore_checkpoint, save_checkpoint
+from pwcnet_tpu_torch.train_lib.checkpoint import (
+    latest_checkpoint,
+    load_params,
+    restore_checkpoint,
+    restore_checkpoint_auto,
+    save_checkpoint,
+    save_params,
+)
+from pwcnet_tpu_torch.train_lib.metrics import MetricsLogger
 from pwcnet_tpu_torch.train_lib.schedule import DEFAULT_BOUNDARIES, make_lr, piecewise_halving
 from pwcnet_tpu_torch.train_lib.step import (
     TrainState,
@@ -11,6 +20,8 @@ from pwcnet_tpu_torch.train_lib.step import (
 )
 
 __all__ = [
-    "DEFAULT_BOUNDARIES", "TrainState", "create_train_state", "make_eval_step", "make_loss_fn",
-    "make_lr", "make_train_step", "piecewise_halving", "restore_checkpoint", "save_checkpoint",
+    "DEFAULT_BOUNDARIES", "MetricsLogger", "TrainState", "create_train_state", "latest_checkpoint",
+    "load_params", "make_eval_step", "make_loss_fn", "make_lr", "make_train_step",
+    "piecewise_halving", "restore_checkpoint", "restore_checkpoint_auto", "save_checkpoint",
+    "save_params",
 ]

@@ -3,7 +3,7 @@
 On the CPU each wrapper must hand a CPU tensor to its plain version, let
 a gradient flow through it under ordinary autograd, and launch nothing;
 K3's plain version is held against the JAX package's fused pyramid-level
-kernel (interpret mode) and its XLA chain. The kernel-vs-plain tests (K1-K6,
+kernel (interpret mode) and its XLA chain. The kernel-vs-plain tests (K1-K7,
 and the backward kernels under autograd) need an NVIDIA card: they carry
 the ``cuda`` marker and skip where there is none (``chip_smoke.py`` holds
 every kernel at the full-size shapes).
@@ -13,7 +13,7 @@ and atol=1e-5 (the activations are O(1)). On the card, float32 with TF32
 off differs likewise (atol 1e-5 at O(1) outputs); bfloat16 outputs are
 rounded from float32 sums and may land one or two bf16 ulps apart
 (2/128 of the output's scale; 4/128 for K6, whose three stages each read
-the rounded cotangent of the stage before).
+the rounded cotangent of the stage before, and 8/128 for K7's six).
 
 The JAX package is imported inside the tests that compare with it, so the
 card-only tests also run where JAX is not installed:
@@ -57,6 +57,25 @@ def _to_torch_params(params):
         torch.from_numpy(np.ascontiguousarray(p.transpose(3, 2, 0, 1) if p.ndim == 4 else p))
         for p in params
     ]
+
+
+def _chain_params(rng, cin, couts):
+    """HWIO kernels and biases of an estimator chain, scaled by fan-in."""
+    out = []
+    for c in couts:
+        out.append(_normal(rng, (3, 3, cin, c), 1.0 / np.sqrt(9.0 * cin)))
+        out.append(_normal(rng, (c,), 0.1))
+        cin = c
+    return out
+
+
+# (B, H, W, Cin), couts: the real widths, and narrow ones (hidden widths are
+# multiples of 8) that leave every tile ragged
+_CHAIN_CASES = [
+    ((2, 6, 7, 273), (128, 128, 96, 64, 32, 2)),
+    ((1, 12, 14, 37), (24, 16, 8, 8, 40, 3)),
+    ((1, 19, 35, 147), (128, 128, 96, 64, 32, 2)),
+]
 
 
 @pytest.fixture
@@ -147,7 +166,7 @@ class TestWrappersOnCpu:
         x = torch.from_numpy(_normal(rng, (1, 8, 8, 3)))
         tp = _to_torch_params(_level_params(rng, 3, 16))
         assert torch.equal(pyramid_level_fused(x, *tp), pyramid_level_plain(x, *tp))
-        assert launch_counts() == {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+        assert launch_counts() == {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K7b")}
 
     def test_a_gradient_flows_through_each_wrapper(self, rng):
         """On CPU tensors autograd runs through the plain versions: every
@@ -329,6 +348,82 @@ class TestKernelsOnCard:
             want = torch.autograd.grad(plain(*args), tensors, g)
             for a, b in zip(got, want):
                 _assert_close(a, b, torch.float32)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape,couts", _CHAIN_CASES)
+    def test_estimator_chain(self, cuda_device, rng, dtype, shape, couts):
+        """K7 forward and its residuals, at sizes that are no multiple of a tile."""
+        from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_fused, estimator_chain_residuals
+        from pwcnet_tpu_torch.ops.estimator_conv import estimator_chain_plain
+
+        xin = torch.from_numpy(_normal(rng, shape)).to(cuda_device, dtype)
+        kbs = [p.to(cuda_device, dtype) for p in _to_torch_params(_chain_params(rng, shape[-1], couts))]
+        before = estimator_chain_fused.launches
+        flow, feat = estimator_chain_fused(xin, *kbs)
+        flow2, feat2, acts = estimator_chain_residuals(xin, *kbs)
+        torch.cuda.synchronize()
+        assert estimator_chain_fused.launches == before + 2
+        want_flow, want_feat, want_acts = estimator_chain_plain(xin, *kbs, return_acts=True)
+        assert torch.equal(flow, flow2) and torch.equal(feat, feat2)
+        _assert_close(flow, want_flow, dtype, ulps=8)  # six stages, each reads a rounded activation
+        _assert_close(feat, want_feat, dtype, ulps=8)
+        for a, b in zip(acts, want_acts):
+            _assert_close(a, b, dtype, ulps=8)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape,couts", _CHAIN_CASES)
+    def test_estimator_chain_bwd(self, cuda_device, rng, dtype, shape, couts):
+        """K7 backward: every gz_i (so dk, db) and dxin, not only dxin."""
+        from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd
+        from pwcnet_tpu_torch.ops.estimator_conv import estimator_chain_bwd_plain, estimator_chain_plain
+
+        xin = torch.from_numpy(_normal(rng, shape)).to(cuda_device, dtype)
+        kbs = [p.to(cuda_device, dtype) for p in _to_torch_params(_chain_params(rng, shape[-1], couts))]
+        flow, feat, acts = estimator_chain_plain(xin, *kbs, return_acts=True)
+        g_flow = torch.from_numpy(_normal(rng, tuple(flow.shape))).to(cuda_device, dtype)
+        g_feat = torch.from_numpy(_normal(rng, tuple(feat.shape))).to(cuda_device, dtype)
+        args = (kbs[0::2], [*acts, feat], g_flow, g_feat)
+        before = estimator_chain_bwd.launches
+        gzs, dxin = estimator_chain_bwd(*args)
+        gzs_nodx, nodx = estimator_chain_bwd(*args, need_dx=False)
+        torch.cuda.synchronize()
+        assert estimator_chain_bwd.launches == before + 2 and nodx is None
+        want_gzs, want_dxin = estimator_chain_bwd_plain(*args)
+        for a, b, c in zip(gzs, want_gzs, gzs_nodx):
+            _assert_close(a, b, dtype, ulps=8)
+            assert torch.equal(a, c)
+        _assert_close(dxin, want_dxin, dtype, ulps=8)
+
+    def test_estimator_chain_autograd(self, cuda_device, rng):
+        """A gradient through K7 launches its backward and equals ordinary
+        autograd through the plain chain: dxin and all 12 kernels and biases."""
+        from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_fused
+        from pwcnet_tpu_torch.ops.estimator_conv import estimator_chain_plain
+
+        shape, couts = _CHAIN_CASES[1]
+        xin = torch.from_numpy(_normal(rng, shape)).to(cuda_device).requires_grad_()
+        kbs = [p.to(cuda_device).requires_grad_() for p in _to_torch_params(_chain_params(rng, shape[-1], couts))]
+        reset_launch_counts()
+        flow, feat = estimator_chain_fused(xin, *kbs)
+        gen = torch.Generator(cuda_device).manual_seed(0)
+        gs = [torch.randn(t.shape, device=cuda_device, generator=gen) for t in (flow, feat)]
+        got = torch.autograd.grad([flow, feat], [xin, *kbs], gs)
+        assert {k: v for k, v in launch_counts().items() if v} == {"K7": 1, "K7b": 1}
+        want = torch.autograd.grad(list(estimator_chain_plain(xin, *kbs)), [xin, *kbs], gs)
+        for a, b in zip(got, want):
+            _assert_close(a, b, torch.float32)
+
+    def test_profiling_helpers_time_the_card(self, cuda_device, tmp_path):
+        from pwcnet_tpu_torch.utils import profiling
+
+        x = torch.randn((8, 64, 64, 64), device=cuda_device)
+        sec = profiling.device_timeit(lambda a: a @ a, x, iters=5)
+        assert 0 < sec < 1
+        rows = profiling.op_profile(lambda a: a @ a, x, iters=2)
+        assert rows and rows[0]["ms_per_iter"] > 0 and rows[0]["count"] >= 2
+        with profiling.trace(str(tmp_path / "trace")):
+            (x @ x).sum().item()
+        assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
 
     def test_wrappers_refuse_what_the_kernels_do_not_take(self, cuda_device):
         x = torch.zeros((1, 8, 8, 16), device=cuda_device)

@@ -270,11 +270,15 @@ class TestNoJax:
             "import pkgutil, importlib, sys, pwcnet_tpu_torch\n"
             "names = [m.name for m in pkgutil.walk_packages(pwcnet_tpu_torch.__path__, 'pwcnet_tpu_torch.')]\n"
             "for n in names: importlib.import_module(n)\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pwcnet_tpu'))\n"
-            "want = {'pwcnet_tpu_torch.losses', 'pwcnet_tpu_torch.ops.activation', 'pwcnet_tpu_torch.train_lib.step',\n"
-            "        'pwcnet_tpu_torch.train_lib.schedule', 'pwcnet_tpu_torch.train_lib.checkpoint'}\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pwcnet_tpu'))\n"
+            "want = {'pwcnet_tpu_torch.' + n for n in (\n"
+            "    'losses', 'ops.activation', 'train_lib.step', 'train_lib.schedule', 'train_lib.checkpoint',\n"
+            "    'ops.estimator_conv', 'ops.cuda.estimator_conv', 'utils.config', 'utils.flow_viz', 'utils.profiling',\n"
+            "    'data.datasets', 'data.native', 'data.cache', 'data.pipeline', 'train_lib.metrics',\n"
+            "    'train_lib.trainer', 'train', 'evaluate', 'test')}\n"
             "print(len(names), bad, want - set(names))\n"
-            "sys.exit(1 if bad or len(names) < 21 or want - set(names) else 0)\n"
+            "sys.exit(1 if bad or len(names) < 36 or want - set(names) else 0)\n"
         )
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
