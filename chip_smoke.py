@@ -510,10 +510,13 @@ def check_estimator_kernels(torch, device, compare, batches=(1, 8), dtypes=None)
     weight and bias gradients taken from the kernel's gz against those taken
     from the plain gz), all against the plain versions.
 
-    bfloat16 tolerance: 8 ulps of the result's scale. Each of the six
-    stages reads an activation (or cotangent) the stage before rounded, so a
-    one-ulp flip of a float32 sum that lands on a rounding boundary feeds
-    every later stage: twice the 4 ulps of the three-stage K3 and K6.
+    bfloat16 tolerance: 2 ulps of the result's scale, as for a one-stage
+    kernel. The tensor-core body is another body than the float32 one, so it
+    is held as tightly as its readings allow: over all these shapes the
+    worst reading is 0.95 ulp (an H100 run of this script), because a
+    one-ulp flip of one rounded activation is weighted by one small tap in
+    the next stage and does not grow along the chain. A dropped bias
+    (up to 0.3 here, against a bound of about 0.08) fails.
     float32: the weight and bias gradients are cuDNN sums over every pixel
     of the batch (up to 229 376 terms) of cotangents that already differ in
     their last bits, so they get 1e-4 of their scale, not 1e-5.
@@ -534,26 +537,26 @@ def check_estimator_kernels(torch, device, compare, batches=(1, 8), dtypes=None)
                     ks = kbs[0::2]
                     want_flow, want_feat, want_acts = estimator_chain_plain(xin, *kbs, return_acts=True)
                     flow, feat = estimator_chain_fused(xin, *kbs)
-                    compare("K7", f"flow {label}", flow, want_flow, dtype, ulps=8)
-                    compare("K7", f"features {label}", feat, want_feat, dtype, ulps=8)
+                    compare("K7", f"flow {label}", flow, want_flow, dtype)
+                    compare("K7", f"features {label}", feat, want_feat, dtype)
                     flow, feat, acts = estimator_chain_residuals(xin, *kbs)
-                    compare("K7", f"flow (residuals) {label}", flow, want_flow, dtype, ulps=8)
+                    compare("K7", f"flow (residuals) {label}", flow, want_flow, dtype)
                     for i, (a, e) in enumerate(zip([*acts, feat], [*want_acts, want_feat])):
-                        compare("K7", f"s{i + 1} {label}", a, e, dtype, ulps=8)
+                        compare("K7", f"s{i + 1} {label}", a, e, dtype)
                     g_flow = torch.randn(flow.shape, generator=gen, device=device).to(dtype)
                     g_feat = torch.randn(feat.shape, generator=gen, device=device).to(dtype)
                     saved = [*want_acts, want_feat]
                     gzs, dxin = estimator_chain_bwd(ks, saved, g_flow, g_feat)
                     want_gzs, want_dxin = estimator_chain_bwd_plain(ks, saved, g_flow, g_feat)
                     for i, (a, e) in enumerate(zip(gzs, want_gzs)):
-                        compare("K7b", f"gz{i + 1} {label}", a, e, dtype, ulps=8)
-                    compare("K7b", f"dxin {label}", dxin, want_dxin, dtype, ulps=8)
+                        compare("K7b", f"gz{i + 1} {label}", a, e, dtype)
+                    compare("K7b", f"dxin {label}", dxin, want_dxin, dtype)
                     shapes = [k.shape for k in ks]
                     got_w = chain_weight_grads(xin, saved, gzs, g_flow, shapes)
                     want_w = chain_weight_grads(xin, saved, want_gzs, g_flow, shapes)
                     for i, (a, e) in enumerate(zip(got_w, want_w)):
                         name = f"{'dk' if i % 2 == 0 else 'db'}{i // 2 + 1}"
-                        compare("K7b", f"{name} {label}", a, e, dtype, ulps=8, f32_rel=1e-4)
+                        compare("K7b", f"{name} {label}", a, e, dtype, f32_rel=1e-4)
                     nodx = estimator_chain_bwd(ks, saved, g_flow, g_feat, need_dx=False)[1]
                     require(nodx is None, f"K7b returned a dxin nobody asked for at {label}")
                 torch.cuda.synchronize()
@@ -957,7 +960,7 @@ def trainer_phase(torch, np, card):
         counts = launch_counts()
         steps, vals = 2 * len(trainer.tloader), 2 * len(trainer.vloader)
         log(f"  trainer: {steps} steps and {vals} validation batches, launches {counts}")
-        require(trainer.tloader._native is not None and trainer.tloader._cache is None,
+        require(trainer.tloader.path == "native",
                 "the trainer's loader did not take the native path")
         require(steps == 44 and vals == 4, f"{steps} steps and {vals} validation batches, want 44 and 4")
         want = {k: n * steps + TRAINER_PER_FORWARD.get(k, 0) * vals for k, n in TRAINER_PER_STEP.items()}
@@ -1012,7 +1015,7 @@ def trainer_phase(torch, np, card):
         dset = get_dataset("FlyingChairs")(train_or_val="train", dataset_dir=root, crop_type="random",
                                            crop_shape=(384, 448))
         loader = DataLoader(dset, batch_size=8, shuffle=True, num_workers=4)
-        require(loader._native is not None, "the timed loader did not take the native path")
+        require(loader.path == "native", "the timed loader did not take the native path")
         t0 = time.perf_counter()
         n = sum(images.shape[0] for images, _ in loader)
         stats["loader_pairs_per_s"] = n / (time.perf_counter() - t0)

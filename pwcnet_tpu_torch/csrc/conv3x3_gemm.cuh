@@ -8,10 +8,11 @@
 //
 // with in (B, H, W, Cin) and out, add, act (B, H, W, Cout), NHWC, and the
 // weights tap-major [9][Cin][ldw], ldw = Cout rounded up to a multiple of 8
-// with a zero tail. tap' is the tap itself, or 8 - tap when
-// `flip` is set: a transposed 3x3 conv is a 3x3 conv with the taps mirrored
-// and the channel roles swapped, so the backward passes the kernel as
-// [ky][kx][cout of the forward][cin of the forward] and sets `flip`.
+// with a zero tail. A transposed 3x3 conv is a 3x3 conv with the taps
+// mirrored and the channel roles swapped, so the backward passes the very
+// array of the forward, which for it reads [9][Cout][ldw] with ldw = Cin
+// rounded up, and sets `flip`: tap' is then 8 - tap and the weight tile is
+// read transposed.
 // mask(a) is 1 where a >= 0, else 0.1 (the LeakyReLU's slope read from its
 // saved output). Positions outside the frame read as zero: that is each
 // conv's own zero padding of its input. Sums are float32; the result is
@@ -19,9 +20,7 @@
 //
 // Channel counts are run-time values (the estimator's inputs are 147..273
 // wide, its outputs 128, 128, 96, 64, 32, 2); ragged edges in channels and
-// in space are masked when a tile is staged and when it is stored. The
-// caller pads Cin to a multiple of 8 with zero channels (and zero weight
-// rows), so that a pixel's channels start on 16 bytes.
+// in space are masked when a tile is staged and when it is stored.
 //
 // - float32 (conv3x3_fma_kernel): CUDA-core FMAs. A block of 256 threads
 //   owns 8 x 16 positions and 64 output channels; a thread one column of 8
@@ -37,11 +36,17 @@
 //   positions of 16 channels; the weights [tap][16][64] are the B tiles.
 //   Chunks are double-buffered: 16-byte cp.async copies bring chunk k + 1
 //   from device memory (zero-filled outside the frame) while the tensor
-//   cores multiply chunk k; two blocks share an SM. The sums leave through
-//   a per-warp float32 scratch that reuses the staging memory.
+//   cores multiply chunk k; two blocks share an SM. Where Cin is no multiple
+//   of 8 (the chain's first conv, 147..273 wide, and the 2-channel flow
+//   cotangent) a pixel's channels do not start on 16 bytes, and the inputs of
+//   that conv are staged element by element instead. With `flip` the weight
+//   tile is staged [tap][64][16] and read as column-major B tiles. The sums
+//   leave through a per-warp float32 scratch that reuses the staging memory.
 #pragma once
 
 #include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -58,7 +63,7 @@ struct ConvArgs {
   const void* act;   // (B, H, W, Cout) or null
   void* out;
   int H, W, Cin, Cout;
-  int ldw;  // row stride of wt: Cout rounded up to a multiple of 8, the tail zero
+  int ldw;  // row stride of wt, a multiple of 8 with a zero tail: Cout rounded up, with flip Cin
   int relu;
   int flip;
 };
@@ -77,11 +82,12 @@ __device__ __forceinline__ void conv_epilogue(const ConvArgs& a, size_t pixel, i
 constexpr int kFmTH = 8, kFmTW = 16;              // tile rows, columns
 constexpr int kFmIH = kFmTH + 2, kFmIW = kFmTW + 2;
 constexpr int kFmKC = 8;                          // input channels per chunk
+constexpr int kFmWS = kCgTN + 4;                  // weight row stride: the transposed staging hits 32 banks
 
 template <typename T>
 __global__ void __launch_bounds__(kCgThreads) conv3x3_fma_kernel(ConvArgs a) {
   __shared__ float in_s[kFmKC][kFmIH][kFmIW];
-  __shared__ __align__(16) float w_s[9][kFmKC][kCgTN];
+  __shared__ __align__(16) float w_s[9][kFmKC][kFmWS];
 
   const int tiles_x = (a.W + kFmTW - 1) / kFmTW;
   const int ty0 = (blockIdx.x / tiles_x) * kFmTH;
@@ -113,12 +119,14 @@ __global__ void __launch_bounds__(kCgThreads) conv3x3_fma_kernel(ConvArgs a) {
       in_s[ci][p / kFmIW][p % kFmIW] = v;
     }
     for (int i = tid; i < 9 * kFmKC * kCgTN; i += kCgThreads) {
-      const int co = i % kCgTN;
-      const int ci = (i / kCgTN) % kFmKC;
       const int tap = i / (kCgTN * kFmKC);
+      // the fastest index follows the array's last dimension
+      const int co = a.flip ? (i / kFmKC) % kCgTN : i % kCgTN;
+      const int ci = a.flip ? i % kFmKC : (i / kCgTN) % kFmKC;
       float v = 0.f;
       if (c0 + ci < a.Cin && n0 + co < a.Cout)
-        v = to_f32(wt[((size_t)(a.flip ? 8 - tap : tap) * a.Cin + c0 + ci) * a.ldw + n0 + co]);
+        v = to_f32(a.flip ? wt[((size_t)(8 - tap) * a.Cout + n0 + co) * a.ldw + c0 + ci]
+                          : wt[((size_t)tap * a.Cin + c0 + ci) * a.ldw + n0 + co]);
       w_s[tap][ci][co] = v;
     }
     __syncthreads();
@@ -165,9 +173,11 @@ constexpr int kTcT = 16;            // tile rows and columns
 constexpr int kTcI = kTcT + 2;      // staged rows and columns
 constexpr int kTcKC = 16;           // input channels per chunk (one WMMA depth)
 constexpr int kTcWS = kCgTN + 8;    // weight row stride in shared memory: off the 128-byte bank period
+constexpr int kTcWT = kTcKC + 8;    // the same for the transposed tile [64][16]
 constexpr int kTcWarps = kCgThreads / 32;
 constexpr int kTcInElems = kTcI * kTcI * kTcKC;
-constexpr int kTcWElems = 9 * kTcKC * kTcWS;
+constexpr int kTcWElems = 9 * kCgTN * kTcWT;  // the larger of the two tiles
+static_assert(kTcWElems >= 9 * kTcKC * kTcWS, "the weight stage holds either tile");
 constexpr int kTcStageElems = kTcInElems + kTcWElems;
 constexpr size_t kTcScratchBytes = (size_t)kTcWarps * 16 * kCgTN * sizeof(float);
 constexpr size_t kTcStageBytes = (size_t)2 * kTcStageElems * sizeof(__nv_bfloat16);  // two buffers
@@ -188,13 +198,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Cin and ldw are multiples of 8 and every tensor starts on 16 bytes, so a
-// pixel's channels and a weight row go as 16-byte copies.
+// ldw is a multiple of 8 and every tensor starts on 16 bytes, so a weight
+// row goes as 16-byte copies, and so do a pixel's channels where Cin is a
+// multiple of 8.
+template <bool kFlip>
 __global__ void __launch_bounds__(kCgThreads, 2) conv3x3_tc_kernel(ConvArgs a) {
   using bf16 = __nv_bfloat16;
   namespace wmma = nvcuda::wmma;
   extern __shared__ float4 cg_smem_f4[];
-  bf16* stage = reinterpret_cast<bf16*>(cg_smem_f4);  // 2 x ([18][18][16] inputs, [9][16][72] weights)
+  // 2 x ([18][18][16] inputs, [9][16][72] weights or, transposed, [9][64][24])
+  bf16* stage = reinterpret_cast<bf16*>(cg_smem_f4);
 
   const int tiles_x = (a.W + kTcT - 1) / kTcT;
   const int ty0 = (blockIdx.x / tiles_x) * kTcT;
@@ -208,6 +221,7 @@ __global__ void __launch_bounds__(kCgThreads, 2) conv3x3_tc_kernel(ConvArgs a) {
   const bf16* wt = static_cast<const bf16*>(a.wt);
   // 16-wide groups of output channels this block really has
   const int nt_live = min(kCgTN / 16, (a.Cout - n0 + 15) / 16);
+  const bool in_by_16_bytes = a.Cin % 8 == 0;
 
   auto load_chunk = [&](int c0, bf16* in_s) {
     bf16* w_s = in_s + kTcInElems;
@@ -218,16 +232,35 @@ __global__ void __launch_bounds__(kCgThreads, 2) conv3x3_tc_kernel(ConvArgs a) {
       const int gx = tx0 - 1 + p % kTcI;
       const int c = c0 + v * 8;
       const bool ok = c < a.Cin && gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
-      cp_async16(in_s + p * kTcKC + v * 8, ok ? in + ((size_t)gy * a.W + gx) * a.Cin + c : in, ok);
+      const bf16* src = in + ((size_t)gy * a.W + gx) * a.Cin + c;
+      bf16* dst = in_s + p * kTcKC + v * 8;
+      if (in_by_16_bytes) {
+        cp_async16(dst, ok ? src : in, ok);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dst[j] = ok && c + j < a.Cin ? src[j] : from_f32<bf16>(0.f);
+      }
     }
-    for (int i = tid; i < 9 * kTcKC * (kCgTN / 8); i += kCgThreads) {
-      const int v = i % (kCgTN / 8);
-      const int ci = (i / (kCgTN / 8)) % kTcKC;
-      const int tap = i / (kCgTN / 8 * kTcKC);
-      const int co = n0 + v * 8;
-      const bool ok = c0 + ci < a.Cin && co < a.ldw;
-      cp_async16(w_s + (tap * kTcKC + ci) * kTcWS + v * 8,
-                 ok ? wt + ((size_t)(a.flip ? 8 - tap : tap) * a.Cin + c0 + ci) * a.ldw + co : wt, ok);
+    if constexpr (kFlip) {
+      for (int i = tid; i < 9 * kCgTN * (kTcKC / 8); i += kCgThreads) {
+        const int v = i % (kTcKC / 8);
+        const int n = (i / (kTcKC / 8)) % kCgTN;
+        const int tap = i / (kTcKC / 8 * kCgTN);
+        const int c = c0 + v * 8;
+        const bool ok = c < a.ldw && n0 + n < a.Cout;
+        cp_async16(w_s + (tap * kCgTN + n) * kTcWT + v * 8,
+                   ok ? wt + ((size_t)(8 - tap) * a.Cout + n0 + n) * a.ldw + c : wt, ok);
+      }
+    } else {
+      for (int i = tid; i < 9 * kTcKC * (kCgTN / 8); i += kCgThreads) {
+        const int v = i % (kCgTN / 8);
+        const int ci = (i / (kCgTN / 8)) % kTcKC;
+        const int tap = i / (kCgTN / 8 * kTcKC);
+        const int co = n0 + v * 8;
+        const bool ok = c0 + ci < a.Cin && co < a.ldw;
+        cp_async16(w_s + (tap * kTcKC + ci) * kTcWS + v * 8,
+                   ok ? wt + ((size_t)tap * a.Cin + c0 + ci) * a.ldw + co : wt, ok);
+      }
     }
     cp_async_commit();
   };
@@ -260,8 +293,12 @@ __global__ void __launch_bounds__(kCgThreads, 2) conv3x3_tc_kernel(ConvArgs a) {
 #pragma unroll
       for (int nt = 0; nt < kCgTN / 16; ++nt) {
         if (nt < nt_live) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, w_s + tap * kTcKC * kTcWS + nt * 16, kTcWS);
+          using BLayout = std::conditional_t<kFlip, wmma::col_major, wmma::row_major>;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb;
+          if constexpr (kFlip)
+            wmma::load_matrix_sync(fb, w_s + (tap * kCgTN + nt * 16) * kTcWT, kTcWT);
+          else
+            wmma::load_matrix_sync(fb, w_s + tap * kTcKC * kTcWS + nt * 16, kTcWS);
 #pragma unroll
           for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][nt], fa[i], fb, acc[i][nt]);
         }
@@ -291,6 +328,13 @@ __global__ void __launch_bounds__(kCgThreads, 2) conv3x3_tc_kernel(ConvArgs a) {
   }
 }
 
+// The tensor-core kernels take more dynamic shared memory than the default
+// limit, which is allowed once per device. The flag has internal linkage: a
+// function's static would be one object for every library that includes
+// this header, each of which holds kernels of its own.
+constexpr int kTcMaxDevices = 64;
+static bool tc_smem_allowed[kTcMaxDevices] = {};
+
 template <typename T>
 struct ConvLaunch;
 
@@ -309,11 +353,23 @@ struct ConvLaunch<__nv_bfloat16> {
   static cudaError_t run(const ConvArgs& a, int B, cudaStream_t stream) {
     const dim3 grid(((a.W + kTcT - 1) / kTcT) * ((a.H + kTcT - 1) / kTcT),
                     (a.Cout + kCgTN - 1) / kCgTN, B);
-    if (a.Cin % 8 != 0 || a.ldw % 8 != 0) return cudaErrorInvalidValue;  // 16-byte copies
-    cudaError_t err = cudaFuncSetAttribute(conv3x3_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)kTcSmemBytes);
+    if (a.ldw % 8 != 0) return cudaErrorInvalidValue;  // 16-byte copies
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess) return err;
-    conv3x3_tc_kernel<<<grid, kCgThreads, kTcSmemBytes, stream>>>(a);
+    if (device >= kTcMaxDevices || !tc_smem_allowed[device]) {
+      err = cudaFuncSetAttribute(conv3x3_tc_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmemBytes);
+      if (err != cudaSuccess) return err;
+      err = cudaFuncSetAttribute(conv3x3_tc_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmemBytes);
+      if (err != cudaSuccess) return err;
+      if (device < kTcMaxDevices) tc_smem_allowed[device] = true;
+    }
+    if (a.flip)
+      conv3x3_tc_kernel<true><<<grid, kCgThreads, kTcSmemBytes, stream>>>(a);
+    else
+      conv3x3_tc_kernel<false><<<grid, kCgThreads, kTcSmemBytes, stream>>>(a);
     return cudaGetLastError();
   }
 };

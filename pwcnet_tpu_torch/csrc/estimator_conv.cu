@@ -61,8 +61,7 @@ cudaError_t run_chain(const void* xin, const void* const* wts, const void* const
 // xin: (B, H, W, chans[0]); wts[i]: conv i+1 as [ky][kx][chans[i]][ldw], ldw =
 // chans[i+1] rounded up to a multiple of 8 (zero tail); biases[i]: (chans[i+1],);
 // outs[i]: (B, H, W, chans[i+1]), the activations s1..s5 and then the flow.
-// chans[0..5] are multiples of 8 (the caller pads xin and k1 with zero
-// channels). All contiguous and of one dtype: 0 f32 / 1 bf16.
+// chans[1..5] are multiples of 8. All contiguous and of one dtype: 0 f32 / 1 bf16.
 extern "C" int pwc_estimator_chain(const void* xin, const void* const* wts,
                                    const void* const* biases, void* const* outs, const int* chans,
                                    int B, int H, int W, int dtype, void* stream) {

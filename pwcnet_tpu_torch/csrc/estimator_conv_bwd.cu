@@ -18,9 +18,9 @@
 // weight gradients see). dxin is skipped when the caller passes null.
 //
 // Design. One launch per stage, as the forward: each stage is the same tiled
-// implicit GEMM (conv3x3_gemm.cuh) with the taps mirrored, the kernel passed
-// as [ky][kx][cout][cin], and the mask (and at stage 5 the features'
-// cotangent) fused into its epilogue. Every stage computes whole frames, so
+// implicit GEMM (conv3x3_gemm.cuh) with the taps mirrored, reading the
+// forward's own [ky][kx][cin][cout] kernels transposed, and the mask (and at
+// stage 5 the features' cotangent) fused into its epilogue. Every stage computes whole frames, so
 // no cotangent row depends on a neighbouring tile's partial sums: the halo
 // rows of the TPU kernel's exact-row scheme, and the tile-seam fault it
 // replaced, have no counterpart. Bound as the forward: operations.
@@ -32,14 +32,14 @@ constexpr int kEstConvs = 6;
 
 template <typename T>
 cudaError_t run_chain_bwd(const void* g_flow, const void* g_feat, const void* const* acts,
-                          const void* const* wts_t, void* const* gz, void* dxin, const int* chans,
+                          const void* const* wts, void* const* gz, void* dxin, const int* chans,
                           int B, int H, int W, cudaStream_t stream) {
   const void* src = g_flow;
   for (int i = kEstConvs - 1; i >= 0; --i) {
     if (i == 0 && dxin == nullptr) break;
     ConvArgs a{};
     a.in = src;
-    a.wt = wts_t[i];
+    a.wt = wts[i];
     a.out = i == 0 ? dxin : gz[i - 1];
     a.act = i == 0 ? nullptr : acts[i - 1];
     a.add = i == kEstConvs - 1 ? g_feat : nullptr;
@@ -47,7 +47,7 @@ cudaError_t run_chain_bwd(const void* g_flow, const void* g_feat, const void* co
     a.W = W;
     a.Cin = chans[i + 1];
     a.Cout = chans[i];
-    a.ldw = (a.Cout + 7) / 8 * 8;
+    a.ldw = (a.Cin + 7) / 8 * 8;
     a.flip = 1;
     const cudaError_t err = ConvLaunch<T>::run(a, B, stream);
     if (err != cudaSuccess) return err;
@@ -59,20 +59,20 @@ cudaError_t run_chain_bwd(const void* g_flow, const void* g_feat, const void* co
 }  // namespace pwc
 
 // g_flow: (B, H, W, chans[6]); g_feat: (B, H, W, chans[5]); acts[i]: s_{i+1}
-// (B, H, W, chans[i+1]), i < 5; wts_t[i]: conv i+1 as
-// [ky][kx][chans[i+1]][ldw], ldw = chans[i] rounded up to a multiple of 8
+// (B, H, W, chans[i+1]), i < 5; wts[i]: conv i+1 as the forward takes it,
+// [ky][kx][chans[i]][ldw], ldw = chans[i+1] rounded up to a multiple of 8
 // (zero tail); gz[i]: gz_{i+1} like acts[i]; dxin: (B, H, W, chans[0]) or
-// null. chans[1..6] are multiples of 8 (the caller pads g_flow and k6 with
-// zero channels). All contiguous and of one dtype: 0 f32 / 1 bf16.
+// null. chans[1..5] are multiples of 8. All contiguous and of one dtype:
+// 0 f32 / 1 bf16.
 extern "C" int pwc_estimator_chain_bwd(const void* g_flow, const void* g_feat,
-                                       const void* const* acts, const void* const* wts_t,
+                                       const void* const* acts, const void* const* wts,
                                        void* const* gz, void* dxin, const int* chans, int B, int H,
                                        int W, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == pwc::kF32)
-    return pwc::run_chain_bwd<float>(g_flow, g_feat, acts, wts_t, gz, dxin, chans, B, H, W, s);
+    return pwc::run_chain_bwd<float>(g_flow, g_feat, acts, wts, gz, dxin, chans, B, H, W, s);
   if (dtype == pwc::kBF16)
-    return pwc::run_chain_bwd<__nv_bfloat16>(g_flow, g_feat, acts, wts_t, gz, dxin, chans, B, H, W,
+    return pwc::run_chain_bwd<__nv_bfloat16>(g_flow, g_feat, acts, wts, gz, dxin, chans, B, H, W,
                                              s);
   return cudaErrorInvalidValue;
 }

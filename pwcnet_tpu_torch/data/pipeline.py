@@ -27,6 +27,7 @@ from __future__ import annotations
 import collections
 import queue
 import threading
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Iterator, Optional
 
@@ -231,16 +232,35 @@ class DataLoader:
                     "backed or uses resize"
                 )
             return None
-        try:
-            from pwcnet_tpu_torch.data import native
+        from pwcnet_tpu_torch.data import native
 
+        try:
             native.load_library()
+        except Exception as e:
+            if use_native is True:
+                raise
+            # the dataset qualifies but the library does not build or load
+            # here: go on with the PIL path, and say so
+            warnings.warn(
+                f"native data loader unavailable ({e}); decoding with PIL instead",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            return None
+        try:
             native.image_size(samples[0][0])  # decodability probe
-        except Exception:
+        except IOError:
             if use_native is True:
                 raise
             return None
         return {"native": native, **self._aug_geometry()}
+
+    @property
+    def path(self) -> str:
+        """Which batch path this loader takes: 'cache', 'native' or 'pil'."""
+        if self._cache is not None:
+            return "cache"
+        return "native" if self._native is not None else "pil"
 
     def _native_assemble(self, idxs, epoch: int):
         cfg = self._native
@@ -368,8 +388,9 @@ def device_prefetch(
     buffer, issues a non-blocking host-to-device copy on a side stream, and
     hands the batch over with an event; the consumer's stream waits on the
     event before the batch is yielded, so decode, transfer and compute
-    overlap and the consumer never synchronises with the host. On the CPU
-    (``device`` None or 'cpu') it yields CPU tensors with the same values.
+    overlap and the consumer never synchronises with the host. ``device``
+    None means CUDA, which must exist, as for every entry point of the
+    package; with ``device='cpu'`` it yields CPU tensors with the same values.
 
     ``device_normalize``: uint8 leaves (the DataLoader's
     ``normalize='device'`` feed) are divided by 255 into float32 on the
@@ -380,7 +401,9 @@ def device_prefetch(
     """
     import torch
 
-    device = torch.device("cpu" if device is None else device)
+    from pwcnet_tpu_torch.inference import resolve_device
+
+    device = resolve_device(device)
     on_cuda = device.type == "cuda"
     side = torch.cuda.Stream(device) if on_cuda else None
 

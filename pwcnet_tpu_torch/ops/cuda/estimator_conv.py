@@ -6,13 +6,13 @@ and its backward ``_est_bwd_pallas``. The function, its rounding and the
 plain versions are in ``pwcnet_tpu_torch/ops/estimator_conv.py``.
 
 Activations are NHWC; ``kbs`` is ``k1, b1, .., k6, b6`` with PyTorch's OIHW
-kernels. Each call lays the kernels out tap-major for the implicit GEMMs
-(``[ky][kx][cin][cout]`` forward, ``[ky][kx][cout][cin]`` backward, the last
-dimension zero-padded to a multiple of 8): six small copies, no convolution.
-The kernels copy 16 bytes at a time, so a chain input whose channel count is
-no multiple of 8 (147..273 in the model) is padded with zero channels first,
-as is the 2-channel flow cotangent in the backward; the five hidden widths
-must be multiples of 8 (128, 128, 96, 64, 32 in the model).
+kernels. Each forward lays the kernels out tap-major for the implicit GEMMs,
+``[ky][kx][cin][cout]`` with ``cout`` zero-padded to a multiple of 8: six
+small copies, no convolution. The backward reads the same arrays transposed,
+so a training step keeps them from its forward. The chain's input (147..273
+channels in the model) and the 2-channel flow cotangent go in as they are;
+the five hidden widths must be multiples of 8 (128, 128, 96, 64, 32 in the
+model), because the kernels copy their activations 16 bytes at a time.
 
 On a CUDA tensor ``estimator_chain_fused`` is a ``torch.autograd.Function``:
 the forward kernels (which hand the activations ``s1..s5`` over through
@@ -39,7 +39,7 @@ from pwcnet_tpu_torch.ops.estimator_conv import (
     estimator_chain_plain,
 )
 
-__all__ = ["estimator_chain_fused", "estimator_chain_residuals", "estimator_chain_bwd"]
+__all__ = ["estimator_chain_fused", "estimator_chain_bwd"]
 
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -51,25 +51,11 @@ def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _up8(n: int) -> int:
-    return -(-n // 8) * 8
-
-
-def _pad_channels(x: torch.Tensor) -> torch.Tensor:
-    """``x`` with zero channels appended up to a multiple of 8."""
-    c = x.shape[-1]
-    return x if c % 8 == 0 else F.pad(x, (0, _up8(c) - c))
-
-
-def _tap_major(k: torch.Tensor, transposed: bool) -> torch.Tensor:
-    """OIHW kernel -> ``[ky][kx][in][out]`` for the forward GEMM, or
-    ``[ky][kx][out][in]`` for the transposed one, both channel dimensions
-    zero-padded to multiples of 8."""
-    w = k.permute(2, 3, 0, 1) if transposed else k.permute(2, 3, 1, 0)
-    rows, cols = w.shape[2], w.shape[3]
-    if rows % 8 or cols % 8:
-        return F.pad(w, (0, _up8(cols) - cols, 0, _up8(rows) - rows)).contiguous()
-    return w.contiguous()
+def _tap_major(k: torch.Tensor) -> torch.Tensor:
+    """OIHW kernel -> ``[ky][kx][in][out]``, ``out`` zero-padded to a
+    multiple of 8."""
+    w = k.permute(2, 3, 1, 0)
+    return F.pad(w, (0, -w.shape[3] % 8)) if w.shape[3] % 8 else w.contiguous()
 
 
 def _check_chain(name, xin, ks, bs=None):
@@ -93,13 +79,12 @@ def _check_chain(name, xin, ks, bs=None):
 
 
 def _forward(xin, kbs):
-    """Launch the forward; returns ``(flow, [s1, .., s5])``."""
+    """Launch the forward; returns ``(flow, [s1, .., s5], wts)`` with
+    ``wts`` the tap-major kernels it ran on."""
     ks, bs = kbs[0::2], kbs[1::2]
     _common.check_tensors("estimator_chain_fused", xin, *kbs)
     b, h, w, chans = _check_chain("estimator_chain_fused", xin, ks, bs)
-    wts = [_tap_major(k, False) for k in ks]
-    xin = _pad_channels(xin)
-    chans[0] = xin.shape[-1]
+    wts = [_tap_major(k) for k in ks]
     outs = [torch.empty((b, h, w, c), dtype=xin.dtype, device=xin.device) for c in chans[1:]]
     _common.launch(
         "estimator_conv", "pwc_estimator_chain", _ARGTYPES, xin.device,
@@ -107,14 +92,15 @@ def _forward(xin, kbs):
         b, h, w, _common.DTYPE_CODES[xin.dtype],
     )
     estimator_chain_fused.launches += 1
-    return outs[-1], outs[:-1]
+    return outs[-1], outs[:-1], wts
 
 
 def estimator_chain_residuals(xin, *kbs):
-    """K7 with its residuals: ``(flow_raw, features, [s1, .., s4])``."""
+    """K7 with the residuals a training step keeps: ``(flow_raw, features,
+    [s1, .., s4])``. For holding them against the plain version."""
     if xin.device.type == "cpu":
         return estimator_chain_plain(xin, *kbs, return_acts=True)
-    flow, acts = _forward(xin, kbs)
+    flow, acts, _ = _forward(xin, kbs)
     return flow, acts[-1], acts[:-1]
 
 
@@ -127,30 +113,36 @@ def estimator_chain_bwd(ks, acts, g_flow, g_feat, need_dx: bool = True):
     if g_flow.device.type == "cpu":
         return estimator_chain_bwd_plain(ks, acts, g_flow, g_feat, need_dx)
     name = "estimator_chain_bwd"
-    _common.check_tensors(name, g_flow, g_feat, *acts, *ks)
-    if len(ks) != NCONV or len(acts) != NCONV - 1:
-        raise ValueError(f"{name}: want {NCONV} kernels and {NCONV - 1} activations")
-    b, h, w, _ = g_flow.shape
+    _common.check_tensors(name, *ks)
+    if len(ks) != NCONV:
+        raise ValueError(f"{name}: want {NCONV} kernels, got {len(ks)}")
     chans = [ks[0].shape[1]] + [k.shape[0] for k in ks]
+    for i, k in enumerate(ks):
+        if tuple(k.shape) != (chans[i + 1], chans[i], 3, 3):
+            raise ValueError(f"{name}: k{i + 1} is {tuple(k.shape)}")
+    return _backward([_tap_major(k) for k in ks], chans, acts, g_flow, g_feat, need_dx)
+
+
+def _backward(wts, chans, acts, g_flow, g_feat, need_dx):
+    """Launch the backward on the forward's tap-major kernels ``wts``;
+    ``chans`` are the channel counts ``[Cin, C1, .., C6]``."""
+    name = "estimator_chain_bwd"
+    _common.check_tensors(name, g_flow, g_feat, *acts, *wts)
+    if len(acts) != NCONV - 1:
+        raise ValueError(f"{name}: want {NCONV - 1} activations, got {len(acts)}")
+    b, h, w, _ = g_flow.shape
     for key, t, c in [("g_flow", g_flow, chans[-1]), ("g_feat", g_feat, chans[-2])] + [
         (f"s{i + 1}", a, chans[i + 1]) for i, a in enumerate(acts)
     ]:
         if tuple(t.shape) != (b, h, w, c):
             raise ValueError(f"{name}: {key} is {tuple(t.shape)}, want {(b, h, w, c)}")
-    for i, k in enumerate(ks):
-        if tuple(k.shape) != (chans[i + 1], chans[i], 3, 3):
-            raise ValueError(f"{name}: k{i + 1} is {tuple(k.shape)}")
-    for i, k in enumerate(ks[:-1]):
-        if k.shape[0] % 8:
-            raise ValueError(f"{name}: hidden width {k.shape[0]} of conv {i + 1} is no multiple of 8")
-    wts_t = [_tap_major(k, True) for k in ks]
-    g_flow = _pad_channels(g_flow)
-    chans[-1] = g_flow.shape[-1]
+    if any(c % 8 for c in chans[1:-1]):
+        raise ValueError(f"{name}: a hidden width of {chans[1:-1]} is no multiple of 8")
     gzs = [torch.empty_like(a) for a in acts]
     dxin = torch.empty((b, h, w, chans[0]), dtype=g_flow.dtype, device=g_flow.device) if need_dx else None
     _common.launch(
         "estimator_conv_bwd", "pwc_estimator_chain_bwd", _BWD_ARGTYPES, g_flow.device,
-        g_flow.data_ptr(), g_feat.data_ptr(), _ptrs(acts), _ptrs(wts_t), _ptrs(gzs),
+        g_flow.data_ptr(), g_feat.data_ptr(), _ptrs(acts), _ptrs(wts), _ptrs(gzs),
         dxin.data_ptr() if need_dx else None, (ctypes.c_int * len(chans))(*chans),
         b, h, w, _common.DTYPE_CODES[g_flow.dtype],
     )
@@ -161,18 +153,21 @@ def estimator_chain_bwd(ks, acts, g_flow, g_feat, need_dx: bool = True):
 class _EstimatorChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xin, *kbs):
-        flow, acts = _forward(xin, kbs)
-        ctx.save_for_backward(xin, *kbs[0::2], *acts)
+        flow, acts, wts = _forward(xin, kbs)
+        ctx.save_for_backward(xin, *wts, *acts)
+        ctx.kernel_shapes = [k.shape for k in kbs[0::2]]
         return flow, acts[-1]
 
     @staticmethod
     def backward(ctx, g_flow, g_feat):
         xin, *rest = ctx.saved_tensors
-        ks, acts = rest[:NCONV], rest[NCONV:]
+        wts, acts = rest[:NCONV], rest[NCONV:]
+        shapes = ctx.kernel_shapes
+        chans = [shapes[0][1]] + [s[0] for s in shapes]
         # autograd hands an unused output's cotangent over as zeros
         g_flow, g_feat = g_flow.contiguous(), g_feat.contiguous()
-        gzs, dxin = estimator_chain_bwd(ks, acts, g_flow, g_feat, need_dx=ctx.needs_input_grad[0])
-        grads = chain_weight_grads(xin, acts, gzs, g_flow, [k.shape for k in ks])
+        gzs, dxin = _backward(wts, chans, acts, g_flow, g_feat, ctx.needs_input_grad[0])
+        grads = chain_weight_grads(xin, acts, gzs, g_flow, shapes)
         return (dxin, *grads)
 
 
@@ -188,7 +183,7 @@ def estimator_chain_fused(xin: torch.Tensor, *kbs: torch.Tensor):
         raise ValueError(f"estimator_chain_fused: want {2 * NCONV} kernels and biases, got {len(kbs)}")
     if _common.wants_grad(xin, *kbs):
         return _EstimatorChain.apply(xin, *kbs)
-    flow, acts = _forward(xin, kbs)
+    flow, acts, _ = _forward(xin, kbs)
     return flow, acts[-1]
 
 

@@ -104,6 +104,7 @@ class Trainer:
         self.vloader = DataLoader(vset, shuffle=False, **loader_args)
         self.num_batches = len(self.tloader)
         print(f"Found {len(tset.samples)} samples -> {self.num_batches} mini-batches/process")
+        print(f"Loader path: train {self.tloader.path}, val {self.vloader.path}")
 
     def _build_model(self):
         args = self.args

@@ -229,11 +229,11 @@ class TestDevicePrefetch:
     def test_float_feed_and_raw_uint8_pass_through(self):
         ds = port_data.SyntheticFlow(num_samples=4, image_shape=(16, 16))
         host = list(port_data.DataLoader(ds, 2))
-        dev = list(port_data.device_prefetch(iter(port_data.DataLoader(ds, 2))))
+        dev = list(port_data.device_prefetch(iter(port_data.DataLoader(ds, 2)), device="cpu"))
         for (hi, hf), (di, df) in zip(host, dev):
             assert np.array_equal(hi, di.numpy()) and np.array_equal(hf, df.numpy())
         raw = next(port_data.device_prefetch(iter(port_data.DataLoader(ds, 2, normalize=False)),
-                                             device_normalize=False))
+                                             device="cpu", device_normalize=False))
         assert raw[0].dtype == torch.uint8
 
     def test_a_producer_error_surfaces(self):
@@ -241,7 +241,35 @@ class TestDevicePrefetch:
             yield np.zeros((1, 2, 4, 4, 3), np.float32), np.zeros((1, 4, 4, 2), np.float32)
             raise OSError("disk went away")
 
-        it = port_data.device_prefetch(batches())
+        it = port_data.device_prefetch(batches(), device="cpu")
         next(it)
         with pytest.raises(OSError, match="disk went away"):
             next(it)
+
+    def test_no_device_means_the_gpu(self):
+        """Like every entry point of the port: None is CUDA, and without a
+        GPU it raises instead of yielding CPU tensors."""
+        if torch.cuda.is_available():
+            pytest.skip("needs a machine without a GPU")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            next(port_data.device_prefetch(iter(())))
+
+
+class TestLoaderPath:
+    def test_path_names_the_batch_path(self, chairs):
+        ds = port_data.FlyingChairs("train", chairs, crop_type="random", crop_shape=(24, 32))
+        assert port_data.DataLoader(ds, 4).path == "native"
+        assert port_data.DataLoader(ds, 4, use_native=False).path == "pil"
+        assert port_data.DataLoader(port_data.SyntheticFlow(num_samples=4, image_shape=(16, 16)), 2).path == "pil"
+
+    def test_a_library_that_fails_to_load_is_reported(self, chairs, monkeypatch):
+        """'auto' goes on with PIL and warns; use_native=True raises."""
+        def broken():
+            raise port_native.NativeUnavailable("g++ build failed")
+
+        monkeypatch.setattr(port_native, "load_library", broken)
+        ds = port_data.FlyingChairs("train", chairs, crop_type="random", crop_shape=(24, 32))
+        with pytest.warns(RuntimeWarning, match="native data loader unavailable"):
+            assert port_data.DataLoader(ds, 4).path == "pil"
+        with pytest.raises(port_native.NativeUnavailable):
+            port_data.DataLoader(ds, 4, use_native=True)
