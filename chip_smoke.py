@@ -43,7 +43,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``pwcnet_tpu_torch.evaluate.main`` must give the same EPE with the
    kernels on and off; then the loader alone and one more epoch with
    ``--fused-estimator 0`` are timed;
-7. timing: each kernel, its plain version and (K3, K6, K7) the cuDNN conv
+7. spatial: H-sharding on the one card. In ``[kernels]`` K8 and K8b (the
+   cost volume of a row shard against halo-extended rows, and its
+   backward) and K9 and K9b (a shard's warped cost volume against the whole
+   frame, and its backward) are held against their plain versions at the
+   shard shapes of 448x1024, 384x448 and a 1024x1024 frame over 2 shards,
+   and the stripes of one frame, stitched, against the unsharded K2/K1 and
+   (gradients summed over the stripes) K4/K5. The ``[spatial]`` phase then
+   spawns 2 ranks on the card, joined by a gloo group that stages every
+   halo and gather through the host: ``FlowPredictor`` H-sharded at
+   448x1024 B=8 (bf16, f32) and at one 1024x1024 pair (level 0 sharded: K8),
+   the sharded train step at 384x448 B=8 bf16 (the first step's gradients
+   against the unsharded step, 5 steps), and ``train.main --spatial 2`` on
+   the written dataset (one epoch, one resume, ``evaluate --spatial 2``
+   against the unsharded EPE); each rank reports its launch counts. NCCL
+   across GPUs needs two cards and is not run on a one-card machine;
+8. timing: each kernel, its plain version and (K3, K6, K7) the cuDNN conv
    chain timed with CUDA events at the main-path shapes (B=8, bf16);
    pairs/s of the whole forward at 448x1024 B=8 bf16; device time by
    kernel for the forward and for the train step (torch.profiler).
@@ -59,6 +74,7 @@ import contextlib
 import hashlib
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -106,7 +122,25 @@ KERNEL_INFO = {
            "pwcnet_tpu/ops/pallas/estimator_conv.py:740"),
     "K7b": ("estimator_chain_bwd", "pwcnet_tpu_torch/csrc/estimator_conv_bwd.cu",
             "pwcnet_tpu/ops/pallas/estimator_conv.py:614"),
+    "K8": ("cost_volume_hpad", "pwcnet_tpu_torch/csrc/cost_volume.cu",
+           "pwcnet_tpu/ops/pallas/cost_volume.py:922"),
+    "K8b": ("cost_volume_hpad_bwd", "pwcnet_tpu_torch/csrc/cost_volume_bwd.cu",
+            "pwcnet_tpu/ops/pallas/cost_volume.py:955"),
+    "K9": ("warped_cost_volume_global", "pwcnet_tpu_torch/csrc/warped_cv.cu",
+           "pwcnet_tpu/ops/pallas/warped_cv.py:813"),
+    "K9b": ("warped_cost_volume_global_bwd", "pwcnet_tpu_torch/csrc/warp_bwd.cu",
+            "pwcnet_tpu/ops/pallas/warped_cv.py:888"),
 }
+SHARD_KERNELS = ("K8", "K8b", "K9", "K9b")
+SHARDS = 2
+# (frame H, W) of the sharded paths: serving, training, and the frame whose
+# level 0 holds 8 rows a shard (K8)
+SPATIAL_SERVE_HW = (448, 1024)
+SPATIAL_K8_HW = (1024, 1024)
+# per frame: the whole level (H, W, C) of each sharded warped level (K9) and of level 0 (K8)
+K9_SERVE = K1_SHAPES
+K9_TRAIN = K1_TRAIN
+K8_FRAME = ((16, 16, 192),)
 
 
 def log(msg: str) -> None:
@@ -562,6 +596,199 @@ def check_estimator_kernels(torch, device, compare, batches=(1, 8), dtypes=None)
                 torch.cuda.synchronize()
 
 
+def shard_inputs(torch, F, f1, flow, s, h, d):
+    """Stripe ``s`` (of ``h`` rows) of one frame on the one card, as the
+    exchanges build it: f1 with d halo rows (zeros beyond the frame), the
+    float32 flow with d halo rows and the stripe's row offset in y, and the
+    frame's rows in the stripe's coordinates."""
+    f1_ext = F.pad(f1, (0, 0, 0, 0, d, d))[:, s * h : s * h + h + 2 * d].contiguous()
+    flow_ext = F.pad(flow.float(), (0, 0, 0, 0, d, d))[:, s * h : s * h + h + 2 * d].clone()
+    flow_ext[..., 1] += s * h
+    return f1_ext, flow_ext, (-s * h, f1.shape[1] - 1 - s * h)
+
+
+def check_shard_kernels(torch, F, device, compare, batches=(1, 8), dtypes=None):
+    """K8, K8b, K9, K9b against their plain versions on the stripes of one
+    frame held on the one card (2 stripes; halo rows sliced, frame 1 whole),
+    at the shard shapes of 448x1024 and 384x448 (K9, K9b, K8b) and of a
+    1024x1024 frame's level 0 (K8, K8b); then the stripes stitched against
+    the unsharded kernels: outputs against K1 / K2, gradients summed over
+    the stripes against K4 + K5 / K4. Tolerances as K1, K2, K4, K5."""
+    from pwcnet_tpu_torch.ops.cost_volume import cost_volume_hpad, cost_volume_hpad_bwd_plain
+    from pwcnet_tpu_torch.ops.cuda.cost_volume import (
+        cost_volume_bwd, cost_volume_cuda, cost_volume_hpad_bwd, cost_volume_hpad_cuda)
+    from pwcnet_tpu_torch.ops.cuda.warped_cv import (
+        warp_bwd, warped_cost_volume_global_bwd, warped_cost_volume_global_bwd_plain,
+        warped_cost_volume_global_plain, warped_cost_volume_global_residual, warped_cost_volume_residual)
+    from pwcnet_tpu_torch.ops.warp import masked_warp_rows
+
+    dtypes = dtypes or (torch.float32, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(6)
+    d = SEARCH_RANGE
+
+    def cot(like):
+        return torch.randn(like.shape, generator=gen, device=device).to(like.dtype)
+
+    with torch.inference_mode():
+        for dtype in dtypes:
+            for b in batches:
+                for H, W, C in K9_SERVE + K9_TRAIN:
+                    h = H // SHARDS
+                    label = f"{dtype} B={b} {h}x{W}x{C} of {H}"
+                    f0, f1, flow = k1_inputs(torch, b, H, W, C, dtype, device, gen)
+                    out_u, f1w_u = warped_cost_volume_residual(f0, f1, flow, d)
+                    g = cot(out_u)
+                    outs, df0s = [], []
+                    df1_sum = torch.zeros(f1.shape, dtype=torch.float32, device=device)
+                    dflow_pad = torch.zeros((b, H + 2 * d, W, 2), dtype=torch.float32, device=device)
+                    for s in range(SHARDS):
+                        f0_s = f0[:, s * h : (s + 1) * h].contiguous()
+                        _, flow_ext, vb = shard_inputs(torch, F, f1, flow, s, h, d)
+                        out, we = warped_cost_volume_global_residual(f0_s, f1, flow_ext, vb, d)
+                        want_out = warped_cost_volume_global_plain(f0_s, f1, flow_ext, vb, d)
+                        want_we = masked_warp_rows(f1, flow_ext, vb, d)
+                        compare("K9", f"out stripe {s} {label}", out, want_out, dtype)
+                        compare("K9", f"warped rows stripe {s} {label}", we, want_we, dtype)
+                        g_s = g[:, s * h : (s + 1) * h].contiguous()
+                        a8 = (f0_s, want_we, out, g_s, d)
+                        for name, a, e in zip(("df0", "df1_ext"), cost_volume_hpad_bwd(*a8), cost_volume_hpad_bwd_plain(*a8)):
+                            compare("K8b", f"{name} stripe {s} {label}", a, e, dtype)
+                        a9 = (f0_s, f1, flow_ext, vb, out, want_we, g_s, d)
+                        got = warped_cost_volume_global_bwd(*a9)
+                        for name, a, e in zip(("df0", "df1", "dflow_ext"), got, warped_cost_volume_global_bwd_plain(*a9)):
+                            compare("K9b", f"{name} stripe {s} {label}", a, e, dtype)
+                        outs.append(out)
+                        df0s.append(got[0])
+                        df1_sum += got[1].float()
+                        dflow_pad[:, s * h : s * h + h + 2 * d] += got[2]
+                    out_s = torch.cat(outs, 1)
+                    compare("K9", f"stitched vs K1 {label}", out_s, out_u, dtype)
+                    # the unsharded backward takes LeakyReLU's slope from the
+                    # stitched output, as the stripes did: where a tap lies
+                    # within rounding of zero, the two forwards may pick
+                    # different slopes
+                    df0_u, df1w_u = cost_volume_bwd(f0, f1w_u, out_s, g, d)
+                    df1_u, dflow_u = warp_bwd(f1, flow, df1w_u)
+                    compare("K9b", f"stitched df0 vs K4 {label}", torch.cat(df0s, 1), df0_u, dtype)
+                    compare("K9b", f"summed df1 vs K5 {label}", df1_sum.to(dtype), df1_u, dtype)
+                    compare("K9b", f"summed dflow vs K5 {label}", dflow_pad[:, d : d + H].to(dtype), dflow_u, dtype)
+                for H, W, C in K8_FRAME:
+                    h = H // SHARDS
+                    label = f"{dtype} B={b} {h}x{W}x{C} of {H}"
+                    f0, f1 = k2_inputs(torch, b, H, W, C, dtype, device, gen)
+                    out_u = cost_volume_cuda(f0, f1, d)
+                    g = cot(out_u)
+                    outs, df0s = [], []
+                    df1_pad = torch.zeros((b, H + 2 * d, W, C), dtype=torch.float32, device=device)
+                    for s in range(SHARDS):
+                        f0_s = f0[:, s * h : (s + 1) * h].contiguous()
+                        f1_ext = shard_inputs(torch, F, f1, f1[..., :2], s, h, d)[0]
+                        out = cost_volume_hpad_cuda(f0_s, f1_ext, d)
+                        want = cost_volume_hpad(f0_s, f1_ext, d)
+                        compare("K8", f"stripe {s} {label}", out, want, dtype)
+                        a8 = (f0_s, f1_ext, out, g[:, s * h : (s + 1) * h].contiguous(), d)
+                        got = cost_volume_hpad_bwd(*a8)
+                        for name, a, e in zip(("df0", "df1_ext"), got, cost_volume_hpad_bwd_plain(*a8)):
+                            compare("K8b", f"{name} stripe {s} {label}", a, e, dtype)
+                        outs.append(out)
+                        df0s.append(got[0])
+                        df1_pad[:, s * h : s * h + h + 2 * d] += got[1].float()
+                    out_s = torch.cat(outs, 1)
+                    compare("K8", f"stitched vs K2 {label}", out_s, out_u, dtype)
+                    df0_u, df1_u = cost_volume_bwd(f0, f1, out_s, g, d)
+                    compare("K8b", f"stitched df0 vs K4 {label}", torch.cat(df0s, 1), df0_u, dtype)
+                    compare("K8b", f"summed df1 vs K4 {label}", df1_pad[:, d : d + H].to(dtype), df1_u, dtype)
+                torch.cuda.synchronize()
+
+
+def k8_work(b, h, w, c, s):
+    px, ext = b * h * w, b * (h + 2 * SEARCH_RANGE) * w
+    return (px * (c + TAPS) + ext * c) * s, px * (2 * c * TAPS + 2 * TAPS)
+
+
+def k9_work(b, h, hf, w, c, s):
+    # f0, the whole frame 1 and the output; the float32 flow with its halo rows
+    px, ext = b * h * w, b * (h + 2 * SEARCH_RANGE) * w
+    return (px * (c + TAPS) + b * hf * w * c) * s + ext * 2 * 4, px * (2 * c * TAPS + 2 * TAPS) + ext * 9 * c
+
+
+def k8b_work(b, h, w, c, s):
+    # reads g, out, f0, f1_ext; writes df0, df1_ext
+    px, ext = b * h * w, b * (h + 2 * SEARCH_RANGE) * w
+    return (px * (2 * TAPS + 2 * c) + 2 * ext * c) * s, px * (4 * c * TAPS + 3 * TAPS)
+
+
+def k9b_work(b, h, hf, w, c, s):
+    # K8b, then the tall warp backward: reads the warped rows' cotangent,
+    # the whole frame and the float32 flow; writes df1 (the frame) and dflow
+    ext = b * (h + 2 * SEARCH_RANGE) * w
+    n_bytes, n_ops = k8b_work(b, h, w, c, s)
+    return n_bytes + (ext * c + 2 * b * hf * w * c) * s + ext * 2 * 4 * 2, n_ops + ext * c * 14
+
+
+def time_shard_kernels(torch, F, device, dtype=None):
+    """K8, K8b, K9, K9b: kernel and plain times at a shard's shapes on the
+    sharded paths (one rank of 2): K9 at 448x1024 B=8 levels 1-4 per
+    forward, K8 at the 1024x1024 pair's level 0 per forward, K8b and K9b at
+    384x448 B=8 levels 1-4 per train step."""
+    from pwcnet_tpu_torch.ops.cost_volume import cost_volume_hpad, cost_volume_hpad_bwd_plain
+    from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_hpad_bwd, cost_volume_hpad_cuda
+    from pwcnet_tpu_torch.ops.cuda.warped_cv import (
+        warped_cost_volume_global, warped_cost_volume_global_bwd, warped_cost_volume_global_bwd_plain,
+        warped_cost_volume_global_plain)
+    from pwcnet_tpu_torch.ops.warp import masked_warp_rows
+
+    dtype = dtype or torch.bfloat16
+    dname = dtype_name(dtype)
+    sz = torch.tensor([], dtype=dtype).element_size()
+    gen = torch.Generator(device=device).manual_seed(7)
+    d = SEARCH_RANGE
+    rows = {k: [] for k in SHARD_KERNELS}
+    with torch.inference_mode():
+        for H, W, C in K9_SERVE:
+            h = H // SHARDS
+            f0, f1, flow = k1_inputs(torch, 8, H, W, C, dtype, device, gen)
+            _, flow_ext, vb = shard_inputs(torch, F, f1, flow, 1, h, d)
+            a = (f0[:, h:].contiguous(), f1, flow_ext, vb, d)
+            rows["K9"].append(dict(
+                shape=f"8x{h}x{W}x{C} of {H}", times=1,
+                ms=cuda_ms(torch, lambda: warped_cost_volume_global(*a)),
+                plain_ms=cuda_ms(torch, lambda: warped_cost_volume_global_plain(*a)),
+                library_ms=None, work=k9_work(8, h, H, W, C, sz)))
+        for H, W, C in K8_FRAME:
+            h = H // SHARDS
+            f0, f1 = k2_inputs(torch, 1, H, W, C, dtype, device, gen)
+            a = (f0[:, h:].contiguous(), shard_inputs(torch, F, f1, f1[..., :2], 1, h, d)[0], d)
+            rows["K8"].append(dict(
+                shape=f"1x{h}x{W}x{C} of {H}", times=1,
+                ms=cuda_ms(torch, lambda: cost_volume_hpad_cuda(*a)),
+                plain_ms=cuda_ms(torch, lambda: cost_volume_hpad(*a)),
+                library_ms=None, work=k8_work(1, h, W, C, sz)))
+        for H, W, C in K9_TRAIN:
+            h = H // SHARDS
+            f0, f1, flow = k1_inputs(torch, 8, H, W, C, dtype, device, gen)
+            _, flow_ext, vb = shard_inputs(torch, F, f1, flow, 1, h, d)
+            f0_s = f0[:, h:].contiguous()
+            out = warped_cost_volume_global_plain(f0_s, f1, flow_ext, vb, d)
+            we = masked_warp_rows(f1, flow_ext, vb, d)
+            g = torch.randn(out.shape, generator=gen, device=device).to(dtype)
+            a8 = (f0_s, we, out, g, d)
+            a9 = (f0_s, f1, flow_ext, vb, out, we, g, d)
+            shape = f"8x{h}x{W}x{C} of {H}"
+            rows["K8b"].append(dict(
+                shape=shape, times=1,
+                ms=cuda_ms(torch, lambda: cost_volume_hpad_bwd(*a8)),
+                plain_ms=cuda_ms(torch, lambda: cost_volume_hpad_bwd_plain(*a8), iters=5, warmup=1),
+                library_ms=None, work=k8b_work(8, h, W, C, sz)))
+            rows["K9b"].append(dict(
+                shape=shape, times=1,
+                ms=cuda_ms(torch, lambda: warped_cost_volume_global_bwd(*a9)),
+                plain_ms=cuda_ms(torch, lambda: warped_cost_volume_global_bwd_plain(*a9), iters=5, warmup=1),
+                library_ms=None, work=k9b_work(8, h, H, W, C, sz)))
+    finish_rows(rows, dname)
+    return rows
+
+
 def cudnn_chain(F, x_nchw, kbs):
     """K7's library yardstick: the cuDNN six-conv chain in the model dtype."""
     y = x_nchw
@@ -932,14 +1159,15 @@ def read_jsonl(path):
         return [json.loads(line) for line in f if line.strip()]
 
 
-def trainer_phase(torch, np, card):
-    """pwcnet_tpu_torch.train.main and .evaluate.main on a written dataset."""
+def trainer_phase(torch, np, card, tmp_root):
+    """pwcnet_tpu_torch.train.main and .evaluate.main on a dataset written
+    under ``tmp_root/chairs`` (which the [spatial] phase reads again)."""
     from pwcnet_tpu_torch import evaluate as evaluate_cli, train as train_cli
     from pwcnet_tpu_torch.data import DataLoader, get_dataset
     from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     stats = {}
-    with tempfile.TemporaryDirectory(prefix="pwc_smoke_") as tmp:
+    with contextlib.nullcontext(tmp_root) as tmp:
         root = os.path.join(tmp, "chairs")
         t0 = time.perf_counter()
         write_chairs(np, root)
@@ -963,7 +1191,7 @@ def trainer_phase(torch, np, card):
         require(trainer.tloader.path == "native",
                 "the trainer's loader did not take the native path")
         require(steps == 44 and vals == 4, f"{steps} steps and {vals} validation batches, want 44 and 4")
-        want = {k: n * steps + TRAINER_PER_FORWARD.get(k, 0) * vals for k, n in TRAINER_PER_STEP.items()}
+        want = {k: TRAINER_PER_STEP.get(k, 0) * steps + TRAINER_PER_FORWARD.get(k, 0) * vals for k in counts}
         require(counts == want, f"trainer launches {counts}, want {want}")
         require(trainer.state.step == steps, f"step counter {trainer.state.step}")
         ckpts = [os.path.join(logdir, "model", f"model_{e}.msgpack") for e in (1, 2)]
@@ -1033,6 +1261,222 @@ def trainer_phase(torch, np, card):
     for k, v in stats["pairs_per_s"].items():
         log(f"  {k}: {v:.1f} pairs/s on {card}")
     return counts, stats
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def grad_agreement(torch, got: dict, want: dict):
+    """(worst max|diff|/max|g| over tensors and its name, |diff|/|g|, cosine)."""
+    worst, worst_name = 0.0, ""
+    for name, w in want.items():
+        g = got[name]
+        require(g.dtype == torch.float32 and bool(torch.isfinite(g).all()), f"gradient of {name}")
+        rel = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    a = torch.cat([got[k].flatten() for k in want])
+    b = torch.cat([want[k].flatten() for k in want])
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+    return worst, worst_name, ((a - b).norm() / b.norm()).item(), cos
+
+
+def spatial_rank(rank, port, out_dir, chairs_root):
+    """One of the SHARDS ranks of the [spatial] phase, spawned on the one
+    card: every sub-phase runs with the launch counts set to 0 just before
+    it and read just after; rank 0 also runs the unsharded references. The
+    report goes to ``out_dir/rank<r>.json``; a failure raises (the process
+    exits non-zero)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pwcnet_tpu_torch import evaluate as evaluate_cli, train as train_cli
+    from pwcnet_tpu_torch.inference import FlowPredictor, spatial_hooks
+    from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
+    from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from pwcnet_tpu_torch.parallel import global_sum, make_mesh, shard_batch
+    from pwcnet_tpu_torch.train_lib.step import create_train_state, make_loss_fn, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    mesh = make_mesh(spatial=SHARDS, device=device, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                     world_size=SHARDS, backend="gloo")
+    main = rank == 0
+    report = {"rank": rank, "launches": {}, "seconds": {}}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        report["seconds"][name] = time.perf_counter() - t0
+        report["launches"][name] = launch_counts()
+        return result
+
+    # -- serving, 448x1024 B=8, bf16 and f32
+    h, w = SPATIAL_SERVE_HW
+    batch = np.stack([np.stack(smooth_pair(np, h, w, 10 + i)) for i in range(8)])
+    batch_dev = torch.as_tensor(batch).to(device)
+    preds = {dt: FlowPredictor(dtype=dt, mesh=mesh) for dt in (torch.bfloat16, torch.float32)}
+    flows = counted("serve", lambda: {dt: p.raw_forward(batch_dev)[0] for dt, p in preds.items()})
+    ms = cuda_ms(torch, lambda: preds[torch.bfloat16].raw_forward(batch_dev), iters=5, warmup=1)
+    report["serve_pairs_per_s"] = 8e3 / ms
+    pair = smooth_pair(np, *SPATIAL_K8_HW, 30)
+    big = counted("serve_1024", lambda: preds[torch.bfloat16](*pair)[0])
+    if main:
+        for dt, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+            ref = FlowPredictor(dtype=dt, device=device).raw_forward(batch_dev)[0]
+            report[f"serve_err_{dtype_name(dt)}"] = flow_close(
+                f"sharded vs unsharded {dtype_name(dt)} 448x1024 B=8", flows[dt], ref, rtol)
+        ref = FlowPredictor(dtype=torch.bfloat16, device=device)(*pair)[0]
+        report["serve_err_1024"] = flow_close("sharded vs unsharded bf16 1024x1024 (level 0 sharded)", big, ref, 5e-2)
+    del preds, flows
+
+    # -- the train step, 384x448 B=8, data 1 x spatial 2, bf16 compute
+    images, flows_gt = train_batch(torch, np, device, 8)
+    loc_images = shard_batch(images, mesh, 2, split_batch=False)
+    loc_flows = shard_batch(flows_gt, mesh, 1, split_batch=False)
+    model = PWCDCNet(compute_dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0),
+                     **spatial_hooks(mesh, True))
+    state = create_train_state(model, device=device)
+    objective, _ = make_loss_fn(model, mesh=mesh, decoupled_wd=True)(loc_images, loc_flows)
+    named = dict(model.named_parameters())
+    grads = {k: global_sum(g) for k, g in zip(named, torch.autograd.grad(objective, list(named.values())))}
+    if main:
+        ref_model = train_model(torch, torch.bfloat16, True)
+        create_train_state(ref_model, device=device)
+        total, _ = make_loss_fn(ref_model, decoupled_wd=True)(images, flows_gt)
+        ref_named = dict(ref_model.named_parameters())
+        want = dict(zip(ref_named, torch.autograd.grad(total, list(ref_named.values()))))
+        worst, worst_name, rel_l2, cos = grad_agreement(torch, grads, want)
+        log(f"  [rank 0] first-step gradient bf16 B=8, sharded vs unsharded: worst max|diff|/max|g| {worst:.3e} "
+            f"({worst_name}), |diff|/|g| {rel_l2:.3e}, cosine {cos:.6f}")
+        require(rel_l2 <= 0.03 and cos >= 0.999 and worst <= 0.2, "sharded gradients disagree with the unsharded step")
+        report["gradient"] = {"worst_rel": worst, "rel_l2": rel_l2, "cosine": cos}
+        del ref_model, want
+    step = make_train_step(model, mesh=mesh)
+
+    def five_steps():
+        nonlocal state
+        out = []
+        for _ in range(5):
+            state, metrics = step(state, loc_images, loc_flows)
+            out.append(metrics["loss"])
+        return [float(v) for v in out]
+
+    losses = counted("train", five_steps)
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0], f"sharded steps: losses {losses}")
+    report["train_losses"] = losses
+    ms = cuda_ms(torch, lambda: step(state, loc_images, loc_flows), iters=3, warmup=1)
+    report["train_pairs_per_s"] = 8e3 / ms
+    checksum = torch.stack([p.detach().double().sum() for p in model.parameters()]).sum()
+    require(float((global_sum(checksum) / SHARDS - checksum).abs()) == 0.0, "the ranks' parameters differ")
+    del model, state, step, grads
+
+    # -- train.main --spatial 2: one epoch, one resumed, evaluate --spatial 2
+    run = os.path.join(out_dir, f"rank{rank}")
+    os.makedirs(run, exist_ok=True)
+    os.chdir(run)
+    base = ["-d", "FlyingChairs", "-dd", chairs_root, "-b", "8", "--crop_type", "random", "--crop_shape", "384",
+            "448", "--dtype", "bfloat16", "--no-visualize", "--log_interval", "11", "-nw", "4", "--spatial",
+            str(SHARDS), "--device", "cuda:0"]
+    trainer = counted("trainer", lambda: train_cli.main(base + ["-e", "1"]))
+    paths = [os.path.abspath(trainer.logdir) if main else None]
+    dist.broadcast_object_list(paths, src=0)
+    ckpt1 = os.path.join(paths[0], "model", "model_1.msgpack")
+    report["trainer_epochs"] = trainer.epoch_stats
+    # the resumed run in a directory of its own: within the same minute its
+    # log directory would take the first run's name
+    resumed_run = os.path.join(out_dir, f"rank{rank}_resumed")
+    os.makedirs(resumed_run, exist_ok=True)
+    os.chdir(resumed_run)
+    resumed = counted("trainer_resumed", lambda: train_cli.main(base + ["-e", "2", "-r", ckpt1]))
+    require(resumed._resume_epoch == 1 and resumed.state.step == 2 * trainer.state.step,
+            f"resumed at epoch {resumed._resume_epoch}, ended at step {resumed.state.step}")
+    paths = [os.path.abspath(resumed.logdir) if main else None]
+    dist.broadcast_object_list(paths, src=0)
+    ckpt2 = os.path.join(paths[0], "model", "model_2.msgpack")
+    report["resumed_epochs"] = resumed.epoch_stats
+    report["epe"] = counted("evaluate", lambda: evaluate_cli.main(
+        ["-d", "FlyingChairs", "-dd", chairs_root, "--split", "val", "-b", "8", "-r", ckpt2, "--dtype", "bfloat16",
+         "--spatial", str(SHARDS), "--device", "cuda:0"]))
+    report["ckpt2"] = ckpt2
+    if not main:
+        require(not os.listdir(run) and not os.listdir(resumed_run), "a rank other than 0 wrote files")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def spatial_phase(torch, card, chairs_root):
+    """Spawn the 2 ranks of the [spatial] phase and check their reports."""
+    import torch.multiprocessing as mp
+
+    from pwcnet_tpu_torch import evaluate as evaluate_cli
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="pwc_spatial_") as out_dir:
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=spatial_rank, args=(r, port, out_dir, chairs_root)) for r in range(SHARDS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 600
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.terminate()
+            p.join(10)
+        require(not alive, "a rank of the [spatial] phase timed out")
+        require(all(p.exitcode == 0 for p in procs), f"[spatial] ranks exited {[p.exitcode for p in procs]}")
+        reports = []
+        for r in range(SHARDS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+        ckpt2 = reports[0]["ckpt2"]
+        epe = evaluate_cli.main(["-d", "FlyingChairs", "-dd", chairs_root, "--split", "val", "-b", "8", "-r", ckpt2,
+                                 "--dtype", "bfloat16"])
+    r0 = reports[0]
+    sharded_epe = r0["epe"]
+    log(f"  evaluate: EPE {sharded_epe:.4f} px over 2 shards, {epe:.4f} px unsharded")
+    require(np_isfinite(sharded_epe) and abs(sharded_epe - epe) <= 5e-2 * epe + 1e-4,
+            "evaluate --spatial 2 disagrees with the unsharded EPE")
+    for name in r0["launches"]:
+        log(f"  launches of {name} per rank: " + "; ".join(
+            str({k: v for k, v in rep["launches"][name].items() if v}) for rep in reports))
+    for rep in reports:
+        got = rep["launches"]
+        require(all(got[ph]["K9"] > 0 and got[ph]["K3"] > 0 for ph in ("serve", "train", "trainer")),
+                f"rank {rep['rank']}: K9 / K3 not launched on the sharded paths")
+        require(got["serve_1024"]["K8"] > 0, f"rank {rep['rank']}: K8 not launched at the 1024-row frame")
+        require(all(got[ph]["K8b"] > 0 and got[ph]["K9b"] > 0 for ph in ("train", "trainer", "trainer_resumed")),
+                f"rank {rep['rank']}: K8b / K9b not launched in the sharded steps")
+        require(all(got[ph]["K7"] == 0 for ph in got), "K7 ran under H-sharding")
+    counts = {k: sum(rep["launches"][ph][k] for rep in reports for ph in rep["launches"]) for k in KERNEL_INFO}
+    log(f"  2 ranks sharing one card, halos and gathers staged through the host: these pairs/s measure "
+        f"correctness, not scaling: serving 448x1024 B=8 bf16 {r0['serve_pairs_per_s']:.1f}, train step 384x448 "
+        f"B=8 bf16 {r0['train_pairs_per_s']:.1f}, trainer epoch 1 "
+        f"{r0['trainer_epochs'][0]['steps'] * 8 / r0['trainer_epochs'][0]['train_seconds']:.1f} pairs/s on {card}")
+    log(f"  NCCL across GPUs: not run here (torch.cuda.device_count() = {torch.cuda.device_count()}); "
+        "tests/test_torch_kernels.py's multigpu test runs it on a machine with two or more cards")
+    stats = {k: r0[k] for k in ("serve_pairs_per_s", "train_pairs_per_s", "train_losses", "gradient", "epe",
+                                "serve_err_float32", "serve_err_bfloat16", "serve_err_1024", "seconds")}
+    stats["unsharded_epe"] = epe
+    return counts, stats
+
+
+def np_isfinite(v) -> bool:
+    return v == v and abs(v) != float("inf")
 
 
 # device kernels by name: the port's own, the library's convolutions, PyTorch's elementwise tail
@@ -1134,6 +1578,8 @@ def main() -> int:
     check_kernels(torch, device, compare)
     atomics_rerun = check_training_kernels(torch, device, compare)
     check_estimator_kernels(torch, device, compare)
+    log(f"  K8, K8b, K9, K9b on the {SHARDS} stripes of one frame on the card, and stitched against K1/K2, K4/K5")
+    check_shard_kernels(torch, F, device, compare)
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1146,16 +1592,26 @@ def main() -> int:
     train_counts, train_stats, grad_err = train(torch, np, device)
     log(f"[train] done in {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    log("[trainer] pwcnet_tpu_torch.train and .evaluate on a written FlyingChairs-layout dataset")
-    trainer_counts, trainer_stats = trainer_phase(torch, np, card)
-    log(f"[trainer] done in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="pwc_smoke_") as tmp_root:
+        t0 = time.perf_counter()
+        log("[trainer] pwcnet_tpu_torch.train and .evaluate on a written FlyingChairs-layout dataset")
+        trainer_counts, trainer_stats = trainer_phase(torch, np, card, tmp_root)
+        log(f"[trainer] done in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        log(f"[spatial] {SHARDS} ranks on the one card (gloo, host-staged): H-sharded serving, train step, "
+            "train.main and evaluate --spatial 2")
+        spatial_counts, spatial_stats = spatial_phase(torch, card, os.path.join(tmp_root, "chairs"))
+        log(f"[spatial] done in {time.perf_counter() - t0:.1f} s")
 
     log("[time] kernels at B=8 bf16 (per forward: K1 4 levels, K2 1, K3 2 levels x 2 frames; "
-        "per train step: K4 5 shapes, K5 4, K6 2 levels x 2 frames, K7 and K7b levels 3 and 4)")
+        "per train step: K4 5 shapes, K5 4, K6 2 levels x 2 frames, K7 and K7b levels 3 and 4; "
+        "per rank of 2 shards: K9 4 levels per forward at 448x1024, K8 level 0 of a 1024x1024 pair (B=1), "
+        "K8b and K9b 4 levels per train step at 384x448)")
     rows, dname = time_kernels(torch, F, device)
     rows.update(time_training_kernels(torch, device))
     rows.update(time_estimator_kernels(torch, F, device))
+    rows.update(time_shard_kernels(torch, F, device))
     time_estimator_kernels(torch, F, device, dtype=torch.float32)  # the FMA path: logged, not summed
     profile_steps(torch, lambda: pred.raw_forward(batch_dev), 3, "forwards at 448x1024 B=8 bf16",
                   8e3 / pairs["bfloat16 kernels"])
@@ -1167,18 +1623,32 @@ def main() -> int:
         on_serve = serve_counts.get(kid, 0)
         on_step = train_counts.get(kid, 0)
         on_trainer = trainer_counts[kid]
-        require(on_trainer > 0 and (on_step > 0 or kid not in PER_STEP)
-                and (on_serve > 0 or kid not in PER_FORWARD),
-                f"{kid} was not launched on a path that runs it")
+        on_spatial = spatial_counts[kid]
+        if kid in SHARD_KERNELS:
+            require(on_spatial > 0, f"{kid} was not launched on the sharded paths")
+        else:
+            require(on_trainer > 0 and (on_step > 0 or kid not in PER_STEP)
+                    and (on_serve > 0 or kid not in PER_FORWARD),
+                    f"{kid} was not launched on a path that runs it")
+        if kid in SHARD_KERNELS:
+            timed_at = ("one rank of 2 shards, bf16, summed over "
+                        + {"K8": "a 1024x1024 pair's forward (B=1)", "K9": "one forward at 448x1024 B=8"}.get(
+                            kid, "one train step at 384x448 B=8"))
+        else:
+            timed_at = f"B=8 {dname}, summed over one " + (
+                "forward's launches at 448x1024" if kid in PER_FORWARD
+                else "train step's launches at 384x448"
+                + (f" with --fused-estimator {FUSED_ESTIMATOR}" if kid.startswith("K7") else ""))
         kernels.append({
             "name": f"{kid} {name}",
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": on_serve + on_step + on_trainer,
+            "launches": on_serve + on_step + on_trainer + on_spatial,
             "launches_serving": on_serve,
             "launches_training": on_step,
             "launches_trainer": on_trainer,
+            "launches_spatial": on_spatial,
             "max_abs_err": max(errs[kid].values()),
             "max_abs_err_by_dtype": errs[kid],
             "ms": sum(r["ms"] * r["times"] for r in rs),
@@ -1186,10 +1656,7 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] * r["times"] for r in rs),
             "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": None if None in lib else sum(v * r["times"] for v, r in zip(lib, rs)),
-            "timed_at": f"B=8 {dname}, summed over one "
-                        + ("forward's launches at 448x1024" if kid in PER_FORWARD
-                           else "train step's launches at 384x448"
-                           + (f" with --fused-estimator {FUSED_ESTIMATOR}" if kid.startswith("K7") else "")),
+            "timed_at": timed_at,
             "shapes": rs,
         })
     log(f"[e2e] 448x1024 B=8 serving pairs/s: " + ", ".join(f"{k} {v:.1f}" for k, v in pairs.items())
@@ -1203,9 +1670,12 @@ def main() -> int:
         f"{bare:.1f}, the loader alone {tp['loader alone']:.1f}; one epoch resumed from model_1: "
         f"{tp['resumed epoch 2 (K7 on 2 levels)']:.1f} with K7, {tp['resumed epoch 2 (cuDNN estimators)']:.1f} "
         f"with --fused-estimator 0 (cuDNN) on {card}")
+    log(f"[e2e] H-sharded over 2 ranks sharing the card (correctness, not scaling): serving 448x1024 B=8 bf16 "
+        f"{spatial_stats['serve_pairs_per_s']:.1f} pairs/s, train step 384x448 B=8 bf16 "
+        f"{spatial_stats['train_pairs_per_s']:.1f} pairs/s on {card}")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": card, "train": train_stats, "gradient_kernels_vs_plain": grad_err,
-                      "k5_df1_run_to_run": atomics_rerun, "trainer": trainer_stats}))
+                      "k5_df1_run_to_run": atomics_rerun, "trainer": trainer_stats, "spatial": spatial_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

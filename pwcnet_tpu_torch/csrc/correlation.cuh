@@ -4,10 +4,19 @@
 //       leaky_relu( sum_c f0[b, y, x, c] * g[b, y+v, x+u, c] / C, 0.1 )
 //
 // g is what the Loader stages: frame-1 features for K2, the bilinear-warped
-// frame-1 features for K1. g is zero outside the frame (the cost volume's
-// zero padding). All tensors are NHWC; the output keeps the taps innermost.
-// A Loader has `float operator()(b, y, x, c)` and `void save(b, y, x, c, v)`,
-// called once for every in-frame value of the block's own tile.
+// frame-1 features for K1, a shard's frame-1 rows with their halo rows for
+// K8, the shard's warped rows against the whole frame for K9. g is zero
+// outside the columns [0, W) and outside the rows the Loader accepts (the
+// cost volume's zero padding). All tensors are NHWC; the output keeps the
+// taps innermost. A Loader has
+//   `bool row_ok(y)`: whether window row y (output coordinates, may be
+//       negative or >= H) holds values: [0, H) for K1 and K2, [-d, H + d)
+//       for K8 (the halo rows), the global frame's rows for K9;
+//   `float operator()(b, y, x, c)`, called only where row_ok(y);
+//   `void save(b, y, x, c, v)`, called once for every staged value of the
+//       block's own tile and, in the first and last row of tiles, of the
+//       window rows above row 0 and below row H - 1 (K9 keeps them as the
+//       backward's residual).
 //
 // Design. One block of 256 threads owns a TH x TW = 8 x 32 tile of output
 // pixels of one batch element, one thread per pixel, one warp per tile
@@ -71,11 +80,14 @@ __global__ void __launch_bounds__(kCorrThreads)
       const int gx = x0 - D + p % WW;
       const int gc = c0 + c;
       float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && gc < C) {
+      if (load.row_ok(gy) && gx >= 0 && gx < W && gc < C) {
         v = load(b, gy, gx, gc);
-        // the tile's own pixels, each staged by exactly one block: the
-        // Loader may keep them as a residual for the backward
-        if (gy >= y0 && gy < y0 + kCorrTH && gx >= x0 && gx < x0 + kCorrTW) load.save(b, gy, gx, gc, v);
+        // each staged row is saved by exactly one block: the tile's own
+        // rows, and the rows above the frame (below it) by the first (last)
+        // row of tiles. The Loader may keep them as a residual.
+        const bool own_row = (gy >= y0 && gy < y0 + kCorrTH) || (gy < 0 && y0 == 0) ||
+                             (gy >= H && y0 + kCorrTH >= H);
+        if (own_row && gx >= x0 && gx < x0 + kCorrTW) load.save(b, gy, gx, gc, v);
       }
       s_win[c * WPLANE + p] = v;
     }

@@ -30,6 +30,15 @@
 // each thread walks the window row once and feeds its 8 accumulators: one
 // shared load per window value, one broadcast load per gt value, per FMA.
 //
+// K8b, the backward of K8 (the cost volume of a shard against f1_ext with
+// d halo rows on each side), is the same two kernels with a row pad:
+// replaces pwcnet_tpu/ops/pallas/cost_volume.py::_cv_hpad_bwd (the same
+// _run_df0 / _run_df1 Pallas calls). df0 reads f1_ext's halo rows where K4
+// reads zeros; df1_ext covers the h + 2d extended rows, with gt and f0 zero
+// outside [0, h), so the halo rows' cotangents flow back to the neighbour
+// shards through the exchange. On the main path it runs inside K9's backward
+// at every sharded warped level, and at level 0 when that level is sharded.
+//
 // Bound on the H100: bytes. It reads g and out (81 values per pixel each),
 // f0 and f1 and writes df0 and df1: (2 * 81 + 4C) values per pixel against
 // 4 * 81 * C operations, about 30 operations per byte in bf16 at C = 32.
@@ -43,11 +52,13 @@ constexpr int kBwdT = 8;       // tile rows and columns
 constexpr int kBwdCC = 32;     // channels per block: one lane each
 constexpr int kBwdThreads = kBwdT * 32;
 
-// DF1 = false: res = df0, feat = f1.  DF1 = true: res = df1, feat = f0.
+// DF1 = false: res = df0 (H rows), feat = f1 with H + 2 pad rows.
+// DF1 = true:  res = df1 with H + 2 pad rows, feat = f0 (H rows).
+// Row y of a tensor with H + 2 pad rows lies at index y + pad; K4 has pad 0.
 template <typename T, int D, bool DF1>
 __global__ void __launch_bounds__(kBwdThreads)
     cv_bwd_kernel(const T* __restrict__ g, const T* __restrict__ out, const T* __restrict__ feat,
-                  T* __restrict__ res, int H, int W, int C, int tiles_x) {
+                  T* __restrict__ res, int H, int W, int C, int tiles_x, int pad) {
   constexpr int N = 2 * D + 1;
   constexpr int TAPS = N * N;
   constexpr int WW = kBwdT + 2 * D;              // window rows and columns
@@ -55,25 +66,29 @@ __global__ void __launch_bounds__(kBwdThreads)
   __shared__ float s_win[WW * WW * kBwdCC];
   __shared__ float s_gt[kBwdT * GX * N];
 
+  const int feat_pad = DF1 ? 0 : pad;
+  const int res_pad = DF1 ? pad : 0;
   const int b = blockIdx.z;
   const int c0 = blockIdx.y * kBwdCC;
-  const int y0 = (blockIdx.x / tiles_x) * kBwdT;
+  const int y0 = (blockIdx.x / tiles_x) * kBwdT - res_pad;
   const int x0 = (blockIdx.x % tiles_x) * kBwdT;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int r = tid / 32;  // tile row of this warp
   const float inv_c = 1.f / (float)C;
   const size_t frame = (size_t)b * H * W;
+  const size_t feat_frame = (size_t)b * (H + 2 * feat_pad) * W;
+  const size_t res_frame = (size_t)b * (H + 2 * res_pad) * W;
 
-  // the window of the other frame's features, zero outside the frame
+  // the window of the other frame's features, zero outside its rows
   for (int i = tid; i < WW * WW * kBwdCC; i += kBwdThreads) {
     const int c = i % kBwdCC;
     const int p = i / kBwdCC;
     const int gy = y0 - D + p / WW;
     const int gx = x0 - D + p % WW;
     float v = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W && c0 + c < C)
-      v = to_f32(feat[(frame + (size_t)gy * W + gx) * C + c0 + c]);
+    if (gy >= -feat_pad && gy < H + feat_pad && gx >= 0 && gx < W && c0 + c < C)
+      v = to_f32(feat[(feat_frame + (size_t)(gy + feat_pad) * W + gx) * C + c0 + c]);
     s_win[i] = v;
   }
 
@@ -114,31 +129,32 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 
   const int y = y0 + r;
-  if (y < H && c0 + lane < C) {
+  if (y < H + res_pad && c0 + lane < C) {
 #pragma unroll
     for (int i = 0; i < kBwdT; ++i) {
       const int x = x0 + i;
-      if (x < W) res[(frame + (size_t)y * W + x) * C + c0 + lane] = from_f32<T>(acc[i]);
+      if (x < W) res[(res_frame + (size_t)(y + res_pad) * W + x) * C + c0 + lane] = from_f32<T>(acc[i]);
     }
   }
 }
 
 template <typename T, int D>
 cudaError_t run_d(const T* f0, const T* f1, const T* out, const T* g, T* df0, T* df1, int B, int H,
-                  int W, int C, cudaStream_t stream) {
+                  int W, int C, int pad, cudaStream_t stream) {
   const int tiles_x = (W + kBwdT - 1) / kBwdT;
-  const int tiles_y = (H + kBwdT - 1) / kBwdT;
-  const dim3 grid(tiles_x * tiles_y, (C + kBwdCC - 1) / kBwdCC, B);
-  cv_bwd_kernel<T, D, false><<<grid, kBwdThreads, 0, stream>>>(g, out, f1, df0, H, W, C, tiles_x);
+  const int chunks = (C + kBwdCC - 1) / kBwdCC;
+  const dim3 grid0(tiles_x * ((H + kBwdT - 1) / kBwdT), chunks, B);
+  cv_bwd_kernel<T, D, false><<<grid0, kBwdThreads, 0, stream>>>(g, out, f1, df0, H, W, C, tiles_x, pad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  cv_bwd_kernel<T, D, true><<<grid, kBwdThreads, 0, stream>>>(g, out, f0, df1, H, W, C, tiles_x);
+  const dim3 grid1(tiles_x * ((H + 2 * pad + kBwdT - 1) / kBwdT), chunks, B);
+  cv_bwd_kernel<T, D, true><<<grid1, kBwdThreads, 0, stream>>>(g, out, f0, df1, H, W, C, tiles_x, pad);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t run(const void* f0, const void* f1, const void* out, const void* g, void* df0, void* df1,
-                int B, int H, int W, int C, int d, cudaStream_t stream) {
+                int B, int H, int W, int C, int d, int pad, cudaStream_t stream) {
   auto a = static_cast<const T*>(f0);
   auto bb = static_cast<const T*>(f1);
   auto o = static_cast<const T*>(out);
@@ -146,10 +162,10 @@ cudaError_t run(const void* f0, const void* f1, const void* out, const void* g, 
   auto r0 = static_cast<T*>(df0);
   auto r1 = static_cast<T*>(df1);
   switch (d) {
-    case 1: return run_d<T, 1>(a, bb, o, gg, r0, r1, B, H, W, C, stream);
-    case 2: return run_d<T, 2>(a, bb, o, gg, r0, r1, B, H, W, C, stream);
-    case 3: return run_d<T, 3>(a, bb, o, gg, r0, r1, B, H, W, C, stream);
-    case 4: return run_d<T, 4>(a, bb, o, gg, r0, r1, B, H, W, C, stream);
+    case 1: return run_d<T, 1>(a, bb, o, gg, r0, r1, B, H, W, C, pad, stream);
+    case 2: return run_d<T, 2>(a, bb, o, gg, r0, r1, B, H, W, C, pad, stream);
+    case 3: return run_d<T, 3>(a, bb, o, gg, r0, r1, B, H, W, C, pad, stream);
+    case 4: return run_d<T, 4>(a, bb, o, gg, r0, r1, B, H, W, C, pad, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -163,9 +179,23 @@ extern "C" int pwc_cost_volume_bwd(const void* f0, const void* f1, const void* o
                                    int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case pwc::kF32: return pwc::run<float>(f0, f1, out, g, df0, df1, B, H, W, C, d, s);
+    case pwc::kF32: return pwc::run<float>(f0, f1, out, g, df0, df1, B, H, W, C, d, 0, s);
     case pwc::kBF16:
-      return pwc::run<__nv_bfloat16>(f0, f1, out, g, df0, df1, B, H, W, C, d, s);
+      return pwc::run<__nv_bfloat16>(f0, f1, out, g, df0, df1, B, H, W, C, d, 0, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K8b. f0, df0: (B, H, W, C); f1_ext, df1_ext: (B, H + 2d, W, C); out, g: (B, H, W, (2d+1)^2).
+// All contiguous and of one dtype: 0 f32 / 1 bf16.
+extern "C" int pwc_cost_volume_hpad_bwd(const void* f0, const void* f1_ext, const void* out,
+                                        const void* g, void* df0, void* df1_ext, int B, int H, int W,
+                                        int C, int d, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case pwc::kF32: return pwc::run<float>(f0, f1_ext, out, g, df0, df1_ext, B, H, W, C, d, d, s);
+    case pwc::kBF16:
+      return pwc::run<__nv_bfloat16>(f0, f1_ext, out, g, df0, df1_ext, B, H, W, C, d, d, s);
     default: return cudaErrorInvalidValue;
   }
 }

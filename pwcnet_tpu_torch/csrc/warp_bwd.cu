@@ -25,6 +25,15 @@
 // df1); bf16 atomics would round on every addition. The order of the
 // float32 additions, and so the last bits of df1, varies from run to run.
 //
+// The tall-frame variant (pwc_warp_bwd_rows) is the last stage of K9b, K9's
+// backward (pwcnet_tpu/ops/pallas/warped_cv.py::_wcv_global_bwd, its
+// warp_bwd_pallas call on the full frame): f1 is the whole frame (Hf rows),
+// g and the float32 flow are a shard's h + 2d warped rows, and row j of them
+// sits at row j + row0 (row0 = -d) of the shard, so the corners are
+// (j + row0 + floor(fy) + {0,1}, ...) clamped into [0, Hf - 1]. The
+// flow carries the shard's offset; folding row0 here, not into the flow,
+// keeps the corners and weights exactly those K9's forward used.
+//
 // Bound on the H100: bytes. It reads g and f1's corners, reads and writes
 // the flow, and writes df1: about 3C + 4 values per pixel against 14C
 // operations. The float32 accumulator adds 8C bytes per pixel in bf16.
@@ -34,16 +43,18 @@ namespace pwc {
 
 constexpr int kWarpBwdThreads = 256;
 
-template <typename T>
+// g, flow, dflow: Ho rows; f1, acc: Hf rows; flow row j is frame row j + row0
+template <typename T, typename F>
 __global__ void __launch_bounds__(kWarpBwdThreads)
-    warp_bwd_kernel(const T* __restrict__ f1, const T* __restrict__ flow, const T* __restrict__ g,
-                    float* __restrict__ acc, T* __restrict__ dflow, int B, int H, int W, int C) {
+    warp_bwd_kernel(const T* __restrict__ f1, const F* __restrict__ flow, const T* __restrict__ g,
+                    float* __restrict__ acc, F* __restrict__ dflow, int B, int Ho, int Hf, int W, int C,
+                    int row0) {
   const int lane = threadIdx.x % 32;
   const size_t pix = (size_t)blockIdx.x * (kWarpBwdThreads / 32) + threadIdx.x / 32;
-  if (pix >= (size_t)B * H * W) return;  // whole warps leave together
+  if (pix >= (size_t)B * Ho * W) return;  // whole warps leave together
   const int gx = (int)(pix % W);
-  const int gy = (int)((pix / W) % H);
-  const size_t frame = (pix / ((size_t)H * W)) * H * W;
+  const int gy = (int)((pix / W) % Ho) + row0;
+  const size_t frame = (pix / ((size_t)Ho * W)) * Hf * W;
 
   const float fx = to_f32(flow[pix * 2]);
   const float fy = to_f32(flow[pix * 2 + 1]);
@@ -51,7 +62,7 @@ __global__ void __launch_bounds__(kWarpBwdThreads)
   const float fy0 = floorf(fy);
   const float ty = (float)gy + fy0;
   const float tx = (float)gx + fx0;
-  const float hmax = (float)(H - 1);
+  const float hmax = (float)(Hf - 1);
   const float wmax = (float)(W - 1);
   const int ya = (int)fminf(fmaxf(ty, 0.f), hmax);
   const int yb = (int)fminf(fmaxf(ty + 1.f, 0.f), hmax);
@@ -87,8 +98,8 @@ __global__ void __launch_bounds__(kWarpBwdThreads)
     dfy += __shfl_down_sync(0xffffffffu, dfy, s);
   }
   if (lane == 0) {
-    dflow[pix * 2] = from_f32<T>(dfx);
-    dflow[pix * 2 + 1] = from_f32<T>(dfy);
+    dflow[pix * 2] = from_f32<F>(dfx);
+    dflow[pix * 2 + 1] = from_f32<F>(dfy);
   }
 }
 
@@ -100,17 +111,17 @@ __global__ void __launch_bounds__(kWarpBwdThreads)
   if (i < n) dst[i] = from_f32<T>(acc[i]);
 }
 
-template <typename T>
+template <typename T, typename F>
 cudaError_t run(const void* f1, const void* flow, const void* g, float* acc, void* df1, void* dflow,
-                int B, int H, int W, int C, cudaStream_t stream) {
-  const size_t pixels = (size_t)B * H * W;
+                int B, int Ho, int Hf, int W, int C, int row0, cudaStream_t stream) {
+  const size_t pixels = (size_t)B * Ho * W;
   const size_t per_block = kWarpBwdThreads / 32;
-  warp_bwd_kernel<T><<<(unsigned)((pixels + per_block - 1) / per_block), kWarpBwdThreads, 0, stream>>>(
-      static_cast<const T*>(f1), static_cast<const T*>(flow), static_cast<const T*>(g), acc,
-      static_cast<T*>(dflow), B, H, W, C);
+  warp_bwd_kernel<T, F><<<(unsigned)((pixels + per_block - 1) / per_block), kWarpBwdThreads, 0, stream>>>(
+      static_cast<const T*>(f1), static_cast<const F*>(flow), static_cast<const T*>(g), acc,
+      static_cast<F*>(dflow), B, Ho, Hf, W, C, row0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || static_cast<void*>(acc) == df1) return err;
-  const size_t n = pixels * C;
+  const size_t n = (size_t)B * Hf * W * C;
   round_kernel<T><<<(unsigned)((n + kWarpBwdThreads - 1) / kWarpBwdThreads), kWarpBwdThreads, 0, stream>>>(
       acc, static_cast<T*>(df1), n);
   return cudaGetLastError();
@@ -126,8 +137,25 @@ extern "C" int pwc_warp_bwd(const void* f1, const void* flow, const void* g, voi
   auto s = static_cast<cudaStream_t>(stream);
   auto a = static_cast<float*>(acc);
   switch (dtype) {
-    case pwc::kF32: return pwc::run<float>(f1, flow, g, a, df1, dflow, B, H, W, C, s);
-    case pwc::kBF16: return pwc::run<__nv_bfloat16>(f1, flow, g, a, df1, dflow, B, H, W, C, s);
+    case pwc::kF32: return pwc::run<float, float>(f1, flow, g, a, df1, dflow, B, H, H, W, C, 0, s);
+    case pwc::kBF16:
+      return pwc::run<__nv_bfloat16, __nv_bfloat16>(f1, flow, g, a, df1, dflow, B, H, H, W, C, 0, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The tall-frame variant (K9b). f1, df1: (B, Hf, W, C); g: (B, Ho, W, C); flow, dflow: (B, Ho, W, 2)
+// float32 pixels, x first, flow row j at frame row j + row0; acc: (B, Hf, W, C) float32, zeroed. f1,
+// g and df1 are of one dtype (0 f32 / 1 bf16); for f32 acc may be df1 itself.
+extern "C" int pwc_warp_bwd_rows(const void* f1, const void* flow, const void* g, void* acc, void* df1,
+                                 void* dflow, int B, int Ho, int Hf, int W, int C, int row0, int dtype,
+                                 void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto a = static_cast<float*>(acc);
+  switch (dtype) {
+    case pwc::kF32: return pwc::run<float, float>(f1, flow, g, a, df1, dflow, B, Ho, Hf, W, C, row0, s);
+    case pwc::kBF16:
+      return pwc::run<__nv_bfloat16, float>(f1, flow, g, a, df1, dflow, B, Ho, Hf, W, C, row0, s);
     default: return cudaErrorInvalidValue;
   }
 }

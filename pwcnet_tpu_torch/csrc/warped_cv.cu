@@ -26,6 +26,23 @@
 //
 // Bound: as correlation.cuh, plus the flow (2 values per pixel) and the
 // corner gathers, which stay in L1/L2 when the flow is smooth.
+//
+// K9 (GlobalWarpLoader) replaces pwcnet_tpu/ops/pallas/warped_cv.py::
+// warped_cost_volume_global (forward _wcv_global_fwd: _wcv_forward with
+// valid_rows and save_ext). Under H-sharding a shard holds h rows of f0, the
+// WHOLE frame 1 (Hf rows, all-gathered: the warp's reach depends on the
+// flow) and flow_ext (B, h + 2d, W, 2) in float32: its own flow rows with d
+// halo rows from each neighbour and the shard's global row offset already
+// added to flow y. Window row y (-d <= y < h + d) warps with flow_ext row
+// y + d, its corners clamp into [0, Hf - 1], and it is zero outside [vlo,
+// vhi], the rows of the global frame in the shard's coordinates. With a
+// gradient wanted it saves the warped rows over all h + 2d rows, halo rows
+// included (f1w_ext, zeroed by the caller): the backward correlates them
+// again (K8's backward) without another exchange. The flow stays float32
+// whatever the model dtype: at level 4 of 448 rows over 2 shards the offset
+// is 56, where bfloat16 steps by 0.25. On the main path: levels 1-4 of
+// every sharded frame, e.g. (B, 7, 32, 128) .. (B, 56, 256, 32) per shard
+// at 448x1024 over 2 shards.
 #include "correlation.cuh"
 
 namespace pwc {
@@ -36,6 +53,7 @@ struct WarpLoader {
   const T* flow;
   T* f1w;  // (B, H, W, C) warped-map residual, or nullptr
   int H, W, C;
+  __device__ __forceinline__ bool row_ok(int gy) const { return gy >= 0 && gy < H; }
   __device__ __forceinline__ void save(int b, int gy, int gx, int gc, float v) const {
     if (f1w != nullptr) f1w[(((size_t)b * H + gy) * W + gx) * C + gc] = from_f32<T>(v);
   }
@@ -68,6 +86,55 @@ struct WarpLoader {
   }
 };
 
+// K9: h rows of the shard against Hf rows of the whole frame
+template <typename T>
+struct GlobalWarpLoader {
+  const T* f1;        // (B, Hf, W, C)
+  const float* flow;  // (B, h + 2d, W, 2), offset folded into y
+  T* f1w;             // (B, h + 2d, W, C) warped rows, or nullptr
+  int H, Hf, W, C, d, lo, hi;  // valid window rows [lo, hi]
+  __device__ __forceinline__ bool row_ok(int gy) const { return gy >= lo && gy <= hi; }
+  __device__ __forceinline__ void save(int b, int gy, int gx, int gc, float v) const {
+    if (f1w != nullptr) f1w[(((size_t)b * (H + 2 * d) + gy + d) * W + gx) * C + gc] = from_f32<T>(v);
+  }
+  __device__ __forceinline__ float operator()(int b, int gy, int gx, int gc) const {
+    const float* fl = flow + (((size_t)b * (H + 2 * d) + gy + d) * W + gx) * 2;
+    const float fx = fl[0];
+    const float fy = fl[1];
+    const float fx0 = floorf(fx);
+    const float fy0 = floorf(fy);
+    const float ty = (float)gy + fy0;
+    const float tx = (float)gx + fx0;
+    const float hmax = (float)(Hf - 1);
+    const float wmax = (float)(W - 1);
+    const int ya = (int)fminf(fmaxf(ty, 0.f), hmax);
+    const int yb = (int)fminf(fmaxf(ty + 1.f, 0.f), hmax);
+    const int xa = (int)fminf(fmaxf(tx, 0.f), wmax);
+    const int xb = (int)fminf(fmaxf(tx + 1.f, 0.f), wmax);
+    const float wy1 = fy - fy0;
+    const float wy0 = 1.f - wy1;
+    const float wx1 = fx - fx0;
+    const float wx0 = 1.f - wx1;
+    const T* base = f1 + (size_t)b * Hf * W * C + gc;
+    const float p00 = to_f32(base[((size_t)ya * W + xa) * C]);
+    const float p01 = to_f32(base[((size_t)ya * W + xb) * C]);
+    const float p10 = to_f32(base[((size_t)yb * W + xa) * C]);
+    const float p11 = to_f32(base[((size_t)yb * W + xb) * C]);
+    const float top = p00 * wx0 + p01 * wx1;
+    const float bot = p10 * wx0 + p11 * wx1;
+    return round_to<T>(top * wy0 + bot * wy1);
+  }
+};
+
+template <typename T>
+cudaError_t run_global(const void* f0, const void* f1, const float* flow, void* out, void* f1w, int B,
+                       int H, int Hf, int W, int C, int d, int vlo, int vhi, cudaStream_t stream) {
+  const GlobalWarpLoader<T> load{static_cast<const T*>(f1), flow, static_cast<T*>(f1w), H, Hf, W, C, d,
+                                 vlo > -d ? vlo : -d, vhi < H + d - 1 ? vhi : H + d - 1};
+  return launch_correlation<T>(static_cast<const T*>(f0), static_cast<T*>(out), B, H, W, C, d,
+                               load, stream);
+}
+
 template <typename T>
 cudaError_t run(const void* f0, const void* f1, const void* flow, void* out, void* f1w, int B, int H,
                 int W, int C, int d, cudaStream_t stream) {
@@ -88,6 +155,23 @@ extern "C" int pwc_warped_cost_volume(const void* f0, const void* f1, const void
   switch (dtype) {
     case pwc::kF32: return pwc::run<float>(f0, f1, flow, out, f1w, B, H, W, C, d, s);
     case pwc::kBF16: return pwc::run<__nv_bfloat16>(f0, f1, flow, out, f1w, B, H, W, C, d, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K9. f0: (B, H, W, C) the shard's rows; f1: (B, Hf, W, C) the whole frame; flow: (B, H + 2d, W, 2)
+// float32 pixels, x first, the shard's row offset added to y; out: (B, H, W, (2d+1)^2); f1w:
+// (B, H + 2d, W, C) zeroed, or null. Window rows outside [vlo, vhi] are zero. f0, f1, out and f1w
+// are of one dtype: 0 f32 / 1 bf16.
+extern "C" int pwc_warped_cost_volume_global(const void* f0, const void* f1, const void* flow, void* out,
+                                             void* f1w, int B, int H, int Hf, int W, int C, int d,
+                                             int vlo, int vhi, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto fl = static_cast<const float*>(flow);
+  switch (dtype) {
+    case pwc::kF32: return pwc::run_global<float>(f0, f1, fl, out, f1w, B, H, Hf, W, C, d, vlo, vhi, s);
+    case pwc::kBF16:
+      return pwc::run_global<__nv_bfloat16>(f0, f1, fl, out, f1w, B, H, Hf, W, C, d, vlo, vhi, s);
     default: return cudaErrorInvalidValue;
   }
 }

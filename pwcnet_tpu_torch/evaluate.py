@@ -13,7 +13,9 @@ split (flag-compatible with the root ``evaluate.py``, the JAX package's, with
 Aggregation is pixel-weighted; a per-scene breakdown is printed for datasets
 whose samples carry scene directories (Sintel). Runs on CUDA unless
 ``--device cpu``; ``--pallas`` / ``--no-pallas`` choose the CUDA kernels
-against the plain PyTorch path (auto: on for CUDA).
+against the plain PyTorch path (auto: on for CUDA). ``--spatial N`` shards
+each frame's rows over N processes started by torchrun (every rank reads
+every frame; rank 0 prints).
 
 Example:
     python -m pwcnet_tpu_torch.evaluate -d SintelClean -dd datasets/Sintel \\
@@ -60,8 +62,8 @@ def build_parser():
     parser.add_argument("--no-pallas", dest="pallas", action="store_false")
     parser.set_defaults(pallas=None)  # auto: on for CUDA, off for the CPU
     parser.add_argument("--spatial", type=int, default=1,
-                        help="Shard the frame's H axis over N devices [1; "
-                        "above 1 is not supported by this package yet]")
+                        help="Shard the frame's H axis over N processes, "
+                        "one per GPU (torchrun) [1]")
     return parser
 
 
@@ -74,19 +76,18 @@ def sample_scene(sample) -> str:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.spatial > 1:
-        raise NotImplementedError(
-            "--spatial > 1 (H-sharding across devices) is not supported by pwcnet_tpu_torch yet"
-        )
 
     import numpy as np
     import torch
 
     from pwcnet_tpu_torch.data import DataLoader, get_dataset
     from pwcnet_tpu_torch.inference import FlowPredictor, resolve_device
+    from pwcnet_tpu_torch.parallel import mesh_from_args
     from pwcnet_tpu_torch.utils.config import show_progress
 
-    device = resolve_device(args.device)
+    mesh = mesh_from_args(args, args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    is_main = mesh is None or mesh.rank == 0
 
     pad_mode = args.size_handling == "pad"
     dset = get_dataset(args.dataset)(
@@ -112,6 +113,7 @@ def main(argv=None):
         use_kernels=use_kernels,
         size_handling=args.size_handling,
         device=device,
+        mesh=mesh,
     )
     factor = 2**args.num_levels
 
@@ -152,7 +154,10 @@ def main(argv=None):
             scene_px[scene] = scene_px.get(scene, 0) + err[i].size
             scene_frames[scene] = scene_frames.get(scene, 0) + 1
         cursor += b
-        show_progress(1, cursor, total)
+        if is_main:
+            show_progress(1, cursor, total)
+    if not is_main:
+        return sum(scene_sum.values()) / max(sum(scene_px.values()), 1)
     print()
 
     # Per-scene breakdown: EPE is the pixel-weighted mean over the

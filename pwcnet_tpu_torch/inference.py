@@ -12,6 +12,15 @@ no device and no CUDA it raises. On CUDA it runs the hand-written kernels
 ``use_kernels=False`` picks the plain PyTorch path; ``fused_estimator=N``
 also sends the N finest estimator levels through K7 (off by default, as in
 the JAX package).
+
+``spatial=N`` / ``data=M`` (or a prebuilt ``mesh``) serve across N x M
+processes, one per GPU, started by ``torchrun``: every rank passes the same
+frames and gets the whole flow back. ``data`` splits the batch (when it
+divides); ``spatial`` shards each frame's rows (K3 on halo-extended
+stripes, K8 at level 0 when that level holds at least 4 rows per shard,
+K9 at the warped levels, the unsharded kernels on the levels too small to
+shard), and the rows are all-gathered at the end. K7 stays off under
+H-sharding, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ import torch
 from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
 from pwcnet_tpu_torch.weights import from_jax_params, load_params
 
-__all__ = ["factor_crop", "load_image", "resolve_device", "FlowPredictor"]
+__all__ = ["factor_crop", "load_image", "resolve_device", "spatial_hooks", "FlowPredictor"]
 
 # finest pyramid levels through K3, as the JAX package's accelerator default
 FUSED_PYRAMID_LEVELS = 2
@@ -58,6 +67,25 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def spatial_hooks(mesh, use_kernels: bool, warp_type: str = "bilinear") -> dict:
+    """PWCDCNet's hooks for H-sharding over ``mesh``'s rows: the spatial
+    cost volume (K8), warped cost volume (K9) and, with the kernels, K3 on
+    the two finest pyramid levels per shard; no K7 (as the JAX package)."""
+    from pwcnet_tpu_torch.parallel import (
+        make_spatial_cost_volume, make_spatial_guard, make_spatial_pyramid_level, make_spatial_warped_cv)
+
+    if warp_type != "bilinear":
+        raise NotImplementedError("H-sharding runs the bilinear warp only (warp_type='bilinear')")
+    return dict(
+        spatial_guard_fn=make_spatial_guard(mesh, use_kernels),
+        cost_volume_fn=make_spatial_cost_volume(mesh, use_kernels),
+        warp_cv_fn=make_spatial_warped_cv(mesh, use_kernels),
+        pyramid_level_fn=make_spatial_pyramid_level(mesh, use_kernels) if use_kernels else None,
+        fused_pyramid_levels=FUSED_PYRAMID_LEVELS if use_kernels else 0,
+        fused_estimator_levels=0,
+    )
+
+
 class FlowPredictor:
     """PWCDCNet inference with checkpoint loading."""
 
@@ -74,20 +102,32 @@ class FlowPredictor:
         fused_estimator: str | int = "auto",
         size_handling: str = "crop",
         device=None,
+        spatial: int = 1,
+        data: int = 1,
+        mesh=None,
     ):
         """``use_kernels``: 'auto' runs the CUDA kernels on a CUDA device;
         on the CPU their wrappers run the plain versions anyway. Without a
         checkpoint the weights are the flax-style init from seed 0.
         ``fused_estimator``: the N finest estimator levels through K7;
-        'auto' is 0 (opt-in), and it needs ``use_kernels``."""
+        'auto' is 0 (opt-in), and it needs ``use_kernels``.
+        ``spatial`` / ``data`` / ``mesh``: serving across processes
+        (``parallel.make_mesh``; the mesh's device is this rank's)."""
         if size_handling not in ("crop", "pad"):
             raise ValueError(f"size_handling must be crop|pad: {size_handling!r}")
         self.size_handling = size_handling
-        self.device = resolve_device(device)
+        if mesh is None and (spatial > 1 or data > 1):
+            from pwcnet_tpu_torch.parallel import make_mesh
+
+            mesh = make_mesh(data=data, spatial=spatial, device=device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         if use_kernels == "auto":
             use_kernels = self.device.type == "cuda"
         hooks = {}
-        if use_kernels:
+        if mesh is not None and mesh.spatial > 1:
+            hooks = spatial_hooks(mesh, bool(use_kernels), warp_type)
+        elif use_kernels:
             from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
             from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
 
@@ -133,10 +173,27 @@ class FlowPredictor:
     def raw_forward(self, images):
         """Forward on a prepared (B, 2, H, W, 3) batch (numpy or tensor,
         uint8 or [0, 1] floats); returns the model's device tensors
-        ``(flows_final (B, H, W, 2), flows_pyramid)``."""
+        ``(flows_final (B, H, W, 2), flows_pyramid)``, whole on every rank
+        of a mesh."""
         with torch.inference_mode():
             t = self._to_device(images)
-            return self.model(t[:, 0], t[:, 1])
+            if self.mesh is None:
+                return self.model(t[:, 0], t[:, 1])
+            from pwcnet_tpu_torch.parallel import shard_batch
+            from pwcnet_tpu_torch.parallel._comm import all_gather_rows
+
+            mesh = self.mesh
+            local = shard_batch(t, mesh, 2)
+            flows_final, pyramid = self.model(local[:, 0], local[:, 1])
+            split = mesh.data > 1 and t.shape[0] % mesh.data == 0
+
+            def whole(x, sharded):
+                if sharded:
+                    x = all_gather_rows(x, mesh.rows, 1)
+                return all_gather_rows(x, mesh.column, 0) if split else x
+
+            sharded = self.model.sharded_levels(t.shape[2])
+            return whole(flows_final, sharded[-1]), [whole(f, sh) for f, sh in zip(pyramid, sharded)]
 
     def __call__(self, image_0: np.ndarray, image_1: np.ndarray):
         """Run on a raw frame pair (uint8, or floats on the same 0..255 scale).

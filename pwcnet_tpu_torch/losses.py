@@ -14,6 +14,13 @@ Conventions kept from the reference:
   included, in float32.
 
 Flows are NHWC, (B, H, W, 2).
+
+Under H-sharding each rank holds a stripe of the ground-truth rows and, per
+level, a stripe of the prediction (a sharded level) or all of it (a
+replicated one). ``scored_rows`` picks the prediction rows whose
+nearest-resize source row lies in the rank's ground-truth stripe, so every
+loss row is counted by exactly one rank; ``level_sums`` gives the per-level
+sums over those rows, which the train step reduces over the ranks.
 """
 
 from __future__ import annotations
@@ -22,10 +29,11 @@ from typing import Iterable, Sequence
 
 import torch
 
-from pwcnet_tpu_torch.ops.resize import resize_nearest
+from pwcnet_tpu_torch.ops.resize import nearest_indices, resize_nearest
 
 __all__ = [
-    "DEFAULT_WEIGHTS", "l1_loss", "l2_loss", "epe", "multiscale_loss", "multirobust_loss", "weight_decay",
+    "DEFAULT_WEIGHTS", "l1_loss", "l2_loss", "epe", "level_sums", "multiscale_loss", "multirobust_loss",
+    "scored_rows", "weight_decay",
 ]
 
 DEFAULT_WEIGHTS = (0.32, 0.08, 0.02, 0.01, 0.005)
@@ -77,3 +85,31 @@ def multirobust_loss(
 def weight_decay(params: Iterable[torch.Tensor]) -> torch.Tensor:
     """0.5 * the sum of squared parameter values, in float32."""
     return 0.5 * sum(p.float().square().sum() for p in params)
+
+
+def scored_rows(gt: torch.Tensor, pred: torch.Tensor, frame_rows: int, index: int, n: int, sharded: bool):
+    """``(gt_down, pred)`` restricted to the rows this shard scores.
+
+    ``gt`` (B, frame_rows / n, W, 2) is shard ``index``'s stripe of the
+    ground truth; ``pred`` (B, h, w, 2) is the shard's stripe of a level of
+    h * n rows (``sharded``) or the whole level of h rows. A level row is
+    scored where its TF1 nearest-resize source row lies in the stripe."""
+    hs, w_full = gt.shape[1], gt.shape[2]
+    hp, wp = pred.shape[1], pred.shape[2]
+    g0, p0 = index * hs, (index * hp if sharded else 0)
+    src = torch.from_numpy(nearest_indices(frame_rows, hp * n if sharded else hp)[p0 : p0 + hp])
+    keep = torch.nonzero((src >= g0) & (src < g0 + hs)).flatten()
+    cols = torch.from_numpy(nearest_indices(w_full, wp)).to(gt.device)
+    gt_down = gt.index_select(1, (src[keep] - g0).to(gt.device)).index_select(2, cols)
+    return gt_down, pred.index_select(1, keep.to(pred.device))
+
+
+def level_sums(gt: torch.Tensor, preds, frame_rows: int, index: int, n: int, sharded, norm: str) -> torch.Tensor:
+    """Per level, the sum over the local batch and this shard's scored rows
+    of the per-pixel L2 (``norm='l2'``) or L1 flow distance: (L,)."""
+    sums = []
+    for pred, sh in zip(preds, sharded):
+        g, p = scored_rows(gt, pred, frame_rows, index, n, sh)
+        diff = g - p
+        sums.append((diff * diff).sum(3).sqrt().sum() if norm == "l2" else diff.abs().sum())
+    return torch.stack(sums)

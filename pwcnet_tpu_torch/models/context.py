@@ -28,11 +28,14 @@ class ContextNetwork(nn.Module):
             self.add_module(conv_name(idx), Conv2d(cin, f, 3, padding=d, dilation=d))
             cin = f
 
-    def forward(self, flows: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
+    def forward(self, flows: torch.Tensor, features: torch.Tensor, rows=None) -> torch.Tensor:
+        """``rows``: a ``parallel.SpatialGuard`` when the level is row-sharded
+        (each conv exchanges its dilation's worth of halo rows)."""
         x = torch.cat([flows, features], 1)
         n = len(CONTEXT_FILTERS)
         for idx in range(n):
-            x = getattr(self, conv_name(idx))(x)
+            module = getattr(self, conv_name(idx))
+            x = module(x) if rows is None else rows.conv(module, x)
             if idx < n - 1:
                 x = leaky_relu(x, 0.1)
         return flows + x

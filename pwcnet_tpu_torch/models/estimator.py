@@ -7,6 +7,9 @@ the running stack) -> a 2-channel flow conv, plus the residual upsampled
 flow. Convs are ``conv2d`` .. ``conv2d_5``. The 2x upsampling of flow and
 features for the next level happens in PWCDCNet, as in the JAX package.
 
+``rows``: a ``parallel.SpatialGuard`` when the level is row-sharded; each
+conv then exchanges its halo rows. The fused chain does not run there.
+
 ``fused``: run the six-conv chain through K7's wrapper
 (``ops/cuda/estimator_conv.py``: the CUDA kernels on a CUDA tensor, the
 plain chain on the CPU) in place of six library convs; same parameters,
@@ -54,11 +57,12 @@ class FlowEstimator(nn.Module):
         features_0: Optional[torch.Tensor] = None,
         flows_up_prev: Optional[torch.Tensor] = None,
         features_up_prev: Optional[torch.Tensor] = None,
+        rows=None,
     ):
         """NCHW in; returns ``(flows, features)``."""
         parts = [t for t in (cv, features_0, flows_up_prev, features_up_prev) if t is not None]
         features = torch.cat(parts, 1)
-        if self.fused:
+        if self.fused and rows is None:
             from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_fused
 
             kbs = []
@@ -69,10 +73,15 @@ class FlowEstimator(nn.Module):
             if flows_up_prev is not None:
                 flows = flows + flows_up_prev
             return flows, features
+
+        def conv(idx, x):
+            module = getattr(self, conv_name(idx))
+            return module(x) if rows is None else rows.conv(module, x)
+
         for idx in range(self.n_hidden):
-            conv = leaky_relu(getattr(self, conv_name(idx))(features), 0.1)
-            features = torch.cat([conv, features], 1) if self.use_dc else conv
-        flows = getattr(self, conv_name(self.n_hidden))(features)
+            y = leaky_relu(conv(idx, features), 0.1)
+            features = torch.cat([y, features], 1) if self.use_dc else y
+        flows = conv(self.n_hidden, features)
         if flows_up_prev is not None:
             flows = flows + flows_up_prev  # residual coarse-to-fine refinement
         return flows, features

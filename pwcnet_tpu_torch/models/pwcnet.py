@@ -24,7 +24,18 @@ Hooks, with the JAX package's meaning:
 - ``fused_pyramid_levels``: the N finest pyramid levels through K3's
   wrapper;
 - ``fused_estimator_levels``: the N finest estimator levels (``l >
-  output_level - N``) through K7's wrapper; same parameters.
+  output_level - N``) through K7's wrapper; same parameters;
+- ``spatial_guard_fn`` (a ``parallel.SpatialGuard``): H-sharding over the
+  ranks of a mesh row. The images are then this rank's row shard; a level
+  stays sharded while it holds at least 4 rows per shard, as the JAX
+  guard decides, and coarser levels run whole on every rank. Sharded levels
+  use ``cost_volume_fn`` / ``warp_cv_fn`` (then the spatial ones, K8 and K9),
+  ``pyramid_level_fn`` on the fused pyramid levels, and the guard's convs
+  and resizes with halos; replicated levels use the guard's unsharded
+  ``cost_volume_fn`` / ``warp_cv_fn`` (K2, K1). The first sharded level takes
+  its rows of the upsampled flow and features (``split``).
+  ``flows_final`` and each pyramid level come back as row shards where
+  their level is sharded (``sharded_levels`` says which), else whole.
 """
 
 from __future__ import annotations
@@ -71,6 +82,8 @@ class PWCDCNet(nn.Module):
         fused_estimator_levels: int = 0,
         generator: Optional[torch.Generator] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        spatial_guard_fn=None,
+        pyramid_level_fn=None,
     ):
         super().__init__()
         if output_level >= num_levels:
@@ -85,10 +98,14 @@ class PWCDCNet(nn.Module):
         self.search_range = search_range
         self.warp_type = warp_type
         self.output_level = output_level
+        if spatial_guard_fn is not None and warp_cv_fn is None:
+            raise ValueError("H-sharding needs warp_cv_fn (the spatial warped cost volume, bilinear warp)")
         self.cost_volume_fn = cost_volume_fn
         self.warp_cv_fn = warp_cv_fn
+        self.spatial_guard_fn = spatial_guard_fn
 
-        self.fp_extractor = FeaturePyramidExtractor(num_levels, fused_levels=fused_pyramid_levels)
+        self.fp_extractor = FeaturePyramidExtractor(
+            num_levels, fused_levels=fused_pyramid_levels, level_fn=pyramid_level_fn)
         taps = (2 * search_range + 1) ** 2
         feat = 0
         for l in range(output_level + 1):
@@ -103,43 +120,62 @@ class PWCDCNet(nn.Module):
             if isinstance(m, Conv2d):
                 m.compute_dtype = compute_dtype
 
+    def sharded_levels(self, frame_rows: int) -> list:
+        """Per level (deep first, to ``output_level``): whether it runs as row
+        shards for a frame of ``frame_rows`` global rows."""
+        g = self.spatial_guard_fn
+        return [
+            g is not None and g.keeps(frame_rows >> (self.num_levels - l))
+            for l in range(self.output_level + 1)
+        ]
+
     def forward(self, images_0: torch.Tensor, images_1: torch.Tensor):
         """``images_*`` (B, H, W, 3) in [0, 1], H and W multiples of
-        ``2**num_levels``. Returns ``(flows_final (B, H, W, 2) pixels,
-        flows_pyramid)``, the pyramid deep -> output level in internal
-        units (pixels / 20 at full resolution), each (B, h, w, 2)."""
+        ``2**num_levels`` (row shards of such frames under H-sharding).
+        Returns ``(flows_final (B, H, W, 2) pixels, flows_pyramid)``, the
+        pyramid deep -> output level in internal units (pixels / 20 at full
+        resolution), each (B, h, w, 2)."""
+        g = self.spatial_guard_fn
         dtype = self.compute_dtype or self.fp_extractor.conv2d.weight.dtype
-        pyramid_0 = self.fp_extractor(to_nchw(images_0.to(dtype)))
-        pyramid_1 = self.fp_extractor(to_nchw(images_1.to(dtype)))
+        pyramid_0 = self.fp_extractor(to_nchw(images_0.to(dtype)), g)
+        pyramid_1 = self.fp_extractor(to_nchw(images_1.to(dtype)), g)
         scales = flow_scales(self.num_levels)
-        cv_fn = self.cost_volume_fn or cost_volume
+        sharded = self.sharded_levels(images_0.shape[1] * (g.size if g is not None else 1))
         d = self.search_range
 
         flows_pyramid = []
         flows_up = features_up = None
         for l, (f0, f1) in enumerate(zip(pyramid_0, pyramid_1)):
+            sh = sharded[l]
+            rows = g if sh else None
+            cv_fn, wcv_fn = (self.cost_volume_fn, self.warp_cv_fn) if g is None or sh else (
+                g.cost_volume_fn, g.warp_cv_fn)
+            if sh and flows_up is not None and not sharded[l - 1]:
+                flows_up, features_up = g.split(flows_up), g.split(features_up)
             f0n, f1n = to_nhwc(f0), to_nhwc(f1)
             if l == 0:
-                cv = cv_fn(f0n, f1n, d)
+                cv = (cv_fn or cost_volume)(f0n, f1n, d)
             else:
                 flow_px = to_nhwc(flows_up * scales[l])
-                if self.warp_cv_fn is not None:
-                    cv = self.warp_cv_fn(f0n, f1n, flow_px, d)
+                if wcv_fn is not None:
+                    cv = wcv_fn(f0n, f1n, flow_px, d)
                 else:
-                    cv = cv_fn(f0n, warp(f1n, flow_px, self.warp_type), d)
+                    cv = (cv_fn or cost_volume)(f0n, warp(f1n, flow_px, self.warp_type), d)
             flows, features = getattr(self, f"optflow_{l}")(
-                to_nchw(cv), f0, flows_up, features_up
+                to_nchw(cv), f0, flows_up, features_up, rows=rows
             )
             if l < self.output_level:
                 # one joint 2+C-channel upsample: bilinear resize is
                 # channelwise, so this equals two separate resizes
-                fu = to_nchw(upsample2x_bilinear(to_nhwc(torch.cat([flows, features], 1))))
+                both = to_nhwc(torch.cat([flows, features], 1))
+                fu = to_nchw(g.upsample(both, 2) if sh else upsample2x_bilinear(both))
                 flows_up, features_up = fu[:, :2], fu[:, 2:]
                 flows_pyramid.append(flows)
             else:
-                flows = self.context(flows, features)
+                flows = self.context(flows, features, rows=rows)
                 flows_pyramid.append(flows)
                 up = 2 ** (self.num_levels - self.output_level)
                 h, w = flows.shape[2], flows.shape[3]
-                flows_final = resize_bilinear(to_nhwc(flows), (h * up, w * up)) * 20.0
+                fn = to_nhwc(flows)
+                flows_final = (g.upsample(fn, up) if sh else resize_bilinear(fn, (h * up, w * up))) * 20.0
                 return flows_final, [to_nhwc(f) for f in flows_pyramid]

@@ -8,7 +8,14 @@ with ``padding=0``.
 
 ``fused_levels``: compute the N finest levels with one fused kernel call
 each (K3, ``ops.cuda.pyramid_conv.pyramid_level_fused``) on the same
-parameters.
+parameters; ``level_fn`` replaces that call on row-sharded levels (the
+JAX package's ``level_fn``, e.g. ``parallel.make_spatial_pyramid_level``).
+
+Under H-sharding (``guard``, a ``parallel.SpatialGuard``) the images arrive
+as row shards; a level stays sharded while its output holds at least 4
+rows per shard (the JAX guard's ``guard(x, 8)`` on its input), and the
+first level that does not gathers its input and runs replicated, as does
+every coarser one. Sharded levels run ``level_fn`` or the convs with halos.
 """
 
 from __future__ import annotations
@@ -34,10 +41,12 @@ class FeaturePyramidExtractor(nn.Module):
         num_levels: int = 6,
         filters: Sequence[int] = DEFAULT_FILTERS,
         fused_levels: int = 0,
+        level_fn=None,
     ):
         super().__init__()
         self.num_levels = num_levels
         self.fused_levels = fused_levels
+        self.level_fn = level_fn
         cin = 3
         for level in range(num_levels):
             for i, stride in enumerate((2, 1, 1)):
@@ -45,13 +54,22 @@ class FeaturePyramidExtractor(nn.Module):
                 self.add_module(conv_name(3 * level + i), conv)
                 cin = filters[level]
 
-    def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
-        """``images`` (B, 3, H, W) -> per-level (B, C_l, H_l, W_l), deep first."""
+    def forward(self, images: torch.Tensor, guard=None) -> list[torch.Tensor]:
+        """``images`` (B, 3, H, W) -> per-level (B, C_l, H_l, W_l), deep first.
+        With ``guard`` the images are this rank's row shard, and each level
+        is a shard or the whole level as ``guard.keeps`` decides."""
         x = images
         pyramid = []
+        sharded = guard is not None
+        rows = x.shape[2] * (guard.size if sharded else 1)
         for level in range(self.num_levels):
             convs = [getattr(self, conv_name(3 * level + i)) for i in range(3)]
-            if level < self.fused_levels:
+            rows //= 2
+            if sharded and not guard.keeps(rows):
+                x, sharded = guard.gather(x), False
+            if sharded:
+                x = self._sharded_level(x, convs, level, guard)
+            elif level < self.fused_levels:
                 params = [t for c in convs for t in cast_params(c)]
                 x = to_nchw(pyramid_level_fused(to_nhwc(x), *params))
             else:
@@ -60,3 +78,8 @@ class FeaturePyramidExtractor(nn.Module):
                     x = leaky_relu(conv(x), 0.1)
             pyramid.append(x)
         return pyramid[::-1]
+
+    def _sharded_level(self, x, convs, level, guard):
+        params = [t for c in convs for t in cast_params(c)]
+        level_fn = self.level_fn if level < self.fused_levels and self.level_fn is not None else guard.level_chain
+        return to_nchw(level_fn(to_nhwc(x), *params))

@@ -8,10 +8,16 @@
 - ``pyramid_conv.pyramid_level_bwd``: K6, the pyramid level's backward;
 - ``estimator_conv.estimator_chain_fused``: K7, the estimator's six-conv
   chain, and ``estimator_conv.estimator_chain_bwd``, its backward (K7b in
-  the launch counts).
+  the launch counts);
+- ``cost_volume.cost_volume_hpad_cuda``: K8, a row shard's cost volume
+  against halo-extended f1, and ``cost_volume.cost_volume_hpad_bwd`` (K8b);
+- ``warped_cv.warped_cost_volume_global``: K9, a row shard's warp + cost
+  volume against the whole frame, and ``warped_cv.
+  warped_cost_volume_global_bwd`` (K9b: K8b, then the tall-frame warp
+  backward).
 
-K1-K3 and K7 are ``torch.autograd.Function``s on CUDA tensors, with K4-K6
-and K7b as their backward. Each wrapper sends a CPU tensor to its plain PyTorch
+K1-K3, K7, K8 and K9 are ``torch.autograd.Function``s on CUDA tensors, with
+K4-K6, K7b, K8b and K9b as their backward. Each wrapper sends a CPU tensor to its plain PyTorch
 version and a CUDA tensor to its kernel (or raises): nothing falls back.
 Each keeps a count of the calls in which it launched its kernel in
 ``<wrapper>.launches``.
@@ -24,10 +30,12 @@ __all__ = ["launch_counts", "reset_launch_counts", "wrappers"]
 
 def wrappers() -> dict:
     """Kernel id -> wrapper function."""
-    from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_bwd, cost_volume_cuda
+    from pwcnet_tpu_torch.ops.cuda.cost_volume import (
+        cost_volume_bwd, cost_volume_cuda, cost_volume_hpad_bwd, cost_volume_hpad_cuda)
     from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd, estimator_chain_fused
     from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_fused
-    from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd, warped_cost_volume
+    from pwcnet_tpu_torch.ops.cuda.warped_cv import (
+        warp_bwd, warped_cost_volume, warped_cost_volume_global, warped_cost_volume_global_bwd)
 
     return {
         "K1": warped_cost_volume,
@@ -38,6 +46,10 @@ def wrappers() -> dict:
         "K6": pyramid_level_bwd,
         "K7": estimator_chain_fused,
         "K7b": estimator_chain_bwd,
+        "K8": cost_volume_hpad_cuda,
+        "K8b": cost_volume_hpad_bwd,
+        "K9": warped_cost_volume_global,
+        "K9b": warped_cost_volume_global_bwd,
     }
 
 

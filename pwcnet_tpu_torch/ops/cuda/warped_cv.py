@@ -12,25 +12,41 @@ On a CUDA tensor ``warped_cost_volume`` is a ``torch.autograd.Function``
 whose backward is the JAX package's ``_wcv_bwd``: K4 over
 ``(f0, f1w, out)`` with ``f1w`` the warped map the forward kernel saved,
 then K5 over ``(f1, flow, df1w)``.
+
+K9 and K9b, ``warped_cost_volume_global`` and its backward, are the
+per-shard variant under H-sharding (``pwcnet_tpu/ops/pallas/warped_cv.py::
+warped_cost_volume_global``, ``_wcv_global_bwd``): a shard's h rows of f0
+against the whole frame 1 (Hf rows), with ``flow_ext`` (B, h + 2d, W, 2)
+float32 carrying d halo rows each side and the shard's global row offset in
+y, and ``vb = (vlo, vhi)`` (two ints) the global frame's rows in the shard's
+coordinates. Its backward is K8b over the h + 2d warped rows K9 saved, the
+rows outside ``vb`` zeroed, then the warp backward on the tall frame
+(``csrc/warp_bwd.cu``'s ``pwc_warp_bwd_rows``): df1 over the whole frame,
+dflow over the h + 2d rows. The plain version is
+``warped_cost_volume_global_plain``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pwcnet_tpu_torch.ops.cost_volume import cost_volume
+from pwcnet_tpu_torch.ops.cost_volume import cost_volume, cost_volume_hpad, cost_volume_hpad_bwd_plain
 from pwcnet_tpu_torch.ops.cuda import _common
 from pwcnet_tpu_torch.ops.cuda._common import I, P
-from pwcnet_tpu_torch.ops.cuda.cost_volume import MAX_SEARCH_RANGE, cost_volume_bwd
-from pwcnet_tpu_torch.ops.warp import bilinear_warp, warp_bwd_plain
+from pwcnet_tpu_torch.ops.cuda.cost_volume import MAX_SEARCH_RANGE, cost_volume_bwd, cost_volume_hpad_bwd
+from pwcnet_tpu_torch.ops.warp import bilinear_warp, masked_warp_rows, warp_bwd_plain, warp_rows_bwd_plain
 
 __all__ = [
     "warped_cost_volume", "warped_cost_volume_plain", "warped_cost_volume_residual",
-    "warp_bwd", "warp_bwd_plain",
+    "warp_bwd", "warp_bwd_plain", "warped_cost_volume_global", "warped_cost_volume_global_plain",
+    "warped_cost_volume_global_residual", "warped_cost_volume_global_bwd",
+    "warped_cost_volume_global_bwd_plain",
 ]
 
 _ARGTYPES = [P, P, P, P, P, I, I, I, I, I, I, P]
 _BWD_ARGTYPES = [P] * 6 + [I] * 5 + [P]
+_GLOBAL_ARGTYPES = [P, P, P, P, P] + [I] * 9 + [P]
+_ROWS_BWD_ARGTYPES = [P] * 6 + [I] * 7 + [P]
 
 
 def warped_cost_volume_plain(
@@ -135,5 +151,133 @@ def warped_cost_volume(
     return _forward(f0, f1, flow, int(search_range), False)[0]
 
 
+def warped_cost_volume_global_plain(
+    f0: torch.Tensor, f1_full: torch.Tensor, flow_ext: torch.Tensor, vb, search_range: int = 4
+) -> torch.Tensor:
+    """``cost_volume_hpad(f0, masked_warp_rows(f1_full, flow_ext, vb, d), d)``
+    in plain PyTorch: the plain version of K9."""
+    return cost_volume_hpad(f0, masked_warp_rows(f1_full, flow_ext, vb, search_range), search_range)
+
+
+def _rows(vb) -> tuple[int, int]:
+    vlo, vhi = (int(v) for v in vb)
+    return vlo, vhi
+
+
+def _global_forward(f0, f1_full, flow_ext, vb, d: int, save: bool):
+    _common.check_tensors("warped_cost_volume_global", f0, f1_full)
+    if flow_ext.dtype != torch.float32 or flow_ext.device != f0.device or not flow_ext.is_contiguous():
+        raise ValueError("warped_cost_volume_global: flow_ext must be a contiguous float32 tensor on f0's device")
+    b, h, w, c = f0.shape if f0.dim() == 4 else (None,) * 4
+    if (f0.dim() != 4 or f1_full.dim() != 4 or f1_full.shape[0] != b or f1_full.shape[2:] != (w, c)
+            or flow_ext.shape != (b, h + 2 * d, w, 2)):
+        raise ValueError(
+            f"warped_cost_volume_global: f0 {tuple(f0.shape)}, f1_full {tuple(f1_full.shape)}, "
+            f"flow_ext {tuple(flow_ext.shape)} must be (B, h, W, C), (B, Hf, W, C) and (B, h + 2d, W, 2)"
+        )
+    if not 1 <= d <= MAX_SEARCH_RANGE:
+        raise ValueError(f"warped_cost_volume_global: search_range must be in 1..{MAX_SEARCH_RANGE}, got {d}")
+    vlo, vhi = _rows(vb)
+    out = torch.empty((b, h, w, (2 * d + 1) ** 2), dtype=f0.dtype, device=f0.device)
+    f1w = torch.zeros((b, h + 2 * d, w, c), dtype=f0.dtype, device=f0.device) if save else None
+    _common.launch(
+        "warped_cv", "pwc_warped_cost_volume_global", _GLOBAL_ARGTYPES, f0.device,
+        f0.data_ptr(), f1_full.data_ptr(), flow_ext.data_ptr(), out.data_ptr(),
+        f1w.data_ptr() if save else None,
+        b, h, f1_full.shape[1], w, c, d, vlo, vhi, _common.DTYPE_CODES[f0.dtype],
+    )
+    warped_cost_volume_global.launches += 1
+    return out, f1w
+
+
+def warped_cost_volume_global_residual(f0, f1_full, flow_ext, vb, search_range: int = 4):
+    """K9 with its residual: ``(cost volume, f1w_ext)``, the h + 2d warped
+    rows (zero outside ``vb``) in the model dtype as the kernel correlated
+    them."""
+    if f0.device.type == "cpu":
+        we = masked_warp_rows(f1_full, flow_ext, vb, search_range)
+        return cost_volume_hpad(f0, we, search_range), we
+    return _global_forward(f0, f1_full, flow_ext, vb, int(search_range), True)
+
+
+def warped_cost_volume_global_bwd_plain(f0, f1_full, flow_ext, vb, out, f1w_ext, g, search_range: int = 4):
+    """``(df0, df1_full, dflow_ext)`` of K9 from its residuals: the plain
+    version of K9b (``_wcv_global_bwd``)."""
+    d = int(search_range)
+    df0, dwe = cost_volume_hpad_bwd_plain(f0, f1w_ext, out, g, d)
+    dwe = _mask_rows(dwe, vb, d)
+    df1, dflow = warp_rows_bwd_plain(f1_full, flow_ext, dwe, -d)
+    return df0, df1, dflow
+
+
+def _mask_rows(dwe: torch.Tensor, vb, d: int) -> torch.Tensor:
+    """Zero the extended rows outside ``vb``: nothing flows through rows the
+    forward forced to zero."""
+    vlo, vhi = _rows(vb)
+    dwe[:, : max(0, vlo + d)] = 0
+    dwe[:, max(0, vhi + d + 1) :] = 0
+    return dwe
+
+
+def warped_cost_volume_global_bwd(f0, f1_full, flow_ext, vb, out, f1w_ext, g, search_range: int = 4):
+    """K9b: ``(df0, df1_full, dflow_ext)`` of K9 for the cotangent ``g``:
+    K8b over ``(f0, f1w_ext, out)``, the rows outside ``vb`` zeroed, then
+    the warp backward on the whole frame, its ``df1`` summed with float32
+    atomics (run-to-run variation in the last bits, as K5). A CPU tensor
+    goes to the plain version; a CUDA tensor to the kernels."""
+    if f0.device.type == "cpu":
+        return warped_cost_volume_global_bwd_plain(f0, f1_full, flow_ext, vb, out, f1w_ext, g, search_range)
+    d = int(search_range)
+    df0, dwe = cost_volume_hpad_bwd(f0, f1w_ext, out, g, d)
+    dwe = _mask_rows(dwe, vb, d)
+    b, hf, w, c = f1_full.shape
+    acc = torch.zeros(f1_full.shape, dtype=torch.float32, device=f1_full.device)
+    df1 = acc if f1_full.dtype == torch.float32 else torch.empty_like(f1_full)
+    dflow = torch.empty_like(flow_ext)
+    _common.launch(
+        "warp_bwd", "pwc_warp_bwd_rows", _ROWS_BWD_ARGTYPES, f0.device,
+        f1_full.data_ptr(), flow_ext.data_ptr(), dwe.data_ptr(), acc.data_ptr(), df1.data_ptr(), dflow.data_ptr(),
+        b, flow_ext.shape[1], hf, w, c, -d, _common.DTYPE_CODES[f1_full.dtype],
+    )
+    warped_cost_volume_global_bwd.launches += 1
+    return df0, df1, dflow
+
+
+class _WarpedCostVolumeGlobal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f0, f1_full, flow_ext, vb, d):
+        out, f1w = _global_forward(f0, f1_full, flow_ext, vb, d, True)
+        ctx.save_for_backward(f0, f1_full, flow_ext, out, f1w)
+        ctx.vb, ctx.d = vb, d
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        f0, f1_full, flow_ext, out, f1w = ctx.saved_tensors
+        df0, df1, dflow = warped_cost_volume_global_bwd(
+            f0, f1_full, flow_ext, ctx.vb, out, f1w, g.contiguous(), ctx.d)
+        return df0, df1, dflow, None, None
+
+
+def warped_cost_volume_global(
+    f0: torch.Tensor, f1_full: torch.Tensor, flow_ext: torch.Tensor, vb, search_range: int = 4
+) -> torch.Tensor:
+    """K9: a shard's fused warp + cost volume against the whole frame ->
+    (B, h, W, (2d+1)**2). ``vb`` is ``(vlo, vhi)``, two ints.
+
+    A CPU tensor goes to the plain version; a CUDA tensor to the kernel,
+    with K9b as its backward. The warped rows are saved only when a
+    gradient is wanted.
+    """
+    vb = _rows(vb)
+    if f0.device.type == "cpu":
+        return warped_cost_volume_global_plain(f0, f1_full, flow_ext, vb, search_range)
+    if _common.wants_grad(f0, f1_full, flow_ext):
+        return _WarpedCostVolumeGlobal.apply(f0, f1_full, flow_ext, vb, int(search_range))
+    return _global_forward(f0, f1_full, flow_ext, vb, int(search_range), False)[0]
+
+
 warped_cost_volume.launches = 0
 warp_bwd.launches = 0
+warped_cost_volume_global.launches = 0
+warped_cost_volume_global_bwd.launches = 0

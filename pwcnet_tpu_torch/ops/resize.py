@@ -24,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["resize_bilinear", "resize_nearest", "upsample2x_bilinear"]
+__all__ = ["nearest_indices", "resize_bilinear", "resize_nearest", "upsample2x_bilinear", "upsample_with_next"]
 
 
 def _upsample_axis_int(x: torch.Tensor, f: int, axis: int) -> torch.Tensor:
@@ -34,6 +34,14 @@ def _upsample_axis_int(x: torch.Tensor, f: int, axis: int) -> torch.Tensor:
     n = x.shape[axis]
     # neighbour with the edge clamped: min(k + 1, n - 1), TF1's ceil clamp
     xn = torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)], axis)
+    return upsample_with_next(x, xn, f, axis)
+
+
+def upsample_with_next(x: torch.Tensor, xn: torch.Tensor, f: int, axis: int) -> torch.Tensor:
+    """TF1 bilinear upsampling by ``f`` along ``axis`` given ``xn``, each
+    sample's next neighbour along that axis (the edge clamped, or a row
+    shard's next row from the shard below): output ``f*k + p`` is
+    ``x[k] + (xn[k] - x[k]) * p / f``."""
     phases = [x] + [x + (xn - x) * (p / f) for p in range(1, f)]
     y = torch.stack(phases, axis + 1)
     shape = list(x.shape)
@@ -85,6 +93,11 @@ def _nearest_table(in_size: int, out_size: int):
     scale = np.float32(in_size) / np.float32(out_size)
     src = np.arange(out_size, dtype=np.float32) * scale
     return np.minimum(np.floor(src), in_size - 1).astype(np.int64)
+
+
+def nearest_indices(in_size: int, out_size: int) -> np.ndarray:
+    """The source index of each output index of the TF1 nearest resize."""
+    return _nearest_table(int(in_size), int(out_size))
 
 
 def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:

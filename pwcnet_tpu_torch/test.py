@@ -4,9 +4,14 @@ Runs PWCDCNet on one image pair, optionally writes the final flow as a
 .flo file, and with --time reports the mean forward latency: on CUDA
 timed with CUDA events after warm-up, on the CPU with the host clock.
 
+``--spatial N`` shards the frame's rows over N processes, one per GPU,
+started by torchrun; every rank computes the whole flow and rank 0 prints
+and writes it.
+
 Example:
     python -m pwcnet_tpu_torch.test --input_images a.png b.png -r model.msgpack
     python -m pwcnet_tpu_torch.test --input_images a.png b.png -t --dtype bfloat16
+    torchrun --nproc_per_node 2 -m pwcnet_tpu_torch.test --input_images a.png b.png --spatial 2
 """
 
 from __future__ import annotations
@@ -48,6 +53,9 @@ def build_parser():
                         help="Model compute dtype [float32]")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device, e.g. cuda or cpu [cuda]")
+    parser.add_argument("--spatial", type=int, default=1,
+                        help="Shard the frame's H axis over N processes, "
+                        "one per GPU (torchrun) [1]")
     return parser
 
 
@@ -84,8 +92,11 @@ def main(argv=None):
     import torch
 
     from pwcnet_tpu_torch.inference import FlowPredictor, load_image
+    from pwcnet_tpu_torch.parallel import mesh_from_args
     from pwcnet_tpu_torch.utils import save_flow
 
+    mesh = mesh_from_args(args, args.device)
+    is_main = mesh is None or mesh.rank == 0
     predictor = FlowPredictor(
         checkpoint=args.resume,
         num_levels=args.num_levels,
@@ -96,6 +107,7 @@ def main(argv=None):
         size_handling=args.size_handling,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
         device=args.device,
+        mesh=mesh,
     )
     img0 = load_image(args.input_images[0])
     img1 = load_image(args.input_images[1])
@@ -105,9 +117,10 @@ def main(argv=None):
         batch = np.stack([predictor.prepare(img0), predictor.prepare(img1)])[None]
         sec = time_forward(predictor, batch, args.iters)
         clock = "CUDA events" if predictor.device.type == "cuda" else "host clock"
-        print(f"Inference time: {sec} sec (averaged over {args.iters} iterations, "
-              f"{clock}, {predictor.device})")
-    if args.save_flow:
+        if is_main:
+            print(f"Inference time: {sec} sec (averaged over {args.iters} iterations, "
+                  f"{clock}, {predictor.device})")
+    if args.save_flow and is_main:
         save_flow(args.save_flow, flow_final)
         print(f"Flow saved to {args.save_flow}")
 

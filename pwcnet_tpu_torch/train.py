@@ -6,15 +6,23 @@ raises. Checkpoints are full-state msgpack files (parameters, Adam state,
 step) that either package resumes from. ``--pallas`` / ``--no-pallas`` keep
 their names and choose the hand-written CUDA kernels against the plain
 PyTorch path (auto: on for CUDA, off for the CPU). Not supported yet, each
-refused by name: ``--spatial`` above 1, ``--coordinator``,
-``--ckpt_backend orbax``, ``--remat``.
+refused by name: ``--ckpt_backend orbax``, ``--remat``.
+
+Across GPUs, one process each: ``torchrun --nproc_per_node N -m
+pwcnet_tpu_torch.train --spatial S ...`` runs a (N / S data) x (S spatial)
+mesh on one host (rank r on ``cuda:LOCAL_RANK``); across hosts,
+``--coordinator host:port --num_processes P --process_id I`` on each
+(``torch.distributed`` over ``tcp://host:port``, as the JAX package's
+``jax.distributed.initialize``). ``-b`` is the batch of each data index.
 
 Example:
     python -m pwcnet_tpu_torch.train -d SintelClean -dd datasets/Sintel
     python -m pwcnet_tpu_torch.train -d Synthetic -dd . -e 2 -b 4 --crop_type none --device cpu
+    torchrun --nproc_per_node 8 -m pwcnet_tpu_torch.train -d SintelClean -dd datasets/Sintel --spatial 2
 """
 
 import argparse
+import os
 
 
 def build_parser():
@@ -105,8 +113,8 @@ def build_parser():
                         "when there is no GPU]")
     parser.add_argument("--coordinator", type=str, default=None,
                         help="Multi-process training: coordinator "
-                        "address host:port [None = single process; not "
-                        "supported by this package yet]")
+                        "address host:port [None = single process, or "
+                        "torchrun's environment]")
     parser.add_argument("--num_processes", type=int, default=None,
                         help="Multi-host: total process count "
                         "(with --coordinator host:port)")
@@ -114,8 +122,8 @@ def build_parser():
                         help="Multi-host: this process's index "
                         "(with --coordinator host:port)")
     parser.add_argument("--spatial", type=int, default=1,
-                        help="Mesh size of the spatial (H) axis [1; above 1 "
-                        "is not supported by this package yet]")
+                        help="Mesh size of the spatial (H) axis: each frame's "
+                        "rows are sharded over this many processes [1]")
     parser.add_argument("--dtype", choices=["float32", "bfloat16"],
                         default="float32",
                         help="Compute dtype (params stay float32) "
@@ -142,17 +150,16 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for key, item in vars(args).items():
-        print(f"{key} : {item}")
+    # rank 0 prints, as it writes: the rank torchrun or --process_id gives
+    rank = args.process_id if args.coordinator else int(os.environ.get("RANK", "0"))
+    if not rank:
+        for key, item in vars(args).items():
+            print(f"{key} : {item}")
 
-    from pwcnet_tpu_torch.inference import resolve_device
     from pwcnet_tpu_torch.train_lib.trainer import Trainer, check_supported
 
     check_supported(args)
-    device = resolve_device(args.device)
-    if args.pallas is None:
-        args.pallas = device.type == "cuda"
-    trainer = Trainer(args, device=device)
+    trainer = Trainer(args)
     trainer.train()
     return trainer
 

@@ -10,6 +10,20 @@
 PyTorch's idiom replaces the functional one: the state owns the model
 (its parameters are the master copy) and the Adam moments, and a step
 updates them in place instead of returning new arrays.
+
+Across a (data, spatial) mesh (``mesh=``, ``parallel.make_mesh``) each rank
+holds its slice of the global batch and, under H-sharding, its stripe of
+the rows. Its loss is its partial sum: every loss row and every batch
+element is counted by exactly one rank (``losses.scored_rows``), divided by
+the global batch. The robust loss is not a sum, ``sum_l w_l (L1_l + eps)^q``:
+each level's L1 is summed over the ranks in the forward, and each rank then
+differentiates its partial L1 times the global factor ``w_l q (L1_l +
+eps)^(q-1)``. The parameter gradients are summed over all ranks with one
+all-reduce of the flattened gradients (not DistributedDataParallel: its
+buckets would reduce during the backward, while the halo exchanges of the
+sharded model run in it), the decay gradient ``gamma * p`` is added once,
+after the reduce, and Adam runs the same update on every rank. The metrics
+are the global ones.
 """
 
 from __future__ import annotations
@@ -77,13 +91,19 @@ def make_loss_fn(
     epsilon: float = 0.02,
     q: float = 0.4,
     decoupled_wd: bool = False,
+    mesh=None,
 ) -> Callable:
     """(images (B, 2, H, W, 3), flows_gt (B, H, W, 2)) -> (loss, metrics)
     on ``model``'s current parameters.
 
     ``decoupled_wd``: report the weight-decay term in the loss value but
     keep it out of the gradient (the train step adds the identical
-    ``gamma * p`` per tensor instead)."""
+    ``gamma * p`` per tensor instead). With ``mesh`` the inputs are this
+    rank's part of the batch, the returned loss is this rank's share of the
+    objective (the sum over the ranks is the loss) and the metrics are the
+    global ones."""
+    if mesh is not None:
+        return _mesh_loss_fn(model, mesh, loss_name, weights, gamma, epsilon, q, decoupled_wd)
     if loss_name == "multiscale":
         criterion = functools.partial(losses.multiscale_loss, weights=weights)
     elif loss_name == "robust":
@@ -111,21 +131,70 @@ def make_loss_fn(
     return loss_fn
 
 
-def make_train_step(model: torch.nn.Module, **loss_kwargs) -> Callable:
+def _mesh_loss_fn(model, mesh, loss_name, weights, gamma, epsilon, q, decoupled_wd):
+    from pwcnet_tpu_torch.parallel import global_sum
+
+    if loss_name not in ("multiscale", "robust"):
+        raise ValueError(f"loss must be 'multiscale' or 'robust': {loss_name!r}")
+    n, index = mesh.spatial, mesh.spatial_index
+    world = mesh.data * mesh.spatial
+
+    def loss_fn(images: torch.Tensor, flows_gt: torch.Tensor):
+        flows_final, pyramid = model(images[:, 0], images[:, 1])
+        frame_rows = images.shape[2] * n
+        sharded = model.sharded_levels(frame_rows)
+        gt = flows_gt.float()
+        ws = list(weights)[: len(pyramid)]
+        norm = "l2" if loss_name == "multiscale" else "l1"
+        sums = losses.level_sums(gt / 20.0, [f.float() for f in pyramid[: len(ws)]], frame_rows, index, n,
+                                 sharded, norm)
+        g, p = losses.scored_rows(gt, flows_final.float(), frame_rows, index, n, sharded[-1])
+        epe_sum = ((g - p) ** 2).sum(3).sqrt().sum()
+        # one reduction: the per-level sums (the robust loss needs them in
+        # the forward) and the EPE sum
+        total = global_sum(torch.cat([sums.detach(), epe_sum.detach()[None]]))
+        batch = images.shape[0] * mesh.data
+        level = total[:-1] / batch
+        w = torch.tensor(ws, dtype=torch.float32, device=level.device)
+        if loss_name == "multiscale":
+            data_loss = (w * level).sum()
+            objective = (w * sums).sum() / batch
+        else:
+            data_loss = (w * (level + epsilon) ** q).sum()
+            objective = (w * q * (level + epsilon) ** (q - 1) * sums).sum() / batch
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not decoupled_wd):
+            decay = losses.weight_decay(model.parameters())
+        if decay.requires_grad:
+            objective = objective + gamma * decay / world  # counted once over the ranks
+        metrics = {
+            "loss": data_loss + gamma * decay.detach(),
+            "data_loss": data_loss,
+            "epe": total[-1] / (batch * frame_rows * flows_gt.shape[2]),
+        }
+        return objective, metrics
+
+    return loss_fn
+
+
+def make_train_step(model: torch.nn.Module, mesh=None, **loss_kwargs) -> Callable:
     """(state, images, flows_gt) -> (state, metrics); ``state`` is updated
     in place and returned.
 
     The weight-decay gradient is added analytically (``gamma * p`` per
     tensor) instead of differentiating the 110 per-tensor reductions; the
-    reported loss still includes the term. The metrics stay on the device."""
+    reported loss still includes the term. The metrics stay on the device.
+    With ``mesh`` the images and flows are this rank's part of the batch and
+    the gradients are summed over all ranks before the decay is added."""
     gamma = loss_kwargs.get("gamma", 4e-4)
-    loss_fn = make_loss_fn(model, decoupled_wd=True, **loss_kwargs)
+    loss_fn = make_loss_fn(model, decoupled_wd=True, mesh=mesh, **loss_kwargs)
 
     def train_step(state: TrainState, images: torch.Tensor, flows_gt: torch.Tensor):
         named = dict(state.model.named_parameters())
         params = list(named.values())
         total, metrics = loss_fn(images, flows_gt)
         grads = list(torch.autograd.grad(total, params))
+        if mesh is not None:
+            grads = _sum_over_ranks(grads)
         with torch.no_grad():
             grads = torch._foreach_add(grads, params, alpha=gamma)
             mus = [state.mu[k] for k in named]
@@ -145,9 +214,20 @@ def make_train_step(model: torch.nn.Module, **loss_kwargs) -> Callable:
     return train_step
 
 
-def make_eval_step(model: torch.nn.Module, **loss_kwargs) -> Callable:
-    """(state, images, flows_gt) -> metrics, with no update."""
-    loss_fn = make_loss_fn(model, **loss_kwargs)
+def _sum_over_ranks(grads: list) -> list:
+    """Every gradient summed over all ranks, in one flattened all-reduce."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    from pwcnet_tpu_torch.parallel import global_sum
+
+    flat = global_sum(_flatten_dense_tensors(grads))
+    return list(_unflatten_dense_tensors(flat, grads))
+
+
+def make_eval_step(model: torch.nn.Module, mesh=None, **loss_kwargs) -> Callable:
+    """(state, images, flows_gt) -> metrics, with no update (global metrics
+    with ``mesh``)."""
+    loss_fn = make_loss_fn(model, mesh=mesh, **loss_kwargs)
 
     def eval_step(state: TrainState, images: torch.Tensor, flows_gt: torch.Tensor):
         with torch.no_grad():

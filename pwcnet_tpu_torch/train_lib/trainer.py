@@ -3,7 +3,14 @@
 
 - datasets and loaders from ``pwcnet_tpu_torch.data`` (threaded decode, the
   next batches copied to the GPU on a side stream while a step runs);
-- the eager train step of ``train_lib/step.py`` on one device;
+- the eager train step of ``train_lib/step.py`` on one device, or across a
+  (data, spatial) mesh of processes, one per GPU (``--spatial``,
+  ``--coordinator``, or ``torchrun``'s environment): each data index loads
+  its slice of every batch (``process_index`` = data index,
+  ``process_count`` = data size), the ranks of one spatial row load the
+  same batch and take their rows, and every rank runs as many batches as
+  the data index with the fewest; only rank 0 writes logs, checkpoints and
+  the cursor sidecar and prints;
 - per-epoch validation, flow-pyramid visualization and full-state
   checkpoints that either package resumes from;
 - metrics to ``logs/history_<ts>/{train,val}`` as JSONL (+ TensorBoard when
@@ -16,12 +23,13 @@
 ``args.fused_estimator`` finest estimator levels) against the plain path.
 
 Not here yet, each refused with a ``NotImplementedError`` that names it:
-``--spatial`` above 1 and ``--coordinator`` (sharding across devices),
-``--ckpt_backend orbax`` and ``--remat``.
+``--ckpt_backend orbax`` and ``--remat``. Under a mesh the flow
+visualization is off (it would run a forward on rank 0 alone).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -31,8 +39,9 @@ import numpy as np
 import torch
 
 from pwcnet_tpu_torch.data import DataLoader, device_prefetch, get_dataset
-from pwcnet_tpu_torch.inference import FUSED_PYRAMID_LEVELS, resolve_device
+from pwcnet_tpu_torch.inference import FUSED_PYRAMID_LEVELS, resolve_device, spatial_hooks
 from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
+from pwcnet_tpu_torch.parallel.mesh import mesh_from_args
 from pwcnet_tpu_torch.train_lib.checkpoint import restore_checkpoint_auto, save_checkpoint
 from pwcnet_tpu_torch.train_lib.metrics import MetricsLogger
 from pwcnet_tpu_torch.train_lib.step import create_train_state, make_eval_step, make_train_step
@@ -44,14 +53,6 @@ __all__ = ["Trainer", "check_supported"]
 
 def check_supported(args) -> None:
     """Raise for the options of the JAX trainer that this package lacks."""
-    if int(getattr(args, "spatial", 1) or 1) > 1:
-        raise NotImplementedError(
-            "--spatial > 1 (H-sharding across devices) is not supported by pwcnet_tpu_torch yet"
-        )
-    if getattr(args, "coordinator", None):
-        raise NotImplementedError(
-            "--coordinator (multi-process training) is not supported by pwcnet_tpu_torch yet"
-        )
     if getattr(args, "ckpt_backend", "msgpack") == "orbax":
         raise NotImplementedError(
             "--ckpt_backend orbax is not supported by pwcnet_tpu_torch yet; use msgpack"
@@ -61,14 +62,21 @@ def check_supported(args) -> None:
 
 
 class Trainer:
-    def __init__(self, args, device=None):
+    def __init__(self, args, device=None, mesh=None):
         """``device``: a torch device, else ``args.device``; None is CUDA,
-        which must exist (``'cpu'`` runs the plain path on the CPU)."""
+        which must exist (``'cpu'`` runs the plain path on the CPU), and
+        ``cuda:LOCAL_RANK`` under a mesh. ``mesh``: a ``parallel.Mesh``,
+        else the one the arguments ask for (``mesh_from_args``)."""
         check_supported(args)
         self.args = args
-        self.device = resolve_device(device if device is not None else getattr(args, "device", None))
-        # one process, one device: it writes every artifact
-        self.is_main = True
+        if device is None:
+            device = getattr(args, "device", None)
+        self.mesh = mesh if mesh is not None else mesh_from_args(args, device)
+        self.device = self.mesh.device if self.mesh is not None else resolve_device(device)
+        if getattr(args, "pallas", None) is None:  # auto: the kernels on CUDA
+            args.pallas = self.device.type == "cuda"
+        # rank 0 writes every artifact
+        self.is_main = self.mesh is None or self.mesh.rank == 0
         self.epoch_stats: list[dict] = []
         self._build_dataloader()
         self._build_model()
@@ -92,25 +100,33 @@ class Trainer:
         tset = dset(train_or_val="train", **data_args)
         vset = dset(train_or_val="val", **data_args)
         self.image_size = tset.image_size
+        data = self.mesh.data if self.mesh is not None else 1
         loader_args = dict(
             batch_size=args.batch_size,
             num_workers=args.num_workers,
             drop_last=True,
-            process_index=0,
-            process_count=1,
+            process_index=self.mesh.data_index if self.mesh is not None else 0,
+            process_count=data,
             seed=seed,
         )
         self.tloader = DataLoader(tset, shuffle=True, **loader_args)
         self.vloader = DataLoader(vset, shuffle=False, **loader_args)
-        self.num_batches = len(self.tloader)
-        print(f"Found {len(tset.samples)} samples -> {self.num_batches} mini-batches/process")
-        print(f"Loader path: train {self.tloader.path}, val {self.vloader.path}")
+        # every rank runs as many batches as the data index with the fewest
+        # samples: a rank that ran one more step would wait forever in its
+        # collectives
+        self.num_batches = (len(tset) // data) // args.batch_size
+        self.num_val_batches = (len(vset) // data) // args.batch_size
+        self._print(f"Found {len(tset.samples)} samples -> {self.num_batches} mini-batches/process")
+        self._print(f"Loader path: train {self.tloader.path}, val {self.vloader.path}")
 
     def _build_model(self):
         args = self.args
         use_kernels = bool(getattr(args, "pallas", False))
         hooks = {}
-        if use_kernels:
+        if self.mesh is not None and self.mesh.spatial > 1:
+            # K3 per shard, K8, K9; no K7 under H-sharding, as in the JAX package
+            hooks = spatial_hooks(self.mesh, use_kernels, args.warp_type)
+        elif use_kernels:
             from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
             from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
 
@@ -141,6 +157,10 @@ class Trainer:
             lr_scheduling=args.lr_scheduling,
             device=self.device,
         )
+        if self.mesh is not None:
+            from pwcnet_tpu_torch.parallel import replicate
+
+            replicate(self.model, self.mesh)
         self._resume_epoch = 0
         self._resume_batch = 0
         if args.resume is not None:
@@ -161,16 +181,35 @@ class Trainer:
             epsilon=args.epsilon,
             q=args.q,
         )
-        self.train_step = make_train_step(self.model, **loss_kwargs)
-        self.eval_step = make_eval_step(self.model, **loss_kwargs)
+        self.train_step = make_train_step(self.model, mesh=self.mesh, **loss_kwargs)
+        self.eval_step = make_eval_step(self.model, mesh=self.mesh, **loss_kwargs)
+
+    def _print(self, msg: str) -> None:
+        if self.is_main:
+            print(msg)
 
     def _build_logging(self):
         logdir = "logs/history_" + timestamp()
         self.logdir = logdir
+        if not self.is_main:
+            self.tlogger = self.vlogger = self.exp_saver = None
+            return
         self.tlogger = MetricsLogger(logdir + "/train")
         self.vlogger = MetricsLogger(logdir + "/val")
         self.exp_saver = ExperimentSaver(logdir=logdir, parse_args=self.args)
         print(f"Setup completed, histories are logged in {logdir}")
+
+    def _batches(self, loader, count: int):
+        """``count`` batches of ``loader`` on the device, each cut to this
+        rank's rows under H-sharding."""
+        from pwcnet_tpu_torch.parallel import shard_batch
+
+        batches = device_prefetch(itertools.islice(iter(loader), count), device=self.device)
+        for images, flows in batches:
+            if self.mesh is not None:
+                images = shard_batch(images, self.mesh, 2, split_batch=False)
+                flows = shard_batch(flows, self.mesh, 1, split_batch=False)
+            yield images, flows
 
     # ------------------------------------------------------------------
     def _install_preemption_handler(self):
@@ -213,7 +252,7 @@ class Trainer:
             return {"epoch": int(m.group(1)), "batch": 0}
         return None
 
-    def _save_state(self, stem: str, cursor: dict | None = None) -> str:
+    def _save_state(self, stem: str, cursor: dict | None = None):
         """Save the TrainState under ./model/<stem>.msgpack.
 
         ``cursor``: the loader position {"epoch", "batch"} to persist as a
@@ -223,6 +262,8 @@ class Trainer:
         the top (samples may be counted twice, never skipped). Writing the
         cursor first would pair a new cursor with a stale state on a crash
         between the two."""
+        if not self.is_main:
+            return None
         os.makedirs("./model", exist_ok=True)
         path = f"./model/{stem}.msgpack"
         cpath = self._cursor_path(path)
@@ -235,10 +276,16 @@ class Trainer:
         return out
 
     def _handle_preemption(self, epoch: int, batch: int) -> bool:
-        if not getattr(self, "_preempted", False):
+        preempted = getattr(self, "_preempted", False)
+        if self.mesh is not None:
+            # the ranks stop together, at the same batch
+            from pwcnet_tpu_torch.parallel import global_sum
+
+            preempted = bool(global_sum(torch.tensor(float(preempted), device=self.device)).item() > 0)
+        if not preempted:
             return False
         path = self._save_state("model_preempt", cursor={"epoch": epoch, "batch": batch})
-        print(
+        self._print(
             f"\npreempted: state saved to {path} (step {int(self.state.step)}, "
             f"epoch {epoch} batch {batch}); --resume continues sample-exactly"
         )
@@ -288,12 +335,12 @@ class Trainer:
                 desc=f"epoch {epoch + 1}/{args.num_epochs}",
                 unit="batch",
                 leave=False,
-                disable=None,  # off where the output is no terminal
+                disable=None if self.is_main else True,  # off where the output is no terminal
                 dynamic_ncols=True,
             )
             self._sync()
             t0 = time.perf_counter()
-            for images, flows_gt in device_prefetch(iter(self.tloader), device=self.device):
+            for images, flows_gt in self._batches(self.tloader, self.num_batches - skip):
                 self.state, metrics = self.train_step(self.state, images, flows_gt)
                 last_metrics = metrics
                 batch_idx += 1
@@ -301,7 +348,7 @@ class Trainer:
                     pbar.close()
                     return self.state
                 g_step = int(self.state.step)
-                if g_step % log_interval == 0:
+                if g_step % log_interval == 0 and self.is_main:
                     self.tlogger.log(
                         g_step, {"loss/pwc": metrics["loss"], "EPE/source": metrics["epe"]}
                     )
@@ -323,36 +370,39 @@ class Trainer:
             # the synchronisation points
             val_losses, val_epes = [], []
             val_batch = None
-            for images, flows_gt in device_prefetch(iter(self.vloader), device=self.device):
+            for images, flows_gt in self._batches(self.vloader, self.num_val_batches):
                 metrics = self.eval_step(self.state, images, flows_gt)
                 val_losses.append(float(metrics["loss"]))
                 val_epes.append(float(metrics["epe"]))
                 val_batch = (images, flows_gt)
-            if val_losses:
+            if val_losses and self.is_main:
                 self.vlogger.log(
                     g_step,
                     {"loss/pwc": float(np.mean(val_losses)), "EPE/source": float(np.mean(val_epes))},
                 )
 
             # -- visualization --------------------------------------------
-            if args.visualize and val_batch is not None:
+            if args.visualize and val_batch is not None and self.mesh is None:
                 self._visualize(val_batch, epoch)
 
             # -- checkpoint ------------------------------------------------
             self._save_state(f"model_{epoch + 1}")
-            pairs = steps * args.batch_size / seconds if seconds > 0 and steps else 0.0
-            print(
+            data = self.mesh.data if self.mesh is not None else 1
+            pairs = steps * args.batch_size * data / seconds if seconds > 0 and steps else 0.0
+            where = self.device if self.mesh is None else f"{self.mesh.data}x{self.mesh.spatial} ranks"
+            self._print(
                 f"epoch {epoch + 1}/{args.num_epochs} step {g_step} "
                 + (
                     f"loss {float(last_metrics['loss']):.4f} epe {float(last_metrics['epe']):.4f} "
                     if last_metrics is not None
                     else ""
                 )
-                + f"({steps} steps in {seconds:.2f} s, {pairs:.1f} pairs/s on {self.device})"
+                + f"({steps} steps in {seconds:.2f} s, {pairs:.1f} pairs/s on {where})"
             )
 
-        self.tlogger.close()
-        self.vlogger.close()
+        if self.is_main:
+            self.tlogger.close()
+            self.vlogger.close()
         if self.exp_saver is not None:
             self.exp_saver.append(["./figure", "./model"])
             self.exp_saver.save()

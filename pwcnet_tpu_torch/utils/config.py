@@ -57,7 +57,10 @@ class ExperimentSaver:
     """Collects run artifacts into a log directory.
 
     Unlike the reference (utils.py:51-53, which uses Path.rename and fails
-    across filesystems), artifacts are moved with shutil.move.
+    across filesystems), artifacts are moved with shutil.move. A directory
+    already in the log directory (a resumed run started within the same
+    minute logs to the same ``history_<ts>``) takes the new entries, which
+    replace its own of the same name, rather than a nested copy.
     """
 
     def __init__(self, logdir=None, parse_args=None):
@@ -76,4 +79,13 @@ class ExperimentSaver:
     def save(self) -> None:
         for path in self.save_list:
             if path.exists():
-                shutil.move(str(path), str(self.logdir / path.name))
+                _move(path, self.logdir / path.name)
+
+
+def _move(src: Path, dst: Path) -> None:
+    if src.is_dir() and dst.is_dir():
+        for child in src.iterdir():
+            _move(child, dst / child.name)
+        src.rmdir()
+    else:
+        shutil.move(str(src), str(dst))

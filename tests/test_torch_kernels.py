@@ -3,7 +3,7 @@
 On the CPU each wrapper must hand a CPU tensor to its plain version, let
 a gradient flow through it under ordinary autograd, and launch nothing;
 K3's plain version is held against the JAX package's fused pyramid-level
-kernel (interpret mode) and its XLA chain. The kernel-vs-plain tests (K1-K7,
+kernel (interpret mode) and its XLA chain. The kernel-vs-plain tests (K1-K9,
 and the backward kernels under autograd) need an NVIDIA card: they carry
 the ``cuda`` marker and skip where there is none (``chip_smoke.py`` holds
 every kernel at the full-size shapes).
@@ -167,7 +167,45 @@ class TestWrappersOnCpu:
         x = torch.from_numpy(_normal(rng, (1, 8, 8, 3)))
         tp = _to_torch_params(_level_params(rng, 3, 16))
         assert torch.equal(pyramid_level_fused(x, *tp), pyramid_level_plain(x, *tp))
-        assert launch_counts() == {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K7b")}
+        counts = launch_counts()
+        assert set(counts) == {"K1", "K2", "K3", "K4", "K5", "K6", "K7", "K7b", "K8", "K8b", "K9", "K9b"}
+        assert not any(counts.values())
+
+    def test_shard_wrappers_route_cpu_to_plain(self, rng):
+        """K8, K8b, K9 and K9b on CPU tensors are their plain versions, and
+        a gradient through K8 and K9 equals autograd through the plain
+        compositions; nothing launches."""
+        from pwcnet_tpu_torch.ops.cost_volume import cost_volume_hpad, cost_volume_hpad_bwd_plain
+        from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_hpad_bwd, cost_volume_hpad_cuda
+        from pwcnet_tpu_torch.ops.cuda.warped_cv import (
+            warped_cost_volume_global, warped_cost_volume_global_bwd, warped_cost_volume_global_bwd_plain,
+            warped_cost_volume_global_plain, warped_cost_volume_global_residual)
+
+        reset_launch_counts()
+        d, vb = 2, (-6, 11)  # the middle of three 6-row shards
+        f0 = torch.from_numpy(_normal(rng, (1, 6, 8, 4))).requires_grad_()
+        f1e = torch.from_numpy(_normal(rng, (1, 10, 8, 4))).requires_grad_()
+        full = torch.from_numpy(_normal(rng, (1, 18, 8, 4))).requires_grad_()
+        flow = torch.from_numpy(_normal(rng, (1, 10, 8, 2), 3.0))
+        flow[..., 1] += 6.0
+        flow.requires_grad_()
+        out = cost_volume_hpad_cuda(f0, f1e, d)
+        assert torch.equal(out, cost_volume_hpad(f0, f1e, d))
+        g = torch.from_numpy(_normal(rng, tuple(out.shape)))
+        want = cost_volume_hpad_bwd_plain(f0.detach(), f1e.detach(), out.detach(), g, d)
+        for a, b, c in zip(torch.autograd.grad(out, [f0, f1e], g),
+                           cost_volume_hpad_bwd(f0.detach(), f1e.detach(), out.detach(), g, d), want):
+            assert torch.allclose(a, c, rtol=1e-5, atol=1e-6) and torch.equal(b, c)
+        out = warped_cost_volume_global(f0, full, flow, vb, d)
+        assert torch.equal(out, warped_cost_volume_global_plain(f0, full, flow, vb, d))
+        with torch.no_grad():
+            o, we = warped_cost_volume_global_residual(f0, full, flow, vb, d)
+        assert we.shape == (1, 10, 8, 4) and torch.equal(o, out.detach())
+        args = (f0.detach(), full.detach(), flow.detach(), vb, o, we, g, d)
+        want = warped_cost_volume_global_bwd_plain(*args)
+        for a, b, c in zip(torch.autograd.grad(out, [f0, full, flow], g), warped_cost_volume_global_bwd(*args), want):
+            assert torch.allclose(a, c, rtol=1e-5, atol=1e-5) and torch.equal(b, c)
+        assert not any(launch_counts().values())
 
     def test_a_gradient_flows_through_each_wrapper(self, rng):
         """On CPU tensors autograd runs through the plain versions: every
@@ -414,6 +452,92 @@ class TestKernelsOnCard:
         for a, b in zip(got, want):
             _assert_close(a, b, torch.float32)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape,d", [((2, 8, 37, 40), 4), ((1, 3, 16, 192), 4), ((1, 5, 6, 3), 2)])
+    def test_cost_volume_hpad(self, cuda_device, rng, dtype, shape, d):
+        """K8 and K8b: a shard's rows against f1 with d halo rows each side
+        (3 rows at d=4: the halo is wider than the shard), df1_ext with them."""
+        from pwcnet_tpu_torch.ops.cost_volume import cost_volume_hpad, cost_volume_hpad_bwd_plain
+        from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_hpad_bwd, cost_volume_hpad_cuda
+
+        b, h, w, c = shape
+        f0 = torch.from_numpy(_normal(rng, shape)).to(cuda_device, dtype)
+        f1e = torch.from_numpy(_normal(rng, (b, h + 2 * d, w, c))).to(cuda_device, dtype)
+        before = (cost_volume_hpad_cuda.launches, cost_volume_hpad_bwd.launches)
+        got = cost_volume_hpad_cuda(f0, f1e, d)
+        want = cost_volume_hpad(f0, f1e, d)
+        _assert_close(got, want, dtype)
+        g = torch.from_numpy(_normal(rng, tuple(want.shape))).to(cuda_device, dtype)
+        grads = cost_volume_hpad_bwd(f0, f1e, want, g, d)
+        torch.cuda.synchronize()
+        assert (cost_volume_hpad_cuda.launches, cost_volume_hpad_bwd.launches) == (before[0] + 1, before[1] + 1)
+        for a, e in zip(grads, cost_volume_hpad_bwd_plain(f0, f1e, want, g, d)):
+            _assert_close(a, e, dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shard", [0, 1, 2])
+    @pytest.mark.parametrize("shape,d,fscale", [((2, 14, 33, 32), 4, 3.0), ((1, 10, 12, 5), 3, 40.0)])
+    def test_warped_cost_volume_global(self, cuda_device, rng, dtype, shard, shape, d, fscale):
+        """K9 and K9b at the top, middle and bottom of three shards, flows
+        that reach across shards and out of the frame."""
+        from pwcnet_tpu_torch.ops.cuda.warped_cv import (
+            warped_cost_volume_global, warped_cost_volume_global_bwd, warped_cost_volume_global_bwd_plain,
+            warped_cost_volume_global_plain, warped_cost_volume_global_residual)
+        from pwcnet_tpu_torch.ops.warp import masked_warp_rows
+
+        b, h, w, c = shape
+        off = shard * h
+        vb = (-off, 3 * h - 1 - off)
+        f0 = torch.from_numpy(_normal(rng, shape)).to(cuda_device, dtype)
+        full = torch.from_numpy(_normal(rng, (b, 3 * h, w, c))).to(cuda_device, dtype)
+        flow = torch.from_numpy(_normal(rng, (b, h + 2 * d, w, 2), fscale)).to(cuda_device)
+        flow[..., 1] += off
+        before = (warped_cost_volume_global.launches, warped_cost_volume_global_bwd.launches)
+        got = warped_cost_volume_global(f0, full, flow, vb, d)
+        out, we = warped_cost_volume_global_residual(f0, full, flow, vb, d)
+        want = warped_cost_volume_global_plain(f0, full, flow, vb, d)
+        _assert_close(got, want, dtype)
+        assert torch.equal(got, out)
+        _assert_close(we, masked_warp_rows(full, flow, vb, d), dtype)
+        g = torch.from_numpy(_normal(rng, tuple(want.shape))).to(cuda_device, dtype)
+        args = (f0, full, flow, vb, want, masked_warp_rows(full, flow, vb, d), g, d)
+        grads = warped_cost_volume_global_bwd(*args)
+        torch.cuda.synchronize()
+        assert (warped_cost_volume_global.launches, warped_cost_volume_global_bwd.launches) == (
+            before[0] + 2, before[1] + 1)
+        for a, e in zip(grads, warped_cost_volume_global_bwd_plain(*args)):
+            _assert_close(a, e, dtype)
+
+    def test_autograd_runs_the_shard_kernels(self, cuda_device, rng):
+        """A gradient through K8 and K9 launches K8b and K9b and equals
+        ordinary autograd through the plain versions."""
+        from pwcnet_tpu_torch.ops.cost_volume import cost_volume_hpad
+        from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_hpad_cuda
+        from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume_global, warped_cost_volume_global_plain
+
+        def leaf(shape, scale=1.0, shift=0.0):
+            t = torch.from_numpy(_normal(rng, shape, scale)).to(cuda_device)
+            t[..., -1] += shift
+            return t.requires_grad_()
+
+        f0 = leaf((2, 6, 14, 32))
+        cases = [
+            (cost_volume_hpad_cuda, cost_volume_hpad, (f0, leaf((2, 14, 14, 32)), 4), {"K8": 1, "K8b": 1}),
+            (warped_cost_volume_global, warped_cost_volume_global_plain,
+             (f0, leaf((2, 18, 14, 32)), leaf((2, 14, 14, 2), 2.0, 6.0), (-6, 11), 4),
+             {"K9": 1, "K9b": 1, "K8b": 1}),
+        ]
+        for wrapper, plain, args, launches in cases:
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
+            reset_launch_counts()
+            out = wrapper(*args)
+            g = torch.randn(out.shape, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(0))
+            got = torch.autograd.grad(out, tensors, g)
+            assert {k: v for k, v in launch_counts().items() if v} == launches
+            want = torch.autograd.grad(plain(*args), tensors, g)
+            for a, b in zip(got, want):
+                _assert_close(a, b, torch.float32)
+
     def test_profiling_helpers_time_the_card(self, cuda_device, tmp_path):
         from pwcnet_tpu_torch.utils import profiling
 
@@ -439,6 +563,91 @@ class TestKernelsOnCard:
         kk = torch.zeros((32, 32, 3, 3), device=cuda_device)
         with pytest.raises(ValueError):
             pyramid_level_fused(x[:, :7], k, b, kk, b, kk, b)  # odd H
+
+
+@pytest.fixture
+def two_gpus():
+    """Two cards or a skip: decided here, at run time, never at import."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs (NCCL between ranks)")
+
+
+def _nccl_ranks(task, tmp_path, inputs, cfg):
+    """Run ``task`` of tests/_torch_spatial_worker.py in two NCCL ranks, one
+    GPU each; return each rank's outputs."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    io = tmp_path / task
+    io.mkdir()
+    np.savez(io / "inputs.npz", **inputs)
+    (io / "config.json").write_text(json.dumps({**cfg, "device": "cuda:{rank}", "backend": "nccl"}))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_spatial_worker.py")
+    procs = [subprocess.Popen([sys.executable, worker, task, str(r), "2", str(port), str(io)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    return [dict(np.load(io / f"out_{r}.npz")) for r in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.multigpu
+def test_nccl_sharded_model_matches_unsharded(two_gpus, tmp_path):
+    """Two NCCL ranks, one GPU each: the H-sharded model through the
+    kernels (K3 on stripes, K8 at level 0, K9, and K8b/K9b in its backward)
+    against the unsharded model on one card, the final flow (1e-4 of its
+    scale) and the parameter gradient of sum(flow * g) summed over the ranks;
+    then the first sharded train step (data 1 x spatial 2) against the
+    unsharded step: its gradient, decay included, and its loss and EPE.
+    Each gradient tensor within 1e-3 of its largest entry: float32 through
+    about 50 layers, as the kernel path is held to the plain path in
+    chip_smoke.py."""
+    import json
+
+    from pwcnet_tpu_torch.models import PWCDCNet
+    from pwcnet_tpu_torch.train_lib import make_loss_fn
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    model = PWCDCNet(generator=torch.Generator().manual_seed(3))
+    sd = {f"sd/{k}": v.numpy() for k, v in model.state_dict().items()}
+    images = rng.random((2, 2, 512, 128, 3)).astype(np.float32)  # level 0: 4 rows a shard (K8)
+    g = rng.standard_normal((2, 512, 128, 2)).astype(np.float32)
+    flows = (rng.standard_normal((2, 512, 128, 2)) * 2).astype(np.float32)
+    outs = _nccl_ranks("model", tmp_path, dict(images=images, g_final=g, **sd),
+                       {"model": {}, "fused_pyramid_levels": 2})
+    for o in outs:
+        launches = json.loads(str(o["launches"]))
+        assert all(launches[k] > 0 for k in ("K3", "K8", "K8b", "K9", "K9b")), launches
+    steps = _nccl_ranks("train", tmp_path, dict(images=images, flows=flows, **sd),
+                        {"model": {}, "fused_pyramid_levels": 2, "data": 1, "spatial": 2, "lr": 1e-4,
+                         "steps": 1, "losses": ["multiscale"]})
+
+    ref = PWCDCNet(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume, fused_pyramid_levels=2)
+    ref.load_state_dict(model.state_dict())
+    ref = ref.cuda()
+    named = dict(ref.named_parameters())
+    t = torch.from_numpy(images).cuda()
+    flow, _ = ref(t[:, 0], t[:, 1])
+    grads = torch.autograd.grad((flow * torch.from_numpy(g).cuda()).sum(), list(named.values()))
+    want = flow.detach().cpu().numpy()
+    for o in outs:
+        assert np.abs(o["flows_final"] - want).max() <= 1e-4 * np.abs(want).max()
+    objective, metrics = make_loss_fn(ref, decoupled_wd=True)(t, torch.from_numpy(flows).cuda())
+    step_grads = torch.autograd.grad(objective, list(named.values()))
+    for prefix, got, ws in (("grad/", outs[0], grads), ("multiscale/grad/", steps[0], step_grads)):
+        for k, w in zip(named, ws):
+            w = (w + 4e-4 * named[k].detach() if prefix != "grad/" else w).cpu().numpy()
+            assert np.abs(got[prefix + k] - w).max() <= 1e-3 * np.abs(w).max() + 1e-7, prefix + k
+    for k in ("loss", "epe"):
+        np.testing.assert_allclose(steps[0][f"multiscale/step0/{k}"], float(metrics[k]), rtol=1e-4)
+    assert all(o["multiscale/checksum_spread"] == 0.0 for o in steps)
 
 
 def _assert_close(got, want, dtype, ulps=2):

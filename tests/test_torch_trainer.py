@@ -258,13 +258,20 @@ class TestNamedErrors:
         (["--remat"], "--remat"),
     ])
     def test_train_refuses_what_is_not_ported(self, tmp_path, monkeypatch, flags, match):
+        """Refused by name before anything is written: the options not
+        ported (orbax, remat), and a sharded or multi-process run that no
+        launcher started (one process, no torchrun, a coordinator with no
+        process count)."""
         monkeypatch.chdir(tmp_path)
-        with pytest.raises(NotImplementedError, match=match):
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        with pytest.raises((NotImplementedError, ValueError), match=match):
             port_train_cli.main(TRAIN_ARGS + flags)
         assert not (tmp_path / "logs").exists()
 
-    def test_evaluate_refuses_spatial(self):
-        with pytest.raises(NotImplementedError, match="--spatial"):
+    def test_evaluate_refuses_spatial(self, monkeypatch):
+        """--spatial 2 in one process that no launcher started names the flag."""
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        with pytest.raises(ValueError, match="--spatial"):
             port_eval_cli.main(["-d", "Synthetic", "-dd", ".", "--spatial", "2", "--device", "cpu"])
 
     @pytest.mark.parametrize("cli", [port_train_cli, port_eval_cli], ids=["train", "evaluate"])
@@ -356,6 +363,17 @@ class TestUtils:
         saver.save()
         assert json.loads((tmp_path / "logs/run/config.json").read_text()) == {"lr": 1e-4, "dataset": "Synthetic"}
         assert (tmp_path / "logs/run/model/model_1.msgpack").is_file() and not (tmp_path / "model").exists()
+        # a second run into the same log directory (a resume within the same
+        # minute) merges its checkpoints into model/, not into model/model/
+        (tmp_path / "model").mkdir()
+        (tmp_path / "model" / "model_2.msgpack").write_bytes(b"y")
+        (tmp_path / "model" / "model_1.msgpack").write_bytes(b"z")
+        saver = ExperimentSaver(logdir="logs/run")
+        saver.append("./model")
+        saver.save()
+        assert sorted(p.name for p in (tmp_path / "logs/run/model").iterdir()) == ["model_1.msgpack", "model_2.msgpack"]
+        assert (tmp_path / "logs/run/model/model_1.msgpack").read_bytes() == b"z"
+        assert not (tmp_path / "model").exists()
         with pytest.raises(TypeError):
             save_config([1, 2])
         show_progress(1, 5, 10, loss=0.5)
