@@ -46,18 +46,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
 7. spatial: H-sharding on the one card. In ``[kernels]`` K8 and K8b (the
    cost volume of a row shard against halo-extended rows, and its
    backward) and K9 and K9b (a shard's warped cost volume against the whole
-   frame, and its backward) are held against their plain versions at the
-   shard shapes of 448x1024, 384x448 and a 1024x1024 frame over 2 shards,
-   and the stripes of one frame, stitched, against the unsharded K2/K1 and
-   (gradients summed over the stripes) K4/K5. The ``[spatial]`` phase then
+   frame, and the warp backward that follows K8b in its backward) are held
+   against their plain versions at the shard shapes of 448x1024, 384x448
+   and a 1024x1024 frame over 2 shards, and the stripes of one frame,
+   stitched, against the unsharded K2/K1 and (gradients summed over the
+   stripes) K4/K5. The ``[spatial]`` phase then
    spawns 2 ranks on the card, joined by a gloo group that stages every
    halo and gather through the host: ``FlowPredictor`` H-sharded at
-   448x1024 B=8 (bf16, f32) and at one 1024x1024 pair (level 0 sharded: K8),
-   the sharded train step at 384x448 B=8 bf16 (the first step's gradients
-   against the unsharded step, 5 steps), and ``train.main --spatial 2`` on
-   the written dataset (one epoch, one resume, ``evaluate --spatial 2``
-   against the unsharded EPE); each rank reports its launch counts. NCCL
-   across GPUs needs two cards and is not run on a one-card machine;
+   448x1024 B=8 and at one 1024x1024 pair (level 0 sharded: K8), bf16 and
+   f32, the sharded train step at 384x448 B=8 (the first step's gradients
+   against the unsharded step in f32 and bf16, 5 bf16 steps), and
+   ``train.main --spatial 2`` on the written dataset (one epoch, one
+   resume, ``evaluate --spatial 2`` against the unsharded EPE); each rank
+   reports its launch counts. NCCL across GPUs needs two cards and is not
+   run on a one-card machine;
 8. timing: each kernel, its plain version and (K3, K6, K7) the cuDNN conv
    chain timed with CUDA events at the main-path shapes (B=8, bf16);
    pairs/s of the whole forward at 448x1024 B=8 bf16; device time by
@@ -73,6 +75,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import math
 import os
 import socket
 import subprocess
@@ -128,7 +131,7 @@ KERNEL_INFO = {
             "pwcnet_tpu/ops/pallas/cost_volume.py:955"),
     "K9": ("warped_cost_volume_global", "pwcnet_tpu_torch/csrc/warped_cv.cu",
            "pwcnet_tpu/ops/pallas/warped_cv.py:813"),
-    "K9b": ("warped_cost_volume_global_bwd", "pwcnet_tpu_torch/csrc/warp_bwd.cu",
+    "K9b": ("warped_rows_bwd", "pwcnet_tpu_torch/csrc/warp_bwd.cu",
             "pwcnet_tpu/ops/pallas/warped_cv.py:888"),
 }
 SHARD_KERNELS = ("K8", "K8b", "K9", "K9b")
@@ -719,23 +722,22 @@ def k8b_work(b, h, w, c, s):
 
 
 def k9b_work(b, h, hf, w, c, s):
-    # K8b, then the tall warp backward: reads the warped rows' cotangent,
+    # the tall warp backward after K8b: reads the warped rows' cotangent,
     # the whole frame and the float32 flow; writes df1 (the frame) and dflow
     ext = b * (h + 2 * SEARCH_RANGE) * w
-    n_bytes, n_ops = k8b_work(b, h, w, c, s)
-    return n_bytes + (ext * c + 2 * b * hf * w * c) * s + ext * 2 * 4 * 2, n_ops + ext * c * 14
+    return (ext * c + 2 * b * hf * w * c) * s + ext * 2 * 4 * 2, ext * c * 14
 
 
 def time_shard_kernels(torch, F, device, dtype=None):
     """K8, K8b, K9, K9b: kernel and plain times at a shard's shapes on the
     sharded paths (one rank of 2): K9 at 448x1024 B=8 levels 1-4 per
     forward, K8 at the 1024x1024 pair's level 0 per forward, K8b and K9b at
-    384x448 B=8 levels 1-4 per train step."""
+    384x448 B=8 levels 1-4 per train step. K9b is timed alone, on the
+    warped rows' cotangent K8b gives it."""
     from pwcnet_tpu_torch.ops.cost_volume import cost_volume_hpad, cost_volume_hpad_bwd_plain
     from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_hpad_bwd, cost_volume_hpad_cuda
     from pwcnet_tpu_torch.ops.cuda.warped_cv import (
-        warped_cost_volume_global, warped_cost_volume_global_bwd, warped_cost_volume_global_bwd_plain,
-        warped_cost_volume_global_plain)
+        warped_cost_volume_global, warped_cost_volume_global_plain, warped_rows_bwd, warped_rows_bwd_plain)
     from pwcnet_tpu_torch.ops.warp import masked_warp_rows
 
     dtype = dtype or torch.bfloat16
@@ -773,7 +775,7 @@ def time_shard_kernels(torch, F, device, dtype=None):
             we = masked_warp_rows(f1, flow_ext, vb, d)
             g = torch.randn(out.shape, generator=gen, device=device).to(dtype)
             a8 = (f0_s, we, out, g, d)
-            a9 = (f0_s, f1, flow_ext, vb, out, we, g, d)
+            a9 = (f1, flow_ext, vb, cost_volume_hpad_bwd_plain(*a8)[1], d)
             shape = f"8x{h}x{W}x{C} of {H}"
             rows["K8b"].append(dict(
                 shape=shape, times=1,
@@ -782,8 +784,8 @@ def time_shard_kernels(torch, F, device, dtype=None):
                 library_ms=None, work=k8b_work(8, h, W, C, sz)))
             rows["K9b"].append(dict(
                 shape=shape, times=1,
-                ms=cuda_ms(torch, lambda: warped_cost_volume_global_bwd(*a9)),
-                plain_ms=cuda_ms(torch, lambda: warped_cost_volume_global_bwd_plain(*a9), iters=5, warmup=1),
+                ms=cuda_ms(torch, lambda: warped_rows_bwd(*a9)),
+                plain_ms=cuda_ms(torch, lambda: warped_rows_bwd_plain(*a9), iters=5, warmup=1),
                 library_ms=None, work=k9b_work(8, h, H, W, C, sz)))
     finish_rows(rows, dname)
     return rows
@@ -1167,86 +1169,85 @@ def trainer_phase(torch, np, card, tmp_root):
     from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     stats = {}
-    with contextlib.nullcontext(tmp_root) as tmp:
-        root = os.path.join(tmp, "chairs")
-        t0 = time.perf_counter()
-        write_chairs(np, root)
-        log(f"  wrote {CHAIRS_SAMPLES} samples of {CHAIRS_HW[0]}x{CHAIRS_HW[1]} in {time.perf_counter() - t0:.1f} s")
-        base = ["-d", "FlyingChairs", "-dd", root, "-b", "8", "-e", "2", "--crop_type", "random",
-                "--crop_shape", "384", "448", "--dtype", "bfloat16", "--no-visualize",
-                "--log_interval", "11", "-nw", "4"]
-        fused = ["--fused-estimator", str(FUSED_ESTIMATOR)]
+    root = os.path.join(tmp_root, "chairs")
+    t0 = time.perf_counter()
+    write_chairs(np, root)
+    log(f"  wrote {CHAIRS_SAMPLES} samples of {CHAIRS_HW[0]}x{CHAIRS_HW[1]} in {time.perf_counter() - t0:.1f} s")
+    base = ["-d", "FlyingChairs", "-dd", root, "-b", "8", "-e", "2", "--crop_type", "random",
+            "--crop_shape", "384", "448", "--dtype", "bfloat16", "--no-visualize",
+            "--log_interval", "11", "-nw", "4"]
+    fused = ["--fused-estimator", str(FUSED_ESTIMATOR)]
 
-        # -- the main path, counted: two epochs through the CLI
-        first = {}
-        torch.cuda.synchronize()
+    # -- the main path, counted: two epochs through the CLI
+    first = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with working_directory(os.path.join(tmp_root, "run")), first_batches_recorded(first):
+        trainer = train_cli.main(base + fused)
+        logdir = os.path.abspath(trainer.logdir)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    steps, vals = 2 * len(trainer.tloader), 2 * len(trainer.vloader)
+    log(f"  trainer: {steps} steps and {vals} validation batches, launches {counts}")
+    require(trainer.tloader.path == "native",
+            "the trainer's loader did not take the native path")
+    require(steps == 44 and vals == 4, f"{steps} steps and {vals} validation batches, want 44 and 4")
+    want = {k: TRAINER_PER_STEP.get(k, 0) * steps + TRAINER_PER_FORWARD.get(k, 0) * vals for k in counts}
+    require(counts == want, f"trainer launches {counts}, want {want}")
+    require(trainer.state.step == steps, f"step counter {trainer.state.step}")
+    ckpts = [os.path.join(logdir, "model", f"model_{e}.msgpack") for e in (1, 2)]
+    for path in ckpts + [os.path.join(logdir, d, "metrics.jsonl") for d in ("train", "val")]:
+        require(os.path.isfile(path) and os.path.getsize(path) > 0, f"{path} is missing")
+    logged = read_jsonl(os.path.join(logdir, "train", "metrics.jsonl"))
+    losses = [r["loss/pwc"] for r in logged]
+    val = [r["loss/pwc"] for r in read_jsonl(os.path.join(logdir, "val", "metrics.jsonl"))]
+    log(f"  logged train loss at steps {[r['step'] for r in logged]}: {' '.join(f'{v:.3f}' for v in losses)}; "
+        f"validation loss per epoch: {' '.join(f'{v:.3f}' for v in val)}")
+    require(len(losses) == 4 and all(np.isfinite(losses + val)), "the logged losses")
+    require(losses[-1] < losses[0], "the loss at the end of epoch 2 is not below the first logged loss")
+    stats["trainer_epochs"] = trainer.epoch_stats
+    stats["losses"] = losses
+    stats["val_losses"] = val
+
+    # -- resume from the first epoch's checkpoint: same first batch, same bytes
+    resumed = {}
+    for name, extra in (("resumed", fused), ("resumed_cudnn_estimator", ["--fused-estimator", "0"])):
+        seen = {}
+        with working_directory(os.path.join(tmp_root, name)), first_batches_recorded(seen):
+            again = train_cli.main(base + extra + ["-r", ckpts[0]])
+        require(again._resume_epoch == 1 and again.state.step == steps,
+                f"{name}: resumed at epoch {again._resume_epoch}, ended at step {again.state.step}")
+        require(list(seen) == [1] and seen[1] == first[1],
+                f"{name}: the first batch after --resume differs from the first run's first batch of epoch 2")
+        resumed[name] = again.epoch_stats[-1]
+    log(f"  --resume model_1.msgpack: first batch of epoch 2 has the bytes of the first run's (sha1 {first[1][:12]})")
+    stats["resumed_epochs"] = resumed
+
+    # -- evaluate the trained checkpoint, kernels on and off
+    epe = {}
+    for flag in ("--pallas", "--no-pallas"):
         reset_launch_counts()
-        with working_directory(os.path.join(tmp, "run")), first_batches_recorded(first):
-            trainer = train_cli.main(base + fused)
-            logdir = os.path.abspath(trainer.logdir)
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        steps, vals = 2 * len(trainer.tloader), 2 * len(trainer.vloader)
-        log(f"  trainer: {steps} steps and {vals} validation batches, launches {counts}")
-        require(trainer.tloader.path == "native",
-                "the trainer's loader did not take the native path")
-        require(steps == 44 and vals == 4, f"{steps} steps and {vals} validation batches, want 44 and 4")
-        want = {k: TRAINER_PER_STEP.get(k, 0) * steps + TRAINER_PER_FORWARD.get(k, 0) * vals for k in counts}
-        require(counts == want, f"trainer launches {counts}, want {want}")
-        require(trainer.state.step == steps, f"step counter {trainer.state.step}")
-        ckpts = [os.path.join(logdir, "model", f"model_{e}.msgpack") for e in (1, 2)]
-        for path in ckpts + [os.path.join(logdir, d, "metrics.jsonl") for d in ("train", "val")]:
-            require(os.path.isfile(path) and os.path.getsize(path) > 0, f"{path} is missing")
-        logged = read_jsonl(os.path.join(logdir, "train", "metrics.jsonl"))
-        losses = [r["loss/pwc"] for r in logged]
-        val = [r["loss/pwc"] for r in read_jsonl(os.path.join(logdir, "val", "metrics.jsonl"))]
-        log(f"  logged train loss at steps {[r['step'] for r in logged]}: {' '.join(f'{v:.3f}' for v in losses)}; "
-            f"validation loss per epoch: {' '.join(f'{v:.3f}' for v in val)}")
-        require(len(losses) == 4 and all(np.isfinite(losses + val)), "the logged losses")
-        require(losses[-1] < losses[0], "the loss at the end of epoch 2 is not below the first logged loss")
-        stats["trainer_epochs"] = trainer.epoch_stats
-        stats["losses"] = losses
-        stats["val_losses"] = val
+        epe[flag] = evaluate_cli.main(["-d", "FlyingChairs", "-dd", root, "--split", "val", "-b", "8",
+                                       "-r", ckpts[1], "--dtype", "bfloat16", flag])
+        got = launch_counts()
+        per = PER_FORWARD if flag == "--pallas" else {}
+        require(all(got[k] == per.get(k, 0) * 3 for k in got), f"evaluate {flag}: launches {got}")
+    # the serving tolerance: the two paths round at different places
+    log(f"  evaluate on 20 val frames: EPE {epe['--pallas']:.4f} px with the kernels, "
+        f"{epe['--no-pallas']:.4f} px on the plain path")
+    require(all(np.isfinite(list(epe.values()))), "evaluate: EPE")
+    require(abs(epe["--pallas"] - epe["--no-pallas"]) <= 5e-2 * epe["--no-pallas"] + 1e-4,
+            "evaluate: kernel path and plain path disagree")
+    stats["epe"] = epe
 
-        # -- resume from the first epoch's checkpoint: same first batch, same bytes
-        resumed = {}
-        for name, extra in (("resumed", fused), ("resumed_cudnn_estimator", ["--fused-estimator", "0"])):
-            seen = {}
-            with working_directory(os.path.join(tmp, name)), first_batches_recorded(seen):
-                again = train_cli.main(base + extra + ["-r", ckpts[0]])
-            require(again._resume_epoch == 1 and again.state.step == steps,
-                    f"{name}: resumed at epoch {again._resume_epoch}, ended at step {again.state.step}")
-            require(list(seen) == [1] and seen[1] == first[1],
-                    f"{name}: the first batch after --resume differs from the first run's first batch of epoch 2")
-            resumed[name] = again.epoch_stats[-1]
-        log(f"  --resume model_1.msgpack: first batch of epoch 2 has the bytes of the first run's (sha1 {first[1][:12]})")
-        stats["resumed_epochs"] = resumed
-
-        # -- evaluate the trained checkpoint, kernels on and off
-        epe = {}
-        for flag in ("--pallas", "--no-pallas"):
-            reset_launch_counts()
-            epe[flag] = evaluate_cli.main(["-d", "FlyingChairs", "-dd", root, "--split", "val", "-b", "8",
-                                           "-r", ckpts[1], "--dtype", "bfloat16", flag])
-            got = launch_counts()
-            per = PER_FORWARD if flag == "--pallas" else {}
-            require(all(got[k] == per.get(k, 0) * 3 for k in got), f"evaluate {flag}: launches {got}")
-        # the serving tolerance: the two paths round at different places
-        log(f"  evaluate on 20 val frames: EPE {epe['--pallas']:.4f} px with the kernels, "
-            f"{epe['--no-pallas']:.4f} px on the plain path")
-        require(all(np.isfinite(list(epe.values()))), "evaluate: EPE")
-        require(abs(epe["--pallas"] - epe["--no-pallas"]) <= 5e-2 * epe["--no-pallas"] + 1e-4,
-                "evaluate: kernel path and plain path disagree")
-        stats["epe"] = epe
-
-        # -- the loader alone: one epoch of host batches, no model
-        dset = get_dataset("FlyingChairs")(train_or_val="train", dataset_dir=root, crop_type="random",
-                                           crop_shape=(384, 448))
-        loader = DataLoader(dset, batch_size=8, shuffle=True, num_workers=4)
-        require(loader.path == "native", "the timed loader did not take the native path")
-        t0 = time.perf_counter()
-        n = sum(images.shape[0] for images, _ in loader)
-        stats["loader_pairs_per_s"] = n / (time.perf_counter() - t0)
+    # -- the loader alone: one epoch of host batches, no model
+    dset = get_dataset("FlyingChairs")(train_or_val="train", dataset_dir=root, crop_type="random",
+                                       crop_shape=(384, 448))
+    loader = DataLoader(dset, batch_size=8, shuffle=True, num_workers=4)
+    require(loader.path == "native", "the timed loader did not take the native path")
+    t0 = time.perf_counter()
+    n = sum(images.shape[0] for images, _ in loader)
+    stats["loader_pairs_per_s"] = n / (time.perf_counter() - t0)
 
     def rate(e):
         return e["steps"] * 8 / e["train_seconds"]
@@ -1329,38 +1330,65 @@ def spatial_rank(rank, port, out_dir, chairs_root):
     ms = cuda_ms(torch, lambda: preds[torch.bfloat16].raw_forward(batch_dev), iters=5, warmup=1)
     report["serve_pairs_per_s"] = 8e3 / ms
     pair = smooth_pair(np, *SPATIAL_K8_HW, 30)
-    big = counted("serve_1024", lambda: preds[torch.bfloat16](*pair)[0])
+    big = counted("serve_1024", lambda: {dt: p(*pair)[0] for dt, p in preds.items()})
     if main:
         for dt, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
-            ref = FlowPredictor(dtype=dt, device=device).raw_forward(batch_dev)[0]
-            report[f"serve_err_{dtype_name(dt)}"] = flow_close(
-                f"sharded vs unsharded {dtype_name(dt)} 448x1024 B=8", flows[dt], ref, rtol)
-        ref = FlowPredictor(dtype=torch.bfloat16, device=device)(*pair)[0]
-        report["serve_err_1024"] = flow_close("sharded vs unsharded bf16 1024x1024 (level 0 sharded)", big, ref, 5e-2)
-    del preds, flows
+            name = dtype_name(dt)
+            unsharded = FlowPredictor(dtype=dt, device=device)
+            report[f"serve_err_{name}"] = flow_close(
+                f"sharded vs unsharded {name} 448x1024 B=8", flows[dt], unsharded.raw_forward(batch_dev)[0], rtol)
+            report[f"serve_err_1024_{name}"] = flow_close(
+                f"sharded vs unsharded {name} 1024x1024 (level 0 sharded)", big[dt], unsharded(*pair)[0], rtol)
+    del preds, flows, big
 
-    # -- the train step, 384x448 B=8, data 1 x spatial 2, bf16 compute
+    # -- the train step, 384x448 B=8, data 1 x spatial 2: the first step's
+    # gradients against the unsharded step in float32 and bf16 compute, then
+    # five bf16 steps. Bounds as the [train] phase's kernel-vs-plain check:
+    # float32 differs in summation order only (each tensor within 1e-3 of
+    # its largest entry, cosine >= 0.99999); bf16 rounds at other places
+    # (|diff| <= 0.03 |g|, cosine >= 0.999, worst tensor 20%). On rank 0 the
+    # unsharded kernel path is also held against the unsharded plain path
+    # in bf16 on the same batch: the gap that rounding alone opens.
     images, flows_gt = train_batch(torch, np, device, 8)
     loc_images = shard_batch(images, mesh, 2, split_batch=False)
     loc_flows = shard_batch(flows_gt, mesh, 1, split_batch=False)
-    model = PWCDCNet(compute_dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0),
-                     **spatial_hooks(mesh, True))
+
+    def first_grads(model, sharded):
+        create_train_state(model, device=device)
+        if sharded:
+            objective, _ = make_loss_fn(model, mesh=mesh, decoupled_wd=True)(loc_images, loc_flows)
+        else:
+            objective, _ = make_loss_fn(model, decoupled_wd=True)(images, flows_gt)
+        named = dict(model.named_parameters())
+        grads = dict(zip(named, torch.autograd.grad(objective, list(named.values()))))
+        return {k: global_sum(g) for k, g in grads.items()} if sharded else grads
+
+    report["gradient"] = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = dtype_name(dt)
+        model = PWCDCNet(compute_dtype=dt, generator=torch.Generator().manual_seed(0), **spatial_hooks(mesh, True))
+        grads = first_grads(model, True)
+        if main:
+            want = first_grads(train_model(torch, dt, True), False)
+            worst, worst_name, rel_l2, cos = grad_agreement(torch, grads, want)
+            log(f"  [rank 0] first-step gradient {name} B=8, sharded vs unsharded: worst max|diff|/max|g| "
+                f"{worst:.3e} ({worst_name}), |diff|/|g| {rel_l2:.3e}, cosine {cos:.6f}")
+            report["gradient"][name] = {"worst_rel": worst, "worst_tensor": worst_name, "rel_l2": rel_l2,
+                                        "cosine": cos}
+            if dt == torch.float32:
+                require(worst <= 1e-3 and cos >= 0.99999, "float32 sharded gradients disagree with the unsharded step")
+            else:
+                require(rel_l2 <= 0.03 and cos >= 0.999 and worst <= 0.2,
+                        "bf16 sharded gradients disagree with the unsharded step")
+                base = grad_agreement(torch, want, first_grads(train_model(torch, dt, False), False))
+                log(f"  [rank 0] the same bf16 batch unsharded, kernels vs plain: worst {base[0]:.3e} ({base[1]}), "
+                    f"|diff|/|g| {base[2]:.3e}, cosine {base[3]:.6f}")
+                report["gradient"]["bfloat16 unsharded kernels vs plain"] = dict(zip(
+                    ("worst_rel", "worst_tensor", "rel_l2", "cosine"), base))
+            del want
+        del grads
+    # the bf16 model of the last round goes on to the steps
     state = create_train_state(model, device=device)
-    objective, _ = make_loss_fn(model, mesh=mesh, decoupled_wd=True)(loc_images, loc_flows)
-    named = dict(model.named_parameters())
-    grads = {k: global_sum(g) for k, g in zip(named, torch.autograd.grad(objective, list(named.values())))}
-    if main:
-        ref_model = train_model(torch, torch.bfloat16, True)
-        create_train_state(ref_model, device=device)
-        total, _ = make_loss_fn(ref_model, decoupled_wd=True)(images, flows_gt)
-        ref_named = dict(ref_model.named_parameters())
-        want = dict(zip(ref_named, torch.autograd.grad(total, list(ref_named.values()))))
-        worst, worst_name, rel_l2, cos = grad_agreement(torch, grads, want)
-        log(f"  [rank 0] first-step gradient bf16 B=8, sharded vs unsharded: worst max|diff|/max|g| {worst:.3e} "
-            f"({worst_name}), |diff|/|g| {rel_l2:.3e}, cosine {cos:.6f}")
-        require(rel_l2 <= 0.03 and cos >= 0.999 and worst <= 0.2, "sharded gradients disagree with the unsharded step")
-        report["gradient"] = {"worst_rel": worst, "rel_l2": rel_l2, "cosine": cos}
-        del ref_model, want
     step = make_train_step(model, mesh=mesh)
 
     def five_steps():
@@ -1378,7 +1406,7 @@ def spatial_rank(rank, port, out_dir, chairs_root):
     report["train_pairs_per_s"] = 8e3 / ms
     checksum = torch.stack([p.detach().double().sum() for p in model.parameters()]).sum()
     require(float((global_sum(checksum) / SHARDS - checksum).abs()) == 0.0, "the ranks' parameters differ")
-    del model, state, step, grads
+    del model, state, step
 
     # -- train.main --spatial 2: one epoch, one resumed, evaluate --spatial 2
     run = os.path.join(out_dir, f"rank{rank}")
@@ -1449,7 +1477,7 @@ def spatial_phase(torch, card, chairs_root):
     r0 = reports[0]
     sharded_epe = r0["epe"]
     log(f"  evaluate: EPE {sharded_epe:.4f} px over 2 shards, {epe:.4f} px unsharded")
-    require(np_isfinite(sharded_epe) and abs(sharded_epe - epe) <= 5e-2 * epe + 1e-4,
+    require(math.isfinite(sharded_epe) and abs(sharded_epe - epe) <= 5e-2 * epe + 1e-4,
             "evaluate --spatial 2 disagrees with the unsharded EPE")
     for name in r0["launches"]:
         log(f"  launches of {name} per rank: " + "; ".join(
@@ -1470,13 +1498,10 @@ def spatial_phase(torch, card, chairs_root):
     log(f"  NCCL across GPUs: not run here (torch.cuda.device_count() = {torch.cuda.device_count()}); "
         "tests/test_torch_kernels.py's multigpu test runs it on a machine with two or more cards")
     stats = {k: r0[k] for k in ("serve_pairs_per_s", "train_pairs_per_s", "train_losses", "gradient", "epe",
-                                "serve_err_float32", "serve_err_bfloat16", "serve_err_1024", "seconds")}
+                                "serve_err_float32", "serve_err_bfloat16", "serve_err_1024_float32",
+                                "serve_err_1024_bfloat16", "seconds")}
     stats["unsharded_epe"] = epe
     return counts, stats
-
-
-def np_isfinite(v) -> bool:
-    return v == v and abs(v) != float("inf")
 
 
 # device kernels by name: the port's own, the library's convolutions, PyTorch's elementwise tail

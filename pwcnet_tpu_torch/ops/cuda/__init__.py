@@ -12,9 +12,8 @@
 - ``cost_volume.cost_volume_hpad_cuda``: K8, a row shard's cost volume
   against halo-extended f1, and ``cost_volume.cost_volume_hpad_bwd`` (K8b);
 - ``warped_cv.warped_cost_volume_global``: K9, a row shard's warp + cost
-  volume against the whole frame, and ``warped_cv.
-  warped_cost_volume_global_bwd`` (K9b: K8b, then the tall-frame warp
-  backward).
+  volume against the whole frame, and ``warped_cv.warped_rows_bwd`` (K9b,
+  the tall-frame warp backward that follows K8b in K9's backward).
 
 K1-K3, K7, K8 and K9 are ``torch.autograd.Function``s on CUDA tensors, with
 K4-K6, K7b, K8b and K9b as their backward. Each wrapper sends a CPU tensor to its plain PyTorch
@@ -35,7 +34,7 @@ def wrappers() -> dict:
     from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd, estimator_chain_fused
     from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_fused
     from pwcnet_tpu_torch.ops.cuda.warped_cv import (
-        warp_bwd, warped_cost_volume, warped_cost_volume_global, warped_cost_volume_global_bwd)
+        warp_bwd, warped_cost_volume, warped_cost_volume_global, warped_rows_bwd)
 
     return {
         "K1": warped_cost_volume,
@@ -49,7 +48,7 @@ def wrappers() -> dict:
         "K8": cost_volume_hpad_cuda,
         "K8b": cost_volume_hpad_bwd,
         "K9": warped_cost_volume_global,
-        "K9b": warped_cost_volume_global_bwd,
+        "K9b": warped_rows_bwd,
     }
 
 

@@ -13,17 +13,18 @@ whose backward is the JAX package's ``_wcv_bwd``: K4 over
 ``(f0, f1w, out)`` with ``f1w`` the warped map the forward kernel saved,
 then K5 over ``(f1, flow, df1w)``.
 
-K9 and K9b, ``warped_cost_volume_global`` and its backward, are the
-per-shard variant under H-sharding (``pwcnet_tpu/ops/pallas/warped_cv.py::
-warped_cost_volume_global``, ``_wcv_global_bwd``): a shard's h rows of f0
+K9, ``warped_cost_volume_global``, is the per-shard variant under
+H-sharding (``pwcnet_tpu/ops/pallas/warped_cv.py::warped_cost_volume_global``,
+``_wcv_global_bwd``): a shard's h rows of f0
 against the whole frame 1 (Hf rows), with ``flow_ext`` (B, h + 2d, W, 2)
 float32 carrying d halo rows each side and the shard's global row offset in
 y, and ``vb = (vlo, vhi)`` (two ints) the global frame's rows in the shard's
-coordinates. Its backward is K8b over the h + 2d warped rows K9 saved, the
-rows outside ``vb`` zeroed, then the warp backward on the tall frame
-(``csrc/warp_bwd.cu``'s ``pwc_warp_bwd_rows``): df1 over the whole frame,
-dflow over the h + 2d rows. The plain version is
-``warped_cost_volume_global_plain``.
+coordinates. Its backward, ``warped_cost_volume_global_bwd``, is K8b over
+the h + 2d warped rows K9 saved, then K9b (``warped_rows_bwd``): the rows
+outside ``vb`` zeroed and the warp backward on the tall frame
+(``csrc/warp_bwd.cu``'s ``pwc_warp_bwd_rows``), df1 over the whole frame,
+dflow over the h + 2d rows. The plain versions are
+``warped_cost_volume_global_plain`` and ``warped_rows_bwd_plain``.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ __all__ = [
     "warped_cost_volume", "warped_cost_volume_plain", "warped_cost_volume_residual",
     "warp_bwd", "warp_bwd_plain", "warped_cost_volume_global", "warped_cost_volume_global_plain",
     "warped_cost_volume_global_residual", "warped_cost_volume_global_bwd",
-    "warped_cost_volume_global_bwd_plain",
+    "warped_cost_volume_global_bwd_plain", "warped_rows_bwd", "warped_rows_bwd_plain",
 ]
 
 _ARGTYPES = [P, P, P, P, P, I, I, I, I, I, I, P]
@@ -200,47 +201,68 @@ def warped_cost_volume_global_residual(f0, f1_full, flow_ext, vb, search_range: 
     return _global_forward(f0, f1_full, flow_ext, vb, int(search_range), True)
 
 
-def warped_cost_volume_global_bwd_plain(f0, f1_full, flow_ext, vb, out, f1w_ext, g, search_range: int = 4):
-    """``(df0, df1_full, dflow_ext)`` of K9 from its residuals: the plain
-    version of K9b (``_wcv_global_bwd``)."""
-    d = int(search_range)
-    df0, dwe = cost_volume_hpad_bwd_plain(f0, f1w_ext, out, g, d)
-    dwe = _mask_rows(dwe, vb, d)
-    df1, dflow = warp_rows_bwd_plain(f1_full, flow_ext, dwe, -d)
-    return df0, df1, dflow
-
-
 def _mask_rows(dwe: torch.Tensor, vb, d: int) -> torch.Tensor:
-    """Zero the extended rows outside ``vb``: nothing flows through rows the
-    forward forced to zero."""
+    """Zero, in place, the extended rows outside ``vb``: nothing flows
+    through rows the forward forced to zero."""
     vlo, vhi = _rows(vb)
     dwe[:, : max(0, vlo + d)] = 0
     dwe[:, max(0, vhi + d + 1) :] = 0
     return dwe
 
 
-def warped_cost_volume_global_bwd(f0, f1_full, flow_ext, vb, out, f1w_ext, g, search_range: int = 4):
-    """K9b: ``(df0, df1_full, dflow_ext)`` of K9 for the cotangent ``g``:
-    K8b over ``(f0, f1w_ext, out)``, the rows outside ``vb`` zeroed, then
-    the warp backward on the whole frame, its ``df1`` summed with float32
-    atomics (run-to-run variation in the last bits, as K5). A CPU tensor
-    goes to the plain version; a CUDA tensor to the kernels."""
-    if f0.device.type == "cpu":
-        return warped_cost_volume_global_bwd_plain(f0, f1_full, flow_ext, vb, out, f1w_ext, g, search_range)
+def warped_rows_bwd_plain(f1_full, flow_ext, vb, dwe, search_range: int = 4):
+    """``(df1_full, dflow_ext)`` for the cotangent ``dwe`` of K9's h + 2d
+    warped rows, in plain PyTorch: the plain version of K9b. Zeroes the rows
+    of ``dwe`` outside ``vb`` in place."""
     d = int(search_range)
-    df0, dwe = cost_volume_hpad_bwd(f0, f1w_ext, out, g, d)
-    dwe = _mask_rows(dwe, vb, d)
+    return warp_rows_bwd_plain(f1_full, flow_ext, _mask_rows(dwe, vb, d), -d)
+
+
+def warped_rows_bwd(f1_full, flow_ext, vb, dwe, search_range: int = 4):
+    """K9b: ``(df1_full, dflow_ext)`` for the cotangent ``dwe`` of K9's
+    h + 2d warped rows: the rows outside ``vb`` zeroed (in place), then the
+    warp backward on the whole frame, its ``df1`` summed with float32
+    atomics (run-to-run variation in the last bits, as K5). A CPU tensor
+    goes to the plain version; a CUDA tensor to the kernel."""
+    if f1_full.device.type == "cpu":
+        return warped_rows_bwd_plain(f1_full, flow_ext, vb, dwe, search_range)
+    d = int(search_range)
+    _common.check_tensors("warped_rows_bwd", f1_full, dwe)
     b, hf, w, c = f1_full.shape
+    if flow_ext.dtype != torch.float32 or flow_ext.device != f1_full.device or not flow_ext.is_contiguous():
+        raise ValueError("warped_rows_bwd: flow_ext must be a contiguous float32 tensor on f1_full's device")
+    ho = flow_ext.shape[1] if flow_ext.dim() == 4 else None
+    if flow_ext.shape != (b, ho, w, 2) or dwe.shape != (b, ho, w, c):
+        raise ValueError(
+            f"warped_rows_bwd: f1_full {tuple(f1_full.shape)}, flow_ext {tuple(flow_ext.shape)}, "
+            f"dwe {tuple(dwe.shape)} must be (B, Hf, W, C), (B, h + 2d, W, 2) and (B, h + 2d, W, C)"
+        )
+    dwe = _mask_rows(dwe, vb, d)
     acc = torch.zeros(f1_full.shape, dtype=torch.float32, device=f1_full.device)
     df1 = acc if f1_full.dtype == torch.float32 else torch.empty_like(f1_full)
     dflow = torch.empty_like(flow_ext)
     _common.launch(
-        "warp_bwd", "pwc_warp_bwd_rows", _ROWS_BWD_ARGTYPES, f0.device,
+        "warp_bwd", "pwc_warp_bwd_rows", _ROWS_BWD_ARGTYPES, f1_full.device,
         f1_full.data_ptr(), flow_ext.data_ptr(), dwe.data_ptr(), acc.data_ptr(), df1.data_ptr(), dflow.data_ptr(),
-        b, flow_ext.shape[1], hf, w, c, -d, _common.DTYPE_CODES[f1_full.dtype],
+        b, ho, hf, w, c, -d, _common.DTYPE_CODES[f1_full.dtype],
     )
-    warped_cost_volume_global_bwd.launches += 1
-    return df0, df1, dflow
+    warped_rows_bwd.launches += 1
+    return df1, dflow
+
+
+def warped_cost_volume_global_bwd_plain(f0, f1_full, flow_ext, vb, out, f1w_ext, g, search_range: int = 4):
+    """``(df0, df1_full, dflow_ext)`` of K9 from its residuals in plain
+    PyTorch (``_wcv_global_bwd``)."""
+    df0, dwe = cost_volume_hpad_bwd_plain(f0, f1w_ext, out, g, search_range)
+    return (df0, *warped_rows_bwd_plain(f1_full, flow_ext, vb, dwe, search_range))
+
+
+def warped_cost_volume_global_bwd(f0, f1_full, flow_ext, vb, out, f1w_ext, g, search_range: int = 4):
+    """``(df0, df1_full, dflow_ext)`` of K9 for the cotangent ``g``: K8b
+    over ``(f0, f1w_ext, out)``, then K9b. A CPU tensor goes to the plain
+    versions; a CUDA tensor to the kernels."""
+    df0, dwe = cost_volume_hpad_bwd(f0, f1w_ext, out, g, search_range)
+    return (df0, *warped_rows_bwd(f1_full, flow_ext, vb, dwe, search_range))
 
 
 class _WarpedCostVolumeGlobal(torch.autograd.Function):
@@ -280,4 +302,4 @@ def warped_cost_volume_global(
 warped_cost_volume.launches = 0
 warp_bwd.launches = 0
 warped_cost_volume_global.launches = 0
-warped_cost_volume_global_bwd.launches = 0
+warped_rows_bwd.launches = 0

@@ -251,21 +251,22 @@ class TestCheckpointHelpers:
 
 
 class TestNamedErrors:
-    @pytest.mark.parametrize("flags,match", [
-        (["--spatial", "2"], "--spatial"),
-        (["--coordinator", "localhost:1234"], "--coordinator"),
-        (["--ckpt_backend", "orbax"], "orbax"),
-        (["--remat"], "--remat"),
+    @pytest.mark.parametrize("flags,error,match", [
+        (["--spatial", "2"], ValueError, "--spatial"),
+        (["--coordinator", "localhost:1234"], ValueError, "--coordinator"),
+        (["--ckpt_backend", "orbax"], NotImplementedError, "orbax"),
+        (["--remat"], NotImplementedError, "--remat"),
     ])
-    def test_train_refuses_what_is_not_ported(self, tmp_path, monkeypatch, flags, match):
+    def test_train_refuses_what_is_not_ported(self, tmp_path, monkeypatch, flags, error, match):
         """Refused by name before anything is written: the options not
         ported (orbax, remat), and a sharded or multi-process run that no
         launcher started (one process, no torchrun, a coordinator with no
         process count)."""
         monkeypatch.chdir(tmp_path)
         monkeypatch.delenv("WORLD_SIZE", raising=False)
-        with pytest.raises((NotImplementedError, ValueError), match=match):
+        with pytest.raises(error, match=match) as raised:
             port_train_cli.main(TRAIN_ARGS + flags)
+        assert type(raised.value) is error
         assert not (tmp_path / "logs").exists()
 
     def test_evaluate_refuses_spatial(self, monkeypatch):
