@@ -8,7 +8,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
    convolutions and matmuls, so float32 comparisons are true float32;
 2. build: compile every CUDA kernel from ``pwcnet_tpu_torch/csrc`` with
-   nvcc (one process per source, all at once);
+   nvcc (one process per source, all at once); log each kernel's registers
+   and spills and the wgmma kernels' dynamic shared memory;
 3. kernels: K1 (warped cost volume), K2 (cost volume) and K3 (fused
    pyramid level) at every shape the 448x1024 serving forward gives them,
    at batch 1 and 8, in float32 and bfloat16, against their plain PyTorch
@@ -18,7 +19,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    warp) and K6 (pyramid level) against their plain versions; K7 (the
    estimator's six-conv chain) forward, with and without residuals, and
    backward (every cotangent, the weight and bias gradients taken from
-   them, and dxin) at the five estimator levels of both sizes;
+   them, and dxin) at the five estimator levels of both sizes; K3 and K7
+   also at edge shapes that no tile of theirs divides;
 4. serving: FlowPredictor with seeded random weights answers 448x1024
    requests and a 1024x436 (Sintel-sized) request edge-padded to 448x1024,
    then batched raw_forward at B=8 in bf16 and f32; the launch counters
@@ -87,6 +89,8 @@ import time
 K1_SHAPES = ((14, 32, 128), (28, 64, 96), (56, 128, 64), (112, 256, 32))
 K2_SHAPES = ((7, 16, 192),)
 K3_SHAPES = ((448, 1024, 3, 16), (224, 512, 16, 32))  # (H, W, Cin, C)
+# levels whose half height and half width are no multiple of the bf16 kernel's 8 x 64 tile
+K3_EDGE = ((34, 150, 3, 16), (26, 140, 16, 32))
 SEARCH_RANGE = 4
 TAPS = (2 * SEARCH_RANGE + 1) ** 2
 PER_FORWARD = {"K1": 4, "K2": 1, "K3": 4}
@@ -100,6 +104,8 @@ PER_STEP = {"K1": 4, "K2": 1, "K3": 4, "K4": 5, "K5": 4, "K6": 4}
 EST_COUTS = (128, 128, 96, 64, 32, 2)
 K7_TRAIN = ((6, 7, 273), (12, 14, 243), (24, 28, 211), (48, 56, 179), (96, 112, 147))
 K7_SERVE = ((7, 16, 273), (14, 32, 243), (28, 64, 211), (56, 128, 179), (112, 256, 147))
+# the chain at its narrowest and widest inputs on frames that no 8 x 30 tile divides
+K7_EDGE = ((6, 7, 147), (9, 61, 273))
 FUSED_ESTIMATOR = 2  # the trainer run's --fused-estimator: levels 3 and 4
 # per trainer step with --fused-estimator 2; a validation batch is one forward
 TRAINER_PER_STEP = {**PER_STEP, "K7": FUSED_ESTIMATOR, "K7b": FUSED_ESTIMATOR}
@@ -339,7 +345,7 @@ def check_kernels(torch, device, compare, batches=(1, 8), dtypes=None):
                     args = k2_inputs(torch, b, h, w, c, dtype, device, gen)
                     compare("K2", f"{dtype} B={b} {h}x{w}x{c}",
                             cost_volume_cuda(*args, SEARCH_RANGE), cost_volume(*args, SEARCH_RANGE), dtype)
-                for h, w, cin, c in K3_SHAPES:
+                for h, w, cin, c in K3_SHAPES + K3_EDGE:
                     args = k3_inputs(torch, b, h, w, cin, c, dtype, device, gen)
                     compare("K3", f"{dtype} B={b} {h}x{w}x{cin}->{c}",
                             pyramid_level_fused(*args), pyramid_level_plain(*args), dtype, ulps=4)
@@ -404,7 +410,7 @@ def check_training_kernels(torch, device, compare, batches=(1, 8), dtypes=None):
                     want_df0, want_df1 = cost_volume_bwd_plain(f0, f1, out, g, SEARCH_RANGE)
                     compare("K4", f"df0 {dtype} B={b} {h}x{w}x{c}", df0, want_df0, dtype)
                     compare("K4", f"df1 {dtype} B={b} {h}x{w}x{c}", df1, want_df1, dtype)
-                for level, (h, w, cin, c) in enumerate(K3_TRAIN):
+                for h, w, cin, c in K3_TRAIN + K3_EDGE:
                     args = k3_inputs(torch, b, h, w, cin, c, dtype, device, gen)
                     label = f"{dtype} B={b} {h}x{w}x{cin}->{c}"
                     out, s1, s2 = pyramid_level_residuals(*args)
@@ -416,7 +422,7 @@ def check_training_kernels(torch, device, compare, batches=(1, 8), dtypes=None):
                     x, k1, _, k2, _, k3, _ = args
                     res = (x, k1, k2, k3, want_out, want_s1, want_s2, g)
                     # level 0 reads the image: the training path asks for no dx there
-                    for need_dx in ((False, True) if level == 0 else (True,)):
+                    for need_dx in ((False, True) if cin == 3 else (True,)):
                         got = pyramid_level_bwd(*res, need_dx=need_dx)
                         want = pyramid_level_bwd_plain(*res, need_dx=need_dx)
                         for name, a, e in zip(("gz1", "gz2", "gz3", "dx"), got, want):
@@ -568,7 +574,7 @@ def check_estimator_kernels(torch, device, compare, batches=(1, 8), dtypes=None)
     with torch.inference_mode():
         for dtype in dtypes:
             for b in batches:
-                for h, w, cin in K7_TRAIN + K7_SERVE:
+                for h, w, cin in K7_TRAIN + K7_SERVE + K7_EDGE:
                     label = f"{dtype} B={b} {h}x{w}x{cin}"
                     xin, kbs = k7_inputs(torch, b, h, w, cin, dtype, device, gen)
                     ks = kbs[0::2]
@@ -596,6 +602,11 @@ def check_estimator_kernels(torch, device, compare, batches=(1, 8), dtypes=None)
                         compare("K7b", f"{name} {label}", a, e, dtype, f32_rel=1e-4)
                     nodx = estimator_chain_bwd(ks, saved, g_flow, g_feat, need_dx=False)[1]
                     require(nodx is None, f"K7b returned a dxin nobody asked for at {label}")
+                    # the input as the model hands it over: channels zero-padded to a multiple of 8
+                    xpad = torch.nn.functional.pad(xin, (0, -cin % 8))
+                    flow, feat = estimator_chain_fused(xpad, *kbs)
+                    compare("K7", f"flow (padded input) {label}", flow, want_flow, dtype)
+                    compare("K7", f"features (padded input) {label}", feat, want_feat, dtype)
                 torch.cuda.synchronize()
 
 
@@ -842,11 +853,12 @@ def time_estimator_kernels(torch, F, device, b=8, dtype=None):
                 g_flow = torch.randn(flow.shape, generator=gen, device=device).to(dtype)
                 g_feat = torch.randn(feat.shape, generator=gen, device=device).to(dtype)
                 x_nchw = nchw(xin)
+                xpad = F.pad(xin, (0, -cin % 8))  # as the model's NHWC copy hands it over
                 lib_bwd = (ks, [nchw(a) for a in saved], nchw(g_flow), nchw(g_feat), cin)
                 shape = f"{b}x{h}x{w}x{cin}"
                 rows["K7"].append(dict(
                     shape=shape, times=times,
-                    ms=cuda_ms(torch, lambda: estimator_chain_residuals(xin, *kbs), iters=10),
+                    ms=cuda_ms(torch, lambda: estimator_chain_residuals(xpad, *kbs), iters=10),
                     plain_ms=cuda_ms(torch, lambda: estimator_chain_plain(xin, *kbs), iters=5, warmup=1),
                     library_ms=cuda_ms(torch, lambda: cudnn_chain(F, x_nchw, kbs), iters=10),
                     work=k7_work(b, h, w, cin, s, False)))
@@ -1513,6 +1525,7 @@ PROFILE_GROUPS = (
     ("K5 warp_bwd", ("warp_bwd_kernel", "round_kernel")),
     ("K6 pyramid_level_bwd", ("gz3_kernel", "conv_t_s")),
     ("K7 estimator chain, forward and backward", ("conv3x3_",)),
+    ("K3 and K7 weight packing (bf16)", ("pack_weights",)),
     ("cuDNN wgrad", ("wgrad",)),
     ("cuDNN dgrad", ("dgrad",)),
     ("cuDNN forward convs and layout kernels", ("xmma", "cutlass", "cudnn", "implicit_gemm", "nhwc", "nchw")),
@@ -1563,6 +1576,48 @@ def profile_steps(torch, fn, n, what, unprofiled_ms):
     return {"kernel_ms": total / n, "kernels": count // n, "busy_share": total / n / unprofiled_ms}
 
 
+def kernel_label(mangled: str) -> str:
+    """A readable label for a mangled kernel name: the last name of its
+    nested name, then its integer template arguments, its element type and
+    its Loader (``correlation_kernel<bf16,4,HpadLoader>``)."""
+    import re
+
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while (m := re.match(r"\d+", mangled[pos:])) is not None:
+        n = int(m.group())
+        name = mangled[pos + len(m.group()):pos + len(m.group()) + n]
+        pos += len(m.group()) + n
+    rest = mangled[pos:]
+    args = (["bf16"] if rest.startswith("I13__nv_bfloat16") else ["f32"] if rest.startswith("If") else [])
+    args += re.findall(r"Li(\d+)E", rest) + re.findall(r"\d+([A-Z][A-Za-z]*Loader)", rest)
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def log_build(report):
+    """Registers and spills of every kernel (ptxas), by kernel and template
+    arguments, and the dynamic shared memory of the wgmma kernels."""
+    import ctypes
+    import re
+
+    from pwcnet_tpu_torch.ops.cuda import _build, _common
+
+    for name, r in report.items():
+        entry = "?"
+        for line in r["ptxas"].splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(_Z\w+)", line)
+            if m:
+                entry = kernel_label(m.group(1))
+            elif "registers" in line or "spill" in line:
+                log(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}")
+    k3 = _build.load("pyramid_conv").pwc_pyramid_level_smem_bytes
+    k7 = _build.load("estimator_conv").pwc_estimator_conv_smem_bytes
+    k3.argtypes, k7.argtypes = [ctypes.c_int] * 2, [ctypes.c_int]
+    log("  dynamic shared memory per block: " + ", ".join(
+        [f"pyramid_level_wg_kernel<{cin},{c}> {k3(cin, c)} B" for cin, c in ((3, 16), (16, 32))]
+        + [f"conv3x3_wgmma_kernel<{n}> {k7(n)} B" for n in _common.WGMMA_WIDTHS]))
+
+
 def main() -> int:
     import torch
 
@@ -1591,10 +1646,7 @@ def main() -> int:
     t0 = time.perf_counter()
     report = _build.build()
     log(f"[build] {', '.join(report)} in {time.perf_counter() - t0:.1f} s (nvcc in parallel)")
-    for name, r in report.items():
-        for line in r["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    log_build(report)
 
     t0 = time.perf_counter()
     log("[kernels] kernel vs plain at the serving shapes (448x1024) and the training shapes (384x448)")

@@ -21,39 +21,44 @@
 // outside the level's frame are zero (each conv's own zero padding), not
 // values computed past the edge.
 //
-// Design. One block of 256 threads owns a tile of half-resolution outputs
-// of one batch element. It computes s1 on the tile plus a 2-pixel halo
-// straight from x in device memory, then s2 on a 1-pixel halo from s1, then
-// the tile from s2; s1 and s2 live only in shared memory. The halo
-// recomputes about 1.7x the conv1 and 1.3x the conv2 work of the tile.
-// conv1 (stride 2, 3 or 16 input channels) runs as float32 FMAs, one
-// position and all C outputs per thread, the weights in shared memory as
-// [tap][cin][cout] read as float4 broadcasts.
+// Design. One block owns a tile of half-resolution outputs of one batch
+// element. It computes s1 on the tile plus a 2-pixel halo, then s2 on a
+// 1-pixel halo from s1, then the tile from s2; s1 and s2 live only in
+// shared memory.
 //
-// - float32 (pyramid_level_kernel): conv2 and conv3 run the same way, with
-//   s1 and s2 channel-major so that neighbouring threads read neighbouring
-//   banks. Tile 8 x 32.
-// - bfloat16 (pyramid_level_tc_kernel): conv2 and conv3 run on the tensor
-//   cores as implicit GEMMs, WMMA 16x16x16 bf16 with float32 accumulation:
-//   M = 16 positions along a row, N = C, K = 9 taps x C. s1 and s2 are
-//   position-major [row][col][C], so the A tile of one tap is a strided
-//   16 x 16 block of them. Tile 8 x 30: two 16-wide M tiles per row cover
-//   the 30 outputs plus the 2-column halo that conv3 needs from s2.
+// - float32 (pyramid_level_kernel): 256 threads, tile 8 x 32, every conv as
+//   float32 FMAs, one position and all C outputs per thread, the weights in
+//   shared memory as [tap][cin][cout] read as float4 broadcasts, s1 and s2
+//   channel-major so that neighbouring threads read neighbouring banks.
+//   The halo recomputes about 1.7x the conv1 and 1.3x the conv2 work.
+// - bfloat16 (pyramid_level_wg_kernel): tile 8 x 64, conv2 and conv3 (and
+//   at level 1 conv1) as implicit GEMMs on wgmma, m64 x N = C with float32
+//   sums in registers, both operands read from shared memory by descriptor
+//   (hopper.cuh); two warpgroups at level 0 (two blocks an SM), four at
+//   level 1 (one), each with up to four m64 tiles in flight. The weights arrive packed for wgmma
+//   ([K/16][tap][2][C][8], laid out once by the wrapper), each matrix by one
+//   bulk copy on an mbarrier, while conv1 runs. At level 1 x arrives by TMA
+//   as four phase planes (row and column parity, every second pixel), so
+//   that the stride-2 conv reads consecutive positions like the others;
+//   TMA's zero fill outside the image is the bottom/right SAME pad. At level
+//   0 (3 channels, whose 6-byte pixels TMA cannot stride) x is staged by
+//   coalesced loads and conv1 runs as float32 FMAs from shared memory. The
+//   epilogues add the bias, apply the LeakyReLU, round and zero what lies
+//   outside the frame straight from the accumulators; the tile's s1, s2
+//   and output leave shared memory by 16-byte stores. The halo recomputes
+//   1.62x the conv1, 1.35x the conv2 and 1.08x the conv3 work (1.3x of the
+//   level's MACs at level 1).
 //
 // Bound on the H100: the level reads x and writes the output once (about
 // 51 MB per bf16 batch of 8 at level 0, 44 MB at level 1) and does
 // 2 x 315 x C MACs per output pixel at level 0 (2 x 720 x C at level 1),
-// which is bytes-bound at the bf16 tensor-core rate. conv1 on FMAs and the
-// shared-memory traffic of the WMMA tiles keep it above that bound; TMA
-// loads and wgmma are later work.
-#include <mma.h>
-
+// which is bytes-bound at the bf16 tensor-core rate.
 #include "conv_fma.cuh"
+#include "hopper.cuh"
 
 namespace pwc {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 // OIHW kernel [C][CI][3][3] -> shared [tap][ci][co] float32.
 template <typename T, int CI, int C>
@@ -213,212 +218,356 @@ cudaError_t run_f32(const void* x, const void* k1, const void* b1, const void* k
 }
 
 // ------------------------------------------------------------ bfloat16
-constexpr int kTcTH = 8;           // output rows per block
-constexpr int kTcTW = 30;          // output columns per block
-constexpr int kTcW = kTcTW + 4;    // s1 / s2 row width (positions)
-constexpr int kTcS1H = kTcTH + 4;
-constexpr int kTcS2H = kTcTH + 2;
-constexpr int kTcWarps = kPlThreads / 32;
+// Tile: 8 rows x 64 columns of outputs. s1, s2 and the output tile live in
+// shared memory chunk-planar, [C/8][position][8], in planes of row pitch
+// kPwP = 69 positions: plane position (y, x) of s1 is level position
+// (r0 - 2 + y, q0 - 2 + x), of s2 (r0 - 1 + y, q0 - 1 + x), of the output
+// (r0 + y, q0 + x). The convs' GEMM rows are flat plane positions: output
+// position p reads source position p + dy * kPwP + dx at tap (dy, dx), so
+// 64 consecutive positions of one 8-channel chunk are an m64 operand read
+// by descriptor, and a plane row's last columns are computed and dropped.
+constexpr int kPwTH = 8;                 // output rows per block
+constexpr int kPwTW = 64;                // output columns per block
+constexpr int kPwP = kPwTW + 5;          // plane row pitch: s1 reads the x phase planes one column on
+constexpr int kPwTiles = 4;              // m64 tiles a warpgroup keeps in flight
+constexpr int kPwXRows = kPwTH + 5;      // x phase-plane rows (level 1)
 
-constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
+constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+constexpr int imax(int a, int b) { return a > b ? a : b; }
 
-// shared memory, byte offsets (all multiples of 32, as WMMA needs)
 template <int CIN, int C>
-struct TcLayout {
-  static_assert(C % 16 == 0 && CIN <= C, "WMMA tiles need C a multiple of 16");
-  static constexpr size_t kS1 = 0;                                          // bf16 [12][34][C]
-  static constexpr size_t kS2 = kS1 + (size_t)kTcS1H * kTcW * C * 2;        // bf16 [10][34][C]
-  static constexpr size_t kW = kS2 + (size_t)kTcS2H * kTcW * C * 2;         // conv1 f32 | conv2/3 bf16
-  static constexpr size_t kBias = kW + cmax(9 * CIN * C * 4, 9 * C * C * 2);  // f32 [3][C]
-  static constexpr size_t kScratch = kBias + 3 * C * 4;                     // f32 [warps][16][C]
-  static constexpr size_t kBytes = kScratch + (size_t)kTcWarps * 16 * C * 4;
+struct PwLayout {
+  static constexpr bool kL0 = CIN == 3;
+  // level 0: two warpgroups, two blocks an SM; level 1 (one block an SM): four
+  static constexpr int kThreads = kL0 ? 256 : 512;
+  static_assert((CIN == 3 && C == 16) || (CIN == 16 && C == 32), "the two finest pyramid levels");
+  // GEMM rows (flat positions, whole m64 tiles) of each conv
+  static constexpr int kN1 = round_up((kPwTH + 4) * kPwP, 64);
+  static constexpr int kN2 = round_up((kPwTH + 2) * kPwP, 64);
+  static constexpr int kN3 = round_up(kPwTH * kPwP, 64);
+  // positions per plane: what a conv writes and what the next one reads
+  static constexpr int kS1Pos = round_up(imax(kN1, kN2 + 2 * kPwP + 2), 8);
+  static constexpr int kS2Pos = round_up(imax(kN2, kN3 + 2 * kPwP + 2), 8);
+  static constexpr int kXPos = round_up(imax(kPwXRows * kPwP, kN1 + kPwP + 1), 8);
+  // level 0: x rows (2 per s1 row + 1) x elements (3 per pixel) staged as they lie
+  static constexpr int kX0Rows = 2 * (kPwTH + 4) + 1;
+  static constexpr int kX0Elems = 3 * (2 * (kPwTW + 4) + 1);
+  static constexpr int kX0Pitch = kX0Elems + 1;
+  static constexpr int kXBytes = kL0 ? round_up(kX0Rows * kX0Pitch * 2, 128) : 2 * 4 * kXPos * 16;
+  static constexpr int kS1Bytes = C / 8 * kS1Pos * 16;
+  static constexpr int kS2Bytes = C / 8 * kS2Pos * 16;
+  static constexpr int kOutBytes = C / 8 * kN3 * 16;
+  static constexpr int kW1Copy = kL0 ? 27 * C * 2 : 9 * 2 * C * 16;  // bytes of the packed conv1 weights
+  static constexpr int kW1Bytes = round_up(kW1Copy, 128);
+  static constexpr int kWBytes = 9 * C * C * 2;  // conv2, conv3
+  // offsets: x | s1 | (level 0: s2) | w1 | (level 0: w1 in float32) | w2 | w3 | bias | barriers.
+  // Level 1's s2 and the output tile reuse x's space once conv1 is done;
+  // level 0's output tile reuses x's.
+  static constexpr int kX = 0;
+  static constexpr int kS1 = kX + kXBytes;
+  static constexpr int kS2 = kL0 ? kS1 + kS1Bytes : kX;
+  static constexpr int kOut = kL0 ? kX : kS2 + kS2Bytes;
+  static constexpr int kW1 = kL0 ? kS2 + kS2Bytes : kS1 + kS1Bytes;
+  static constexpr int kW1f = kW1 + kW1Bytes;
+  static constexpr int kW2 = kW1f + (kL0 ? round_up(27 * C * 4, 128) : 0);
+  static constexpr int kW3 = kW2 + kWBytes;
+  static constexpr int kBias = kW3 + kWBytes;
+  static constexpr int kBars = kBias + 3 * C * 4;
+  static constexpr int kBytes = kBars + 2 * 8;
+  static_assert(kOut + kOutBytes <= kXBytes, "the output tile (and level 1's s2) fit x's space");
+  static_assert(kBytes <= 232448, "at most 227 KB of shared memory per block");
 };
 
-// OIHW bf16 kernel -> shared [tap][ci][co] bf16, the WMMA B layout
-template <int C>
-__device__ __forceinline__ void stage_weights_bf16(bf16* wt, const bf16* __restrict__ k) {
-  for (int i = threadIdx.x; i < 9 * C * C; i += kPlThreads) {
-    const int co = i % C;
-    const int ci = (i / C) % C;
-    const int tap = i / (C * C);
-    wt[i] = k[(co * C + ci) * 9 + tap];
-  }
-}
-
-// One M tile of a 3x3 stride-1 conv over position-major [rows][kTcW][C]
-// planes: the 16 positions (r, cj .. cj+15) read src rows r..r+2, columns
-// cj..cj+17. The 16 x C float32 sums go to this warp's `scratch`.
-template <int C>
-__device__ __forceinline__ void conv_tile_tc(const bf16* src, const bf16* wt, float* scratch, int r,
-                                             int cj) {
-  constexpr int NT = C / 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
+// One 3x3 conv over chunk-planar planes as m64 x N = C wgmma tiles: rows
+// [0, n) of the output planes. `src(tap, ks)` is the shared address of the
+// source's first chunk of K step ks, shifted by the tap; its second chunk is
+// `src_lbo` bytes on. Warpgroup g of WGS takes tiles g, g + WGS, ..., up to
+// kPwTiles of them at once, so that as many independent accumulator chains
+// keep the tensor cores busy; `epi` gets each tile's first row and its
+// accumulators.
+template <int C, int KSTEPS, int WGS, typename Src, typename Epi>
+__device__ __forceinline__ void conv_wgmma(int n, uint32_t src_lbo, uint32_t w, Src src, Epi epi) {
+  const int g = threadIdx.x / 128;
+  const int tiles = n / 64;
+  for (int j0 = g; j0 < tiles; j0 += WGS * kPwTiles) {
+    float acc[kPwTiles][C / 2];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) wmma::fill_fragment(acc[nt], 0.f);
+    for (int m = 0; m < kPwTiles; ++m) {
 #pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-    const bf16* a_base = src + ((r + tap / 3) * kTcW + cj + tap % 3) * C;
+      for (int i = 0; i < C / 2; ++i) acc[m][i] = 0.f;
+      acc_fence(acc[m]);
+    }
+    wg_fence();
 #pragma unroll
-    for (int c0 = 0; c0 < C; c0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, a_base + c0, C);
+    for (int ks = 0; ks < KSTEPS; ++ks) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-        wmma::load_matrix_sync(bw, wt + (tap * C + c0) * C + nt * 16, C);
-        wmma::mma_sync(acc[nt], a, bw, acc[nt]);
+      for (int tap = 0; tap < 9; ++tap) {
+        const uint64_t db = wg_desc(w + (ks * 9 + tap) * 2 * C * 16, C * 16, 128);
+#pragma unroll
+        for (int m = 0; m < kPwTiles; ++m)
+          if (j0 + WGS * m < tiles)
+            Wgmma<C>::mma(acc[m], wg_desc(src(tap, ks) + 64 * (j0 + WGS * m) * 16, src_lbo, 128), db);
       }
     }
-  }
+    wg_commit();
+    wg_wait<0>();
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-    wmma::store_matrix_sync(scratch + nt * 16, acc[nt], C, wmma::mem_row_major);
-  __syncwarp();
+    for (int m = 0; m < kPwTiles; ++m) {
+      acc_fence(acc[m]);
+      if (j0 + WGS * m < tiles) epi(64 * (j0 + WGS * m), acc[m]);
+    }
+  }
 }
 
-// The tile's own part of a position-major [rows][kTcW][C] halo plane -> NHWC
-// device memory.
+// bias + LeakyReLU of a tile's accumulators, rounded, into chunk-planar
+// planes `pos` positions apart; plane positions outside [0, rows) x
+// [0, cols) of the frame-clipped window (origin gy0, gx0 in level
+// coordinates) are written as zeros: each conv's own zero padding.
 template <int C>
-__device__ __forceinline__ void store_tile_rows(bf16* __restrict__ dst, const bf16* s, int halo, int b,
-                                                int r0, int q0, int HH, int WH) {
-  for (int i = threadIdx.x; i < kTcTH * kTcTW * C; i += kPlThreads) {
-    const int co = i % C;
-    const int oy = (i / C) / kTcTW;
-    const int ox = (i / C) % kTcTW;
-    const int gy = r0 + oy;
-    const int gx = q0 + ox;
+__device__ __forceinline__ void epi_planes(bf16* dst, int pos, int p0, const float (&acc)[C / 2],
+                                           const float* bias, int gy0, int gx0, int rows, int cols, int HH,
+                                           int WH) {
+  const int t = threadIdx.x % 128;
+#pragma unroll
+  for (int i = 0; i < C / 2; i += 2) {
+    const int p = p0 + acc_row(t, i);
+    const int c = acc_col(t, i);
+    const int y = p / kPwP, x = p % kPwP;
+    const int gy = gy0 + y, gx = gx0 + x;
+    const bool keep = y < rows && x < cols && gy >= 0 && gy < HH && gx >= 0 && gx < WH;
+    const float v0 = keep ? leaky(acc[i] + bias[c]) : 0.f;
+    const float v1 = keep ? leaky(acc[i + 1] + bias[c + 1]) : 0.f;
+    *reinterpret_cast<__nv_bfloat162*>(dst + ((c / 8) * pos + p) * 8 + c % 8) = __floats2bfloat162_rn(v0, v1);
+  }
+}
+
+// The tile's own TH x TW part of chunk-planar planes (whose position (0, 0)
+// is `halo` rows and columns before the tile) -> NHWC device memory, 16
+// bytes a thread.
+template <int C>
+__device__ __forceinline__ void store_tile(bf16* __restrict__ dst, const bf16* src, int pos, int halo, int b,
+                                           int r0, int q0, int HH, int WH) {
+  for (int e = threadIdx.x; e < kPwTH * kPwTW * (C / 8); e += blockDim.x) {
+    const int ch = e % (C / 8);
+    const int ox = (e / (C / 8)) % kPwTW;
+    const int oy = e / (C / 8) / kPwTW;
+    const int gy = r0 + oy, gx = q0 + ox;
     if (gy < HH && gx < WH)
-      dst[(((size_t)b * HH + gy) * WH + gx) * C + co] = s[((oy + halo) * kTcW + ox + halo) * C + co];
+      *reinterpret_cast<uint4*>(dst + (((size_t)b * HH + gy) * WH + gx) * C + ch * 8) =
+          *reinterpret_cast<const uint4*>(src + ((size_t)ch * pos + (oy + halo) * kPwP + ox + halo) * 8);
   }
 }
 
 template <int CIN, int C>
-__global__ void __launch_bounds__(kPlThreads)
-    pyramid_level_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k1,
-                            const bf16* __restrict__ b1, const bf16* __restrict__ k2,
-                            const bf16* __restrict__ b2, const bf16* __restrict__ k3,
-                            const bf16* __restrict__ b3, bf16* __restrict__ out,
+__global__ void __launch_bounds__(PwLayout<CIN, C>::kThreads, CIN == 3 ? 2 : 1)
+    pyramid_level_wg_kernel(const __grid_constant__ CUtensorMap x_map, const bf16* __restrict__ x,
+                            const bf16* __restrict__ w1, const bf16* __restrict__ b1,
+                            const bf16* __restrict__ w2, const bf16* __restrict__ b2,
+                            const bf16* __restrict__ w3, const bf16* __restrict__ b3, bf16* __restrict__ out,
                             bf16* __restrict__ s1_out, bf16* __restrict__ s2_out, int H, int W) {
-  using L = TcLayout<CIN, C>;
-  extern __shared__ float4 smem_f4[];
-  char* smem = reinterpret_cast<char*>(smem_f4);
-  bf16* s1 = reinterpret_cast<bf16*>(smem + L::kS1);
-  bf16* s2 = reinterpret_cast<bf16*>(smem + L::kS2);
-  float* w1 = reinterpret_cast<float*>(smem + L::kW);
-  bf16* wt = reinterpret_cast<bf16*>(smem + L::kW);
-  float* bias = reinterpret_cast<float*>(smem + L::kBias);
+  using L = PwLayout<CIN, C>;
+  extern __shared__ __align__(128) unsigned char pw_smem[];
+  bf16* xs = reinterpret_cast<bf16*>(pw_smem + L::kX);
+  bf16* s1 = reinterpret_cast<bf16*>(pw_smem + L::kS1);
+  bf16* s2 = reinterpret_cast<bf16*>(pw_smem + L::kS2);
+  bf16* os = reinterpret_cast<bf16*>(pw_smem + L::kOut);
+  float* bias = reinterpret_cast<float*>(pw_smem + L::kBias);
+  uint64_t* bar_in = reinterpret_cast<uint64_t*>(pw_smem + L::kBars);  // x (level 1) and w1
+  uint64_t* bar_w = bar_in + 1;                                        // w2, w3
+  const uint32_t sbase = smem_u32(pw_smem);
 
-  const int HH = H / 2;
-  const int WH = W / 2;
+  const int HH = H / 2, WH = W / 2;
   const int b = blockIdx.z;
-  const int r0 = blockIdx.y * kTcTH;
-  const int q0 = blockIdx.x * kTcTW;
+  const int r0 = blockIdx.y * kPwTH;
+  const int q0 = blockIdx.x * kPwTW;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  float* scratch = reinterpret_cast<float*>(smem + L::kScratch) + warp * 16 * C;
-  const bf16* xb = x + (size_t)b * H * W * CIN;
 
-  // ---- conv1 (stride 2, FMAs) on the tile + 2-pixel halo, from device memory
-  stage_weights_f32<bf16, CIN, C>(w1, k1);
-  stage_bias<bf16, C>(bias, b1);
-  stage_bias<bf16, C>(bias + C, b2);
-  stage_bias<bf16, C>(bias + 2 * C, b3);
-  __syncthreads();
-  for (int p = tid; p < kTcS1H * kTcW; p += kPlThreads) {
-    const int gy = r0 - 2 + p / kTcW;
-    const int gx = q0 - 2 + p % kTcW;
-    const bool inside = gy >= 0 && gy < HH && gx >= 0 && gx < WH;
-    float acc[C];
-    if (inside) conv1_at<bf16, CIN, C>(acc, xb, H, W, gy, gx, w1);
-    bf16* dst = s1 + p * C;
-#pragma unroll
-    for (int co = 0; co < C; ++co) dst[co] = from_f32<bf16>(inside ? leaky(acc[co] + bias[co]) : 0.f);
-  }
-  __syncthreads();
-  if (s1_out != nullptr) store_tile_rows<C>(s1_out, s1, 2, b, r0, q0, HH, WH);
-
-  // ---- conv2 (tensor cores) on the tile + 1-pixel halo: 10 rows x 32 columns
-  stage_weights_bf16<C>(wt, k2);
-  __syncthreads();
-  for (int mt = warp; mt < kTcS2H * 2; mt += kTcWarps) {
-    const int r = mt / 2;
-    const int cj = (mt % 2) * 16;
-    conv_tile_tc<C>(s1, wt, scratch, r, cj);
-    const int gy = r0 - 1 + r;
-    for (int e = lane; e < 16 * C; e += 32) {
-      const int m = e / C;
-      const int co = e % C;
-      const int gx = q0 - 1 + cj + m;
-      const bool inside = gy >= 0 && gy < HH && gx >= 0 && gx < WH;
-      s2[(r * kTcW + cj + m) * C + co] =
-          from_f32<bf16>(inside ? leaky(scratch[e] + bias[C + co]) : 0.f);
+  if (tid == 0) {
+    mbar_init(bar_in, 1);
+    mbar_init(bar_w, 1);
+    mbar_fence_init();
+    if constexpr (L::kL0) {
+      mbar_arrive_expect_tx(bar_in, L::kW1Copy);
+    } else {
+      // x as four phase planes (row, column parity) of two 8-channel chunks:
+      // plane (py, px) position (i, j) is x pixel (2 (r0 - 2) + py + 2 i,
+      // 2 (q0 - 2) + px + 2 j); TMA zero-fills what lies outside the image,
+      // which is the stride-2 conv's bottom/right SAME pad
+      mbar_arrive_expect_tx(bar_in, 8 * kPwXRows * kPwP * 16 + L::kW1Copy);
+      for (int ph = 0; ph < 4; ++ph)
+        for (int ch = 0; ch < 2; ++ch)
+          tma_load_4d(xs + (size_t)(ph * 2 + ch) * L::kXPos * 8, &x_map, bar_in, 8 * ch,
+                      2 * (q0 - 2) + ph % 2, 2 * (r0 - 2) + ph / 2, b);
     }
-    __syncwarp();  // scratch is reused by this warp's next tile
+    bulk_load(pw_smem + L::kW1, w1, L::kW1Copy, bar_in);
+    mbar_arrive_expect_tx(bar_w, 2 * L::kWBytes);
+    bulk_load(pw_smem + L::kW2, w2, L::kWBytes, bar_w);
+    bulk_load(pw_smem + L::kW3, w3, L::kWBytes, bar_w);
   }
-  __syncthreads();
-  if (s2_out != nullptr) store_tile_rows<C>(s2_out, s2, 1, b, r0, q0, HH, WH);
+  constexpr int kWgs = L::kThreads / 128;
+  for (int i = tid; i < 3 * C; i += L::kThreads) bias[i] = __bfloat162float((i < C ? b1 : i < 2 * C ? b2 : b3)[i % C]);
+  __syncthreads();  // the barriers are initialised, the biases staged
 
-  // ---- conv3 (tensor cores) on the tile, to the NHWC output. Columns 30
-  // and 31 of the second M tile read s2 columns 32..33, which conv2 did not
-  // write; those two outputs are discarded.
-  stage_weights_bf16<C>(wt, k3);
-  __syncthreads();
-  for (int mt = warp; mt < kTcTH * 2; mt += kTcWarps) {
-    const int r = mt / 2;
-    const int cj = (mt % 2) * 16;
-    conv_tile_tc<C>(s2, wt, scratch, r, cj);
-    const int gy = r0 + r;
-    if (gy < HH) {
-      bf16* dst = out + ((size_t)b * HH + gy) * WH * C;
-      for (int e = lane; e < 16 * C; e += 32) {
-        const int m = e / C;
-        const int co = e % C;
-        const int gx = q0 + cj + m;
-        if (cj + m < kTcTW && gx < WH)
-          dst[(size_t)gx * C + co] = from_f32<bf16>(leaky(scratch[e] + bias[2 * C + co]));
+  // ---- conv1 (stride 2) -> s1 on the tile + 2-pixel halo: (TH + 4) rows x (TW + 4) columns
+  if constexpr (L::kL0) {
+    // x rows 2 (r0 - 2) .. + 24, pixels 2 (q0 - 2) .. + 136, as they lie (3
+    // channels), by 4-byte asynchronous copies, all in flight at once: W is
+    // even, so a pair of elements is all inside the image or all outside
+    // (zero-filled)
+    const int gy0 = 2 * (r0 - 2), ge0 = 3 * 2 * (q0 - 2);
+    const bf16* xb = x + (size_t)b * H * W * 3;
+    constexpr int kPairs = (L::kX0Elems + 1) / 2;
+    for (int e = tid; e < L::kX0Rows * kPairs; e += L::kThreads) {
+      const int i = e / kPairs, k = 2 * (e % kPairs);
+      const int gy = gy0 + i, ge = ge0 + k;
+      const bool in = gy >= 0 && gy < H && ge >= 0 && ge < 3 * W;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(xs + i * L::kX0Pitch + k)),
+                   "l"(in ? xb + (size_t)gy * 3 * W + ge : xb), "r"(in ? 4 : 0)
+                   : "memory");
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    mbar_wait(bar_in, 0);
+    float* w1f = reinterpret_cast<float*>(pw_smem + L::kW1f);  // [tap][ci][co]
+    const bf16* w1s = reinterpret_cast<const bf16*>(pw_smem + L::kW1);
+    for (int i = tid; i < 27 * C; i += L::kThreads) w1f[i] = __bfloat162float(w1s[i]);
+    __syncthreads();
+    for (int p = tid; p < L::kN1; p += L::kThreads) {
+      const int y = p / kPwP, xq = p % kPwP;
+      const int gy = r0 - 2 + y, gx = q0 - 2 + xq;
+      const bool keep = y < kPwTH + 4 && xq < kPwTW + 4 && gy >= 0 && gy < HH && gx >= 0 && gx < WH;
+      float acc[C];
+#pragma unroll
+      for (int co = 0; co < C; ++co) acc[co] = 0.f;
+      if (keep) {
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx) {
+            const bf16* xp = xs + (2 * y + ky) * L::kX0Pitch + 3 * (2 * xq + kx);
+#pragma unroll
+            for (int ci = 0; ci < 3; ++ci) axpy<C>(acc, __bfloat162float(xp[ci]), w1f + ((ky * 3 + kx) * 3 + ci) * C);
+          }
+      }
+#pragma unroll
+      for (int ch = 0; ch < C / 8; ++ch) {
+        __align__(16) __nv_bfloat162 v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int c = ch * 8 + 2 * k;
+          v[k] = __floats2bfloat162_rn(keep ? leaky(acc[c] + bias[c]) : 0.f,
+                                       keep ? leaky(acc[c + 1] + bias[c + 1]) : 0.f);
+        }
+        *reinterpret_cast<uint4*>(s1 + ((size_t)ch * L::kS1Pos + p) * 8) = *reinterpret_cast<const uint4*>(v);
       }
     }
-    __syncwarp();
+  } else {
+    mbar_wait(bar_in, 0);
+    // tap (dy, dx) reads phase (dy % 2, dx % 2) at (y + dy / 2, x + dx / 2); K = 16 channels, one step
+    conv_wgmma<C, 1, kWgs>(
+        L::kN1, L::kXPos * 16, sbase + L::kW1,
+        [&](int tap, int) {
+          const int dy = tap / 3, dx = tap % 3;
+          return sbase + L::kX + (uint32_t)(((dy % 2) * 2 + dx % 2) * 2 * L::kXPos + (dy / 2) * kPwP + dx / 2) * 16;
+        },
+        [&](int p0, const float(&acc)[C / 2]) {
+          epi_planes<C>(s1, L::kS1Pos, p0, acc, bias, r0 - 2, q0 - 2, kPwTH + 4, kPwTW + 4, HH, WH);
+        });
   }
+  fence_proxy_async();
+  __syncthreads();
+  if (s1_out != nullptr) store_tile<C>(s1_out, s1, L::kS1Pos, 2, b, r0, q0, HH, WH);
+
+  // ---- conv2 -> s2 on the tile + 1-pixel halo: (TH + 2) rows x (TW + 2) columns
+  mbar_wait(bar_w, 0);
+  conv_wgmma<C, C / 16, kWgs>(
+      L::kN2, L::kS1Pos * 16, sbase + L::kW2,
+      [&](int tap, int ks) {
+        return sbase + L::kS1 + (uint32_t)(2 * ks * L::kS1Pos + (tap / 3) * kPwP + tap % 3) * 16;
+      },
+      [&](int p0, const float(&acc)[C / 2]) {
+        epi_planes<C>(s2, L::kS2Pos, p0, acc, bias + C, r0 - 1, q0 - 1, kPwTH + 2, kPwTW + 2, HH, WH);
+      });
+  fence_proxy_async();
+  __syncthreads();
+  if (s2_out != nullptr) store_tile<C>(s2_out, s2, L::kS2Pos, 1, b, r0, q0, HH, WH);
+
+  // ---- conv3 -> the output tile, then to device memory
+  conv_wgmma<C, C / 16, kWgs>(
+      L::kN3, L::kS2Pos * 16, sbase + L::kW3,
+      [&](int tap, int ks) {
+        return sbase + L::kS2 + (uint32_t)(2 * ks * L::kS2Pos + (tap / 3) * kPwP + tap % 3) * 16;
+      },
+      [&](int p0, const float(&acc)[C / 2]) {
+        epi_planes<C>(os, L::kN3, p0, acc, bias + 2 * C, r0, q0, kPwTH, kPwTW, HH, WH);
+      });
+  __syncthreads();
+  store_tile<C>(out, os, L::kN3, 0, b, r0, q0, HH, WH);
 }
 
+// The OIHW kernels are first packed on the card into `packed`: w1 at level
+// 0 as [ky][kx][ci][co] (27 x 16), at level 1 for wgmma like w2 and w3,
+// [C/16][tap][2][C][8] (ops/cuda/_common.py::pack_wgmma).
 template <int CIN, int C>
 cudaError_t run_bf16(const void* x, const void* k1, const void* b1, const void* k2, const void* b2,
-                     const void* k3, const void* b3, void* out, void* s1_out, void* s2_out, int B,
-                     int H, int W, cudaStream_t stream) {
-  using L = TcLayout<CIN, C>;
-  auto kernel = pyramid_level_tc_kernel<CIN, C>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L::kBytes);
+                     const void* k3, const void* b3, void* out, void* s1_out, void* s2_out, void* packed,
+                     int B, int H, int W, cudaStream_t stream) {
+  using L = PwLayout<CIN, C>;
+  PackJobs jobs{};
+  auto* dst = static_cast<bf16*>(packed);
+  const void* ks[3] = {k1, k2, k3};
+  for (int i = 0; i < 3; ++i) {
+    jobs.job[i] = {static_cast<const bf16*>(ks[i]), dst, i == 0 ? CIN : C, C, C, i == 0 && L::kL0};
+    dst += packed_elems(jobs.job[i]);
+  }
+  cudaError_t err = pack_weights(jobs, 3, stream);
   if (err != cudaSuccess) return err;
-  const dim3 grid((W / 2 + kTcTW - 1) / kTcTW, (H / 2 + kTcTH - 1) / kTcTH, B);
-  kernel<<<grid, kPlThreads, L::kBytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(k1), static_cast<const bf16*>(b1),
-      static_cast<const bf16*>(k2), static_cast<const bf16*>(b2), static_cast<const bf16*>(k3),
-      static_cast<const bf16*>(b3), static_cast<bf16*>(out), static_cast<bf16*>(s1_out),
+  CUtensorMap map{};  // level 0 stages x by plain loads (3 channels: no 16-byte strides for TMA)
+  if constexpr (!L::kL0) {
+    const uint64_t dims[4] = {(uint64_t)CIN, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+    const uint64_t strides[3] = {(uint64_t)CIN * 2, (uint64_t)W * CIN * 2, (uint64_t)H * W * CIN * 2};
+    const uint32_t box[4] = {8, 2 * kPwP, 2 * kPwXRows, 1};  // every second pixel: kPwP x kPwXRows
+    const uint32_t estride[4] = {1, 2, 2, 1};
+    err = make_map_4d(&map, x, dims, strides, box, estride);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = pyramid_level_wg_kernel<CIN, C>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W / 2 + kPwTW - 1) / kPwTW, (H / 2 + kPwTH - 1) / kPwTH, B);
+  kernel<<<grid, L::kThreads, L::kBytes, stream>>>(
+      map, static_cast<const bf16*>(x), jobs.job[0].dst, static_cast<const bf16*>(b1), jobs.job[1].dst,
+      static_cast<const bf16*>(b2), jobs.job[2].dst, static_cast<const bf16*>(b3), static_cast<bf16*>(out), static_cast<bf16*>(s1_out),
       static_cast<bf16*>(s2_out), H, W);
   return cudaGetLastError();
 }
 
 }  // namespace pwc
 
-// x: (B, H, W, cin) with H, W even; k1: (c, cin, 3, 3); k2, k3: (c, c, 3, 3) (OIHW);
-// b1..b3: (c,); out: (B, H/2, W/2, c); s1_out, s2_out: like out, or both null. All
-// contiguous and of one dtype: 0 f32 / 1 bf16.
+// x: (B, H, W, cin) with H, W even; k1: (c, cin, 3, 3); k2, k3: (c, c, 3, 3)
+// (OIHW); b1..b3: (c,); out: (B, H/2, W/2, c); s1_out, s2_out: like out, or
+// both null; packed: bfloat16 scratch for the packed kernels, 27 * 16 +
+// 2 * 2304 elements at level 0, 4608 + 2 * 9216 at level 1 (unused in
+// float32). All contiguous and of one dtype: 0 f32 / 1 bf16.
 // (cin, c) is (3, 16) or (16, 32), the two finest PWCDCNet pyramid levels.
 extern "C" int pwc_pyramid_level(const void* x, const void* k1, const void* b1, const void* k2,
                                  const void* b2, const void* k3, const void* b3, void* out,
-                                 void* s1_out, void* s2_out, int B, int H, int W, int cin, int c,
-                                 int dtype, void* stream) {
+                                 void* s1_out, void* s2_out, void* packed, int B, int H, int W, int cin,
+                                 int c, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const bool l0 = cin == 3 && c == 16;
   const bool l1 = cin == 16 && c == 32;
-#define PWC_LEVEL_ARGS x, k1, b1, k2, b2, k3, b3, out, s1_out, s2_out, B, H, W, s
-  if (dtype == pwc::kF32 && l0) return pwc::run_f32<3, 16>(PWC_LEVEL_ARGS);
-  if (dtype == pwc::kF32 && l1) return pwc::run_f32<16, 32>(PWC_LEVEL_ARGS);
-  if (dtype == pwc::kBF16 && l0) return pwc::run_bf16<3, 16>(PWC_LEVEL_ARGS);
-  if (dtype == pwc::kBF16 && l1) return pwc::run_bf16<16, 32>(PWC_LEVEL_ARGS);
+#define PWC_LEVEL_ARGS x, k1, b1, k2, b2, k3, b3, out, s1_out, s2_out
+  if (dtype == pwc::kF32 && l0) return pwc::run_f32<3, 16>(PWC_LEVEL_ARGS, B, H, W, s);
+  if (dtype == pwc::kF32 && l1) return pwc::run_f32<16, 32>(PWC_LEVEL_ARGS, B, H, W, s);
+  if (dtype == pwc::kBF16 && l0) return pwc::run_bf16<3, 16>(PWC_LEVEL_ARGS, packed, B, H, W, s);
+  if (dtype == pwc::kBF16 && l1) return pwc::run_bf16<16, 32>(PWC_LEVEL_ARGS, packed, B, H, W, s);
 #undef PWC_LEVEL_ARGS
   return cudaErrorInvalidValue;
+}
+
+// dynamic shared memory of the bf16 kernel of a level, for the build log
+extern "C" int pwc_pyramid_level_smem_bytes(int cin, int c) {
+  if (cin == 3 && c == 16) return pwc::PwLayout<3, 16>::kBytes;
+  if (cin == 16 && c == 32) return pwc::PwLayout<16, 32>::kBytes;
+  return 0;
 }

@@ -58,9 +58,20 @@ def glorot_init_(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
 
 
-def to_nhwc(x: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) -> contiguous (B, H, W, C); free for channels_last tensors."""
-    return x.permute(0, 2, 3, 1).contiguous()
+def to_nhwc(x: torch.Tensor, multiple: int = 1) -> torch.Tensor:
+    """(B, C, H, W) -> contiguous (B, H, W, C'); free for channels_last tensors.
+
+    ``multiple``: C' is C rounded up to it, the tail zero, written in the same
+    copy (the bf16 estimator kernel reads its input by TMA, which needs
+    16-byte strides: ``multiple=8``)."""
+    b, c, h, w = x.shape
+    cp = -(-c // multiple) * multiple
+    if cp == c:
+        return x.permute(0, 2, 3, 1).contiguous()
+    out = x.new_empty((b, h, w, cp))
+    out[..., c:].zero_()
+    out[..., :c].copy_(x.permute(0, 2, 3, 1))
+    return out
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:

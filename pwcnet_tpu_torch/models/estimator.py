@@ -13,7 +13,8 @@ conv then exchanges its halo rows. The fused chain does not run there.
 ``fused``: run the six-conv chain through K7's wrapper
 (``ops/cuda/estimator_conv.py``: the CUDA kernels on a CUDA tensor, the
 plain chain on the CPU) in place of six library convs; same parameters,
-same state-dict keys. Ignored with ``use_dc``, which the chain does not
+same state-dict keys. Its input goes in with the channels zero-padded to a
+multiple of 8, in the NHWC copy made anyway. Ignored with ``use_dc``, which the chain does not
 implement.
 """
 
@@ -68,7 +69,7 @@ class FlowEstimator(nn.Module):
             kbs = []
             for idx in range(self.n_hidden + 1):
                 kbs.extend(cast_params(getattr(self, conv_name(idx))))
-            flows, features = estimator_chain_fused(to_nhwc(features), *kbs)
+            flows, features = estimator_chain_fused(to_nhwc(features, 8), *kbs)
             flows, features = to_nchw(flows), to_nchw(features)
             if flows_up_prev is not None:
                 flows = flows + flows_up_prev

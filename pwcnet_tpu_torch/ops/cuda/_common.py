@@ -35,6 +35,38 @@ def wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+WGMMA_WIDTHS = (8, 16, 32, 64, 96, 128)
+
+
+def wgmma_n(cout: int) -> int:
+    """The wgmma width N a conv of ``cout`` output channels runs at in the
+    bf16 kernels (``csrc/hopper.cuh``): the smallest built width that holds
+    it."""
+    for n in WGMMA_WIDTHS:
+        if cout <= n:
+            return n
+    raise ValueError(f"{cout} output channels: the wgmma kernels are built for at most {WGMMA_WIDTHS[-1]}")
+
+
+def packed_numel(cin: int, cout: int) -> int:
+    """Elements of one 3x3 kernel packed for wgmma (``pack_wgmma``)."""
+    return -(-cin // 16) * 9 * 2 * wgmma_n(cout) * 8
+
+
+def pack_wgmma(k: torch.Tensor) -> torch.Tensor:
+    """OIHW 3x3 kernel -> the wgmma B layout of the bf16 kernels,
+    ``[K/16][tap][2][N][8]``: input channels zero-padded to K, a multiple of
+    16, and split into two 8-channel halves per K step; output channels
+    zero-padded to ``N = wgmma_n(Cout)``; tap = ky * 3 + kx. One K step of
+    all nine taps is one contiguous block, a bulk copy. The kernels' own
+    packer (``csrc/hopper.cuh``, on the card) writes the same layout; this is
+    its reference."""
+    cout, cin = k.shape[:2]
+    kp, n = -(-cin // 16) * 16, wgmma_n(cout)
+    w = torch.nn.functional.pad(k.permute(2, 3, 1, 0).reshape(9, cin, cout), (0, n - cout, 0, kp - cin))
+    return w.reshape(9, kp // 16, 2, 8, n).permute(1, 0, 2, 4, 3).contiguous()
+
+
 def kernel(lib_name: str, fn_name: str, argtypes: list):
     """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu``, typed."""
     lib = _build.load(lib_name)

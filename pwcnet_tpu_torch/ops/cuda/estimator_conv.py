@@ -6,13 +6,22 @@ and its backward ``_est_bwd_pallas``. The function, its rounding and the
 plain versions are in ``pwcnet_tpu_torch/ops/estimator_conv.py``.
 
 Activations are NHWC; ``kbs`` is ``k1, b1, .., k6, b6`` with PyTorch's OIHW
-kernels. Each forward lays the kernels out tap-major for the implicit GEMMs,
-``[ky][kx][cin][cout]`` with ``cout`` zero-padded to a multiple of 8: six
-small copies, no convolution. The backward reads the same arrays transposed,
-so a training step keeps them from its forward. The chain's input (147..273
-channels in the model) and the 2-channel flow cotangent go in as they are;
-the five hidden widths must be multiples of 8 (128, 128, 96, 64, 32 in the
-model), because the kernels copy their activations 16 bytes at a time.
+kernels. Each call lays the kernels out for its implicit GEMMs: the bf16
+forward packs them for wgmma on the card, all six in one small kernel, into
+a scratch buffer of ``_common.packed_numel`` elements a kernel (the layout
+of ``_common.pack_wgmma``); the float32 forward and the backward take them
+tap-major, six small copies, ``[ky][kx][cin][cout]`` with ``cout``
+zero-padded to a multiple of 8 (the backward reads that array transposed). The five hidden widths must be
+multiples of 8 (128, 128, 96, 64, 32 in the model), because the kernels copy
+their activations 16 bytes at a time.
+
+The chain's input (147..273 channels in the model) may arrive with its
+channels zero-padded up to a multiple of 8, as the model's NHWC copy writes
+it (``models/conv.py::to_nhwc``): the bf16 forward reads it by TMA, which
+needs 16-byte strides. ``k1`` then gets zero rows for the tail, so the
+result is the unpadded chain's, and the tail's gradient is zero. An input
+of no multiple of 8 is padded here, on a CUDA bf16 tensor, by one extra
+copy.
 
 On a CUDA tensor ``estimator_chain_fused`` is a ``torch.autograd.Function``:
 the forward kernels (which hand the activations ``s1..s5`` over through
@@ -43,7 +52,7 @@ __all__ = ["estimator_chain_fused", "estimator_chain_bwd"]
 
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _IP = ctypes.POINTER(ctypes.c_int)
-_ARGTYPES = [P, _PP, _PP, _PP, _IP] + [I] * 4 + [P]
+_ARGTYPES = [P, _PP, _PP, _PP, P, _IP] + [I] * 4 + [P]
 _BWD_ARGTYPES = [P, P, _PP, _PP, _PP, P, _IP] + [I] * 4 + [P]
 
 
@@ -78,29 +87,52 @@ def _check_chain(name, xin, ks, bs=None):
     return b, h, w, chans
 
 
+def _pad_input(xin, kbs):
+    """``(xin, kbs)`` with ``k1`` zero-padded to ``xin``'s channels where the
+    input arrives padded to a multiple of 8, and a CUDA bf16 input of no
+    multiple of 8 padded here (the TMA loads need 16-byte strides). Both pads
+    are differentiable: the tail's gradient is dropped on the way back."""
+    if len(kbs) != 2 * NCONV:
+        raise ValueError(f"estimator_chain_fused: want {2 * NCONV} kernels and biases, got {len(kbs)}")
+    cx, cin = xin.shape[-1], kbs[0].shape[1]
+    if cx not in (cin, -(-cin // 8) * 8):
+        raise ValueError(f"estimator_chain_fused: xin has {cx} channels, k1 takes {cin} (or that padded to 8)")
+    if xin.device.type == "cuda" and xin.dtype == torch.bfloat16 and cx % 8:
+        xin = F.pad(xin, (0, -cx % 8))
+    if xin.shape[-1] == cin:
+        return xin, kbs
+    return xin, (F.pad(kbs[0], (0, 0, 0, 0, 0, xin.shape[-1] - cin)), *kbs[1:])
+
+
 def _forward(xin, kbs):
-    """Launch the forward; returns ``(flow, [s1, .., s5], wts)`` with
-    ``wts`` the tap-major kernels it ran on."""
+    """Launch the forward; returns ``(flow, [s1, .., s5])``."""
     ks, bs = kbs[0::2], kbs[1::2]
     _common.check_tensors("estimator_chain_fused", xin, *kbs)
     b, h, w, chans = _check_chain("estimator_chain_fused", xin, ks, bs)
-    wts = [_tap_major(k) for k in ks]
+    if xin.dtype == torch.bfloat16:  # packed for wgmma on the card, into `packed`
+        wts = ks
+        packed = torch.empty(
+            sum(_common.packed_numel(ci, co) for ci, co in zip(chans, chans[1:])), dtype=xin.dtype, device=xin.device
+        )
+    else:
+        wts, packed = [_tap_major(k) for k in ks], None
     outs = [torch.empty((b, h, w, c), dtype=xin.dtype, device=xin.device) for c in chans[1:]]
     _common.launch(
         "estimator_conv", "pwc_estimator_chain", _ARGTYPES, xin.device,
-        xin.data_ptr(), _ptrs(wts), _ptrs(bs), _ptrs(outs), (ctypes.c_int * len(chans))(*chans),
-        b, h, w, _common.DTYPE_CODES[xin.dtype],
+        xin.data_ptr(), _ptrs(wts), _ptrs(bs), _ptrs(outs), None if packed is None else packed.data_ptr(),
+        (ctypes.c_int * len(chans))(*chans), b, h, w, _common.DTYPE_CODES[xin.dtype],
     )
     estimator_chain_fused.launches += 1
-    return outs[-1], outs[:-1], wts
+    return outs[-1], outs[:-1]
 
 
 def estimator_chain_residuals(xin, *kbs):
     """K7 with the residuals a training step keeps: ``(flow_raw, features,
     [s1, .., s4])``. For holding them against the plain version."""
+    xin, kbs = _pad_input(xin, kbs)
     if xin.device.type == "cpu":
         return estimator_chain_plain(xin, *kbs, return_acts=True)
-    flow, acts, _ = _forward(xin, kbs)
+    flow, acts = _forward(xin, kbs)
     return flow, acts[-1], acts[:-1]
 
 
@@ -124,7 +156,7 @@ def estimator_chain_bwd(ks, acts, g_flow, g_feat, need_dx: bool = True):
 
 
 def _backward(wts, chans, acts, g_flow, g_feat, need_dx):
-    """Launch the backward on the forward's tap-major kernels ``wts``;
+    """Launch the backward on the tap-major kernels ``wts``;
     ``chans`` are the channel counts ``[Cin, C1, .., C6]``."""
     name = "estimator_chain_bwd"
     _common.check_tensors(name, g_flow, g_feat, *acts, *wts)
@@ -153,37 +185,35 @@ def _backward(wts, chans, acts, g_flow, g_feat, need_dx):
 class _EstimatorChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xin, *kbs):
-        flow, acts, wts = _forward(xin, kbs)
-        ctx.save_for_backward(xin, *wts, *acts)
-        ctx.kernel_shapes = [k.shape for k in kbs[0::2]]
+        flow, acts = _forward(xin, kbs)
+        ctx.save_for_backward(xin, *kbs[0::2], *acts)
         return flow, acts[-1]
 
     @staticmethod
     def backward(ctx, g_flow, g_feat):
         xin, *rest = ctx.saved_tensors
-        wts, acts = rest[:NCONV], rest[NCONV:]
-        shapes = ctx.kernel_shapes
-        chans = [shapes[0][1]] + [s[0] for s in shapes]
+        ks, acts = rest[:NCONV], rest[NCONV:]
+        chans = [ks[0].shape[1]] + [k.shape[0] for k in ks]
         # autograd hands an unused output's cotangent over as zeros
         g_flow, g_feat = g_flow.contiguous(), g_feat.contiguous()
-        gzs, dxin = _backward(wts, chans, acts, g_flow, g_feat, ctx.needs_input_grad[0])
-        grads = chain_weight_grads(xin, acts, gzs, g_flow, shapes)
+        gzs, dxin = _backward([_tap_major(k) for k in ks], chans, acts, g_flow, g_feat, ctx.needs_input_grad[0])
+        grads = chain_weight_grads(xin, acts, gzs, g_flow, [k.shape for k in ks])
         return (dxin, *grads)
 
 
 def estimator_chain_fused(xin: torch.Tensor, *kbs: torch.Tensor):
-    """The fused chain: ``xin`` (B, H, W, Cin) -> ``(flow_raw (B, H, W, 2),
-    features (B, H, W, C5))``.
+    """The fused chain: ``xin`` (B, H, W, Cin), or with its channels
+    zero-padded to a multiple of 8 -> ``(flow_raw (B, H, W, 2), features
+    (B, H, W, C5))``.
 
     A CPU tensor goes to the plain version (ordinary autograd); a CUDA tensor
     to the kernels, with ``estimator_chain_bwd`` as the backward."""
+    xin, kbs = _pad_input(xin, kbs)
     if xin.device.type == "cpu":
         return estimator_chain_plain(xin, *kbs)
-    if len(kbs) != 2 * NCONV:
-        raise ValueError(f"estimator_chain_fused: want {2 * NCONV} kernels and biases, got {len(kbs)}")
     if _common.wants_grad(xin, *kbs):
         return _EstimatorChain.apply(xin, *kbs)
-    flow, acts, _ = _forward(xin, kbs)
+    flow, acts = _forward(xin, kbs)
     return flow, acts[-1]
 
 

@@ -36,7 +36,7 @@ __all__ = [
     "pyramid_level_bwd", "pyramid_level_bwd_plain", "same_pad_stride2", "SUPPORTED",
 ]
 
-_ARGTYPES = [P] * 10 + [I] * 6 + [P]
+_ARGTYPES = [P] * 11 + [I] * 6 + [P]
 _BWD_ARGTYPES = [P] * 11 + [I] * 6 + [P]
 # (Cin, C) pairs the kernels are built for: the two finest PWCDCNet levels
 SUPPORTED = ((3, 16), (16, 32))
@@ -130,12 +130,16 @@ def _forward(x, k1, b1, k2, b2, k3, b3, save: bool):
     out = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
     s1 = torch.empty_like(out) if save else None
     s2 = torch.empty_like(out) if save else None
+    packed = None
+    if x.dtype == torch.bfloat16:  # the kernels packed on the card: level 0's conv1 tap-major, the rest for wgmma
+        n1 = 9 * cin * c if cin == 3 else _common.packed_numel(cin, c)
+        packed = torch.empty(n1 + 2 * _common.packed_numel(c, c), dtype=x.dtype, device=x.device)
     _common.launch(
         "pyramid_conv", "pwc_pyramid_level", _ARGTYPES, x.device,
         x.data_ptr(), k1.data_ptr(), b1.data_ptr(), k2.data_ptr(), b2.data_ptr(),
         k3.data_ptr(), b3.data_ptr(), out.data_ptr(),
         s1.data_ptr() if save else None, s2.data_ptr() if save else None,
-        b, h, w, cin, c, _common.DTYPE_CODES[x.dtype],
+        None if packed is None else packed.data_ptr(), b, h, w, cin, c, _common.DTYPE_CODES[x.dtype],
     )
     pyramid_level_fused.launches += 1
     return out, s1, s2

@@ -76,6 +76,13 @@ _CHAIN_CASES = [
     ((2, 6, 7, 273), (128, 128, 96, 64, 32, 2)),
     ((1, 12, 14, 37), (24, 16, 8, 8, 40, 3)),
     ((1, 19, 35, 147), (128, 128, 96, 64, 32, 2)),
+    ((1, 6, 7, 147), (128, 128, 96, 64, 32, 2)),
+    ((2, 9, 61, 273), (128, 128, 96, 64, 32, 2)),
+]
+# K3 levels whose half height and half width are no multiple of the bf16
+# kernel's 8 x 64 tile (nor of the float32 kernel's 8 x 32)
+_LEVEL_CASES = [
+    ((2, 20, 70, 3), 16), ((1, 18, 36, 16), 32), ((1, 34, 150, 3), 16), ((2, 26, 140, 16), 32),
 ]
 
 
@@ -275,6 +282,17 @@ class TestWrappersOnCpu:
             assert p.parent == _build.BUILD_DIR and p.name.startswith(f"lib{name}-")
             assert (_build.CSRC / f"{name}.cu").is_file()
         assert _build.library_path("cost_volume") == paths["cost_volume"]
+        # every header the sources include is hashed: an edit to one rebuilds them
+        included = set()
+        for name in _build.SOURCES:
+            for line in (_build.CSRC / f"{name}.cu").read_text().splitlines():
+                if line.startswith('#include "'):
+                    included.add(line.split('"')[1])
+        for header in _build.HEADERS:
+            for line in (_build.CSRC / header).read_text().splitlines():
+                if line.startswith('#include "'):
+                    included.add(line.split('"')[1])
+        assert "hopper.cuh" in included and included <= set(_build.HEADERS)
 
 
 @pytest.mark.cuda
@@ -305,7 +323,7 @@ class TestKernelsOnCard:
         _assert_close(got, warped_cost_volume_plain(f0, f1, flow, d), dtype)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("shape,c", [((2, 20, 70, 3), 16), ((1, 18, 36, 16), 32)])
+    @pytest.mark.parametrize("shape,c", _LEVEL_CASES)
     def test_pyramid_level(self, cuda_device, rng, dtype, shape, c):
         x = torch.from_numpy(_normal(rng, shape)).to(cuda_device, dtype)
         tp = [p.to(cuda_device, dtype) for p in _to_torch_params(_level_params(rng, shape[-1], c))]
@@ -432,6 +450,70 @@ class TestKernelsOnCard:
             _assert_close(a, b, dtype)
             assert torch.equal(a, c)
         _assert_close(dxin, want_dxin, dtype)
+
+    @pytest.mark.parametrize("cin,cout", [(147, 128), (16, 32), (32, 32), (37, 24), (32, 2), (16, 16)])
+    def test_device_packer_matches_pack_wgmma(self, cuda_device, rng, cin, cout):
+        """The bf16 kernels pack their weights on the card: the very layout
+        of ``_common.pack_wgmma``, zero padding included."""
+        from pwcnet_tpu_torch.ops.cuda import _common
+        from pwcnet_tpu_torch.ops.cuda._common import I, P
+
+        k = torch.from_numpy(_normal(rng, (cout, cin, 3, 3))).to(cuda_device, torch.bfloat16)
+        want = _common.pack_wgmma(k)
+        dst = torch.full((_common.packed_numel(cin, cout),), float("nan"), dtype=torch.bfloat16, device=cuda_device)
+        _common.launch("estimator_conv", "pwc_pack_wgmma", [P, P, I, I, P], cuda_device,
+                       k.data_ptr(), dst.data_ptr(), cin, cout)
+        torch.cuda.synchronize()
+        assert torch.equal(dst.view(want.shape), want)
+
+    @pytest.mark.parametrize("shape,c", _LEVEL_CASES)
+    def test_pyramid_level_residuals_and_autograd_bf16(self, cuda_device, rng, shape, c):
+        """The bf16 kernel's residuals s1, s2 against the plain version, and
+        a bf16 gradient through the wrapper: K3 then K6 on those very
+        residuals, the same as calling K6 on them."""
+        from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_residuals
+
+        dtype = torch.bfloat16
+        x = torch.from_numpy(_normal(rng, shape)).to(cuda_device, dtype)
+        tp = [p.to(cuda_device, dtype) for p in _to_torch_params(_level_params(rng, shape[-1], c))]
+        out, s1, s2 = pyramid_level_residuals(x, *tp)
+        want = pyramid_level_plain(x, *tp, return_acts=True)
+        _assert_close(out, want[0], dtype, ulps=4)
+        _assert_close(s1, want[1], dtype)
+        _assert_close(s2, want[2], dtype, ulps=4)
+        xg = x.clone().requires_grad_()
+        g = torch.from_numpy(_normal(rng, tuple(out.shape))).to(cuda_device, dtype)
+        reset_launch_counts()
+        (dx,) = torch.autograd.grad(pyramid_level_fused(xg, *tp), [xg], g)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in launch_counts().items() if v} == {"K3": 1, "K6": 1}
+        assert torch.equal(dx, pyramid_level_bwd(x, tp[0], tp[2], tp[4], out, s1, s2, g)[3])
+
+    @pytest.mark.parametrize("shape,couts", _CHAIN_CASES)
+    def test_estimator_chain_autograd_bf16(self, cuda_device, rng, shape, couts):
+        """A bf16 gradient through K7 (the input padded to a multiple of 8
+        on the way in where it is not one) equals K7b on the forward's own
+        residuals; the input's gradient has the input's shape and k1's
+        gradient k1's."""
+        from pwcnet_tpu_torch.ops.cuda.estimator_conv import (
+            estimator_chain_bwd, estimator_chain_fused, estimator_chain_residuals)
+
+        dtype = torch.bfloat16
+        xin = torch.from_numpy(_normal(rng, shape)).to(cuda_device, dtype).requires_grad_()
+        kbs = [p.to(cuda_device, dtype).requires_grad_() for p in _to_torch_params(_chain_params(rng, shape[-1], couts))]
+        reset_launch_counts()
+        flow, feat = estimator_chain_fused(xin, *kbs)
+        gen = torch.Generator(cuda_device).manual_seed(0)
+        gs = [torch.randn(t.shape, device=cuda_device, generator=gen).to(dtype) for t in (flow, feat)]
+        dxin, dk1 = torch.autograd.grad([flow, feat], [xin, kbs[0]], gs)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in launch_counts().items() if v} == {"K7": 1, "K7b": 1}
+        assert dxin.shape == xin.shape and dk1.shape == kbs[0].shape
+        with torch.no_grad():
+            f2, feat2, acts = estimator_chain_residuals(xin, *kbs)
+            assert torch.equal(f2, flow) and torch.equal(feat2, feat)
+            _, want = estimator_chain_bwd([k.detach() for k in kbs[0::2]], [*acts, feat2], *gs)
+        assert torch.equal(dxin, want)
 
     def test_estimator_chain_autograd(self, cuda_device, rng):
         """A gradient through K7 launches its backward and equals ordinary
