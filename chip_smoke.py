@@ -9,7 +9,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    convolutions and matmuls, so float32 comparisons are true float32;
 2. build: compile every CUDA kernel from ``pwcnet_tpu_torch/csrc`` with
    nvcc (one process per source, all at once); log each kernel's registers
-   and spills and the wgmma kernels' dynamic shared memory;
+   and spills, the wgmma and correlation kernels' dynamic shared memory and
+   the correlation's tile and cluster size at each main-path shape;
 3. kernels: K1 (warped cost volume), K2 (cost volume) and K3 (fused
    pyramid level) at every shape the 448x1024 serving forward gives them,
    at batch 1 and 8, in float32 and bfloat16, against their plain PyTorch
@@ -20,7 +21,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    estimator's six-conv chain) forward, with and without residuals, and
    backward (every cotangent, the weight and bias gradients taken from
    them, and dxin) at the five estimator levels of both sizes; K3 and K7
-   also at edge shapes that no tile of theirs divides;
+   also at edge shapes that no tile of theirs divides; then K1, K2, K6, K8
+   and K9, whose kernels use no float atomics, must give the same bits in
+   two launches on the same inputs;
 4. serving: FlowPredictor with seeded random weights answers 448x1024
    requests and a 1024x436 (Sintel-sized) request edge-padded to 448x1024,
    then batched raw_forward at B=8 in bf16 and f32; the launch counters
@@ -63,7 +66,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    reports its launch counts. NCCL across GPUs needs two cards and is not
    run on a one-card machine;
 8. timing: each kernel, its plain version and (K3, K6, K7) the cuDNN conv
-   chain timed with CUDA events at the main-path shapes (B=8, bf16);
+   chain timed with CUDA events at the main-path shapes (B=8, bf16), then
+   K1-K7 again in float32 beside cuDNN's float32 chains (TF32 off);
    pairs/s of the whole forward at 448x1024 B=8 bf16; device time by
    kernel for the forward and for the train step (torch.profiler).
 
@@ -421,8 +425,8 @@ def check_training_kernels(torch, device, compare, batches=(1, 8), dtypes=None):
                     g = cotangent(want_out)
                     x, k1, _, k2, _, k3, _ = args
                     res = (x, k1, k2, k3, want_out, want_s1, want_s2, g)
-                    # level 0 reads the image: the training path asks for no dx there
-                    for need_dx in ((False, True) if cin == 3 else (True,)):
+                    # the training path asks for no dx at level 0 (the image) and for dx at level 1
+                    for need_dx in (False, True):
                         got = pyramid_level_bwd(*res, need_dx=need_dx)
                         want = pyramid_level_bwd_plain(*res, need_dx=need_dx)
                         for name, a, e in zip(("gz1", "gz2", "gz3", "dx"), got, want):
@@ -713,6 +717,56 @@ def check_shard_kernels(torch, F, device, compare, batches=(1, 8), dtypes=None):
                     compare("K8b", f"stitched df0 vs K4 {label}", torch.cat(df0s, 1), df0_u, dtype)
                     compare("K8b", f"summed df1 vs K4 {label}", df1_pad[:, d : d + H].to(dtype), df1_u, dtype)
                 torch.cuda.synchronize()
+
+
+def check_determinism(torch, F, device, dtypes=None):
+    """The kernels redesigned without float atomics give the same bits in
+    two launches on the same inputs: K2 and K1 (with its warped map) at
+    every serving level, K8, K9 (with its warped rows) at the deepest and
+    finest sharded level, K6 at both training levels (dx at level 1), B=8.
+    Returns the number of results compared."""
+    from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda, cost_volume_hpad_cuda
+    from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_plain
+    from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume_global_residual, warped_cost_volume_residual
+
+    dtypes = dtypes or (torch.float32, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(8)
+    d, n = SEARCH_RANGE, 0
+
+    def same(kid, label, fn):
+        nonlocal n
+        first, second = fn(), fn()
+        for a, b in zip(first, second):
+            require(torch.equal(a, b), f"{kid} {label}: two launches on the same inputs differ")
+            n += 1
+
+    with torch.inference_mode():
+        for dtype in dtypes:
+            for h, w, c in K2_SHAPES:
+                a = k2_inputs(torch, 8, h, w, c, dtype, device, gen)
+                same("K2", f"{dtype} {h}x{w}x{c}", lambda: (cost_volume_cuda(*a, d),))
+            for h, w, c in K1_SHAPES:
+                a = k1_inputs(torch, 8, h, w, c, dtype, device, gen)
+                same("K1", f"{dtype} {h}x{w}x{c}", lambda: warped_cost_volume_residual(*a, d))
+            for h, w, c in K8_FRAME:
+                f0, f1 = k2_inputs(torch, 1, h, w, c, dtype, device, gen)
+                a = (f0[:, h // SHARDS:].contiguous(), shard_inputs(torch, F, f1, f1[..., :2], 1, h // SHARDS, d)[0], d)
+                same("K8", f"{dtype} {h}x{w}x{c}", lambda: (cost_volume_hpad_cuda(*a),))
+            for h, w, c in (K9_SERVE[0], K9_SERVE[-1]):
+                f0, f1, flow = k1_inputs(torch, 8, h, w, c, dtype, device, gen)
+                _, flow_ext, vb = shard_inputs(torch, F, f1, flow, 1, h // SHARDS, d)
+                a = (f0[:, h // SHARDS:].contiguous(), f1, flow_ext, vb, d)
+                same("K9", f"{dtype} {h}x{w}x{c}", lambda: warped_cost_volume_global_residual(*a))
+            for level, (h, w, cin, c) in enumerate(K3_TRAIN):
+                x, k1, b1, k2, b2, k3, b3 = k3_inputs(torch, 8, h, w, cin, c, dtype, device, gen)
+                out, s1, s2 = pyramid_level_plain(x, k1, b1, k2, b2, k3, b3, return_acts=True)
+                g = torch.randn(out.shape, generator=gen, device=device).to(dtype)
+                a = (x, k1, k2, k3, out, s1, s2, g)
+                same("K6", f"{dtype} {h}x{w}x{cin}->{c}",
+                     lambda: [t for t in pyramid_level_bwd(*a, need_dx=level > 0) if t is not None])
+        torch.cuda.synchronize()
+    log(f"  K1, K2, K6, K8, K9: {n} results bitwise equal in two launches")
+    return n
 
 
 def k8_work(b, h, w, c, s):
@@ -1523,9 +1577,9 @@ PROFILE_GROUPS = (
     ("K3 pyramid_level", ("pyramid_level",)),
     ("K4 cost_volume_bwd", ("cv_bwd_kernel",)),
     ("K5 warp_bwd", ("warp_bwd_kernel", "round_kernel")),
-    ("K6 pyramid_level_bwd", ("gz3_kernel", "conv_t_s")),
+    ("K6 pyramid_level_bwd", ("gz3_kernel", "conv_t_s", "conv_t_wg", "conv1_t_wg")),
     ("K7 estimator chain, forward and backward", ("conv3x3_",)),
-    ("K3 and K7 weight packing (bf16)", ("pack_weights",)),
+    ("K3, K6 and K7 weight packing (bf16)", ("pack_weights",)),
     ("cuDNN wgrad", ("wgrad",)),
     ("cuDNN dgrad", ("dgrad",)),
     ("cuDNN forward convs and layout kernels", ("xmma", "cutlass", "cudnn", "implicit_gemm", "nhwc", "nchw")),
@@ -1579,7 +1633,7 @@ def profile_steps(torch, fn, n, what, unprofiled_ms):
 def kernel_label(mangled: str) -> str:
     """A readable label for a mangled kernel name: the last name of its
     nested name, then its integer template arguments, its element type and
-    its Loader (``correlation_kernel<bf16,4,HpadLoader>``)."""
+    its Loader (``correlation_kernel<bf16,4,32,HpadLoader>``)."""
     import re
 
     pos = 3 if mangled.startswith("_ZN") else 2
@@ -1596,7 +1650,10 @@ def kernel_label(mangled: str) -> str:
 
 def log_build(report):
     """Registers and spills of every kernel (ptxas), by kernel and template
-    arguments, and the dynamic shared memory of the wgmma kernels."""
+    arguments; the dynamic shared memory of the wgmma kernels (K3, K6, K7)
+    and of the correlation kernel (K1, K2, K8, K9), and the tile width,
+    threads and cluster size the correlation plan gives each main-path
+    shape."""
     import ctypes
     import re
 
@@ -1613,9 +1670,24 @@ def log_build(report):
     k3 = _build.load("pyramid_conv").pwc_pyramid_level_smem_bytes
     k7 = _build.load("estimator_conv").pwc_estimator_conv_smem_bytes
     k3.argtypes, k7.argtypes = [ctypes.c_int] * 2, [ctypes.c_int]
+    k6 = _build.load("pyramid_conv_bwd").pwc_pyramid_level_bwd_smem_bytes
+    corr = _build.load("cost_volume").pwc_correlation_smem_bytes
+    k6.argtypes = corr.argtypes = [ctypes.c_int] * 2
     log("  dynamic shared memory per block: " + ", ".join(
         [f"pyramid_level_wg_kernel<{cin},{c}> {k3(cin, c)} B" for cin, c in ((3, 16), (16, 32))]
-        + [f"conv3x3_wgmma_kernel<{n}> {k7(n)} B" for n in _common.WGMMA_WIDTHS]))
+        + [f"conv3x3_wgmma_kernel<{n}> {k7(n)} B" for n in _common.WGMMA_WIDTHS]
+        + [f"conv_t_wg_kernel<{c}> {k6(c, 0)} B" for c in (16, 32)] + [f"conv1_t_wg_kernel<32> {k6(32, 1)} B"]
+        + [f"correlation_kernel<{SEARCH_RANGE},{tw}> {corr(SEARCH_RANGE, tw)} B" for tw in (16, 32)]))
+    plans = []
+    for kid, shapes, b in (("K2", K2_SHAPES, 8), ("K1", K1_SHAPES, 8), ("K2", K2_TRAIN, 8), ("K1", K1_TRAIN, 8),
+                           ("K8", K8_FRAME, 1), ("K9", K9_SERVE, 8)):
+        for h, w, c in shapes:
+            h = h // SHARDS if kid in SHARD_KERNELS else h
+            tw, split = _common.correlation_plan(w, c)
+            blocks = b * -(-h // _common.CORR_TILE_H) * -(-w // tw) * split
+            plans.append(f"{kid} {b}x{h}x{w}x{c}: tile 8x{tw}, {tw * (2 * SEARCH_RANGE + 1)} threads, "
+                         f"cluster {split}, {blocks} blocks")
+    log("  correlation launch plans: " + "; ".join(plans))
 
 
 def main() -> int:
@@ -1657,6 +1729,7 @@ def main() -> int:
     check_estimator_kernels(torch, device, compare)
     log(f"  K8, K8b, K9, K9b on the {SHARDS} stripes of one frame on the card, and stitched against K1/K2, K4/K5")
     check_shard_kernels(torch, F, device, compare)
+    deterministic = check_determinism(torch, F, device)
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1689,7 +1762,15 @@ def main() -> int:
     rows.update(time_training_kernels(torch, device))
     rows.update(time_estimator_kernels(torch, F, device))
     rows.update(time_shard_kernels(torch, F, device))
-    time_estimator_kernels(torch, F, device, dtype=torch.float32)  # the FMA path: logged, not summed
+    # float32 (TF32 off): the kernels' FMA paths beside cuDNN's float32 chains; logged, not summed
+    log("[time] float32 at the same shapes (TF32 off for cuDNN)")
+    time_kernels(torch, F, device, dtype=torch.float32)
+    time_training_kernels(torch, device, dtype=torch.float32)
+    time_estimator_kernels(torch, F, device, dtype=torch.float32)
+    for kid in ("K1", "K2", "K6", "K8", "K9"):
+        log(f"  {kid} bf16 per " + ("train step" if kid == "K6" else "forward") + ": "
+            f"{sum(r['ms'] * r['times'] for r in rows[kid]):.4f} ms over "
+            + ", ".join(f"{r['shape']} {r['ms']:.4f}" for r in rows[kid]))
     profile_steps(torch, lambda: pred.raw_forward(batch_dev), 3, "forwards at 448x1024 B=8 bf16",
                   8e3 / pairs["bfloat16 kernels"])
 
@@ -1752,7 +1833,7 @@ def main() -> int:
         f"{spatial_stats['train_pairs_per_s']:.1f} pairs/s on {card}")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": card, "train": train_stats, "gradient_kernels_vs_plain": grad_err,
-                      "k5_df1_run_to_run": atomics_rerun, "trainer": trainer_stats, "spatial": spatial_stats}))
+                      "k5_df1_run_to_run": atomics_rerun, "bitwise_equal_reruns": deterministic, "trainer": trainer_stats, "spatial": spatial_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_f32(from_f32<T>(v)); }
 
+// 8 consecutive values (16-byte aligned) into float32, by 16-byte loads
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const auto* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(h[k]);
+    v[2 * k] = f.x, v[2 * k + 1] = f.y;
+  }
+}
+
 // LeakyReLU(0.1), as jnp.where(v >= 0, v, v * 0.1)
 __device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : v * 0.1f; }
 

@@ -31,6 +31,9 @@ struct PlainLoader {
   __device__ __forceinline__ float operator()(int b, int gy, int gx, int gc) const {
     return to_f32(f1[(((size_t)b * H + gy) * W + gx) * C + gc]);
   }
+  __device__ __forceinline__ void gather8(int b, int gy, int gx, int c0, float (&v)[8]) const {
+    load8(f1 + (((size_t)b * H + gy) * W + gx) * C + c0, v);
+  }
   __device__ __forceinline__ void save(int, int, int, int, float) const {}  // f1 is its own residual
 };
 
@@ -43,46 +46,60 @@ struct HpadLoader {
   __device__ __forceinline__ float operator()(int b, int gy, int gx, int gc) const {
     return to_f32(f1_ext[(((size_t)b * (H + 2 * d) + gy + d) * W + gx) * C + gc]);
   }
+  __device__ __forceinline__ void gather8(int b, int gy, int gx, int c0, float (&v)[8]) const {
+    load8(f1_ext + (((size_t)b * (H + 2 * d) + gy + d) * W + gx) * C + c0, v);
+  }
   __device__ __forceinline__ void save(int, int, int, int, float) const {}  // f1_ext is its own residual
 };
 
 template <typename T>
-cudaError_t run(const void* f0, const void* f1, void* out, int B, int H, int W, int C, int d,
-                cudaStream_t stream) {
+cudaError_t run(const void* f0, const void* f1, void* out, int B, int H, int W, int C, int d, int tw,
+                int split, cudaStream_t stream) {
   const PlainLoader<T> load{static_cast<const T*>(f1), H, W, C};
-  return launch_correlation<T>(static_cast<const T*>(f0), static_cast<T*>(out), B, H, W, C, d,
-                               load, stream);
+  return launch_correlation<T>(static_cast<const T*>(f0), static_cast<T*>(out), B, H, W, C, d, tw,
+                               split, load, stream);
 }
 
 template <typename T>
 cudaError_t run_hpad(const void* f0, const void* f1_ext, void* out, int B, int H, int W, int C, int d,
-                     cudaStream_t stream) {
+                     int tw, int split, cudaStream_t stream) {
   const HpadLoader<T> load{static_cast<const T*>(f1_ext), H, W, C, d};
-  return launch_correlation<T>(static_cast<const T*>(f0), static_cast<T*>(out), B, H, W, C, d,
-                               load, stream);
+  return launch_correlation<T>(static_cast<const T*>(f0), static_cast<T*>(out), B, H, W, C, d, tw,
+                               split, load, stream);
 }
 
 }  // namespace pwc
 
-// f0, f1: (B, H, W, C); out: (B, H, W, (2d+1)^2); all contiguous, dtype 0 f32 / 1 bf16.
+// f0, f1: (B, H, W, C); out: (B, H, W, (2d+1)^2); all contiguous, dtype 0 f32 / 1 bf16;
+// tw, split: the tile width and the blocks a tile (ops/cuda/_common.py::correlation_plan).
 extern "C" int pwc_cost_volume(const void* f0, const void* f1, void* out, int B, int H, int W,
-                               int C, int d, int dtype, void* stream) {
+                               int C, int d, int tw, int split, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case pwc::kF32: return pwc::run<float>(f0, f1, out, B, H, W, C, d, s);
-    case pwc::kBF16: return pwc::run<__nv_bfloat16>(f0, f1, out, B, H, W, C, d, s);
+    case pwc::kF32: return pwc::run<float>(f0, f1, out, B, H, W, C, d, tw, split, s);
+    case pwc::kBF16: return pwc::run<__nv_bfloat16>(f0, f1, out, B, H, W, C, d, tw, split, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // K8. f0: (B, H, W, C); f1_ext: (B, H + 2d, W, C); out: (B, H, W, (2d+1)^2); all contiguous,
-// dtype 0 f32 / 1 bf16.
+// dtype 0 f32 / 1 bf16; tw, split as pwc_cost_volume.
 extern "C" int pwc_cost_volume_hpad(const void* f0, const void* f1_ext, void* out, int B, int H, int W,
-                                    int C, int d, int dtype, void* stream) {
+                                    int C, int d, int tw, int split, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case pwc::kF32: return pwc::run_hpad<float>(f0, f1_ext, out, B, H, W, C, d, s);
-    case pwc::kBF16: return pwc::run_hpad<__nv_bfloat16>(f0, f1_ext, out, B, H, W, C, d, s);
+    case pwc::kF32: return pwc::run_hpad<float>(f0, f1_ext, out, B, H, W, C, d, tw, split, s);
+    case pwc::kBF16: return pwc::run_hpad<__nv_bfloat16>(f0, f1_ext, out, B, H, W, C, d, tw, split, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// dynamic shared memory of the correlation kernel at search range d and tile width tw, for the build log
+extern "C" int pwc_correlation_smem_bytes(int d, int tw) {
+#define PWC_CORR_BYTES(D, TW_) \
+  if (d == D && tw == TW_) return pwc::CorrLayout<D, TW_>::kBytes;
+  PWC_CORR_BYTES(1, 16) PWC_CORR_BYTES(1, 32) PWC_CORR_BYTES(2, 16) PWC_CORR_BYTES(2, 32)
+  PWC_CORR_BYTES(3, 16) PWC_CORR_BYTES(3, 32) PWC_CORR_BYTES(4, 16) PWC_CORR_BYTES(4, 32)
+#undef PWC_CORR_BYTES
+  return 0;
 }

@@ -194,14 +194,6 @@ __global__ void __launch_bounds__(kEwThreads, 1)
   }
 }
 
-// the N a conv of Cout channels runs at; the wrapper pads its weights to it
-inline int wgmma_n(int cout) {
-  constexpr int kWidths[] = {8, 16, 32, 64, 96, 128};
-  for (int n : kWidths)
-    if (cout <= n) return n;
-  return 0;
-}
-
 template <int N>
 cudaError_t run_wgmma(const CUtensorMap& map, const EwArgs& a, int B, cudaStream_t stream) {
   using L = EwLayout<N>;
@@ -267,7 +259,7 @@ cudaError_t run_chain_bf16(const void* xin, const void* const* ks, const void* c
   for (int i = 0; i < kEstConvs; ++i) {
     const int n = wgmma_n(chans[i + 1]);
     if (n == 0) return cudaErrorInvalidValue;
-    jobs.job[i] = {static_cast<const __nv_bfloat16*>(ks[i]), dst, chans[i], chans[i + 1], n, 0};
+    jobs.job[i] = {static_cast<const __nv_bfloat16*>(ks[i]), dst, chans[i], chans[i + 1], n, 0, 0};
     dst += packed_elems(jobs.job[i]);
   }
   cudaError_t err = pack_weights(jobs, kEstConvs, stream);
@@ -307,7 +299,7 @@ extern "C" int pwc_pack_wgmma(const void* k, void* dst, int cin, int cout, void*
   const int n = pwc::wgmma_n(cout);
   if (n == 0) return cudaErrorInvalidValue;
   pwc::PackJobs jobs{};
-  jobs.job[0] = {static_cast<const __nv_bfloat16*>(k), static_cast<__nv_bfloat16*>(dst), cin, cout, n, 0};
+  jobs.job[0] = {static_cast<const __nv_bfloat16*>(k), static_cast<__nv_bfloat16*>(dst), cin, cout, n, 0, 0};
   return pwc::pack_weights(jobs, 1, static_cast<cudaStream_t>(stream));
 }
 

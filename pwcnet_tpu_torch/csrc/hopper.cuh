@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the bf16 forward kernels of K3
-// (pyramid_conv.cu) and K7 (estimator_conv.cu): mbarriers, TMA and bulk
-// copies completing on them, warpgroup matrix multiplies (wgmma) with both
-// operands in shared memory, and the tensor maps the copies read.
+// Hopper (sm_90a) building blocks shared by the bf16 kernels of K3
+// (pyramid_conv.cu), its backward K6 (pyramid_conv_bwd.cu) and K7
+// (estimator_conv.cu): mbarriers, TMA and bulk copies completing on them,
+// warpgroup matrix multiplies (wgmma) with both operands in shared memory,
+// the implicit-GEMM 3x3 conv over chunk-planar planes, the on-card weight
+// packer, and the tensor maps the copies read.
 //
 // Operand layout. Every wgmma operand here is K-major without swizzle: a
 // "core matrix" is 8 rows of 16 bytes (8 bf16 along K) stored as 128
@@ -23,6 +25,9 @@
 #include "common.cuh"
 
 namespace pwc {
+
+constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+constexpr int imax(int a, int b) { return a > b ? a : b; }
 
 // ------------------------------------------------------------ mbarrier
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -183,18 +188,72 @@ struct Wgmma<128> {
   }
 };
 
+// One 3x3 conv over chunk-planar planes ([C/8][position][8]) as m64 x N
+// wgmma tiles: rows [0, n) of the output planes, a multiple of 64. `src(tap,
+// ks)` is the shared address of the source's first chunk of K step ks,
+// shifted by the tap; its second chunk is `src_lbo` bytes on. `w` holds the
+// weights packed as [K/16][tap][2][N][8]. Warpgroup g of WGS takes tiles g,
+// g + WGS, ..., up to TILES of them at once, so that as many independent
+// accumulator chains keep the tensor cores busy; `epi` gets each tile's
+// first row and its accumulators.
+template <int N, int KSTEPS, int WGS, int TILES, typename Src, typename Epi>
+__device__ __forceinline__ void conv_wgmma_tiles(int n, uint32_t src_lbo, uint32_t w, Src src, Epi epi) {
+  const int g = threadIdx.x / 128;
+  const int tiles = n / 64;
+  for (int j0 = g; j0 < tiles; j0 += WGS * TILES) {
+    float acc[TILES][N / 2];
+#pragma unroll
+    for (int m = 0; m < TILES; ++m) {
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[m][i] = 0.f;
+      acc_fence(acc[m]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const uint64_t db = wg_desc(w + (ks * 9 + tap) * 2 * N * 16, N * 16, 128);
+#pragma unroll
+        for (int m = 0; m < TILES; ++m)
+          if (j0 + WGS * m < tiles)
+            Wgmma<N>::mma(acc[m], wg_desc(src(tap, ks) + 64 * (j0 + WGS * m) * 16, src_lbo, 128), db);
+      }
+    }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int m = 0; m < TILES; ++m) {
+      acc_fence(acc[m]);
+      if (j0 + WGS * m < tiles) epi(64 * (j0 + WGS * m), acc[m]);
+    }
+  }
+}
+
 // ------------------------------------------------------------ weight packing
 // OIHW 3x3 bf16 kernels laid out for the wgmma kernels on the card, all of
 // one call in one launch (a host-side layout would cost a few PyTorch ops a
 // kernel): [ceil(cin / 16)][tap][2][n][8] with zero rows past cin and zero
 // columns past cout (ops/cuda/_common.py::pack_wgmma is the same layout in
-// PyTorch), or with `tap_major` [ky][kx][cin][cout].
+// PyTorch), or with `tap_major` [ky][kx][cin][cout]. `transposed` packs the
+// transpose of a forward kernel k (cin, cout, 3, 3) for K6's backward GEMMs,
+// K = the forward's output channels (cin here), N = its input channels
+// (cout here): 1 with the taps mirrored (tap 8 - t: the transpose of a
+// stride-1 conv is a conv), 2 as they are (the stride-2 conv's phases).
 struct PackJob {
   const __nv_bfloat16* k;
   __nv_bfloat16* dst;
-  int cin, cout, n, tap_major;
+  int cin, cout, n, tap_major, transposed;
 };
 constexpr int kMaxPackJobs = 6;
+
+// the N a conv of Cout channels runs at (ops/cuda/_common.py::wgmma_n); 0 past the widest
+inline int wgmma_n(int cout) {
+  constexpr int kWidths[] = {8, 16, 32, 64, 96, 128};
+  for (int n : kWidths)
+    if (cout <= n) return n;
+  return 0;
+}
 struct PackJobs {
   PackJob job[kMaxPackJobs];
 };
@@ -217,7 +276,9 @@ __global__ void pack_weights_kernel(PackJobs jobs) {
       ci = i / (16 * p.n * 9) * 16 + (i / (8 * p.n)) % 2 * 8 + i % 8;
       tap = (i / (16 * p.n)) % 9;
     }
-    p.dst[i] = co < p.cout && ci < p.cin ? p.k[(co * p.cin + ci) * 9 + tap] : __float2bfloat16_rn(0.f);
+    const int at = p.transposed ? (ci * p.cout + co) * 9 + (p.transposed == 1 ? 8 - tap : tap)
+                                : (co * p.cin + ci) * 9 + tap;
+    p.dst[i] = co < p.cout && ci < p.cin ? p.k[at] : __float2bfloat16_rn(0.f);
   }
 }
 

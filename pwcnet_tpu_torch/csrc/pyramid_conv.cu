@@ -232,8 +232,6 @@ constexpr int kPwP = kPwTW + 5;          // plane row pitch: s1 reads the x phas
 constexpr int kPwTiles = 4;              // m64 tiles a warpgroup keeps in flight
 constexpr int kPwXRows = kPwTH + 5;      // x phase-plane rows (level 1)
 
-constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
-constexpr int imax(int a, int b) { return a > b ? a : b; }
 
 template <int CIN, int C>
 struct PwLayout {
@@ -277,47 +275,6 @@ struct PwLayout {
   static_assert(kOut + kOutBytes <= kXBytes, "the output tile (and level 1's s2) fit x's space");
   static_assert(kBytes <= 232448, "at most 227 KB of shared memory per block");
 };
-
-// One 3x3 conv over chunk-planar planes as m64 x N = C wgmma tiles: rows
-// [0, n) of the output planes. `src(tap, ks)` is the shared address of the
-// source's first chunk of K step ks, shifted by the tap; its second chunk is
-// `src_lbo` bytes on. Warpgroup g of WGS takes tiles g, g + WGS, ..., up to
-// kPwTiles of them at once, so that as many independent accumulator chains
-// keep the tensor cores busy; `epi` gets each tile's first row and its
-// accumulators.
-template <int C, int KSTEPS, int WGS, typename Src, typename Epi>
-__device__ __forceinline__ void conv_wgmma(int n, uint32_t src_lbo, uint32_t w, Src src, Epi epi) {
-  const int g = threadIdx.x / 128;
-  const int tiles = n / 64;
-  for (int j0 = g; j0 < tiles; j0 += WGS * kPwTiles) {
-    float acc[kPwTiles][C / 2];
-#pragma unroll
-    for (int m = 0; m < kPwTiles; ++m) {
-#pragma unroll
-      for (int i = 0; i < C / 2; ++i) acc[m][i] = 0.f;
-      acc_fence(acc[m]);
-    }
-    wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const uint64_t db = wg_desc(w + (ks * 9 + tap) * 2 * C * 16, C * 16, 128);
-#pragma unroll
-        for (int m = 0; m < kPwTiles; ++m)
-          if (j0 + WGS * m < tiles)
-            Wgmma<C>::mma(acc[m], wg_desc(src(tap, ks) + 64 * (j0 + WGS * m) * 16, src_lbo, 128), db);
-      }
-    }
-    wg_commit();
-    wg_wait<0>();
-#pragma unroll
-    for (int m = 0; m < kPwTiles; ++m) {
-      acc_fence(acc[m]);
-      if (j0 + WGS * m < tiles) epi(64 * (j0 + WGS * m), acc[m]);
-    }
-  }
-}
 
 // bias + LeakyReLU of a tile's accumulators, rounded, into chunk-planar
 // planes `pos` positions apart; plane positions outside [0, rows) x
@@ -463,7 +420,7 @@ __global__ void __launch_bounds__(PwLayout<CIN, C>::kThreads, CIN == 3 ? 2 : 1)
   } else {
     mbar_wait(bar_in, 0);
     // tap (dy, dx) reads phase (dy % 2, dx % 2) at (y + dy / 2, x + dx / 2); K = 16 channels, one step
-    conv_wgmma<C, 1, kWgs>(
+    conv_wgmma_tiles<C, 1, kWgs, kPwTiles>(
         L::kN1, L::kXPos * 16, sbase + L::kW1,
         [&](int tap, int) {
           const int dy = tap / 3, dx = tap % 3;
@@ -479,7 +436,7 @@ __global__ void __launch_bounds__(PwLayout<CIN, C>::kThreads, CIN == 3 ? 2 : 1)
 
   // ---- conv2 -> s2 on the tile + 1-pixel halo: (TH + 2) rows x (TW + 2) columns
   mbar_wait(bar_w, 0);
-  conv_wgmma<C, C / 16, kWgs>(
+  conv_wgmma_tiles<C, C / 16, kWgs, kPwTiles>(
       L::kN2, L::kS1Pos * 16, sbase + L::kW2,
       [&](int tap, int ks) {
         return sbase + L::kS1 + (uint32_t)(2 * ks * L::kS1Pos + (tap / 3) * kPwP + tap % 3) * 16;
@@ -492,7 +449,7 @@ __global__ void __launch_bounds__(PwLayout<CIN, C>::kThreads, CIN == 3 ? 2 : 1)
   if (s2_out != nullptr) store_tile<C>(s2_out, s2, L::kS2Pos, 1, b, r0, q0, HH, WH);
 
   // ---- conv3 -> the output tile, then to device memory
-  conv_wgmma<C, C / 16, kWgs>(
+  conv_wgmma_tiles<C, C / 16, kWgs, kPwTiles>(
       L::kN3, L::kS2Pos * 16, sbase + L::kW3,
       [&](int tap, int ks) {
         return sbase + L::kS2 + (uint32_t)(2 * ks * L::kS2Pos + (tap / 3) * kPwP + tap % 3) * 16;
@@ -516,7 +473,7 @@ cudaError_t run_bf16(const void* x, const void* k1, const void* b1, const void* 
   auto* dst = static_cast<bf16*>(packed);
   const void* ks[3] = {k1, k2, k3};
   for (int i = 0; i < 3; ++i) {
-    jobs.job[i] = {static_cast<const bf16*>(ks[i]), dst, i == 0 ? CIN : C, C, C, i == 0 && L::kL0};
+    jobs.job[i] = {static_cast<const bf16*>(ks[i]), dst, i == 0 ? CIN : C, C, C, i == 0 && L::kL0, 0};
     dst += packed_elems(jobs.job[i]);
   }
   cudaError_t err = pack_weights(jobs, 3, stream);

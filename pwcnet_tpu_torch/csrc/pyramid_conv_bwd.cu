@@ -23,29 +23,51 @@
 // gradients see). dx is skipped when the caller passes null: at level 0 the
 // input is the image.
 //
-// Design. The three cotangents are outputs, so the stages are three kernels
-// that hand them over through device memory (L2 holds them), not one kernel
-// with halo recomputation: the TPU kernel's banded layout, lane rolls and
-// H-space-to-depth dx planes have no counterpart here.
+// Design. The three cotangents are outputs, so the stages are kernels that
+// hand them over through device memory (L2 holds them), not one kernel with
+// halo recomputation: the TPU kernel's banded layout, lane rolls and
+// H-space-to-depth dx planes have no counterpart here. A transposed 3x3
+// stride-1 conv is a 3x3 conv with the taps mirrored and the channel roles
+// swapped.
+//
+// bfloat16 (three launches at level 0, four at level 1, the weight packing
+// included), on the tensor cores as K3's forward (hopper.cuh):
+// - the transposed kernels are packed on the card in one launch, in the
+//   wgmma B layout [K/16][tap][2][N][8]: conv3^T and conv2^T with tap 8 - t
+//   and K = the forward's output channels, conv1^T with its taps as they are;
+// - conv3^T (conv_t_wg_kernel<C, true>): one block of two warpgroups owns an
+//   8 x 56 tile; it stages gz3 = g * mask(out) on the tile + 1-pixel halo
+//   chunk-planar in shared memory as it loads g and out (16 bytes a thread),
+//   writes the tile's own gz3, runs the implicit GEMM (m64 x N = C, one
+//   shifted descriptor per tap, four m64 tiles in flight per warpgroup) and
+//   writes gz2 = acc * mask(s2) straight from the accumulators;
+// - conv2^T (conv_t_wg_kernel<C, false>): the same from gz2 to gz1;
+// - conv1^T at level 1 (conv1_t_wg_kernel): with stride 2 each output pixel
+//   of dx belongs to one of four phases (row and column parity); phase (py,
+//   px) is a GEMM over the taps with ky & 1 = py and kx & 1 = px (4, 2, 2, 1
+//   taps) of gz1 on the tile + 1-pixel halo above and left, N = 16. Level
+//   0's dx (3 channels; the training path never asks for it) keeps the FMA
+//   kernel below.
+//
+// float32 stays on FMAs (a TF32 path would change the numbers):
 // - gz3: one elementwise pass.
-// - conv3^T and conv2^T: a transposed 3x3 stride-1 conv is a 3x3 conv with
-//   the taps mirrored and the channel roles swapped. One block of 256
-//   threads owns an 8 x 32 tile of positions; it stages the tile + 1 halo of
-//   the incoming cotangent channel-major in shared memory and the weights as
-//   [mirrored tap][cout of the forward][cin of the forward]; each thread
-//   computes all C channels of one position with float32 FMAs (conv_fma.cuh,
-//   the forward's float32 path), applies the mask and stores.
-// - conv1^T: with stride 2 each of the nine taps of conv1 feeds exactly one
-//   pixel of a 2 x 2 block of x. One thread owns the block of half-res
-//   position (a, c): tap (ky, kx) reads gz1 at (a - [ky == 2], c - [kx == 2])
-//   and adds into pixel (ky & 1, kx & 1), so all threads run the same taps.
+// - conv3^T and conv2^T: one block of 256 threads owns an 8 x 32 tile of
+//   positions; it stages the tile + 1 halo of the incoming cotangent
+//   channel-major in shared memory and the weights as [mirrored tap][cout
+//   of the forward][cin of the forward]; each thread computes all C channels
+//   of one position with float32 FMAs (conv_fma.cuh, the forward's float32
+//   path), applies the mask and stores.
+// - conv1^T: one thread owns the 2 x 2 block of x of half-res position (a,
+//   c): tap (ky, kx) reads gz1 at (a - [ky == 2], c - [kx == 2]) and adds
+//   into pixel (ky & 1, kx & 1), so all threads run the same taps.
 //
 // Bound on the H100: bytes at the bf16 tensor-core rate (it reads g, out,
 // s1, s2 and writes gz1..gz3 and dx: 7 half-res tensors of C channels and x;
 // 2 * 2 * 9 * C * C + 2 * 9 * CIN * C operations per half-res position).
-// This version runs float32 FMAs on the CUDA cores in both dtypes and is
-// bound by those; tensor cores are later work.
+// The bf16 kernels read each staged cotangent 1.2-1.3x (the halo) and
+// gz2, gz1 once more from L2; float32 is bound by its FMAs.
 #include "conv_fma.cuh"
+#include "hopper.cuh"
 
 namespace pwc {
 
@@ -208,23 +230,278 @@ cudaError_t run(const void* g, const void* out, const void* s1, const void* s2, 
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ bfloat16 on wgmma
+using bf16 = __nv_bfloat16;
+
+constexpr int kBwTH = 8;        // output rows per block
+constexpr int kBwTW = 56;       // output columns per block: 224 and 112 are whole tiles
+constexpr int kBwP = kBwTW + 2;   // plane pitch of the stride-1 transposes (1-pixel halo each side)
+constexpr int kBwP1 = kBwTW + 1;  // conv1^T: 1-pixel halo above and left
+constexpr int kBwThreads = 256;   // two warpgroups
+constexpr int kBwTiles = 4;       // m64 tiles a warpgroup keeps in flight
+
+// conv3^T / conv2^T: the incoming cotangent's planes [C/8][kInPos][8], then the packed weights
+template <int C>
+struct BwLayout {
+  static constexpr int kN = round_up(kBwTH * kBwP, 64);  // GEMM rows: flat output positions
+  static constexpr int kInPos = round_up(imax(kN + 2 * kBwP + 2, (kBwTH + 2) * kBwP), 8);
+  static constexpr int kInBytes = C / 8 * kInPos * 16;
+  static constexpr int kWBytes = 9 * C * C * 2;
+  static constexpr int kBytes = kInBytes + kWBytes;
+};
+
+// conv1^T: gz1's planes (C channels), then the packed weights (K = C, N = 16)
+template <int C>
+struct Bw1Layout {
+  static constexpr int kN = round_up(kBwTH * kBwP1, 64);
+  static constexpr int kInPos = round_up(imax(kN + kBwP1 + 1, (kBwTH + 1) * kBwP1), 8);
+  static constexpr int kInBytes = C / 8 * kInPos * 16;
+  static constexpr int kWBytes = 9 * C * 16 * 2;
+  static constexpr int kBytes = kInBytes + kWBytes;
+};
+
+// 16-byte copies of the packed weights into shared memory
+__device__ __forceinline__ void stage_packed(unsigned char* dst, const bf16* src, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+}
+
+// 8 bf16 values of g times mask(8 bf16 values of a), rounded
+__device__ __forceinline__ uint4 masked(uint4 g, uint4 a) {
+  const auto* gp = reinterpret_cast<const __nv_bfloat162*>(&g);
+  const auto* ap = reinterpret_cast<const __nv_bfloat162*>(&a);
+  uint4 r;
+  auto* rp = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 gf = __bfloat1622float2(gp[k]);
+    const float2 af = __bfloat1622float2(ap[k]);
+    rp[k] = __floats2bfloat162_rn(gf.x * lrelu_mask(af.x), gf.y * lrelu_mask(af.y));
+  }
+  return r;
+}
+
+// gz_out = conv^T(gz_in; w) * mask(act) on an 8 x 56 tile, all (B, HH, WH, C).
+// FIRST: gz_in = src * mask(src_mask), computed as it is staged, and the
+// tile's own part written to gz_in_out (gz3); else gz_in = src.
+template <int C, bool FIRST>
+__global__ void __launch_bounds__(kBwThreads)
+    conv_t_wg_kernel(const bf16* __restrict__ src, const bf16* __restrict__ src_mask, const bf16* __restrict__ w,
+                     const bf16* __restrict__ act, bf16* __restrict__ gz_in_out, bf16* __restrict__ gz_out, int HH,
+                     int WH) {
+  using L = BwLayout<C>;
+  extern __shared__ __align__(128) unsigned char bw_smem[];
+  const uint32_t sbase = smem_u32(bw_smem);
+  const int b = blockIdx.z;
+  const int r0 = blockIdx.y * kBwTH;
+  const int q0 = blockIdx.x * kBwTW;
+  const size_t frame = (size_t)b * HH * WH;
+
+  stage_packed(bw_smem + L::kInBytes, w, L::kWBytes);
+  // plane position (y, x) is level position (r0 - 1 + y, q0 - 1 + x); zero outside the frame
+  for (int e = threadIdx.x; e < C / 8 * L::kInPos; e += kBwThreads) {
+    const int ch = e / L::kInPos, p = e % L::kInPos;
+    const int y = p / kBwP, x = p % kBwP;
+    const int gy = r0 - 1 + y, gx = q0 - 1 + x;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (y < kBwTH + 2 && gy >= 0 && gy < HH && gx >= 0 && gx < WH) {
+      const size_t at = (frame + (size_t)gy * WH + gx) * C + ch * 8;
+      v = *reinterpret_cast<const uint4*>(src + at);
+      if constexpr (FIRST) {
+        v = masked(v, *reinterpret_cast<const uint4*>(src_mask + at));
+        if (y >= 1 && y <= kBwTH && x >= 1 && x <= kBwTW) *reinterpret_cast<uint4*>(gz_in_out + at) = v;
+      }
+    }
+    *reinterpret_cast<uint4*>(bw_smem + (size_t)e * 16) = v;
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  const int t = threadIdx.x % 128;
+  conv_wgmma_tiles<C, C / 16, kBwThreads / 128, kBwTiles>(
+      L::kN, L::kInPos * 16, sbase + L::kInBytes,
+      [&](int tap, int ks) { return sbase + (uint32_t)(2 * ks * L::kInPos + (tap / 3) * kBwP + tap % 3) * 16; },
+      [&](int p0, const float(&acc)[C / 2]) {
+#pragma unroll
+        for (int i = 0; i < C / 2; i += 2) {
+          const int p = p0 + acc_row(t, i), c = acc_col(t, i);
+          const int y = p / kBwP, x = p % kBwP;
+          const int gy = r0 + y, gx = q0 + x;
+          if (y < kBwTH && x < kBwTW && gy < HH && gx < WH) {
+            const size_t at = (frame + (size_t)gy * WH + gx) * C + c;
+            const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(act + at));
+            *reinterpret_cast<__nv_bfloat162*>(gz_out + at) =
+                __floats2bfloat162_rn(acc[i] * lrelu_mask(a.x), acc[i + 1] * lrelu_mask(a.y));
+          }
+        }
+      });
+}
+
+// dx (B, 2 HH, 2 WH, 16) = conv1^T(gz1 (B, HH, WH, C)) as four phase GEMMs:
+// phase (py, px) writes dx pixels (2 a + py, 2 c + px) from the taps with
+// ky & 1 = py, kx & 1 = px, which read gz1 at (a - [ky == 2], c - [kx == 2]).
+template <int C>
+__global__ void __launch_bounds__(kBwThreads)
+    conv1_t_wg_kernel(const bf16* __restrict__ gz1, const bf16* __restrict__ w, bf16* __restrict__ dx, int HH,
+                      int WH) {
+  using L = Bw1Layout<C>;
+  constexpr int N = 16;
+  extern __shared__ __align__(128) unsigned char bw_smem[];
+  const uint32_t sbase = smem_u32(bw_smem);
+  const int b = blockIdx.z;
+  const int r0 = blockIdx.y * kBwTH;
+  const int q0 = blockIdx.x * kBwTW;
+
+  stage_packed(bw_smem + L::kInBytes, w, L::kWBytes);
+  // plane position (y, x) is level position (r0 - 1 + y, q0 - 1 + x)
+  for (int e = threadIdx.x; e < C / 8 * L::kInPos; e += kBwThreads) {
+    const int ch = e / L::kInPos, p = e % L::kInPos;
+    const int y = p / kBwP1, x = p % kBwP1;
+    const int gy = r0 - 1 + y, gx = q0 - 1 + x;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (y < kBwTH + 1 && gy >= 0 && gy < HH && gx >= 0 && gx < WH)
+      v = *reinterpret_cast<const uint4*>(gz1 + (((size_t)b * HH + gy) * WH + gx) * C + ch * 8);
+    *reinterpret_cast<uint4*>(bw_smem + (size_t)e * 16) = v;
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  const int g = threadIdx.x / 128, t = threadIdx.x % 128;
+  constexpr int kWgs = kBwThreads / 128;
+  constexpr int kTiles = L::kN / 64;
+  for (int j0 = g; j0 < kTiles; j0 += kWgs * kBwTiles) {
+#pragma unroll
+    for (int ph = 0; ph < 4; ++ph) {
+      const int py = ph / 2, px = ph % 2;
+      float acc[kBwTiles][N / 2];
+#pragma unroll
+      for (int m = 0; m < kBwTiles; ++m) {
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) acc[m][i] = 0.f;
+        acc_fence(acc[m]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < C / 16; ++ks)
+#pragma unroll
+        for (int ky = py; ky < 3; ky += 2)
+#pragma unroll
+          for (int kx = px; kx < 3; kx += 2) {
+            const uint64_t db = wg_desc(sbase + L::kInBytes + (ks * 9 + ky * 3 + kx) * 2 * N * 16, N * 16, 128);
+            const int shift = (ky == 2 ? 0 : kBwP1) + (kx == 2 ? 0 : 1);
+#pragma unroll
+            for (int m = 0; m < kBwTiles; ++m)
+              if (j0 + kWgs * m < kTiles)
+                Wgmma<N>::mma(acc[m],
+                              wg_desc(sbase + (uint32_t)(2 * ks * L::kInPos + shift + 64 * (j0 + kWgs * m)) * 16,
+                                      L::kInPos * 16, 128),
+                              db);
+          }
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int m = 0; m < kBwTiles; ++m) {
+        acc_fence(acc[m]);
+        if (j0 + kWgs * m >= kTiles) continue;
+#pragma unroll
+        for (int i = 0; i < N / 2; i += 2) {
+          const int p = 64 * (j0 + kWgs * m) + acc_row(t, i), c = acc_col(t, i);
+          const int y = p / kBwP1, x = p % kBwP1;
+          const int gy = r0 + y, gx = q0 + x;
+          if (y < kBwTH && x < kBwTW && gy < HH && gx < WH)
+            *reinterpret_cast<__nv_bfloat162*>(
+                dx + (((size_t)b * 2 * HH + 2 * gy + py) * 2 * WH + 2 * gx + px) * N + c) =
+                __floats2bfloat162_rn(acc[m][i], acc[m][i + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int CIN, int C>
+cudaError_t run_bf16(const void* g, const void* out, const void* s1, const void* s2, const void* k1,
+                     const void* k2, const void* k3, void* gz1, void* gz2, void* gz3, void* dx, void* packed,
+                     int B, int H, int W, cudaStream_t stream) {
+  using L = BwLayout<C>;
+  using L1 = Bw1Layout<C>;
+  const int HH = H / 2, WH = W / 2;
+  const bool dx_wg = dx != nullptr && CIN == 16;  // level 1's dx on wgmma
+  PackJobs jobs{};
+  auto* dst = static_cast<bf16*>(packed);
+  jobs.job[0] = {static_cast<const bf16*>(k3), dst, C, C, C, 0, 1};
+  dst += packed_elems(jobs.job[0]);
+  jobs.job[1] = {static_cast<const bf16*>(k2), dst, C, C, C, 0, 1};
+  dst += packed_elems(jobs.job[1]);
+  jobs.job[2] = {static_cast<const bf16*>(k1), dst, C, CIN, 16, 0, 2};
+  cudaError_t err = pack_weights(jobs, dx_wg ? 3 : 2, stream);
+  if (err != cudaSuccess) return err;
+  auto k_first = conv_t_wg_kernel<C, true>;
+  auto k_next = conv_t_wg_kernel<C, false>;
+  err = cudaFuncSetAttribute(k_first, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(k_next, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((WH + kBwTW - 1) / kBwTW, (HH + kBwTH - 1) / kBwTH, B);
+  auto z1 = static_cast<bf16*>(gz1);
+  auto z2 = static_cast<bf16*>(gz2);
+  k_first<<<grid, kBwThreads, L::kBytes, stream>>>(static_cast<const bf16*>(g), static_cast<const bf16*>(out),
+                                                   jobs.job[0].dst, static_cast<const bf16*>(s2),
+                                                   static_cast<bf16*>(gz3), z2, HH, WH);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k_next<<<grid, kBwThreads, L::kBytes, stream>>>(z2, nullptr, jobs.job[1].dst, static_cast<const bf16*>(s1),
+                                                  nullptr, z1, HH, WH);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || dx == nullptr) return err;
+  if (dx_wg) {
+    auto k1t = conv1_t_wg_kernel<C>;
+    err = cudaFuncSetAttribute(k1t, cudaFuncAttributeMaxDynamicSharedMemorySize, L1::kBytes);
+    if (err != cudaSuccess) return err;
+    k1t<<<grid, kBwThreads, L1::kBytes, stream>>>(z1, jobs.job[2].dst, static_cast<bf16*>(dx), HH, WH);
+  } else {
+    const dim3 grid_fma((WH + kPlTW - 1) / kPlTW, (HH + kPlTH - 1) / kPlTH, B);
+    conv_t_s2_kernel<bf16, CIN, C><<<grid_fma, kPlThreads, 0, stream>>>(z1, static_cast<const bf16*>(k1),
+                                                                       static_cast<bf16*>(dx), HH, WH);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace pwc
 
 // g, out, s1, s2, gz1, gz2, gz3: (B, H/2, W/2, c); k1: (c, cin, 3, 3); k2, k3: (c, c, 3, 3)
-// (OIHW); dx: (B, H, W, cin) or null. H, W even. All contiguous and of one dtype:
-// 0 f32 / 1 bf16. (cin, c) is (3, 16) or (16, 32), as in the forward.
+// (OIHW); dx: (B, H, W, cin) or null; packed: bfloat16 scratch for the transposed kernels,
+// 2 * 2304 elements at level 0, 2 * 9216 + 4608 at level 1 (unused in float32). H, W even.
+// All contiguous and of one dtype: 0 f32 / 1 bf16. (cin, c) is (3, 16) or (16, 32), as in the
+// forward.
 extern "C" int pwc_pyramid_level_bwd(const void* g, const void* out, const void* s1, const void* s2,
                                      const void* k1, const void* k2, const void* k3, void* gz1,
-                                     void* gz2, void* gz3, void* dx, int B, int H, int W, int cin,
-                                     int c, int dtype, void* stream) {
+                                     void* gz2, void* gz3, void* dx, void* packed, int B, int H, int W,
+                                     int cin, int c, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const bool l0 = cin == 3 && c == 16;
   const bool l1 = cin == 16 && c == 32;
-#define PWC_BWD_ARGS g, out, s1, s2, k1, k2, k3, gz1, gz2, gz3, dx, B, H, W, s
-  if (dtype == pwc::kF32 && l0) return pwc::run<float, 3, 16>(PWC_BWD_ARGS);
-  if (dtype == pwc::kF32 && l1) return pwc::run<float, 16, 32>(PWC_BWD_ARGS);
-  if (dtype == pwc::kBF16 && l0) return pwc::run<__nv_bfloat16, 3, 16>(PWC_BWD_ARGS);
-  if (dtype == pwc::kBF16 && l1) return pwc::run<__nv_bfloat16, 16, 32>(PWC_BWD_ARGS);
+#define PWC_BWD_ARGS g, out, s1, s2, k1, k2, k3, gz1, gz2, gz3, dx
+  if (dtype == pwc::kF32 && l0) return pwc::run<float, 3, 16>(PWC_BWD_ARGS, B, H, W, s);
+  if (dtype == pwc::kF32 && l1) return pwc::run<float, 16, 32>(PWC_BWD_ARGS, B, H, W, s);
+  if (dtype == pwc::kBF16 && l0) return pwc::run_bf16<3, 16>(PWC_BWD_ARGS, packed, B, H, W, s);
+  if (dtype == pwc::kBF16 && l1) return pwc::run_bf16<16, 32>(PWC_BWD_ARGS, packed, B, H, W, s);
 #undef PWC_BWD_ARGS
   return cudaErrorInvalidValue;
+}
+
+// The transpose of one OIHW bf16 kernel (cout, cin, 3, 3) packed into `dst` as K6 packs it (K = cout,
+// N = cin; taps mirrored when `mirror`): for holding the layout against its PyTorch version.
+extern "C" int pwc_pack_wgmma_transposed(const void* k, void* dst, int cout, int cin, int mirror, void* stream) {
+  const int n = pwc::wgmma_n(cin);
+  if (n == 0) return cudaErrorInvalidValue;
+  pwc::PackJobs jobs{};
+  jobs.job[0] = {static_cast<const __nv_bfloat16*>(k), static_cast<__nv_bfloat16*>(dst), cout, cin, n, 0,
+                 mirror ? 1 : 2};
+  return pwc::pack_weights(jobs, 1, static_cast<cudaStream_t>(stream));
+}
+
+// dynamic shared memory of the bf16 kernels of a level (conv^T, conv1^T), for the build log
+extern "C" int pwc_pyramid_level_bwd_smem_bytes(int c, int conv1) {
+  if (c == 16) return conv1 ? 0 : pwc::BwLayout<16>::kBytes;
+  if (c == 32) return conv1 ? pwc::Bw1Layout<32>::kBytes : pwc::BwLayout<32>::kBytes;
+  return 0;
 }

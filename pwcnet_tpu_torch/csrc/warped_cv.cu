@@ -16,9 +16,10 @@
 // Design. The TPU kernel could not gather (Mosaic), so it swept a
 // candidate-offset tent filter over the frame. Here every thread of the
 // block gathers directly: for each pixel of the (tile + 2d halo) window it
-// reads that pixel's flow and the four clamped corners from device memory
-// (L1/L2 serve the reuse between neighbours), blends and stores the result
-// in the shared-memory window that correlation.cuh correlates. In serving
+// owns it reads that pixel's flow once per chunk of 8 channels and each of
+// the four clamped corners by one 16-byte load (gather8; L1/L2 serve the
+// reuse between neighbours), blends and hands the result to the
+// shared-memory window that correlation.cuh correlates. In serving
 // the warped map never goes to device memory. When a gradient is wanted the
 // caller passes `f1w`, and each block also writes the warped values of its
 // own tile there (the values it rounded into shared memory): the residual
@@ -47,6 +48,63 @@
 
 namespace pwc {
 
+// The bilinear sample of window pixel (gy, gx) displaced by (fx, fy): the
+// four corners' element offsets in a frame of `rows` x W pixels of C
+// channels, each clamped into the frame, and the weights from the
+// unclamped fractional flow.
+struct Bilinear {
+  size_t a00, a01, a10, a11;
+  float wx0, wx1, wy0, wy1;
+};
+
+__device__ __forceinline__ Bilinear bilinear_at(float fx, float fy, int gy, int gx, int rows, int W, int C) {
+  const float fx0 = floorf(fx);
+  const float fy0 = floorf(fy);
+  const float ty = (float)gy + fy0;
+  const float tx = (float)gx + fx0;
+  const float hmax = (float)(rows - 1);
+  const float wmax = (float)(W - 1);
+  const int ya = (int)fminf(fmaxf(ty, 0.f), hmax);
+  const int yb = (int)fminf(fmaxf(ty + 1.f, 0.f), hmax);
+  const int xa = (int)fminf(fmaxf(tx, 0.f), wmax);
+  const int xb = (int)fminf(fmaxf(tx + 1.f, 0.f), wmax);
+  Bilinear q;
+  q.a00 = ((size_t)ya * W + xa) * C;
+  q.a01 = ((size_t)ya * W + xb) * C;
+  q.a10 = ((size_t)yb * W + xa) * C;
+  q.a11 = ((size_t)yb * W + xb) * C;
+  q.wy1 = fy - fy0;
+  q.wy0 = 1.f - q.wy1;
+  q.wx1 = fx - fx0;
+  q.wx0 = 1.f - q.wx1;
+  return q;
+}
+
+// the float32 blend of the four corners, rounded to the model dtype
+template <typename T>
+__device__ __forceinline__ float blend(const Bilinear& q, float p00, float p01, float p10, float p11) {
+  const float top = p00 * q.wx0 + p01 * q.wx1;
+  const float bot = p10 * q.wx0 + p11 * q.wx1;
+  return round_to<T>(top * q.wy0 + bot * q.wy1);
+}
+
+template <typename T>
+__device__ __forceinline__ float sample(const T* frame, const Bilinear& q, int gc) {
+  const T* base = frame + gc;
+  return blend<T>(q, to_f32(base[q.a00]), to_f32(base[q.a01]), to_f32(base[q.a10]), to_f32(base[q.a11]));
+}
+
+template <typename T>
+__device__ __forceinline__ void sample8(const T* frame, const Bilinear& q, int c0, float (&v)[8]) {
+  float p00[8], p01[8], p10[8], p11[8];
+  load8(frame + q.a00 + c0, p00);
+  load8(frame + q.a01 + c0, p01);
+  load8(frame + q.a10 + c0, p10);
+  load8(frame + q.a11 + c0, p11);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) v[c] = blend<T>(q, p00[c], p01[c], p10[c], p11[c]);
+}
+
 template <typename T>
 struct WarpLoader {
   const T* f1;
@@ -57,32 +115,15 @@ struct WarpLoader {
   __device__ __forceinline__ void save(int b, int gy, int gx, int gc, float v) const {
     if (f1w != nullptr) f1w[(((size_t)b * H + gy) * W + gx) * C + gc] = from_f32<T>(v);
   }
-  __device__ __forceinline__ float operator()(int b, int gy, int gx, int gc) const {
+  __device__ __forceinline__ Bilinear at(int b, int gy, int gx) const {
     const T* fl = flow + (((size_t)b * H + gy) * W + gx) * 2;
-    const float fx = to_f32(fl[0]);
-    const float fy = to_f32(fl[1]);
-    const float fx0 = floorf(fx);
-    const float fy0 = floorf(fy);
-    const float ty = (float)gy + fy0;
-    const float tx = (float)gx + fx0;
-    const float hmax = (float)(H - 1);
-    const float wmax = (float)(W - 1);
-    const int ya = (int)fminf(fmaxf(ty, 0.f), hmax);
-    const int yb = (int)fminf(fmaxf(ty + 1.f, 0.f), hmax);
-    const int xa = (int)fminf(fmaxf(tx, 0.f), wmax);
-    const int xb = (int)fminf(fmaxf(tx + 1.f, 0.f), wmax);
-    const float wy1 = fy - fy0;
-    const float wy0 = 1.f - wy1;
-    const float wx1 = fx - fx0;
-    const float wx0 = 1.f - wx1;
-    const T* base = f1 + (size_t)b * H * W * C + gc;
-    const float p00 = to_f32(base[((size_t)ya * W + xa) * C]);
-    const float p01 = to_f32(base[((size_t)ya * W + xb) * C]);
-    const float p10 = to_f32(base[((size_t)yb * W + xa) * C]);
-    const float p11 = to_f32(base[((size_t)yb * W + xb) * C]);
-    const float top = p00 * wx0 + p01 * wx1;
-    const float bot = p10 * wx0 + p11 * wx1;
-    return round_to<T>(top * wy0 + bot * wy1);
+    return bilinear_at(to_f32(fl[0]), to_f32(fl[1]), gy, gx, H, W, C);
+  }
+  __device__ __forceinline__ float operator()(int b, int gy, int gx, int gc) const {
+    return sample(f1 + (size_t)b * H * W * C, at(b, gy, gx), gc);
+  }
+  __device__ __forceinline__ void gather8(int b, int gy, int gx, int c0, float (&v)[8]) const {
+    sample8(f1 + (size_t)b * H * W * C, at(b, gy, gx), c0, v);
   }
 };
 
@@ -97,64 +138,49 @@ struct GlobalWarpLoader {
   __device__ __forceinline__ void save(int b, int gy, int gx, int gc, float v) const {
     if (f1w != nullptr) f1w[(((size_t)b * (H + 2 * d) + gy + d) * W + gx) * C + gc] = from_f32<T>(v);
   }
-  __device__ __forceinline__ float operator()(int b, int gy, int gx, int gc) const {
+  __device__ __forceinline__ Bilinear at(int b, int gy, int gx) const {
     const float* fl = flow + (((size_t)b * (H + 2 * d) + gy + d) * W + gx) * 2;
-    const float fx = fl[0];
-    const float fy = fl[1];
-    const float fx0 = floorf(fx);
-    const float fy0 = floorf(fy);
-    const float ty = (float)gy + fy0;
-    const float tx = (float)gx + fx0;
-    const float hmax = (float)(Hf - 1);
-    const float wmax = (float)(W - 1);
-    const int ya = (int)fminf(fmaxf(ty, 0.f), hmax);
-    const int yb = (int)fminf(fmaxf(ty + 1.f, 0.f), hmax);
-    const int xa = (int)fminf(fmaxf(tx, 0.f), wmax);
-    const int xb = (int)fminf(fmaxf(tx + 1.f, 0.f), wmax);
-    const float wy1 = fy - fy0;
-    const float wy0 = 1.f - wy1;
-    const float wx1 = fx - fx0;
-    const float wx0 = 1.f - wx1;
-    const T* base = f1 + (size_t)b * Hf * W * C + gc;
-    const float p00 = to_f32(base[((size_t)ya * W + xa) * C]);
-    const float p01 = to_f32(base[((size_t)ya * W + xb) * C]);
-    const float p10 = to_f32(base[((size_t)yb * W + xa) * C]);
-    const float p11 = to_f32(base[((size_t)yb * W + xb) * C]);
-    const float top = p00 * wx0 + p01 * wx1;
-    const float bot = p10 * wx0 + p11 * wx1;
-    return round_to<T>(top * wy0 + bot * wy1);
+    return bilinear_at(fl[0], fl[1], gy, gx, Hf, W, C);
+  }
+  __device__ __forceinline__ float operator()(int b, int gy, int gx, int gc) const {
+    return sample(f1 + (size_t)b * Hf * W * C, at(b, gy, gx), gc);
+  }
+  __device__ __forceinline__ void gather8(int b, int gy, int gx, int c0, float (&v)[8]) const {
+    sample8(f1 + (size_t)b * Hf * W * C, at(b, gy, gx), c0, v);
   }
 };
 
 template <typename T>
 cudaError_t run_global(const void* f0, const void* f1, const float* flow, void* out, void* f1w, int B,
-                       int H, int Hf, int W, int C, int d, int vlo, int vhi, cudaStream_t stream) {
+                       int H, int Hf, int W, int C, int d, int vlo, int vhi, int tw, int split,
+                       cudaStream_t stream) {
   const GlobalWarpLoader<T> load{static_cast<const T*>(f1), flow, static_cast<T*>(f1w), H, Hf, W, C, d,
                                  vlo > -d ? vlo : -d, vhi < H + d - 1 ? vhi : H + d - 1};
-  return launch_correlation<T>(static_cast<const T*>(f0), static_cast<T*>(out), B, H, W, C, d,
-                               load, stream);
+  return launch_correlation<T>(static_cast<const T*>(f0), static_cast<T*>(out), B, H, W, C, d, tw,
+                               split, load, stream);
 }
 
 template <typename T>
 cudaError_t run(const void* f0, const void* f1, const void* flow, void* out, void* f1w, int B, int H,
-                int W, int C, int d, cudaStream_t stream) {
+                int W, int C, int d, int tw, int split, cudaStream_t stream) {
   const WarpLoader<T> load{static_cast<const T*>(f1), static_cast<const T*>(flow),
                            static_cast<T*>(f1w), H, W, C};
-  return launch_correlation<T>(static_cast<const T*>(f0), static_cast<T*>(out), B, H, W, C, d,
-                               load, stream);
+  return launch_correlation<T>(static_cast<const T*>(f0), static_cast<T*>(out), B, H, W, C, d, tw,
+                               split, load, stream);
 }
 
 }  // namespace pwc
 
 // f0, f1: (B, H, W, C); flow: (B, H, W, 2) pixels, x first; out: (B, H, W, (2d+1)^2);
-// f1w: (B, H, W, C) or null. All contiguous and of one dtype: 0 f32 / 1 bf16.
+// f1w: (B, H, W, C) or null. All contiguous and of one dtype: 0 f32 / 1 bf16. tw, split: the
+// tile width and the blocks a tile (ops/cuda/_common.py::correlation_plan).
 extern "C" int pwc_warped_cost_volume(const void* f0, const void* f1, const void* flow, void* out,
-                                      void* f1w, int B, int H, int W, int C, int d, int dtype,
-                                      void* stream) {
+                                      void* f1w, int B, int H, int W, int C, int d, int tw, int split,
+                                      int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case pwc::kF32: return pwc::run<float>(f0, f1, flow, out, f1w, B, H, W, C, d, s);
-    case pwc::kBF16: return pwc::run<__nv_bfloat16>(f0, f1, flow, out, f1w, B, H, W, C, d, s);
+    case pwc::kF32: return pwc::run<float>(f0, f1, flow, out, f1w, B, H, W, C, d, tw, split, s);
+    case pwc::kBF16: return pwc::run<__nv_bfloat16>(f0, f1, flow, out, f1w, B, H, W, C, d, tw, split, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -162,16 +188,17 @@ extern "C" int pwc_warped_cost_volume(const void* f0, const void* f1, const void
 // K9. f0: (B, H, W, C) the shard's rows; f1: (B, Hf, W, C) the whole frame; flow: (B, H + 2d, W, 2)
 // float32 pixels, x first, the shard's row offset added to y; out: (B, H, W, (2d+1)^2); f1w:
 // (B, H + 2d, W, C) zeroed, or null. Window rows outside [vlo, vhi] are zero. f0, f1, out and f1w
-// are of one dtype: 0 f32 / 1 bf16.
+// are of one dtype: 0 f32 / 1 bf16. tw, split as pwc_warped_cost_volume.
 extern "C" int pwc_warped_cost_volume_global(const void* f0, const void* f1, const void* flow, void* out,
                                              void* f1w, int B, int H, int Hf, int W, int C, int d,
-                                             int vlo, int vhi, int dtype, void* stream) {
+                                             int vlo, int vhi, int tw, int split, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto fl = static_cast<const float*>(flow);
   switch (dtype) {
-    case pwc::kF32: return pwc::run_global<float>(f0, f1, fl, out, f1w, B, H, Hf, W, C, d, vlo, vhi, s);
+    case pwc::kF32:
+      return pwc::run_global<float>(f0, f1, fl, out, f1w, B, H, Hf, W, C, d, vlo, vhi, tw, split, s);
     case pwc::kBF16:
-      return pwc::run_global<__nv_bfloat16>(f0, f1, fl, out, f1w, B, H, Hf, W, C, d, vlo, vhi, s);
+      return pwc::run_global<__nv_bfloat16>(f0, f1, fl, out, f1w, B, H, Hf, W, C, d, vlo, vhi, tw, split, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -67,6 +67,41 @@ def pack_wgmma(k: torch.Tensor) -> torch.Tensor:
     return w.reshape(9, kp // 16, 2, 8, n).permute(1, 0, 2, 4, 3).contiguous()
 
 
+def pack_wgmma_transposed(k: torch.Tensor, mirror: bool = True) -> torch.Tensor:
+    """The transpose of a forward OIHW kernel ``(cout, cin, 3, 3)`` in the
+    wgmma B layout, as K6's backward GEMMs take it: K = the forward's
+    output channels, N = its input channels, the taps mirrored (the
+    transpose of a stride-1 conv is a conv with tap 8 - t) or, for the
+    phases of the stride-2 conv1^T, as they are. The on-card packer
+    (``csrc/hopper.cuh``, ``transposed`` 1 or 2) writes the same layout."""
+    kt = k.transpose(0, 1)
+    return pack_wgmma(kt.flip(2, 3) if mirror else kt)
+
+
+# The correlation kernel's tiling (csrc/correlation.cuh): tiles of 8 output
+# rows, channels staged 8 at a time, up to 8 blocks a tile in one cluster
+CORR_TILE_H = 8
+CORR_CHUNK = 8
+CORR_SPLITS = (1, 2, 4, 8)
+# (least C, split): the split at which each level of the B=8 serving forward
+# ran fastest on the H100 (device time, ``scripts/torch_corr_k6_time.py
+# --sweep``): 8 at C = 192 (K2), 4 at 128, 2 at 96, none at 64 and 32,
+# where the grid already holds a block an SM and a split adds staging and
+# the cluster's sum
+CORR_SPLIT_MIN_C = ((192, 8), (128, 4), (96, 2))
+
+
+def correlation_plan(w: int, c: int) -> tuple[int, int]:
+    """``(tw, split)`` of the correlation kernel for a call on (B, H, W, C):
+    the tile width (16 where the level is at most 16 wide, else 32) and the
+    blocks a tile's channel chunks are split across (a thread-block cluster
+    of 1, 2, 4 or 8), from ``CORR_SPLIT_MIN_C``. The split depends on C
+    alone: a row shard (K8, K9) sums each output in the same order as the
+    whole frame (K2, K1), so the two agree to the bit."""
+    tw = 16 if w <= 16 else 32
+    return tw, next((s for c_min, s in CORR_SPLIT_MIN_C if c >= c_min), 1)
+
+
 def kernel(lib_name: str, fn_name: str, argtypes: list):
     """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu``, typed."""
     lib = _build.load(lib_name)

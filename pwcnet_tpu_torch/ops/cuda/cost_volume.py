@@ -26,7 +26,7 @@ __all__ = [
     "cost_volume_hpad_cuda", "cost_volume_hpad_bwd", "cost_volume_hpad", "cost_volume_hpad_bwd_plain",
 ]
 
-_ARGTYPES = [P, P, P, I, I, I, I, I, I, P]
+_ARGTYPES = [P, P, P] + [I] * 8 + [P]
 _BWD_ARGTYPES = [P] * 6 + [I] * 6 + [P]
 MAX_SEARCH_RANGE = 4
 
@@ -50,7 +50,7 @@ def _forward(f0: torch.Tensor, f1: torch.Tensor, d: int) -> torch.Tensor:
     _common.launch(
         "cost_volume", "pwc_cost_volume", _ARGTYPES, f0.device,
         f0.data_ptr(), f1.data_ptr(), out.data_ptr(),
-        b, h, w, c, d, _common.DTYPE_CODES[f0.dtype],
+        b, h, w, c, d, *_common.correlation_plan(w, c), _common.DTYPE_CODES[f0.dtype],
     )
     cost_volume_cuda.launches += 1
     return out
@@ -123,7 +123,7 @@ def _hpad_forward(f0: torch.Tensor, f1_ext: torch.Tensor, d: int) -> torch.Tenso
     _common.launch(
         "cost_volume", "pwc_cost_volume_hpad", _ARGTYPES, f0.device,
         f0.data_ptr(), f1_ext.data_ptr(), out.data_ptr(),
-        b, h, w, c, d, _common.DTYPE_CODES[f0.dtype],
+        b, h, w, c, d, *_common.correlation_plan(w, c), _common.DTYPE_CODES[f0.dtype],
     )
     cost_volume_hpad_cuda.launches += 1
     return out

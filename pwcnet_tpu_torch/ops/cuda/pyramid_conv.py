@@ -37,7 +37,7 @@ __all__ = [
 ]
 
 _ARGTYPES = [P] * 11 + [I] * 6 + [P]
-_BWD_ARGTYPES = [P] * 11 + [I] * 6 + [P]
+_BWD_ARGTYPES = [P] * 12 + [I] * 6 + [P]
 # (Cin, C) pairs the kernels are built for: the two finest PWCDCNet levels
 SUPPORTED = ((3, 16), (16, 32))
 
@@ -168,12 +168,16 @@ def pyramid_level_bwd(x, k1, k2, k3, out, s1, s2, g, need_dx: bool = True):
             raise ValueError(f"pyramid_level_bwd: {key} is {tuple(t.shape)}, want {(b, h // 2, w // 2, c)}")
     gz1, gz2, gz3 = torch.empty_like(out), torch.empty_like(out), torch.empty_like(out)
     dx = torch.empty_like(x) if need_dx else None
+    packed = None
+    if x.dtype == torch.bfloat16:  # the transposed kernels, packed on the card for wgmma
+        n = 2 * _common.packed_numel(c, c) + (_common.packed_numel(c, cin) if cin == 16 else 0)
+        packed = torch.empty(n, dtype=x.dtype, device=x.device)
     _common.launch(
         "pyramid_conv_bwd", "pwc_pyramid_level_bwd", _BWD_ARGTYPES, x.device,
         g.data_ptr(), out.data_ptr(), s1.data_ptr(), s2.data_ptr(),
         k1.data_ptr(), k2.data_ptr(), k3.data_ptr(),
         gz1.data_ptr(), gz2.data_ptr(), gz3.data_ptr(), dx.data_ptr() if need_dx else None,
-        b, h, w, cin, c, _common.DTYPE_CODES[x.dtype],
+        None if packed is None else packed.data_ptr(), b, h, w, cin, c, _common.DTYPE_CODES[x.dtype],
     )
     pyramid_level_bwd.launches += 1
     return gz1, gz2, gz3, dx

@@ -44,9 +44,9 @@ __all__ = [
     "warped_cost_volume_global_bwd_plain", "warped_rows_bwd", "warped_rows_bwd_plain",
 ]
 
-_ARGTYPES = [P, P, P, P, P, I, I, I, I, I, I, P]
+_ARGTYPES = [P] * 5 + [I] * 8 + [P]
 _BWD_ARGTYPES = [P] * 6 + [I] * 5 + [P]
-_GLOBAL_ARGTYPES = [P, P, P, P, P] + [I] * 9 + [P]
+_GLOBAL_ARGTYPES = [P] * 5 + [I] * 11 + [P]
 _ROWS_BWD_ARGTYPES = [P] * 6 + [I] * 7 + [P]
 
 
@@ -84,7 +84,7 @@ def _forward(f0, f1, flow, d: int, save: bool):
         "warped_cv", "pwc_warped_cost_volume", _ARGTYPES, f0.device,
         f0.data_ptr(), f1.data_ptr(), flow.data_ptr(), out.data_ptr(),
         f1w.data_ptr() if save else None,
-        b, h, w, c, d, _common.DTYPE_CODES[f0.dtype],
+        b, h, w, c, d, *_common.correlation_plan(w, c), _common.DTYPE_CODES[f0.dtype],
     )
     warped_cost_volume.launches += 1
     return out, f1w
@@ -185,7 +185,8 @@ def _global_forward(f0, f1_full, flow_ext, vb, d: int, save: bool):
         "warped_cv", "pwc_warped_cost_volume_global", _GLOBAL_ARGTYPES, f0.device,
         f0.data_ptr(), f1_full.data_ptr(), flow_ext.data_ptr(), out.data_ptr(),
         f1w.data_ptr() if save else None,
-        b, h, f1_full.shape[1], w, c, d, vlo, vhi, _common.DTYPE_CODES[f0.dtype],
+        b, h, f1_full.shape[1], w, c, d, vlo, vhi, *_common.correlation_plan(w, c),
+        _common.DTYPE_CODES[f0.dtype],
     )
     warped_cost_volume_global.launches += 1
     return out, f1w

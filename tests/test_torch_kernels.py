@@ -86,6 +86,10 @@ _LEVEL_CASES = [
 ]
 
 
+# K6 levels whose half sizes no tile of its kernels divides (bf16 8 x 56, float32 8 x 32)
+_BWD_EDGE = [((1, 34, 150, 3), 16), ((2, 26, 130, 16), 32)]
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
@@ -367,20 +371,75 @@ class TestKernelsOnCard:
             _assert_close(a, b, dtype)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("shape,c", [((2, 20, 70, 3), 16), ((1, 18, 36, 16), 32)])
-    def test_pyramid_level_bwd(self, cuda_device, rng, dtype, shape, c):
+    @pytest.mark.parametrize("need_dx", [True, False])
+    @pytest.mark.parametrize("shape,c", [((2, 20, 70, 3), 16), ((1, 18, 36, 16), 32), *_BWD_EDGE])
+    def test_pyramid_level_bwd(self, cuda_device, rng, dtype, need_dx, shape, c):
+        """K6 at both levels, with and without dx, at half sizes that no
+        tile of its kernels divides (bf16: 8 x 56; float32: 8 x 32); two
+        launches on the same inputs give the same bits."""
         from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_bwd_plain
 
         x = torch.from_numpy(_normal(rng, shape)).to(cuda_device, dtype)
         k1, b1, k2, b2, k3, b3 = [p.to(cuda_device, dtype) for p in _to_torch_params(_level_params(rng, shape[-1], c))]
         out, s1, s2 = pyramid_level_plain(x, k1, b1, k2, b2, k3, b3, return_acts=True)
         g = torch.from_numpy(_normal(rng, tuple(out.shape))).to(cuda_device, dtype)
+        args = (x, k1, k2, k3, out, s1, s2, g)
         before = pyramid_level_bwd.launches
-        got = pyramid_level_bwd(x, k1, k2, k3, out, s1, s2, g)
+        got = pyramid_level_bwd(*args, need_dx=need_dx)
+        again = pyramid_level_bwd(*args, need_dx=need_dx)
         torch.cuda.synchronize()
-        assert pyramid_level_bwd.launches == before + 1
-        for a, b in zip(got, pyramid_level_bwd_plain(x, k1, k2, k3, out, s1, s2, g)):
+        assert pyramid_level_bwd.launches == before + 2
+        for a, b, r in zip(got, pyramid_level_bwd_plain(*args, need_dx=need_dx), again):
+            if b is None:
+                assert a is None and r is None
+                continue
             _assert_close(a, b, dtype, ulps=4)  # each stage reads the rounded cotangent before it
+            assert torch.equal(a, r)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("c", [3, 5, 40, 192])
+    @pytest.mark.parametrize("d", [1, 2, 3, 4])
+    @pytest.mark.parametrize("b,h,w", [(1, 5, 6), (8, 7, 16), (1, 11, 37), (8, 14, 33)])
+    def test_correlation_core(self, cuda_device, rng, dtype, c, d, b, h, w):
+        """The correlation kernel under its four Loaders at every tile
+        width and cluster split the plan picks (frames under one tile
+        included): K2, K1 with its warped map f1w, K8 on halo rows, K9 with
+        its warped rows f1w_ext, each against its plain version; two
+        launches on the same inputs give the same bits."""
+        from pwcnet_tpu_torch.ops.cost_volume import cost_volume_hpad
+        from pwcnet_tpu_torch.ops.cuda._common import correlation_plan
+        from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_hpad_cuda
+        from pwcnet_tpu_torch.ops.cuda.warped_cv import (
+            warped_cost_volume_global_plain, warped_cost_volume_global_residual, warped_cost_volume_residual)
+        from pwcnet_tpu_torch.ops.warp import bilinear_warp, masked_warp_rows
+
+        def t(shape, scale=1.0):
+            return torch.from_numpy(_normal(rng, shape, scale)).to(cuda_device, dtype)
+
+        assert correlation_plan(w, c)[1] in (1, 2, 4, 8)
+        f0, f1, flow = t((b, h, w, c)), t((b, h, w, c)), t((b, h, w, 2), 4.0)
+        got = cost_volume_cuda(f0, f1, d)
+        _assert_close(got, cost_volume(f0, f1, d), dtype)
+        assert torch.equal(got, cost_volume_cuda(f0, f1, d))
+        out, f1w = warped_cost_volume_residual(f0, f1, flow, d)
+        _assert_close(f1w, bilinear_warp(f1, flow), dtype)
+        _assert_close(out, warped_cost_volume_plain(f0, f1, flow, d), dtype)
+        out2, f1w2 = warped_cost_volume_residual(f0, f1, flow, d)
+        assert torch.equal(out, out2) and torch.equal(f1w, f1w2)
+        f1e = t((b, h + 2 * d, w, c))
+        got = cost_volume_hpad_cuda(f0, f1e, d)
+        _assert_close(got, cost_volume_hpad(f0, f1e, d), dtype)
+        assert torch.equal(got, cost_volume_hpad_cuda(f0, f1e, d))
+        # the middle one of three shards: flows reach both neighbours
+        full = t((b, 3 * h, w, c))
+        flow_ext = torch.from_numpy(_normal(rng, (b, h + 2 * d, w, 2), 4.0)).to(cuda_device)
+        flow_ext[..., 1] += h
+        vb = (-h, 2 * h - 1)
+        out, we = warped_cost_volume_global_residual(f0, full, flow_ext, vb, d)
+        _assert_close(out, warped_cost_volume_global_plain(f0, full, flow_ext, vb, d), dtype)
+        _assert_close(we, masked_warp_rows(full, flow_ext, vb, d), dtype)
+        out2, we2 = warped_cost_volume_global_residual(f0, full, flow_ext, vb, d)
+        assert torch.equal(out, out2) and torch.equal(we, we2)
 
     def test_autograd_runs_the_backward_kernels(self, cuda_device, rng):
         """A gradient through K1-K3 on CUDA tensors launches K4-K6 and
@@ -463,6 +522,21 @@ class TestKernelsOnCard:
         dst = torch.full((_common.packed_numel(cin, cout),), float("nan"), dtype=torch.bfloat16, device=cuda_device)
         _common.launch("estimator_conv", "pwc_pack_wgmma", [P, P, I, I, P], cuda_device,
                        k.data_ptr(), dst.data_ptr(), cin, cout)
+        torch.cuda.synchronize()
+        assert torch.equal(dst.view(want.shape), want)
+
+    @pytest.mark.parametrize("cout,cin,mirror", [(32, 32, True), (16, 16, True), (32, 16, False), (16, 3, False)])
+    def test_device_packer_transposes_for_k6(self, cuda_device, rng, cout, cin, mirror):
+        """K6 packs its transposed kernels on the card: the very layout of
+        ``_common.pack_wgmma_transposed``."""
+        from pwcnet_tpu_torch.ops.cuda import _common
+        from pwcnet_tpu_torch.ops.cuda._common import I, P
+
+        k = torch.from_numpy(_normal(rng, (cout, cin, 3, 3))).to(cuda_device, torch.bfloat16)
+        want = _common.pack_wgmma_transposed(k, mirror)
+        dst = torch.full((want.numel(),), float("nan"), dtype=torch.bfloat16, device=cuda_device)
+        _common.launch("pyramid_conv_bwd", "pwc_pack_wgmma_transposed", [P, P, I, I, I, P], cuda_device,
+                       k.data_ptr(), dst.data_ptr(), cout, cin, int(mirror))
         torch.cuda.synchronize()
         assert torch.equal(dst.view(want.shape), want)
 
