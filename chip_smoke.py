@@ -9,8 +9,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    convolutions and matmuls, so float32 comparisons are true float32;
 2. build: compile every CUDA kernel from ``pwcnet_tpu_torch/csrc`` with
    nvcc (one process per source, all at once); log each kernel's registers
-   and spills, the wgmma and correlation kernels' dynamic shared memory and
-   the correlation's tile and cluster size at each main-path shape;
+   and spills, the wgmma and correlation kernels' dynamic shared memory,
+   the float32 K3 and K7 kernels' shared memory, threads and resident
+   blocks an SM and K7's float32 tile at each main-path shape, and the
+   correlation's tile and cluster size at each main-path shape;
 3. kernels: K1 (warped cost volume), K2 (cost volume) and K3 (fused
    pyramid level) at every shape the 448x1024 serving forward gives them,
    at batch 1 and 8, in float32 and bfloat16, against their plain PyTorch
@@ -21,9 +23,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    estimator's six-conv chain) forward, with and without residuals, and
    backward (every cotangent, the weight and bias gradients taken from
    them, and dxin) at the five estimator levels of both sizes; K3 and K7
-   also at edge shapes that no tile of theirs divides; then K1, K2, K6, K8
-   and K9, whose kernels use no float atomics, must give the same bits in
-   two launches on the same inputs;
+   also at edge shapes that no tile of theirs divides; then K1, K2, K3, K6,
+   K7, K7b, K8 and K9, whose kernels use no float atomics, must give the
+   same bits in two launches on the same inputs;
 4. serving: FlowPredictor with seeded random weights answers 448x1024
    requests and a 1024x436 (Sintel-sized) request edge-padded to 448x1024,
    then batched raw_forward at B=8 in bf16 and f32; the launch counters
@@ -66,12 +68,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    reports its launch counts. NCCL across GPUs needs two cards and is not
    run on a one-card machine;
 8. timing: each kernel, its plain version and (K3, K6, K7) the cuDNN conv
-   chain timed with CUDA events at the main-path shapes (B=8, bf16), then
-   K1-K7 again in float32 beside cuDNN's float32 chains (TF32 off);
-   pairs/s of the whole forward at 448x1024 B=8 bf16; device time by
-   kernel for the forward and for the train step (torch.profiler).
+   chain timed with CUDA events at the main-path shapes (B=8, bf16; K3 also
+   at the training step's levels), then every kernel again in float32
+   beside cuDNN's float32 chains (TF32 off); pairs/s of the whole forward
+   at 448x1024 B=8; device time by kernel and the device's busy share for
+   the forward and for the train step, in bf16 and in float32
+   (torch.profiler).
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (bf16 times, and
+``ms_float32``, ``bound_ms_float32``, ``library_ms_float32`` beside them);
+the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result.
 """
@@ -440,7 +446,8 @@ def check_training_kernels(torch, device, compare, batches=(1, 8), dtypes=None):
 
 
 def time_kernels(torch, F, device, b=8, dtype=None):
-    """Kernel, plain and library times at the main-path shapes, summed per forward."""
+    """Kernel, plain and library times at the main-path shapes, summed per
+    forward; K3 also at the training step's two levels (``times`` 0)."""
     from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume, cost_volume_cuda
     from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_fused, pyramid_level_plain
     from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume, warped_cost_volume_plain
@@ -470,6 +477,15 @@ def time_kernels(torch, F, device, b=8, dtype=None):
             x_nchw = a[0].permute(0, 3, 1, 2)  # channels_last view, as in the model
             rows["K3"].append(dict(
                 shape=f"{b}x{h}x{w}x{cin}->{c}", times=2,  # both frames
+                ms=cuda_ms(torch, lambda: pyramid_level_fused(*a)),
+                plain_ms=cuda_ms(torch, lambda: pyramid_level_plain(*a)),
+                library_ms=cuda_ms(torch, lambda: cudnn_level(torch, F, x_nchw, *a[1:])),
+                work=k3_work(b, h, w, cin, c, s)))
+        for h, w, cin, c in K3_TRAIN:  # the training step's levels: listed, not summed per forward
+            a = k3_inputs(torch, b, h, w, cin, c, dtype, device, gen)
+            x_nchw = a[0].permute(0, 3, 1, 2)
+            rows["K3"].append(dict(
+                shape=f"{b}x{h}x{w}x{cin}->{c} (train)", times=0,
                 ms=cuda_ms(torch, lambda: pyramid_level_fused(*a)),
                 plain_ms=cuda_ms(torch, lambda: pyramid_level_plain(*a)),
                 library_ms=cuda_ms(torch, lambda: cudnn_level(torch, F, x_nchw, *a[1:])),
@@ -723,10 +739,13 @@ def check_determinism(torch, F, device, dtypes=None):
     """The kernels redesigned without float atomics give the same bits in
     two launches on the same inputs: K2 and K1 (with its warped map) at
     every serving level, K8, K9 (with its warped rows) at the deepest and
-    finest sharded level, K6 at both training levels (dx at level 1), B=8.
+    finest sharded level, K3 (with s1 and s2) at its serving and training
+    levels, K7 (flow, features) and K7b (gz1..gz5, dxin) at the trainer's
+    two estimator levels, K6 at both training levels (dx at level 1), B=8.
     Returns the number of results compared."""
     from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda, cost_volume_hpad_cuda
-    from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_plain
+    from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd, estimator_chain_residuals
+    from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_plain, pyramid_level_residuals
     from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume_global_residual, warped_cost_volume_residual
 
     dtypes = dtypes or (torch.float32, torch.bfloat16)
@@ -757,6 +776,20 @@ def check_determinism(torch, F, device, dtypes=None):
                 _, flow_ext, vb = shard_inputs(torch, F, f1, flow, 1, h // SHARDS, d)
                 a = (f0[:, h // SHARDS:].contiguous(), f1, flow_ext, vb, d)
                 same("K9", f"{dtype} {h}x{w}x{c}", lambda: warped_cost_volume_global_residual(*a))
+            for h, w, cin, c in K3_SHAPES + K3_TRAIN:
+                a = k3_inputs(torch, 8, h, w, cin, c, dtype, device, gen)
+                same("K3", f"{dtype} {h}x{w}x{cin}->{c}", lambda: pyramid_level_residuals(*a))
+            for h, w, cin in K7_TRAIN[-FUSED_ESTIMATOR:]:
+                xin, kbs = k7_inputs(torch, 8, h, w, cin, dtype, device, gen)
+                flow, feat, acts = estimator_chain_residuals(xin, *kbs)
+                same("K7", f"{dtype} {h}x{w}x{cin}", lambda: (*estimator_chain_residuals(xin, *kbs)[:2],))
+                g = [torch.randn(t.shape, generator=gen, device=device).to(dtype) for t in (flow, feat)]
+
+                def k7b():
+                    gz, dx = estimator_chain_bwd(kbs[0::2], [*acts, feat], *g)
+                    return [*gz, dx]
+
+                same("K7b", f"{dtype} {h}x{w}x{cin}", k7b)
             for level, (h, w, cin, c) in enumerate(K3_TRAIN):
                 x, k1, b1, k2, b2, k3, b3 = k3_inputs(torch, 8, h, w, cin, c, dtype, device, gen)
                 out, s1, s2 = pyramid_level_plain(x, k1, b1, k2, b2, k3, b3, return_acts=True)
@@ -765,7 +798,7 @@ def check_determinism(torch, F, device, dtypes=None):
                 same("K6", f"{dtype} {h}x{w}x{cin}->{c}",
                      lambda: [t for t in pyramid_level_bwd(*a, need_dx=level > 0) if t is not None])
         torch.cuda.synchronize()
-    log(f"  K1, K2, K6, K8, K9: {n} results bitwise equal in two launches")
+    log(f"  K1, K2, K3, K6, K7, K7b, K8, K9: {n} results bitwise equal in two launches")
     return n
 
 
@@ -927,6 +960,20 @@ def time_estimator_kernels(torch, F, device, b=8, dtype=None):
     return rows
 
 
+def summed(rs, suffix=""):
+    """A kernel's rows of one dtype summed over its main-path launches, as
+    the JSON line's ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
+    ``library_ms`` and ``shapes`` (bf16), or with ``suffix`` (float32)."""
+    lib = [r["library_ms"] for r in rs]
+    out = {"ms": sum(r["ms"] * r["times"] for r in rs),
+           "plain_ms": sum(r["plain_ms"] * r["times"] for r in rs),
+           "bound_ms": sum(r["bound_ms"] * r["times"] for r in rs),
+           "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
+           "library_ms": None if None in lib else sum(v * r["times"] for v, r in zip(lib, rs)),
+           "shapes": rs}
+    return {k + suffix: v for k, v in out.items()}
+
+
 def finish_rows(rows, dname):
     for kid, rs in rows.items():
         for r in rs:
@@ -1024,7 +1071,7 @@ def serve(torch, np, device):
         name = f"{str(dt).replace('torch.', '')} {'kernels' if k else 'plain'}"
         pairs[name] = 8e3 / ms
         log(f"  448x1024 B=8 {name}: {ms:.3f} ms per batch, {8e3 / ms:.1f} pairs/s")
-    return counts, pairs, preds[(torch.bfloat16, True)], batch_dev
+    return counts, pairs, {dtype_name(dt): preds[(dt, True)] for dt in (torch.bfloat16, torch.float32)}, batch_dev
 
 
 def train_batch(torch, np, device, b, seed=20):
@@ -1138,9 +1185,10 @@ def train(torch, np, device):
             ms = cuda_ms(torch, lambda: step(state, images, flows_gt), iters=5, warmup=0)
             stats[name] = {"ms": ms, "pairs_per_s": 8e3 / ms, "peak_mib": peak, "losses": losses}
             log(f"  384x448 B=8 {name}: {ms:.2f} ms per step, {8e3 / ms:.1f} pairs/s")
-            if use_kernels and dt == torch.bfloat16:
+            if use_kernels:
                 stats[name]["profile"] = profile_steps(
-                    torch, lambda: step(state, images, flows_gt), 2, "train steps at 384x448 B=8 bf16", ms)
+                    torch, lambda: step(state, images, flows_gt), 2, f"train steps at 384x448 B=8 {dtype_name(dt)}",
+                    ms)
     # the bare step as the trainer phase runs it (K7 on the two finest
     # estimator levels), for the trainer's pairs/s to stand beside
     model = train_model(torch, torch.bfloat16, True, fused_estimator=FUSED_ESTIMATOR)
@@ -1678,6 +1726,36 @@ def log_build(report):
         + [f"conv3x3_wgmma_kernel<{n}> {k7(n)} B" for n in _common.WGMMA_WIDTHS]
         + [f"conv_t_wg_kernel<{c}> {k6(c, 0)} B" for c in (16, 32)] + [f"conv1_t_wg_kernel<32> {k6(32, 1)} B"]
         + [f"correlation_kernel<{SEARCH_RANGE},{tw}> {corr(SEARCH_RANGE, tw)} B" for tw in (16, 32)]))
+    f7 = _build.load("estimator_conv")
+    f3 = _build.load("pyramid_conv").pwc_pyramid_level_f32_info
+    ip = ctypes.POINTER(ctypes.c_int)
+    f7.pwc_conv3x3_f32_tile.argtypes = [ctypes.c_int] * 4 + [ip] * 2
+    f7.pwc_conv3x3_f32_info.argtypes = [ctypes.c_int] * 2 + [ip] * 3
+    f3.argtypes = [ctypes.c_int] * 2 + [ip] * 3
+
+    def ints(fn, what, *args, n=3):
+        vals = [ctypes.c_int(0) for _ in range(n)]
+        require(fn(*args, *[ctypes.byref(v) for v in vals]) == 0, f"query of {what}")
+        return [v.value for v in vals]
+
+    tiles, used, f32_info = [], set(), []
+    for label, b, shapes in (("train", 8, K7_TRAIN[-FUSED_ESTIMATOR:]), ("serve", 8, K7_SERVE[-FUSED_ESTIMATOR:])):
+        for h, w, cin in shapes:
+            # the forward's six convs, then K7b's dxin (Cout = the chain's input width)
+            tw = [tuple(ints(f7.pwc_conv3x3_f32_tile, "the K7 tile", c, b, h, w, n=2)) for c in EST_COUTS + (cin,)]
+            tiles.append(f"{label} {b}x{h}x{w}: " + " ".join(f"{n}x{t}" for n, t in tw))
+            used.update(tw)
+    for n, t in sorted(used):
+        smem, threads, blocks = ints(f7.pwc_conv3x3_f32_info, f"conv3x3_fma_kernel<{n},{t}>", n, t)
+        require(blocks > 0, f"conv3x3_fma_kernel<{n},{t}> does not fit an SM")
+        f32_info.append(f"conv3x3_fma_kernel<{n},{t}> {smem} B, {threads} threads, {blocks} blocks an SM")
+    for cin, c in ((3, 16), (16, 32)):
+        smem, threads, blocks = ints(f3, f"pyramid_level_kernel<{cin},{c}>", cin, c)
+        require(blocks > 0, f"pyramid_level_kernel<{cin},{c}> does not fit an SM")
+        f32_info.append(f"pyramid_level_kernel<{cin},{c}> {smem} B, {threads} threads, {blocks} blocks an SM")
+    log("  float32 kernels (dynamic shared memory, threads, resident blocks an SM): "
+        + "; ".join(f32_info))
+    log("  float32 K7 tiles (N x columns) of the six convs and of K7b's dxin: " + "; ".join(tiles))
     plans = []
     for kid, shapes, b in (("K2", K2_SHAPES, 8), ("K1", K1_SHAPES, 8), ("K2", K2_TRAIN, 8), ("K1", K1_TRAIN, 8),
                            ("K8", K8_FRAME, 1), ("K9", K9_SERVE, 8)):
@@ -1734,7 +1812,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log("[serve] FlowPredictor, seeded random weights")
-    serve_counts, pairs, pred, batch_dev = serve(torch, np, device)
+    serve_counts, pairs, preds, batch_dev = serve(torch, np, device)
     log(f"[serve] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1762,22 +1840,24 @@ def main() -> int:
     rows.update(time_training_kernels(torch, device))
     rows.update(time_estimator_kernels(torch, F, device))
     rows.update(time_shard_kernels(torch, F, device))
-    # float32 (TF32 off): the kernels' FMA paths beside cuDNN's float32 chains; logged, not summed
+    # float32 (TF32 off): the kernels' float32 bodies beside cuDNN's float32 chains
     log("[time] float32 at the same shapes (TF32 off for cuDNN)")
-    time_kernels(torch, F, device, dtype=torch.float32)
-    time_training_kernels(torch, device, dtype=torch.float32)
-    time_estimator_kernels(torch, F, device, dtype=torch.float32)
+    rows32, _ = time_kernels(torch, F, device, dtype=torch.float32)
+    rows32.update(time_training_kernels(torch, device, dtype=torch.float32))
+    rows32.update(time_estimator_kernels(torch, F, device, dtype=torch.float32))
+    rows32.update(time_shard_kernels(torch, F, device, dtype=torch.float32))
     for kid in ("K1", "K2", "K6", "K8", "K9"):
         log(f"  {kid} bf16 per " + ("train step" if kid == "K6" else "forward") + ": "
             f"{sum(r['ms'] * r['times'] for r in rows[kid]):.4f} ms over "
             + ", ".join(f"{r['shape']} {r['ms']:.4f}" for r in rows[kid]))
-    profile_steps(torch, lambda: pred.raw_forward(batch_dev), 3, "forwards at 448x1024 B=8 bf16",
-                  8e3 / pairs["bfloat16 kernels"])
+    serve_profiles = {
+        name: profile_steps(torch, lambda: pred.raw_forward(batch_dev), 3, f"forwards at 448x1024 B=8 {name}",
+                            8e3 / pairs[f"{name} kernels"])
+        for name, pred in preds.items()}
 
     kernels = []
     for kid, (name, source, replaces) in KERNEL_INFO.items():
         rs = rows[kid]
-        lib = [r["library_ms"] for r in rs]
         on_serve = serve_counts.get(kid, 0)
         on_step = train_counts.get(kid, 0)
         on_trainer = trainer_counts[kid]
@@ -1809,13 +1889,9 @@ def main() -> int:
             "launches_spatial": on_spatial,
             "max_abs_err": max(errs[kid].values()),
             "max_abs_err_by_dtype": errs[kid],
-            "ms": sum(r["ms"] * r["times"] for r in rs),
-            "plain_ms": sum(r["plain_ms"] * r["times"] for r in rs),
-            "bound_ms": sum(r["bound_ms"] * r["times"] for r in rs),
-            "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": None if None in lib else sum(v * r["times"] for v, r in zip(lib, rs)),
+            **summed(rs),
             "timed_at": timed_at,
-            "shapes": rs,
+            **summed(rows32[kid], "_float32"),
         })
     log(f"[e2e] 448x1024 B=8 serving pairs/s: " + ", ".join(f"{k} {v:.1f}" for k, v in pairs.items())
         + f" on {card}")
@@ -1823,6 +1899,13 @@ def main() -> int:
         + ", ".join(f"{k} {v['pairs_per_s']:.1f}" for k, v in train_stats.items()) + f" on {card}")
     bare = train_stats["bfloat16 kernels + K7"]["pairs_per_s"]
     tp = trainer_stats["pairs_per_s"]
+    f32_serve, f32_step = serve_profiles["float32"], train_stats["float32 kernels"]
+    log(f"[e2e] float32 (reported, not claimed): serving 448x1024 B=8 {pairs['float32 kernels']:.1f} pairs/s "
+        f"with the kernels, {pairs['float32 plain']:.1f} plain, device busy {100 * f32_serve['busy_share']:.1f}% "
+        f"({f32_serve['kernel_ms']:.2f} ms of kernel time a forward); train step 384x448 B=8 "
+        f"{f32_step['pairs_per_s']:.1f} pairs/s with the kernels, {train_stats['float32 plain']['pairs_per_s']:.1f} "
+        f"plain, device busy {100 * f32_step['profile']['busy_share']:.1f}% "
+        f"({f32_step['profile']['kernel_ms']:.2f} ms of kernel time a step) on {card}")
     log(f"[e2e] trainer, 384x448 B=8 bf16, --fused-estimator {FUSED_ESTIMATOR}: "
         f"{tp['trainer epoch 2 (K7 on 2 levels)']:.1f} pairs/s over the steps of epoch 2 (wall clock), the bare step "
         f"{bare:.1f}, the loader alone {tp['loader alone']:.1f}; one epoch resumed from model_1: "

@@ -48,6 +48,28 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
   }
 }
 
+// 16 bytes from device to shared memory without passing through registers;
+// an invalid source writes zeros (zero bytes are read from `gmem`).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(bytes));
+}
+// 4 bytes likewise (cached in L1: neighbouring copies share its lines)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// whether a pointer (or null) may be read and written by 16-byte accesses
+inline bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 // LeakyReLU(0.1), as jnp.where(v >= 0, v, v * 0.1)
 __device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : v * 0.1f; }
 

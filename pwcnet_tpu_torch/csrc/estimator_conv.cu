@@ -315,3 +315,20 @@ extern "C" int pwc_estimator_conv_smem_bytes(int n) {
     default: return 0;
   }
 }
+
+// The float32 conv kernel (conv3x3_gemm.cuh) for the build log: the N
+// tile and width a conv of `cout` output channels on (B, H, W) runs at
+// (on 132 SMs), and for a tile n x tw its dynamic shared memory, threads
+// and resident blocks an SM.
+extern "C" int pwc_conv3x3_f32_tile(int cout, int B, int H, int W, int* n, int* tw) {
+  *n = pwc::fma_tile_n(cout);
+  *tw = pwc::fma_tile_w(*n, H, W, B, cout, 132);
+  return 0;
+}
+
+extern "C" int pwc_conv3x3_f32_info(int n, int tw, int* smem, int* threads, int* blocks) {
+  int info[3] = {0, 0, 0};
+  const cudaError_t err = pwc::fma_dispatch(n, nullptr, 0, tw, nullptr, info);
+  *smem = info[0], *threads = info[1], *blocks = info[2];
+  return err;
+}

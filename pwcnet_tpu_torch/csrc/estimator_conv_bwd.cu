@@ -62,19 +62,6 @@ constexpr size_t kTcSmemBytes = kTcScratchBytes > kTcStageBytes ? kTcScratchByte
 static_assert((kTcInElems * sizeof(__nv_bfloat16)) % 32 == 0, "WMMA tiles start on 32 bytes");
 static_assert((kTcStageElems * sizeof(__nv_bfloat16)) % 32 == 0, "WMMA tiles start on 32 bytes");
 
-// 16 bytes from device to shared memory without passing through registers;
-// an invalid source writes zeros (zero bytes are read from `gmem`).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // ldw is a multiple of 8 and every tensor starts on 16 bytes, so a weight
 // row goes as 16-byte copies, and so do a pixel's channels where Cin is a
 // multiple of 8.

@@ -26,11 +26,23 @@
 // 1-pixel halo from s1, then the tile from s2; s1 and s2 live only in
 // shared memory.
 //
-// - float32 (pyramid_level_kernel): 256 threads, tile 8 x 32, every conv as
-//   float32 FMAs, one position and all C outputs per thread, the weights in
-//   shared memory as [tap][cin][cout] read as float4 broadcasts, s1 and s2
-//   channel-major so that neighbouring threads read neighbouring banks.
-//   The halo recomputes about 1.7x the conv1 and 1.3x the conv2 work.
+// - float32 (pyramid_level_kernel): 256 threads, tile 14 x 28, every conv
+//   as float32 FMAs, register-blocked: a thread sums a column of 7-9
+//   positions x 4 or 8 output channels, so each weight broadcast serves 7-9
+//   positions. s1 and s2 are position-major (a 16-byte load brings 4
+//   channels of a position): conv2 and conv3 at level 1 take 16 shared
+//   loads for 256 FMAs. Every sum runs tap by tap and, in a tap, channel by
+//   channel, the order of the earlier one-position-a-thread body, so the
+//   results are the same bits. conv3 writes the output from registers.
+//   The weights are [tap][ci][co] in shared memory, copied from the OIHW
+//   kernels by cp.async: w2 lands while conv1 runs, w3 (in w1's place)
+//   while conv2 runs. conv1 reads x from device memory: at level 1 16
+//   bytes (4 channels) a load, the 16 weights of a tap's 4 channels held
+//   in registers; at level 0 (3 channels, 27 MACs a channel) one position
+//   a thread with all 16 channels. Every stage hands whole units to
+//   224-256 threads; the halo recomputes 1.47x the conv1 and 1.22x the
+//   conv2 work. Level 0 takes 103 KB of shared memory (two blocks an SM),
+//   level 1 226 KB.
 // - bfloat16 (pyramid_level_wg_kernel): tile 8 x 64, conv2 and conv3 (and
 //   at level 1 conv1) as implicit GEMMs on wgmma, m64 x N = C with float32
 //   sums in registers, both operands read from shared memory by descriptor
@@ -52,29 +64,15 @@
 // Bound on the H100: the level reads x and writes the output once (about
 // 51 MB per bf16 batch of 8 at level 0, 44 MB at level 1) and does
 // 2 x 315 x C MACs per output pixel at level 0 (2 x 720 x C at level 1),
-// which is bytes-bound at the bf16 tensor-core rate.
+// which is bytes-bound at the bf16 tensor-core rate and bound by
+// operations at the float32 CUDA-core rate (0.14 / 0.16 ms at levels 0 / 1
+// of a 448 x 1024 batch of 8).
 #include "conv_fma.cuh"
 #include "hopper.cuh"
 
 namespace pwc {
 
 using bf16 = __nv_bfloat16;
-
-// OIHW kernel [C][CI][3][3] -> shared [tap][ci][co] float32.
-template <typename T, int CI, int C>
-__device__ __forceinline__ void stage_weights_f32(float* w_s, const T* __restrict__ k) {
-  for (int i = threadIdx.x; i < 9 * CI * C; i += kPlThreads) {
-    const int co = i % C;
-    const int ci = (i / C) % CI;
-    const int tap = i / (C * CI);
-    w_s[i] = to_f32(k[(co * CI + ci) * 9 + tap]);
-  }
-}
-
-template <typename T, int C>
-__device__ __forceinline__ void stage_bias(float* b_s, const T* __restrict__ bias) {
-  for (int i = threadIdx.x; i < C; i += kPlThreads) b_s[i] = to_f32(bias[i]);
-}
 
 // conv1 (3x3, stride 2, bottom/right SAME pad) at half-res (gy, gx), no bias
 template <typename T, int CIN, int C>
@@ -99,103 +97,251 @@ __device__ __forceinline__ void conv1_at(float (&acc)[C], const T* __restrict__ 
 }
 
 // ------------------------------------------------------------ float32
+// Tile: kPfTH x kPfTW outputs. s1 covers the tile + a 2-position halo (18 x
+// 32 positions), s2 the tile + 1 (16 x 30), position-major with a pixel
+// stride of C + 4 floats, so that the 16-byte loads of 8 neighbouring
+// positions fall on 8 different bank quads. A thread is one of 4 channel
+// groups (threadIdx.x % 4) of a unit, a column of R positions: conv1 9 at
+// level 1 (2 x 32 units), conv2 8 (2 x 30), conv3 7 (2 x 28).
+constexpr int kPfTH = 14, kPfTW = 28;
+constexpr int kPfThreads = 256;
+constexpr int kPfGroups = 4;
+constexpr int kPfS1H = kPfTH + 4, kPfS1W = kPfTW + 4;
+constexpr int kPfS2H = kPfTH + 2, kPfS2W = kPfTW + 2;
+
 template <int CIN, int C>
-struct PlevelLayout {
-  static_assert(CIN <= C && C % 4 == 0, "weights buffer sized for the C x C convs");
-  static constexpr int S1H = kPlTH + 4, S1W = kPlTW + 4, S1 = S1H * S1W;
-  static constexpr int S2H = kPlTH + 2, S2W = kPlTW + 2, S2 = S2H * S2W;
-  static constexpr int W_FLOATS = 9 * C * C;
-  static constexpr size_t kBytes = (size_t)(W_FLOATS + C + C * (S1 + S2)) * sizeof(float);
+struct PfLayout {
+  static_assert((CIN == 3 && C == 16) || (CIN == 16 && C == 32), "the two finest pyramid levels");
+  static constexpr int kNJ = C / (4 * kPfGroups);  // float4s of output channels a thread: 1 at level 0, 2 at level 1
+  static constexpr int kPix = C + 4;               // pixel stride of s1, s2 (floats)
+  // offsets (floats): s1 | s2 | wA (w1, then w3) | wB (w2) | biases
+  static constexpr int kS1 = 0;
+  static constexpr int kS2 = kS1 + kPfS1H * kPfS1W * kPix;
+  static constexpr int kWA = kS2 + kPfS2H * kPfS2W * kPix;
+  static constexpr int kWB = kWA + 9 * C * C;
+  static constexpr int kBias = kWB + 9 * C * C;
+  static constexpr size_t kBytes = (size_t)(kBias + 3 * C) * sizeof(float);
+  static_assert(kWA % 4 == 0 && kWB % 4 == 0, "weights are read as float4s");
+  static_assert(kBytes <= 232448, "at most 227 KB of shared memory per block");
 };
 
-// The tile's own part of a channel-major halo plane set -> NHWC device memory.
-template <int C>
-__device__ __forceinline__ void store_tile_planes(float* __restrict__ dst, const float* s, int plane,
-                                                  int row, int halo, int b, int r0, int q0, int HH,
-                                                  int WH) {
-  for (int i = threadIdx.x; i < kPlTH * kPlTW * C; i += kPlThreads) {
-    const int co = i % C;
-    const int oy = (i / C) / kPlTW;
-    const int ox = (i / C) % kPlTW;
-    const int gy = r0 + oy;
-    const int gx = q0 + ox;
-    if (gy < HH && gx < WH)
-      dst[(((size_t)b * HH + gy) * WH + gx) * C + co] = s[co * plane + (oy + halo) * row + ox + halo];
+// OIHW kernel [C][CI][3][3] -> shared [tap][ci][co] by 4-byte asynchronous
+// copies, taken in the source's order (the caller commits the group)
+template <int CI, int C>
+__device__ __forceinline__ void stage_weights_async(float* w_s, const float* __restrict__ k) {
+  for (int i = threadIdx.x; i < 9 * CI * C; i += kPfThreads) {
+    const int tap = i % 9, ci = (i / 9) % CI, co = i / (9 * CI);
+    cp_async4(w_s + (tap * CI + ci) * C + co, k + i, true);
+  }
+}
+
+// acc[r][4 h + j] = the 3x3 stride-1 conv at R positions down one column,
+// output channel 4 tn + h C / NJ + j, from position-major planes of pixel
+// stride P; `src` points at the top-left tap, `row` is the plane's width
+// in positions, `w_s` is [tap][ci][co]. Each sum runs tap by tap and, in a
+// tap, channel by channel: the order of the earlier one-position-a-thread
+// body (conv_fma.cuh::conv_s1), so the results are the same bits. A tap's
+// channels go 4 at a time: one 16-byte load a position, then 4 x NJ float4
+// weight broadcasts for 16 R NJ FMAs.
+template <int C, int R, int NJ, int P>
+__device__ __forceinline__ void conv_col_s1(float (&acc)[R][4 * NJ], const float* src, int row, const float* w_s,
+                                            int tn) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < 4 * NJ; ++j) acc[r][j] = 0.f;
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const float* sp = src + ((tap / 3) * row + tap % 3) * P;
+    const float* wp = w_s + tap * C * C + 4 * tn;
+#pragma unroll 2
+    for (int c4 = 0; c4 < C / 4; ++c4) {
+      float4 v[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[r] = *reinterpret_cast<const float4*>(sp + r * row * P + 4 * c4);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int h = 0; h < NJ; ++h) {
+          const float4 w = *reinterpret_cast<const float4*>(wp + (4 * c4 + c) * C + h * (C / NJ));
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float x = c == 0 ? v[r].x : c == 1 ? v[r].y : c == 2 ? v[r].z : v[r].w;
+            acc[r][4 * h + 0] = fmaf(x, w.x, acc[r][4 * h + 0]);
+            acc[r][4 * h + 1] = fmaf(x, w.y, acc[r][4 * h + 1]);
+            acc[r][4 * h + 2] = fmaf(x, w.z, acc[r][4 * h + 2]);
+            acc[r][4 * h + 3] = fmaf(x, w.w, acc[r][4 * h + 3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// conv1 at level 1 (16 input channels, stride 2, bottom/right SAME pad) at R
+// positions down one column, level rows gy0.. and column gx, channels as
+// conv_col_s1 and summed in the same order (tap, then channel, as
+// conv1_at). x is read from device memory (L1 and L2) 4 channels at a
+// time; the weights of a tap's 4 channels sit in registers while the
+// column's R positions are summed. Positions outside the frame sum
+// whatever they read: the caller zeroes them.
+template <int C, int R, int NJ>
+__device__ __forceinline__ void conv1_col_s2(float (&acc)[R][4 * NJ], const float* __restrict__ xb, int H, int W,
+                                             int gy0, int gx, const float* w_s, int tn) {
+  constexpr int CIN = 16;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < 4 * NJ; ++j) acc[r][j] = 0.f;
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const int ky = tap / 3, kx = tap % 3;
+    const int ix = 2 * gx + kx;
+    const bool col_ok = ix >= 0 && ix < W;  // ix == W: the right SAME pad
+#pragma unroll
+    for (int c4 = 0; c4 < CIN / 4; ++c4) {
+      float4 w[4][NJ];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int h = 0; h < NJ; ++h)
+          w[c][h] = *reinterpret_cast<const float4*>(w_s + (tap * CIN + 4 * c4 + c) * C + 4 * tn + h * (C / NJ));
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int iy = 2 * (gy0 + r) + ky;
+        float4 xv = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (col_ok && iy >= 0 && iy < H)  // iy == H: the bottom SAME pad
+          xv = __ldg(reinterpret_cast<const float4*>(xb + ((size_t)iy * W + ix) * CIN + 4 * c4));
+        const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int h = 0; h < NJ; ++h) {
+            acc[r][4 * h + 0] = fmaf(xs[c], w[c][h].x, acc[r][4 * h + 0]);
+            acc[r][4 * h + 1] = fmaf(xs[c], w[c][h].y, acc[r][4 * h + 1]);
+            acc[r][4 * h + 2] = fmaf(xs[c], w[c][h].z, acc[r][4 * h + 2]);
+            acc[r][4 * h + 3] = fmaf(xs[c], w[c][h].w, acc[r][4 * h + 3]);
+          }
+      }
+    }
+  }
+}
+
+// bias + LeakyReLU of a unit's sums at region rows y0.. and column x, the
+// region's (0, 0) being level position (gy0, gx0): into position-major
+// `planes` of pixel stride P (when given), zero outside the frame, and, for
+// the positions of the block's own tile (`halo` rows and columns into the
+// region) inside the frame, into NHWC `dst` (when given); 16-byte stores
+template <int C, int R, int NJ, int P>
+__device__ __forceinline__ void epi_col(const float (&acc)[R][4 * NJ], const float* bias, int tn, float* planes,
+                                        int row, int y0, int x, int gy0, int gx0, int halo,
+                                        float* __restrict__ dst, int b, int HH, int WH) {
+  const int gx = gx0 + x;
+  const bool col_in = gx >= 0 && gx < WH;
+  const bool col_tile = x >= halo && x < halo + kPfTW;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int y = y0 + r, gy = gy0 + y;
+    const bool inside = col_in && gy >= 0 && gy < HH;
+#pragma unroll
+    for (int h = 0; h < NJ; ++h) {
+      const int co = 4 * tn + h * (C / NJ);
+      float4 v;
+      v.x = inside ? leaky(acc[r][4 * h + 0] + bias[co + 0]) : 0.f;
+      v.y = inside ? leaky(acc[r][4 * h + 1] + bias[co + 1]) : 0.f;
+      v.z = inside ? leaky(acc[r][4 * h + 2] + bias[co + 2]) : 0.f;
+      v.w = inside ? leaky(acc[r][4 * h + 3] + bias[co + 3]) : 0.f;
+      if (planes != nullptr) *reinterpret_cast<float4*>(planes + (y * row + x) * P + co) = v;
+      if (dst != nullptr && inside && col_tile && y >= halo && y < halo + kPfTH)
+        *reinterpret_cast<float4*>(dst + (((size_t)b * HH + gy) * WH + gx) * C + co) = v;
+    }
   }
 }
 
 template <int CIN, int C>
-__global__ void __launch_bounds__(kPlThreads)
+__global__ void __launch_bounds__(kPfThreads, CIN == 3 ? 2 : 1)
     pyramid_level_kernel(const float* __restrict__ x, const float* __restrict__ k1,
                          const float* __restrict__ b1, const float* __restrict__ k2,
                          const float* __restrict__ b2, const float* __restrict__ k3,
                          const float* __restrict__ b3, float* __restrict__ out,
                          float* __restrict__ s1_out, float* __restrict__ s2_out, int H, int W) {
-  using L = PlevelLayout<CIN, C>;
+  using L = PfLayout<CIN, C>;
+  constexpr int NJ = L::kNJ;
   extern __shared__ float4 smem_f4[];
-  float* w_s = reinterpret_cast<float*>(smem_f4);
-  float* b_s = w_s + L::W_FLOATS;
-  float* s1 = b_s + C;
-  float* s2 = s1 + C * L::S1;
+  float* sm = reinterpret_cast<float*>(smem_f4);
+  float* s1 = sm + L::kS1;
+  float* s2 = sm + L::kS2;
+  float* wa = sm + L::kWA;
+  float* wb = sm + L::kWB;
+  float* bias = sm + L::kBias;
 
   const int HH = H / 2;
   const int WH = W / 2;
   const int b = blockIdx.z;
-  const int r0 = blockIdx.y * kPlTH;
-  const int q0 = blockIdx.x * kPlTW;
+  const int r0 = blockIdx.y * kPfTH;
+  const int q0 = blockIdx.x * kPfTW;
   const int tid = threadIdx.x;
+  const int tn = tid % kPfGroups;
+  const int u = tid / kPfGroups;  // unit
   const float* xb = x + (size_t)b * H * W * CIN;
-  float acc[C];
 
-  // ---- conv1 (stride 2) on the tile + 2-pixel halo, from device memory
-  stage_weights_f32<float, CIN, C>(w_s, k1);
-  stage_bias<float, C>(b_s, b1);
+  // w1 and the biases, then w2 behind them: w2 lands while conv1 runs
+  stage_weights_async<CIN, C>(wa, k1);
+  for (int i = tid; i < 3 * C; i += kPfThreads) bias[i] = (i < C ? b1 : i < 2 * C ? b2 : b3)[i % C];
+  cp_async_commit();
+  stage_weights_async<C, C>(wb, k2);
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
-  for (int p = tid; p < L::S1; p += kPlThreads) {
-    const int gy = r0 - 2 + p / L::S1W;
-    const int gx = q0 - 2 + p % L::S1W;
-    const bool inside = gy >= 0 && gy < HH && gx >= 0 && gx < WH;
-    if (inside) conv1_at<float, CIN, C>(acc, xb, H, W, gy, gx, w_s);
+
+  // ---- conv1 (stride 2) -> s1 on the tile + 2-position halo, from device memory
+  if constexpr (CIN == 3) {  // 27 MACs a channel: one position a thread, all C channels
+    for (int p = tid; p < kPfS1H * kPfS1W; p += kPfThreads) {
+      const int y = p / kPfS1W, xq = p % kPfS1W;
+      const int gy = r0 - 2 + y, gx = q0 - 2 + xq;
+      const bool inside = gy >= 0 && gy < HH && gx >= 0 && gx < WH;
+      float acc[C];
+      if (inside) conv1_at<float, CIN, C>(acc, xb, H, W, gy, gx, wa);
 #pragma unroll
-    for (int co = 0; co < C; ++co) s1[co * L::S1 + p] = inside ? leaky(acc[co] + b_s[co]) : 0.f;
+      for (int co = 0; co < C; ++co) acc[co] = inside ? leaky(acc[co] + bias[co]) : 0.f;
+#pragma unroll
+      for (int co = 0; co < C; co += 4)
+        *reinterpret_cast<float4*>(s1 + p * L::kPix + co) = make_float4(acc[co], acc[co + 1], acc[co + 2], acc[co + 3]);
+      if (s1_out != nullptr && inside && y >= 2 && y < 2 + kPfTH && xq >= 2 && xq < 2 + kPfTW) {
+        float* dst = s1_out + (((size_t)b * HH + gy) * WH + gx) * C;
+#pragma unroll
+        for (int co = 0; co < C; co += 4)
+          *reinterpret_cast<float4*>(dst + co) = make_float4(acc[co], acc[co + 1], acc[co + 2], acc[co + 3]);
+      }
+    }
+  } else if (u < 2 * kPfS1W) {
+    const int y0 = (u / kPfS1W) * (kPfS1H / 2), xq = u % kPfS1W;
+    float acc[kPfS1H / 2][4 * NJ];
+    conv1_col_s2<C, kPfS1H / 2, NJ>(acc, xb, H, W, r0 - 2 + y0, q0 - 2 + xq, wa, tn);
+    epi_col<C, kPfS1H / 2, NJ, L::kPix>(acc, bias, tn, s1, kPfS1W, y0, xq, r0 - 2, q0 - 2, 2, s1_out, b, HH, WH);
   }
-  __syncthreads();
-  if (s1_out != nullptr) store_tile_planes<C>(s1_out, s1, L::S1, L::S1W, 2, b, r0, q0, HH, WH);
+  cp_async_wait<0>();
+  __syncthreads();  // s1 is complete, w2 has landed, w1 is no longer read
+  stage_weights_async<C, C>(wa, k3);  // lands while conv2 runs
+  cp_async_commit();
 
-  // ---- conv2 on the tile + 1-pixel halo, from s1
-  stage_weights_f32<float, C, C>(w_s, k2);
-  stage_bias<float, C>(b_s, b2);
-  __syncthreads();
-  for (int p = tid; p < L::S2; p += kPlThreads) {
-    const int sy = p / L::S2W;
-    const int sx = p % L::S2W;
-    const int gy = r0 - 1 + sy;
-    const int gx = q0 - 1 + sx;
-    const bool inside = gy >= 0 && gy < HH && gx >= 0 && gx < WH;
-#pragma unroll
-    for (int co = 0; co < C; ++co) acc[co] = 0.f;
-    if (inside) conv_s1<C>(acc, s1 + sy * L::S1W + sx, L::S1, L::S1W, w_s);
-#pragma unroll
-    for (int co = 0; co < C; ++co) s2[co * L::S2 + p] = inside ? leaky(acc[co] + b_s[co]) : 0.f;
+  // ---- conv2 -> s2 on the tile + 1-position halo, from s1
+  if (u < 2 * kPfS2W) {
+    const int y0 = (u / kPfS2W) * (kPfS2H / 2), xq = u % kPfS2W;
+    float acc[kPfS2H / 2][4 * NJ];
+    conv_col_s1<C, kPfS2H / 2, NJ, L::kPix>(acc, s1 + (y0 * kPfS1W + xq) * L::kPix, kPfS1W, wb, tn);
+    epi_col<C, kPfS2H / 2, NJ, L::kPix>(acc, bias + C, tn, s2, kPfS2W, y0, xq, r0 - 1, q0 - 1, 1, s2_out, b, HH,
+                                        WH);
   }
-  __syncthreads();
-  if (s2_out != nullptr) store_tile_planes<C>(s2_out, s2, L::S2, L::S2W, 1, b, r0, q0, HH, WH);
+  cp_async_wait<0>();
+  __syncthreads();  // s2 is complete, w3 has landed
 
-  // ---- conv3 on the tile, from s2, to the NHWC output
-  stage_weights_f32<float, C, C>(w_s, k3);
-  stage_bias<float, C>(b_s, b3);
-  __syncthreads();
-  const int oy = tid / kPlTW;
-  const int ox = tid % kPlTW;
-  const int gy = r0 + oy;
-  const int gx = q0 + ox;
-  if (gy < HH && gx < WH) {
-#pragma unroll
-    for (int co = 0; co < C; ++co) acc[co] = 0.f;
-    conv_s1<C>(acc, s2 + oy * L::S2W + ox, L::S2, L::S2W, w_s);
-    float* dst = out + (((size_t)b * HH + gy) * WH + gx) * C;
-#pragma unroll
-    for (int co = 0; co < C; ++co) dst[co] = leaky(acc[co] + b_s[co]);
+  // ---- conv3 -> the tile, from s2, to the NHWC output
+  if (u < 2 * kPfTW) {
+    const int y0 = (u / kPfTW) * (kPfTH / 2), xq = u % kPfTW;
+    float acc[kPfTH / 2][4 * NJ];
+    conv_col_s1<C, kPfTH / 2, NJ, L::kPix>(acc, s2 + (y0 * kPfS2W + xq) * L::kPix, kPfS2W, wa, tn);
+    epi_col<C, kPfTH / 2, NJ, L::kPix>(acc, bias + 2 * C, tn, nullptr, 0, y0, xq, r0, q0, 0, out, b, HH, WH);
   }
 }
 
@@ -203,13 +349,16 @@ template <int CIN, int C>
 cudaError_t run_f32(const void* x, const void* k1, const void* b1, const void* k2, const void* b2,
                     const void* k3, const void* b3, void* out, void* s1_out, void* s2_out, int B,
                     int H, int W, cudaStream_t stream) {
-  using L = PlevelLayout<CIN, C>;
+  using L = PfLayout<CIN, C>;
+  // 16-byte stores of the outputs; at level 1 16-byte loads of x
+  if (!aligned16(out) || !aligned16(s1_out) || !aligned16(s2_out) || (CIN % 4 == 0 && !aligned16(x)))
+    return cudaErrorInvalidValue;
   auto kernel = pyramid_level_kernel<CIN, C>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((W / 2 + kPlTW - 1) / kPlTW, (H / 2 + kPlTH - 1) / kPlTH, B);
-  kernel<<<grid, kPlThreads, L::kBytes, stream>>>(
+  const dim3 grid((W / 2 + kPfTW - 1) / kPfTW, (H / 2 + kPfTH - 1) / kPfTH, B);
+  kernel<<<grid, kPfThreads, L::kBytes, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(k1), static_cast<const float*>(b1),
       static_cast<const float*>(k2), static_cast<const float*>(b2), static_cast<const float*>(k3),
       static_cast<const float*>(b3), static_cast<float*>(out), static_cast<float*>(s1_out),
@@ -527,4 +676,23 @@ extern "C" int pwc_pyramid_level_smem_bytes(int cin, int c) {
   if (cin == 3 && c == 16) return pwc::PwLayout<3, 16>::kBytes;
   if (cin == 16 && c == 32) return pwc::PwLayout<16, 32>::kBytes;
   return 0;
+}
+
+// the float32 kernel of a level, for the build log: dynamic shared memory,
+// threads and resident blocks an SM
+template <int CIN, int C>
+static cudaError_t f32_info(int* smem, int* threads, int* blocks) {
+  using L = pwc::PfLayout<CIN, C>;
+  auto kernel = pwc::pyramid_level_kernel<CIN, C>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+  if (err != cudaSuccess) return err;
+  *smem = (int)L::kBytes;
+  *threads = pwc::kPfThreads;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, pwc::kPfThreads, L::kBytes);
+}
+
+extern "C" int pwc_pyramid_level_f32_info(int cin, int c, int* smem, int* threads, int* blocks) {
+  if (cin == 3 && c == 16) return f32_info<3, 16>(smem, threads, blocks);
+  if (cin == 16 && c == 32) return f32_info<16, 32>(smem, threads, blocks);
+  return cudaErrorInvalidValue;
 }

@@ -86,6 +86,17 @@ _LEVEL_CASES = [
 ]
 
 
+# the float32 estimator core at its real input widths on frames no 8 x 16
+# tile divides (B, H, W, Cin): small grids take the narrow tiles, the last
+# (over two waves of blocks) the wide ones
+_F32_CHAIN_EDGE = [(1, 11, 37, 147), (2, 9, 21, 179), (1, 13, 45, 273), (8, 67, 150, 147)]
+# float32 K3 at the edge shapes of chip_smoke.py (K3_EDGE) and at frames
+# whose level output is smaller than one 14 x 28 tile
+_F32_LEVEL_EDGE = [
+    ((1, 34, 150, 3), 16), ((1, 26, 140, 16), 32), ((2, 10, 12, 3), 16), ((1, 8, 22, 16), 32), ((1, 2, 2, 16), 32),
+]
+
+
 # K6 levels whose half sizes no tile of its kernels divides (bf16 8 x 56, float32 8 x 32)
 _BWD_EDGE = [((1, 34, 150, 3), 16), ((2, 26, 130, 16), 32)]
 
@@ -607,6 +618,58 @@ class TestKernelsOnCard:
         want = torch.autograd.grad(list(estimator_chain_plain(xin, *kbs)), [xin, *kbs], gs)
         for a, b in zip(got, want):
             _assert_close(a, b, torch.float32)
+
+    @pytest.mark.parametrize("g_feat_zero", [False, True])
+    @pytest.mark.parametrize("shape", _F32_CHAIN_EDGE)
+    def test_estimator_chain_f32_tiles(self, cuda_device, rng, shape, g_feat_zero):
+        """The float32 implicit-GEMM core at the estimator's widths on frames
+        that no tile divides: the forward (N tiles 128, 128, 96, 64, 32 and 8
+        for the flow, narrow and wide), its residuals, and K7b (dxin's Cout of
+        147-273 over two or three N tiles) with and without a features'
+        cotangent, each against its plain version; two launches give the
+        same bits."""
+        from pwcnet_tpu_torch.ops.cuda.estimator_conv import (
+            estimator_chain_bwd, estimator_chain_fused, estimator_chain_residuals)
+        from pwcnet_tpu_torch.ops.estimator_conv import estimator_chain_bwd_plain, estimator_chain_plain
+
+        dtype = torch.float32
+        couts = (128, 128, 96, 64, 32, 2)
+        xin = torch.from_numpy(_normal(rng, shape)).to(cuda_device)
+        kbs = [p.to(cuda_device) for p in _to_torch_params(_chain_params(rng, shape[-1], couts))]
+        flow, feat = estimator_chain_fused(xin, *kbs)
+        flow2, feat2, acts = estimator_chain_residuals(xin, *kbs)
+        want_flow, want_feat, want_acts = estimator_chain_plain(xin, *kbs, return_acts=True)
+        assert torch.equal(flow, flow2) and torch.equal(feat, feat2)
+        for a, b in zip([flow, feat, *acts], [want_flow, want_feat, *want_acts]):
+            _assert_close(a, b, dtype)
+        g_flow = torch.from_numpy(_normal(rng, tuple(flow.shape))).to(cuda_device)
+        g_feat = torch.zeros_like(feat) if g_feat_zero else torch.from_numpy(_normal(rng, tuple(feat.shape))).to(cuda_device)
+        args = (kbs[0::2], [*want_acts, want_feat], g_flow, g_feat)
+        gzs, dxin = estimator_chain_bwd(*args)
+        want_gzs, want_dxin = estimator_chain_bwd_plain(*args)
+        for a, b in zip([*gzs, dxin], [*want_gzs, want_dxin]):
+            _assert_close(a, b, dtype)
+        again = estimator_chain_bwd(*args)
+        assert all(torch.equal(a, b) for a, b in zip([*gzs, dxin], [*again[0], again[1]]))
+        assert torch.equal(estimator_chain_fused(xin, *kbs)[0], flow)
+
+    @pytest.mark.parametrize("residuals", [False, True])
+    @pytest.mark.parametrize("shape,c", _F32_LEVEL_EDGE)
+    def test_pyramid_level_f32_tiles(self, cuda_device, rng, shape, c, residuals):
+        """The float32 fused level at sizes no 14 x 28 tile divides and at a
+        frame smaller than one tile, with and without the residuals s1, s2,
+        against the plain version; two launches give the same bits."""
+        from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_residuals
+
+        dtype = torch.float32
+        x = torch.from_numpy(_normal(rng, shape)).to(cuda_device)
+        tp = [p.to(cuda_device) for p in _to_torch_params(_level_params(rng, shape[-1], c))]
+        run = (lambda: pyramid_level_residuals(x, *tp)) if residuals else (lambda: (pyramid_level_fused(x, *tp),))
+        got = run()
+        want = pyramid_level_plain(x, *tp, return_acts=True)[: len(got)]
+        for a, b in zip(got, want):
+            _assert_close(a, b, dtype)
+        assert all(torch.equal(a, b) for a, b in zip(got, run()))
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("shape,d", [((2, 8, 37, 40), 4), ((1, 3, 16, 192), 4), ((1, 5, 6, 3), 2)])
