@@ -10,9 +10,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build: compile every CUDA kernel from ``pwcnet_tpu_torch/csrc`` with
    nvcc (one process per source, all at once); log each kernel's registers
    and spills, the wgmma and correlation kernels' dynamic shared memory,
-   the float32 K3 and K7 kernels' shared memory, threads and resident
-   blocks an SM and K7's float32 tile at each main-path shape, and the
-   correlation's tile and cluster size at each main-path shape;
+   the float32 K3, K6 and K7 kernels' shared memory, threads and resident
+   blocks an SM (K6's float32 kernels must not spill) and K7's float32
+   tile at each main-path shape, and the correlation's tile and cluster
+   size at each main-path shape;
 3. kernels: K1 (warped cost volume), K2 (cost volume) and K3 (fused
    pyramid level) at every shape the 448x1024 serving forward gives them,
    at batch 1 and 8, in float32 and bfloat16, against their plain PyTorch
@@ -1625,7 +1626,7 @@ PROFILE_GROUPS = (
     ("K3 pyramid_level", ("pyramid_level",)),
     ("K4 cost_volume_bwd", ("cv_bwd_kernel",)),
     ("K5 warp_bwd", ("warp_bwd_kernel", "round_kernel")),
-    ("K6 pyramid_level_bwd", ("gz3_kernel", "conv_t_s", "conv_t_wg", "conv1_t_wg")),
+    ("K6 pyramid_level_bwd", ("conv_t_col", "conv1_t_col", "conv_t_s2", "conv_t_wg", "conv1_t_wg")),
     ("K7 estimator chain, forward and backward", ("conv3x3_",)),
     ("K3, K6 and K7 weight packing (bf16)", ("pack_weights",)),
     ("cuDNN wgrad", ("wgrad",)),
@@ -1681,7 +1682,8 @@ def profile_steps(torch, fn, n, what, unprofiled_ms):
 def kernel_label(mangled: str) -> str:
     """A readable label for a mangled kernel name: the last name of its
     nested name, then its integer template arguments, its element type and
-    its Loader (``correlation_kernel<bf16,4,32,HpadLoader>``)."""
+    its Loader (``correlation_kernel<bf16,4,32,HpadLoader>``); boolean
+    arguments read true or false (``conv_t_col_kernel<32,true>``)."""
     import re
 
     pos = 3 if mangled.startswith("_ZN") else 2
@@ -1692,7 +1694,8 @@ def kernel_label(mangled: str) -> str:
         pos += len(m.group()) + n
     rest = mangled[pos:]
     args = (["bf16"] if rest.startswith("I13__nv_bfloat16") else ["f32"] if rest.startswith("If") else [])
-    args += re.findall(r"Li(\d+)E", rest) + re.findall(r"\d+([A-Z][A-Za-z]*Loader)", rest)
+    args += [v if t == "i" else ("true" if v == "1" else "false") for t, v in re.findall(r"L([ib])(\d+)E", rest)]
+    args += re.findall(r"\d+([A-Z][A-Za-z]*Loader)", rest)
     return f"{name}<{','.join(args)}>" if args else name
 
 
@@ -1707,6 +1710,7 @@ def log_build(report):
 
     from pwcnet_tpu_torch.ops.cuda import _build, _common
 
+    spills = {}
     for name, r in report.items():
         entry = "?"
         for line in r["ptxas"].splitlines():
@@ -1715,6 +1719,10 @@ def log_build(report):
                 entry = kernel_label(m.group(1))
             elif "registers" in line or "spill" in line:
                 log(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}")
+                spills.setdefault(entry, set()).update(re.findall(r"(\d+) bytes spill", line))
+    for entry, counts in spills.items():
+        if entry.startswith(("conv_t_col_kernel", "conv1_t_col_kernel")):
+            require(counts <= {"0"}, f"ptxas spills registers in K6's float32 {entry}")
     k3 = _build.load("pyramid_conv").pwc_pyramid_level_smem_bytes
     k7 = _build.load("estimator_conv").pwc_estimator_conv_smem_bytes
     k3.argtypes, k7.argtypes = [ctypes.c_int] * 2, [ctypes.c_int]
@@ -1753,6 +1761,14 @@ def log_build(report):
         smem, threads, blocks = ints(f3, f"pyramid_level_kernel<{cin},{c}>", cin, c)
         require(blocks > 0, f"pyramid_level_kernel<{cin},{c}> does not fit an SM")
         f32_info.append(f"pyramid_level_kernel<{cin},{c}> {smem} B, {threads} threads, {blocks} blocks an SM")
+    f6 = _build.load("pyramid_conv_bwd").pwc_pyramid_level_bwd_f32_info
+    f6.argtypes = [ctypes.c_int] * 2 + [ip] * 3
+    for c, which, label in ((16, 0, "conv_t_col_kernel<16,true>"), (16, 1, "conv_t_col_kernel<16,false>"),
+                            (32, 0, "conv_t_col_kernel<32,true>"), (32, 1, "conv_t_col_kernel<32,false>"),
+                            (32, 2, "conv1_t_col_kernel")):
+        smem, threads, blocks = ints(f6, label, c, which)
+        require(blocks > 0, f"{label} does not fit an SM")
+        f32_info.append(f"{label} {smem} B, {threads} threads, {blocks} blocks an SM")
     log("  float32 kernels (dynamic shared memory, threads, resident blocks an SM): "
         + "; ".join(f32_info))
     log("  float32 K7 tiles (N x columns) of the six convs and of K7b's dxin: " + "; ".join(tiles))

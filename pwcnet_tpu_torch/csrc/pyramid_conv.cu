@@ -125,74 +125,18 @@ struct PfLayout {
   static_assert(kBytes <= 232448, "at most 227 KB of shared memory per block");
 };
 
-// OIHW kernel [C][CI][3][3] -> shared [tap][ci][co] by 4-byte asynchronous
-// copies, taken in the source's order (the caller commits the group)
-template <int CI, int C>
-__device__ __forceinline__ void stage_weights_async(float* w_s, const float* __restrict__ k) {
-  for (int i = threadIdx.x; i < 9 * CI * C; i += kPfThreads) {
-    const int tap = i % 9, ci = (i / 9) % CI, co = i / (9 * CI);
-    cp_async4(w_s + (tap * CI + ci) * C + co, k + i, true);
-  }
-}
-
-// acc[r][4 h + j] = the 3x3 stride-1 conv at R positions down one column,
-// output channel 4 tn + h C / NJ + j, from position-major planes of pixel
-// stride P; `src` points at the top-left tap, `row` is the plane's width
-// in positions, `w_s` is [tap][ci][co]. Each sum runs tap by tap and, in a
-// tap, channel by channel: the order of the earlier one-position-a-thread
-// body (conv_fma.cuh::conv_s1), so the results are the same bits. A tap's
-// channels go 4 at a time: one 16-byte load a position, then 4 x NJ float4
-// weight broadcasts for 16 R NJ FMAs.
-template <int C, int R, int NJ, int P>
-__device__ __forceinline__ void conv_col_s1(float (&acc)[R][4 * NJ], const float* src, int row, const float* w_s,
-                                            int tn) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < 4 * NJ; ++j) acc[r][j] = 0.f;
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const float* sp = src + ((tap / 3) * row + tap % 3) * P;
-    const float* wp = w_s + tap * C * C + 4 * tn;
-#pragma unroll 2
-    for (int c4 = 0; c4 < C / 4; ++c4) {
-      float4 v[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) v[r] = *reinterpret_cast<const float4*>(sp + r * row * P + 4 * c4);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-#pragma unroll
-        for (int h = 0; h < NJ; ++h) {
-          const float4 w = *reinterpret_cast<const float4*>(wp + (4 * c4 + c) * C + h * (C / NJ));
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const float x = c == 0 ? v[r].x : c == 1 ? v[r].y : c == 2 ? v[r].z : v[r].w;
-            acc[r][4 * h + 0] = fmaf(x, w.x, acc[r][4 * h + 0]);
-            acc[r][4 * h + 1] = fmaf(x, w.y, acc[r][4 * h + 1]);
-            acc[r][4 * h + 2] = fmaf(x, w.z, acc[r][4 * h + 2]);
-            acc[r][4 * h + 3] = fmaf(x, w.w, acc[r][4 * h + 3]);
-          }
-        }
-      }
-    }
-  }
-}
-
 // conv1 at level 1 (16 input channels, stride 2, bottom/right SAME pad) at R
 // positions down one column, level rows gy0.. and column gx, channels as
-// conv_col_s1 and summed in the same order (tap, then channel, as
-// conv1_at). x is read from device memory (L1 and L2) 4 channels at a
-// time; the weights of a tap's 4 channels sit in registers while the
-// column's R positions are summed. Positions outside the frame sum
-// whatever they read: the caller zeroes them.
+// conv_col_s1 (conv_fma.cuh) and summed in the same order (tap, then
+// channel, as conv1_at). x is read from device memory (L1 and L2) 4
+// channels at a time; the weights of a tap's 4 channels sit in registers
+// while the column's R positions are summed. Positions outside the frame
+// sum whatever they read: the caller zeroes them.
 template <int C, int R, int NJ>
 __device__ __forceinline__ void conv1_col_s2(float (&acc)[R][4 * NJ], const float* __restrict__ xb, int H, int W,
                                              int gy0, int gx, const float* w_s, int tn) {
   constexpr int CIN = 16;
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < 4 * NJ; ++j) acc[r][j] = 0.f;
+  zero_acc(acc);
 #pragma unroll 1
   for (int tap = 0; tap < 9; ++tap) {
     const int ky = tap / 3, kx = tap % 3;
@@ -286,10 +230,10 @@ __global__ void __launch_bounds__(kPfThreads, CIN == 3 ? 2 : 1)
   const float* xb = x + (size_t)b * H * W * CIN;
 
   // w1 and the biases, then w2 behind them: w2 lands while conv1 runs
-  stage_weights_async<CIN, C>(wa, k1);
+  stage_weights_async<CIN, C, kPfThreads>(wa, k1);
   for (int i = tid; i < 3 * C; i += kPfThreads) bias[i] = (i < C ? b1 : i < 2 * C ? b2 : b3)[i % C];
   cp_async_commit();
-  stage_weights_async<C, C>(wb, k2);
+  stage_weights_async<C, C, kPfThreads>(wb, k2);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -322,7 +266,7 @@ __global__ void __launch_bounds__(kPfThreads, CIN == 3 ? 2 : 1)
   }
   cp_async_wait<0>();
   __syncthreads();  // s1 is complete, w2 has landed, w1 is no longer read
-  stage_weights_async<C, C>(wa, k3);  // lands while conv2 runs
+  stage_weights_async<C, C, kPfThreads>(wa, k3);  // lands while conv2 runs
   cp_async_commit();
 
   // ---- conv2 -> s2 on the tile + 1-position halo, from s1

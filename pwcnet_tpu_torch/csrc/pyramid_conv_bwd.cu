@@ -49,23 +49,36 @@
 //   0's dx (3 channels; the training path never asks for it) keeps the FMA
 //   kernel below.
 //
-// float32 stays on FMAs (a TF32 path would change the numbers):
-// - gz3: one elementwise pass.
-// - conv3^T and conv2^T: one block of 256 threads owns an 8 x 32 tile of
-//   positions; it stages the tile + 1 halo of the incoming cotangent
-//   channel-major in shared memory and the weights as [mirrored tap][cout
-//   of the forward][cin of the forward]; each thread computes all C channels
-//   of one position with float32 FMAs (conv_fma.cuh, the forward's float32
-//   path), applies the mask and stores.
-// - conv1^T: one thread owns the 2 x 2 block of x of half-res position (a,
-//   c): tap (ky, kx) reads gz1 at (a - [ky == 2], c - [kx == 2]) and adds
-//   into pixel (ky & 1, kx & 1), so all threads run the same taps.
+// float32 stays on FMAs (a TF32 path would change the numbers), two
+// launches at level 0 and three at level 1, on conv_fma.cuh's register-
+// blocked columns, as K3's float32 forward:
+// - conv3^T (conv_t_col_kernel<C, true>): one block of 224 threads owns a
+//   tile of 16 x 28 positions at level 0 (12 x 28 at level 1); it stages
+//   gz3 = g * mask(out) on the tile + 1-pixel halo position-major in shared
+//   memory (pixel stride C + 4) as it loads g and out (16 bytes a thread),
+//   writes the tile's own gz3, while the weights arrive by cp.async as
+//   [mirrored tap][cout of the forward][cin of the forward]; a thread then
+//   sums a column of 8 (6) positions x 4 (8) channels and writes gz2 =
+//   acc * mask(s2), reading s2 and writing gz2 16 bytes at a time;
+// - conv2^T (conv_t_col_kernel<C, false>): the same from gz2 to gz1;
+// - conv1^T at level 1 (conv1_t_col_kernel): gz1 on a 12 x 28 tile + 1
+//   pixel above and left staged likewise, the weights unmirrored; a thread
+//   sums a column of 6 half-res positions x 4 of dx's 16 channels for each
+//   of the four phases in turn (4, 2, 2, 1 taps) and stores each pixel's
+//   4 channels by one 16-byte store. Level 0's dx keeps the one-thread-a-
+//   position kernel below (conv_t_s2_kernel).
+// Each sum runs tap by tap (ky, then kx) and channel by channel, the order
+// of the one-position-a-thread body these replaced, so the results are the
+// same bits. The tiles are sized for the B=8 384x448 training step: two
+// blocks an SM at level 1 (95 KB) and one wave of 256 blocks on the 132
+// SMs; three at level 0 (51 KB), 768 blocks in two waves.
 //
 // Bound on the H100: bytes at the bf16 tensor-core rate (it reads g, out,
 // s1, s2 and writes gz1..gz3 and dx: 7 half-res tensors of C channels and x;
 // 2 * 2 * 9 * C * C + 2 * 9 * CIN * C operations per half-res position).
 // The bf16 kernels read each staged cotangent 1.2-1.3x (the halo) and
-// gz2, gz1 once more from L2; float32 is bound by its FMAs.
+// gz2, gz1 once more from L2; float32 is bound by its FMAs (at level 0 its
+// bytes take about as long).
 #include "conv_fma.cuh"
 #include "hopper.cuh"
 
@@ -73,71 +86,176 @@ namespace pwc {
 
 __device__ __forceinline__ float lrelu_mask(float a) { return a >= 0.f ? 1.f : 0.1f; }
 
-template <typename T>
-__global__ void __launch_bounds__(kPlThreads)
-    gz3_kernel(const T* __restrict__ g, const T* __restrict__ out, T* __restrict__ gz3, size_t n) {
-  const size_t i = (size_t)blockIdx.x * kPlThreads + threadIdx.x;
-  if (i < n) gz3[i] = from_f32<T>(to_f32(g[i]) * lrelu_mask(to_f32(out[i])));
+// ------------------------------------------------------------ float32 on FMAs
+__device__ __forceinline__ float4 ldg4(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
+__device__ __forceinline__ float4 mul_mask(float4 v, float4 a) {
+  return make_float4(v.x * lrelu_mask(a.x), v.y * lrelu_mask(a.y), v.z * lrelu_mask(a.z), v.w * lrelu_mask(a.w));
 }
 
+// conv3^T / conv2^T: 224 threads, 56 units (columns of R positions, two
+// down each of the tile's 28 columns) x 4 channel groups (threadIdx.x % 4)
+// of 4 NJ channels; the incoming cotangent's plane covers the tile + 1
+// position each side, the weights follow it
 template <int C>
-struct ConvTLayout {
-  static constexpr int SH = kPlTH + 2, SW = kPlTW + 2, PLANE = SH * SW;
-  static constexpr int W_FLOATS = 9 * C * C;
-  static constexpr size_t kBytes = (size_t)(W_FLOATS + C * PLANE) * sizeof(float);
+struct FtLayout {
+  static_assert(C == 16 || C == 32, "the two finest pyramid levels");
+  static constexpr int kG = 4;
+  static constexpr int kNJ = C / (4 * kG);    // float4s of channels a thread: 1 at level 0, 2 at level 1
+  static constexpr int kR = C == 16 ? 8 : 6;  // positions a unit
+  static constexpr int kTW = 28, kTH = 2 * kR;
+  static constexpr int kThreads = kG * 2 * kTW;
+  static constexpr int kBlocks = C == 16 ? 3 : 2;  // resident blocks an SM
+  // channel groups a conv_col_tap iteration: three blocks of 7 warps leave 80
+  // registers a thread, too few for two groups' loads in flight at level 0
+  static constexpr int kUnroll = C == 16 ? 1 : 2;
+  static constexpr int kPix = C + 4;               // pixel stride of the plane (floats)
+  static constexpr int kSH = kTH + 2, kSW = kTW + 2;
+  static constexpr int kW = kSH * kSW * kPix;      // the weights' offset (floats)
+  static constexpr size_t kBytes = (size_t)(kW + 9 * C * C) * sizeof(float);
+  static_assert(kW % 4 == 0 && kBlocks * (kBytes + 1024) <= 233472, "float4 weights; kBlocks blocks fit an SM");
 };
 
-// gz_out = conv^T(gz_in; k) * mask(act), all (B, HH, WH, C); k is (C, C, 3, 3) OIHW.
-template <typename T, int C>
-__global__ void __launch_bounds__(kPlThreads)
-    conv_t_s1_kernel(const T* __restrict__ gz_in, const T* __restrict__ k, const T* __restrict__ act,
-                     T* __restrict__ gz_out, int HH, int WH) {
-  using L = ConvTLayout<C>;
-  extern __shared__ float4 smem_f4[];
-  float* w_s = reinterpret_cast<float*>(smem_f4);
-  float* win = w_s + L::W_FLOATS;
+// conv1^T at level 1: the same units over dx's 16 channels (NJ = 1), a
+// 12 x 28 tile of half-res positions, gz1's plane with 1 position above and left
+struct Ft1Layout {
+  static constexpr int C = 32, CIN = 16;
+  static constexpr int kG = 4, kR = 6, kTW = 28, kTH = 2 * kR;
+  static constexpr int kThreads = kG * 2 * kTW;
+  static constexpr int kBlocks = 3;
+  static constexpr int kPix = C + 4;
+  static constexpr int kSH = kTH + 1, kSW = kTW + 1;
+  static constexpr int kW = kSH * kSW * kPix;
+  static constexpr size_t kBytes = (size_t)(kW + 9 * C * CIN) * sizeof(float);
+  static_assert(kW % 4 == 0 && kBlocks * (kBytes + 1024) <= 233472, "float4 weights; kBlocks blocks fit an SM");
+};
 
-  const int b = blockIdx.z;
-  const int r0 = blockIdx.y * kPlTH;
-  const int q0 = blockIdx.x * kPlTW;
-  const int tid = threadIdx.x;
-  const size_t frame = (size_t)b * HH * WH;
-
-  // ds[u, ci] = sum_{ky, kx, co} gz[u + (1 - ky, 1 - kx), co] * k[co, ci, ky, kx]:
-  // a conv over taps (2 - ky, 2 - kx) with input channel co and output channel ci
-  for (int i = tid; i < L::W_FLOATS; i += kPlThreads) {
-    const int ci = i % C;
-    const int co = (i / C) % C;
-    const int tap = i / (C * C);
-    w_s[i] = to_f32(k[(co * C + ci) * 9 + (8 - tap)]);
-  }
-  for (int i = tid; i < L::PLANE * C; i += kPlThreads) {
-    const int co = i % C;
-    const int p = i / C;
-    const int gy = r0 - 1 + p / L::SW;
-    const int gx = q0 - 1 + p % L::SW;
-    float v = 0.f;
-    if (gy >= 0 && gy < HH && gx >= 0 && gx < WH)
-      v = to_f32(gz_in[(frame + (size_t)gy * WH + gx) * C + co]);
-    win[co * L::PLANE + p] = v;
-  }
-  __syncthreads();
-
-  const int oy = tid / kPlTW;
-  const int ox = tid % kPlTW;
-  const int gy = r0 + oy;
-  const int gx = q0 + ox;
-  if (gy < HH && gx < WH) {
-    float acc[C];
-#pragma unroll
-    for (int ci = 0; ci < C; ++ci) acc[ci] = 0.f;
-    conv_s1<C>(acc, win + oy * L::SW + ox, L::PLANE, L::SW, w_s);
-    const size_t at = (frame + (size_t)gy * WH + gx) * C;
-#pragma unroll
-    for (int ci = 0; ci < C; ++ci)
-      gz_out[at + ci] = from_f32<T>(acc[ci] * lrelu_mask(to_f32(act[at + ci])));
+// C channels of the plane positions [0, SH) x [0, SW) <- level positions
+// (r0 - 1 + y, q0 - 1 + x) of src, zero outside the frame, 16 bytes a
+// thread. MASK: src * mask(src_mask), and the positions of the tile
+// (TH x TW from plane position (1, 1)) written to `own` as well.
+template <int C, int SH, int SW, int TH, int TW, int THREADS, bool MASK>
+__device__ __forceinline__ void stage_plane(float* plane, const float* __restrict__ src,
+                                            const float* __restrict__ src_mask, float* __restrict__ own,
+                                            size_t frame, int r0, int q0, int HH, int WH) {
+  constexpr int kPix = C + 4;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < SH * SW * (C / 4); e += THREADS) {
+    const int p = e / (C / 4), c4 = e % (C / 4);
+    const int y = p / SW, x = p % SW;
+    const int gy = r0 - 1 + y, gx = q0 - 1 + x;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gy >= 0 && gy < HH && gx >= 0 && gx < WH) {
+      const size_t at = (frame + (size_t)gy * WH + gx) * C + 4 * c4;
+      v = ldg4(src + at);
+      if constexpr (MASK) {
+        v = mul_mask(v, ldg4(src_mask + at));
+        if (y >= 1 && y <= TH && x >= 1 && x <= TW) *reinterpret_cast<float4*>(own + at) = v;
+      }
+    }
+    *reinterpret_cast<float4*>(plane + p * kPix + 4 * c4) = v;
   }
 }
+
+// gz_out = conv^T(gz_in; k) * mask(act), all (B, HH, WH, C); k is the
+// forward's (C, C, 3, 3) OIHW kernel. FIRST: gz_in = src * mask(src_mask),
+// computed as it is staged, and the tile's own part written to gz_in_out
+// (gz3); else gz_in = src.
+template <int C, bool FIRST>
+__global__ void __launch_bounds__(FtLayout<C>::kThreads, FtLayout<C>::kBlocks)
+    conv_t_col_kernel(const float* __restrict__ src, const float* __restrict__ src_mask, const float* __restrict__ k,
+                      const float* __restrict__ act, float* __restrict__ gz_in_out, float* __restrict__ gz_out,
+                      int HH, int WH) {
+  using L = FtLayout<C>;
+  constexpr int R = L::kR, NJ = L::kNJ;
+  extern __shared__ float4 ft_smem[];
+  float* plane = reinterpret_cast<float*>(ft_smem);
+  float* w_s = plane + L::kW;
+  const int b = blockIdx.z;
+  const int r0 = blockIdx.y * L::kTH;
+  const int q0 = blockIdx.x * L::kTW;
+  const size_t frame = (size_t)b * HH * WH;
+
+  // ds[u, ci] = sum_{ky, kx, co} gz[u + (ky - 1, kx - 1), co] * k[co, ci, 2 - ky, 2 - kx]: a conv
+  // over the mirrored taps with input channel co; the weights land while the cotangent is staged
+  stage_weights_t_async<C, C, L::kThreads, true>(w_s, k);
+  cp_async_commit();
+  stage_plane<C, L::kSH, L::kSW, L::kTH, L::kTW, L::kThreads, FIRST>(plane, src, src_mask, gz_in_out, frame, r0,
+                                                                       q0, HH, WH);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int tn = threadIdx.x % L::kG, u = threadIdx.x / L::kG;
+  const int y0 = (u / L::kTW) * R, x = u % L::kTW;
+  float acc[R][4 * NJ];
+  conv_col_s1<C, R, NJ, L::kPix, L::kUnroll>(acc, plane + (y0 * L::kSW + x) * L::kPix, L::kSW, w_s, tn);
+  const int gx = q0 + x;
+  if (gx >= WH) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int gy = r0 + y0 + r;
+    if (gy >= HH) break;
+    const size_t at = (frame + (size_t)gy * WH + gx) * C;
+#pragma unroll
+    for (int h = 0; h < NJ; ++h) {
+      const int co = 4 * tn + h * (C / NJ);
+      const float4 v = make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2], acc[r][4 * h + 3]);
+      *reinterpret_cast<float4*>(gz_out + at + co) = mul_mask(v, ldg4(act + at + co));
+    }
+  }
+}
+
+// dx (B, 2 HH, 2 WH, 16) = conv1^T(gz1 (B, HH, WH, 32)); k1 is (32, 16, 3, 3)
+// OIHW. Phase (py, px) writes dx pixels (2 a + py, 2 c + px) from the taps
+// with ky & 1 = py, kx & 1 = px, which read gz1 at (a - [ky == 2], c - [kx == 2]).
+__global__ void __launch_bounds__(Ft1Layout::kThreads, Ft1Layout::kBlocks)
+    conv1_t_col_kernel(const float* __restrict__ gz1, const float* __restrict__ k1, float* __restrict__ dx, int HH,
+                       int WH) {
+  using L = Ft1Layout;
+  constexpr int C = L::C, CIN = L::CIN, R = L::kR;
+  extern __shared__ float4 ft_smem[];
+  float* plane = reinterpret_cast<float*>(ft_smem);
+  float* w_s = plane + L::kW;  // [tap][co][ci]
+  const int b = blockIdx.z;
+  const int r0 = blockIdx.y * L::kTH;
+  const int q0 = blockIdx.x * L::kTW;
+
+  stage_weights_t_async<C, CIN, L::kThreads, false>(w_s, k1);
+  cp_async_commit();
+  stage_plane<C, L::kSH, L::kSW, L::kTH, L::kTW, L::kThreads, false>(plane, gz1, nullptr, nullptr,
+                                                                       (size_t)b * HH * WH, r0, q0, HH, WH);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int tn = threadIdx.x % L::kG, u = threadIdx.x / L::kG;
+  const int y0 = (u / L::kTW) * R, x = u % L::kTW;
+  const int gx = q0 + x;
+#pragma unroll 1
+  for (int ph = 0; ph < 4; ++ph) {
+    const int py = ph / 2, px = ph % 2;
+    float acc[R][4];
+    zero_acc(acc);
+#pragma unroll 1
+    for (int ky = py; ky < 3; ky += 2)
+#pragma unroll 1
+      for (int kx = px; kx < 3; kx += 2)
+        conv_col_tap<C, CIN, R, 1, L::kPix>(
+            acc, plane + ((y0 + 1 - (ky == 2)) * L::kSW + x + 1 - (kx == 2)) * L::kPix, L::kSW,
+            w_s + (ky * 3 + kx) * C * CIN + 4 * tn);
+    if (gx >= WH) continue;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int gy = r0 + y0 + r;
+      if (gy >= HH) break;
+      *reinterpret_cast<float4*>(dx + (((size_t)b * 2 * HH + 2 * gy + py) * 2 * WH + 2 * gx + px) * CIN + 4 * tn) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+  }
+}
+
+// level 0's dx: one thread a half-res position
+constexpr int kPlThreads = 256;
+constexpr int kPlTH = 8;    // tile rows
+constexpr int kPlTW = 32;   // tile columns
 
 // dx (B, 2 HH, 2 WH, CIN) = conv1^T(gz1 (B, HH, WH, C)); k1 is (C, CIN, 3, 3) OIHW.
 template <typename T, int CIN, int C>
@@ -191,42 +309,46 @@ __global__ void __launch_bounds__(kPlThreads)
   }
 }
 
-template <typename T, int C>
-cudaError_t launch_conv_t_s1(const T* gz_in, const T* k, const T* act, T* gz_out, int B, int HH,
-                             int WH, cudaStream_t stream) {
-  using L = ConvTLayout<C>;
-  auto kernel = conv_t_s1_kernel<T, C>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L::kBytes);
+template <int CIN, int C>
+cudaError_t run_f32(const void* g, const void* out, const void* s1, const void* s2, const void* k1,
+                    const void* k2, const void* k3, void* gz1, void* gz2, void* gz3, void* dx, int B, int H,
+                    int W, cudaStream_t stream) {
+  using L = FtLayout<C>;
+  const int HH = H / 2, WH = W / 2;
+  // 16-byte accesses to every activation and cotangent
+  const void* ptrs[] = {g, out, s1, s2, gz1, gz2, gz3, dx};
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return cudaErrorInvalidValue;
+  auto k_first = conv_t_col_kernel<C, true>;
+  auto k_next = conv_t_col_kernel<C, false>;
+  cudaError_t err = cudaFuncSetAttribute(k_first, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(k_next, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((WH + kPlTW - 1) / kPlTW, (HH + kPlTH - 1) / kPlTH, B);
-  kernel<<<grid, kPlThreads, L::kBytes, stream>>>(gz_in, k, act, gz_out, HH, WH);
-  return cudaGetLastError();
-}
-
-template <typename T, int CIN, int C>
-cudaError_t run(const void* g, const void* out, const void* s1, const void* s2, const void* k1,
-                const void* k2, const void* k3, void* gz1, void* gz2, void* gz3, void* dx, int B,
-                int H, int W, cudaStream_t stream) {
-  const int HH = H / 2;
-  const int WH = W / 2;
-  const size_t n = (size_t)B * HH * WH * C;
-  auto z1 = static_cast<T*>(gz1);
-  auto z2 = static_cast<T*>(gz2);
-  auto z3 = static_cast<T*>(gz3);
-  gz3_kernel<T><<<(unsigned)((n + kPlThreads - 1) / kPlThreads), kPlThreads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(out), z3, n);
-  cudaError_t err = cudaGetLastError();
+  const dim3 grid((WH + L::kTW - 1) / L::kTW, (HH + L::kTH - 1) / L::kTH, B);
+  auto z1 = static_cast<float*>(gz1);
+  auto z2 = static_cast<float*>(gz2);
+  k_first<<<grid, L::kThreads, L::kBytes, stream>>>(static_cast<const float*>(g), static_cast<const float*>(out),
+                                                     static_cast<const float*>(k3), static_cast<const float*>(s2),
+                                                     static_cast<float*>(gz3), z2, HH, WH);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_conv_t_s1<T, C>(z3, static_cast<const T*>(k3), static_cast<const T*>(s2), z2, B, HH,
-                               WH, stream);
-  if (err != cudaSuccess) return err;
-  err = launch_conv_t_s1<T, C>(z2, static_cast<const T*>(k2), static_cast<const T*>(s1), z1, B, HH,
-                               WH, stream);
+  k_next<<<grid, L::kThreads, L::kBytes, stream>>>(z2, nullptr, static_cast<const float*>(k2),
+                                                    static_cast<const float*>(s1), nullptr, z1, HH, WH);
+  err = cudaGetLastError();
   if (err != cudaSuccess || dx == nullptr) return err;
-  const dim3 grid((WH + kPlTW - 1) / kPlTW, (HH + kPlTH - 1) / kPlTH, B);
-  conv_t_s2_kernel<T, CIN, C><<<grid, kPlThreads, 0, stream>>>(z1, static_cast<const T*>(k1),
-                                                               static_cast<T*>(dx), HH, WH);
+  if constexpr (CIN == 16) {
+    using L1 = Ft1Layout;
+    err = cudaFuncSetAttribute(conv1_t_col_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L1::kBytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid1((WH + L1::kTW - 1) / L1::kTW, (HH + L1::kTH - 1) / L1::kTH, B);
+    conv1_t_col_kernel<<<grid1, L1::kThreads, L1::kBytes, stream>>>(z1, static_cast<const float*>(k1),
+                                                                     static_cast<float*>(dx), HH, WH);
+  } else {
+    const dim3 grid_fma((WH + kPlTW - 1) / kPlTW, (HH + kPlTH - 1) / kPlTH, B);
+    conv_t_s2_kernel<float, CIN, C><<<grid_fma, kPlThreads, 0, stream>>>(z1, static_cast<const float*>(k1),
+                                                                         static_cast<float*>(dx), HH, WH);
+  }
   return cudaGetLastError();
 }
 
@@ -480,8 +602,8 @@ extern "C" int pwc_pyramid_level_bwd(const void* g, const void* out, const void*
   const bool l0 = cin == 3 && c == 16;
   const bool l1 = cin == 16 && c == 32;
 #define PWC_BWD_ARGS g, out, s1, s2, k1, k2, k3, gz1, gz2, gz3, dx
-  if (dtype == pwc::kF32 && l0) return pwc::run<float, 3, 16>(PWC_BWD_ARGS, B, H, W, s);
-  if (dtype == pwc::kF32 && l1) return pwc::run<float, 16, 32>(PWC_BWD_ARGS, B, H, W, s);
+  if (dtype == pwc::kF32 && l0) return pwc::run_f32<3, 16>(PWC_BWD_ARGS, B, H, W, s);
+  if (dtype == pwc::kF32 && l1) return pwc::run_f32<16, 32>(PWC_BWD_ARGS, B, H, W, s);
   if (dtype == pwc::kBF16 && l0) return pwc::run_bf16<3, 16>(PWC_BWD_ARGS, packed, B, H, W, s);
   if (dtype == pwc::kBF16 && l1) return pwc::run_bf16<16, 32>(PWC_BWD_ARGS, packed, B, H, W, s);
 #undef PWC_BWD_ARGS
@@ -504,4 +626,26 @@ extern "C" int pwc_pyramid_level_bwd_smem_bytes(int c, int conv1) {
   if (c == 16) return conv1 ? 0 : pwc::BwLayout<16>::kBytes;
   if (c == 32) return conv1 ? pwc::Bw1Layout<32>::kBytes : pwc::BwLayout<32>::kBytes;
   return 0;
+}
+
+// a float32 kernel of a level, for the build log: `which` 0 conv3^T (gz3
+// folded in), 1 conv2^T, 2 conv1^T (c = 32); its dynamic shared memory,
+// threads and resident blocks an SM
+template <typename L, typename Kernel>
+static cudaError_t f32_info(Kernel kernel, int* smem, int* threads, int* blocks) {
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+  if (err != cudaSuccess) return err;
+  *smem = (int)L::kBytes;
+  *threads = L::kThreads;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, L::kThreads, L::kBytes);
+}
+
+extern "C" int pwc_pyramid_level_bwd_f32_info(int c, int which, int* smem, int* threads, int* blocks) {
+  using pwc::FtLayout;
+  if (c == 16 && which == 0) return f32_info<FtLayout<16>>(pwc::conv_t_col_kernel<16, true>, smem, threads, blocks);
+  if (c == 16 && which == 1) return f32_info<FtLayout<16>>(pwc::conv_t_col_kernel<16, false>, smem, threads, blocks);
+  if (c == 32 && which == 0) return f32_info<FtLayout<32>>(pwc::conv_t_col_kernel<32, true>, smem, threads, blocks);
+  if (c == 32 && which == 1) return f32_info<FtLayout<32>>(pwc::conv_t_col_kernel<32, false>, smem, threads, blocks);
+  if (c == 32 && which == 2) return f32_info<pwc::Ft1Layout>(pwc::conv1_t_col_kernel, smem, threads, blocks);
+  return cudaErrorInvalidValue;
 }

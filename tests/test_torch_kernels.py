@@ -97,8 +97,10 @@ _F32_LEVEL_EDGE = [
 ]
 
 
-# K6 levels whose half sizes no tile of its kernels divides (bf16 8 x 56, float32 8 x 32)
-_BWD_EDGE = [((1, 34, 150, 3), 16), ((2, 26, 130, 16), 32)]
+# K6 levels whose half sizes no tile of its kernels divides (bf16 8 x 56;
+# float32 16 x 28 at level 0, 12 x 28 at level 1), and a frame smaller than
+# one tile at each level
+_BWD_EDGE = [((1, 34, 150, 3), 16), ((2, 26, 130, 16), 32), ((1, 2, 2, 16), 32), ((1, 6, 10, 3), 16)]
 
 
 @pytest.fixture
@@ -386,8 +388,9 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("shape,c", [((2, 20, 70, 3), 16), ((1, 18, 36, 16), 32), *_BWD_EDGE])
     def test_pyramid_level_bwd(self, cuda_device, rng, dtype, need_dx, shape, c):
         """K6 at both levels, with and without dx, at half sizes that no
-        tile of its kernels divides (bf16: 8 x 56; float32: 8 x 32); two
-        launches on the same inputs give the same bits."""
+        tile of its kernels divides (bf16: 8 x 56; float32: 16 x 28 and
+        12 x 28) and at frames under one tile; two launches on the same
+        inputs give the same bits."""
         from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_bwd_plain
 
         x = torch.from_numpy(_normal(rng, shape)).to(cuda_device, dtype)
