@@ -10,10 +10,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build: compile every CUDA kernel from ``pwcnet_tpu_torch/csrc`` with
    nvcc (one process per source, all at once); log each kernel's registers
    and spills, the wgmma and correlation kernels' dynamic shared memory,
-   the float32 K3, K6 and K7 kernels' shared memory, threads and resident
-   blocks an SM (K6's float32 kernels must not spill) and K7's float32
-   tile at each main-path shape, and the correlation's tile and cluster
-   size at each main-path shape;
+   the float32 K3, K6 and K7 kernels' and K4's shared memory, threads and
+   resident blocks an SM (K6's float32 kernels and K4 must not spill), K7's
+   float32 tile at each main-path shape, the correlation's tile and cluster
+   size and K4's and K8b's tile rows and blocks at each main-path shape;
 3. kernels: K1 (warped cost volume), K2 (cost volume) and K3 (fused
    pyramid level) at every shape the 448x1024 serving forward gives them,
    at batch 1 and 8, in float32 and bfloat16, against their plain PyTorch
@@ -1723,6 +1723,10 @@ def log_build(report):
     for entry, counts in spills.items():
         if entry.startswith(("conv_t_col_kernel", "conv1_t_col_kernel")):
             require(counts <= {"0"}, f"ptxas spills registers in K6's float32 {entry}")
+        if entry.startswith("cv_bwd_kernel"):
+            require(counts <= {"0"}, f"ptxas spills registers in K4's {entry}")
+    if report.get("cost_volume_bwd", {}).get("ptxas"):  # built in this run, not cached
+        require(any(e.startswith("cv_bwd_kernel") for e in spills), "no ptxas report of K4's cv_bwd_kernel")
     k3 = _build.load("pyramid_conv").pwc_pyramid_level_smem_bytes
     k7 = _build.load("estimator_conv").pwc_estimator_conv_smem_bytes
     k3.argtypes, k7.argtypes = [ctypes.c_int] * 2, [ctypes.c_int]
@@ -1771,6 +1775,24 @@ def log_build(report):
         f32_info.append(f"{label} {smem} B, {threads} threads, {blocks} blocks an SM")
     log("  float32 kernels (dynamic shared memory, threads, resident blocks an SM): "
         + "; ".join(f32_info))
+    f4 = _build.load("cost_volume_bwd").pwc_cost_volume_bwd_info
+    f4.argtypes = [ctypes.c_int] * 3 + [ip] * 3
+    k4_info = []
+    for dcode, dname in ((0, "f32"), (1, "bf16")):
+        for th in _common.CV_BWD_TILE_ROWS:
+            label = f"cv_bwd_kernel<{dname},{SEARCH_RANGE},{th}>"
+            smem, threads, blocks = ints(f4, label, SEARCH_RANGE, dcode, th)
+            require(blocks > 0, f"{label} does not fit an SM")
+            k4_info.append(f"{label} {smem} B, {threads} threads, {blocks} blocks an SM")
+    log("  K4 / K8b (dynamic shared memory, threads, resident blocks an SM): " + "; ".join(k4_info))
+    k4_plans = []
+    for kid, shapes, pad in (("K4", K2_TRAIN + K1_TRAIN, 0), ("K8b", K9_TRAIN, SEARCH_RANGE)):
+        for h, w, c in shapes:
+            h = h // SHARDS if pad else h
+            th = _common.cv_bwd_plan(8, h, w, c, pad)
+            k4_plans.append(f"{kid} 8x{h}x{w}x{c}: tile {th}x{_common.CV_BWD_TILE_W}, "
+                            f"{_common.cv_bwd_blocks(8, h, w, c, pad, th)} blocks")
+    log("  K4 / K8b launch plans (one launch, both halves): " + "; ".join(k4_plans))
     log("  float32 K7 tiles (N x columns) of the six convs and of K7b's dxin: " + "; ".join(tiles))
     plans = []
     for kid, shapes, b in (("K2", K2_SHAPES, 8), ("K1", K1_SHAPES, 8), ("K2", K2_TRAIN, 8), ("K1", K1_TRAIN, 8),

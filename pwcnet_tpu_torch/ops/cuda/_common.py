@@ -102,6 +102,37 @@ def correlation_plan(w: int, c: int) -> tuple[int, int]:
     return tw, next((s for c_min, s in CORR_SPLIT_MIN_C if c >= c_min), 1)
 
 
+# The cost-volume backward's tiling (csrc/cost_volume_bwd.cu): tiles of 8
+# columns and 8, 4 or 2 rows, 32 channels a block, a thread 4 channels of 4
+# columns of one row; df1's tiles (over the h + 2 pad rows) and df0's in one grid
+CV_BWD_TILE_W = 8
+CV_BWD_CHUNK = 32
+CV_BWD_THREAD_CHANNELS = 4
+CV_BWD_THREAD_COLUMNS = 4
+CV_BWD_TILE_ROWS = (8, 4, 2)
+CV_BWD_MIN_BLOCKS = 264  # two blocks an SM of the H100's 132
+
+
+def cv_bwd_blocks(b: int, h: int, w: int, c: int, pad: int, tile_rows: int) -> int:
+    """Blocks of one cost-volume backward launch: df1's tiles over the
+    ``h + 2 pad`` rows, then df0's over ``h``, each times the column tiles,
+    the 32-channel chunks and the batch."""
+    per_row = b * -(-w // CV_BWD_TILE_W) * -(-c // CV_BWD_CHUNK)
+    return per_row * (-(-(h + 2 * pad) // tile_rows) + -(-h // tile_rows))
+
+
+def cv_bwd_plan(b: int, h: int, w: int, c: int, pad: int = 0) -> int:
+    """Tile rows of the cost-volume backward (K4, K8b with ``pad = d``) on
+    (B, H, W, C): the tallest tile (8, 4, 2) whose grid holds
+    ``CV_BWD_MIN_BLOCKS``, else the shortest. Channels and tiles are
+    independent and every output keeps its summation order, so the plan
+    changes no bit."""
+    for th in CV_BWD_TILE_ROWS:
+        if cv_bwd_blocks(b, h, w, c, pad, th) >= CV_BWD_MIN_BLOCKS:
+            return th
+    return CV_BWD_TILE_ROWS[-1]
+
+
 def kernel(lib_name: str, fn_name: str, argtypes: list):
     """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu``, typed."""
     lib = _build.load(lib_name)

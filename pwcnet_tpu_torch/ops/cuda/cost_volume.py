@@ -27,7 +27,7 @@ __all__ = [
 ]
 
 _ARGTYPES = [P, P, P] + [I] * 8 + [P]
-_BWD_ARGTYPES = [P] * 6 + [I] * 6 + [P]
+_BWD_ARGTYPES = [P] * 6 + [I] * 7 + [P]
 MAX_SEARCH_RANGE = 4
 
 
@@ -81,7 +81,7 @@ def cost_volume_bwd(
     _common.launch(
         "cost_volume_bwd", "pwc_cost_volume_bwd", _BWD_ARGTYPES, f0.device,
         f0.data_ptr(), f1.data_ptr(), out.data_ptr(), g.data_ptr(), df0.data_ptr(), df1.data_ptr(),
-        b, h, w, c, d, _common.DTYPE_CODES[f0.dtype],
+        b, h, w, c, d, _common.DTYPE_CODES[f0.dtype], _common.cv_bwd_plan(b, h, w, c),
     )
     cost_volume_bwd.launches += 1
     return df0, df1
@@ -152,7 +152,7 @@ def cost_volume_hpad_bwd(
     _common.launch(
         "cost_volume_bwd", "pwc_cost_volume_hpad_bwd", _BWD_ARGTYPES, f0.device,
         f0.data_ptr(), f1_ext.data_ptr(), out.data_ptr(), g.data_ptr(), df0.data_ptr(), df1_ext.data_ptr(),
-        b, h, w, c, d, _common.DTYPE_CODES[f0.dtype],
+        b, h, w, c, d, _common.DTYPE_CODES[f0.dtype], _common.cv_bwd_plan(b, h, w, c, d),
     )
     cost_volume_hpad_bwd.launches += 1
     return df0, df1_ext

@@ -2,21 +2,27 @@
 """The float32 conv kernels on the card, an earlier version against the
 current one against cuDNN: K3 (the fused pyramid level), K6 (its
 backward) and K7's implicit-GEMM core (the estimator chain forward, and
-K7b's transposed stages), B=8, float32, TF32 off.
+K7b's transposed stages), B=8, float32, TF32 off; and K4, the cost
+volume's backward (with K8b, its row-shard form), old against current in
+float32 and bf16.
 
     python3 scripts/torch_f32_conv_time.py [--old <dir holding an older csrc/>] [--rounds 2]
-                                           [--kernels K3 K6 K7]
+                                           [--kernels K3 K6 K7 K4]
 
 ``--old`` is the ``pwcnet_tpu_torch/csrc`` directory of an earlier commit
 (for example unpacked by ``git archive``); its sources of the chosen
-kernels (``pyramid_conv.cu``, ``pyramid_conv_bwd.cu``, ``estimator_conv.cu``
-and ``estimator_conv_bwd.cu``) are compiled with nvcc into a temporary
-directory and called through the same C entries as the current
-package's. Shapes: K3 at levels 0 and 1 of the 448x1024 serving forward
-and of the 384x448 training step; K6 at the training step's two levels
-(dx at level 1 only, as the step asks), its old-vs-current check also
-with dx at both levels and at edge frames no tile divides; K7 and K7b at
-levels 3 and 4 of both. The old kernels' largest differences from the
+kernels (``pyramid_conv.cu``, ``pyramid_conv_bwd.cu``, ``estimator_conv.cu``,
+``estimator_conv_bwd.cu`` and ``cost_volume_bwd.cu``) are compiled with nvcc
+into a temporary directory and called through the same C entries as the
+current package's (an old K4 entry takes no tile plan). Shapes: K3 at
+levels 0 and 1 of the 448x1024 serving forward and of the 384x448
+training step; K6 at the training step's two levels (dx at level 1 only,
+as the step asks), its old-vs-current check also with dx at both levels
+and at edge frames no tile divides; K7 and K7b at levels 3 and 4 of both;
+K4 (``pwc_cost_volume_bwd``) at the training step's five calls and K8b
+(``pwc_cost_volume_hpad_bwd``) at its four sharded levels per rank of 2,
+both also checked at two edge frames, in float32 and bf16 (K4 has no
+cuDNN yardstick). The old kernels' largest differences from the
 current ones come first. Each round times old, current and cuDNN in turn
 with CUDA events, every second round in reverse order (inputs reused, so
 they sit in L2 as in the model); the
@@ -42,6 +48,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from pwcnet_tpu_torch.ops.cuda import _build  # noqa: E402
+from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_bwd, cost_volume_hpad_bwd  # noqa: E402
 from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd, estimator_chain_residuals  # noqa: E402
 from pwcnet_tpu_torch.ops.cuda.pyramid_conv import (  # noqa: E402
     pyramid_level_bwd, pyramid_level_fused, pyramid_level_residuals)
@@ -60,6 +67,14 @@ K6_KERNELS = ("gz3_kernel", "conv_t_", "conv1_t_")
 K7_SHAPES = (("train L3", 48, 56, 179), ("train L4", 96, 112, 147),
              ("serve L3", 56, 128, 179), ("serve L4", 112, 256, 147))
 COUTS = (128, 128, 96, 64, 32, 2)
+# K4: (label, B, H, W, C, d) at the training step's five calls, deep to
+# fine; K8b at its four sharded levels (one rank of 2 at 384x448); edge
+# frames (checked only) no tile divides, one with C off the 16-byte vector
+K4_SHAPES = (("train K2", 8, 6, 7, 192, 4), ("train L1", 8, 12, 14, 128, 4), ("train L2", 8, 24, 28, 96, 4),
+             ("train L3", 8, 48, 56, 64, 4), ("train L4", 8, 96, 112, 32, 4))
+K8B_SHAPES = (("shard L1", 8, 6, 14, 128, 4), ("shard L2", 8, 12, 28, 96, 4), ("shard L3", 8, 24, 56, 64, 4),
+              ("shard L4", 8, 48, 112, 32, 4))
+K4_EDGE = (("edge", 2, 9, 37, 40, 4), ("edge", 1, 9, 13, 5, 1))
 P, I = ctypes.c_void_p, ctypes.c_int
 PP, IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 
@@ -77,7 +92,8 @@ def ms(fn, iters=20, warmup=3):
     return a.elapsed_time(b) / iters
 
 
-SOURCES = {"K3": ("pyramid_conv",), "K6": ("pyramid_conv_bwd",), "K7": ("estimator_conv", "estimator_conv_bwd")}
+SOURCES = {"K3": ("pyramid_conv",), "K6": ("pyramid_conv_bwd",), "K7": ("estimator_conv", "estimator_conv_bwd"),
+           "K4": ("cost_volume_bwd",)}
 
 
 def build_old(old: Path, tmp: Path, kernels) -> dict:
@@ -99,6 +115,8 @@ def build_old(old: Path, tmp: Path, kernels) -> dict:
         ("pyramid_conv_bwd", "pwc_pyramid_level_bwd"): [P] * 12 + [I] * 6 + [P],
         ("estimator_conv", "pwc_estimator_chain"): [P, PP, PP, PP, P, IP] + [I] * 4 + [P],
         ("estimator_conv_bwd", "pwc_estimator_chain_bwd"): [P, P, PP, PP, PP, P, IP] + [I] * 4 + [P],
+        ("cost_volume_bwd", "pwc_cost_volume_bwd"): [P] * 6 + [I] * 6 + [P],
+        ("cost_volume_bwd", "pwc_cost_volume_hpad_bwd"): [P] * 6 + [I] * 6 + [P],
     }
     for (name, fn), types in argtypes.items():
         if name in libs:
@@ -331,12 +349,49 @@ def run_k7(libs, gen, dev, stream, rounds):
                     emit(kernel="K7b", variant=variant, shape=shape, per_conv=conv_split(bwd[variant]))
 
 
+def run_k4(libs, gen, dev, stream, rounds):
+    """K4 and K8b, old against current, float32 and bf16: the largest
+    difference of each call first (0.0: the same bits), then the times."""
+    dtypes = {"float32": (torch.float32, 0), "bfloat16": (torch.bfloat16, 1)}
+    cases = [("K4", *s) for s in K4_SHAPES + K4_EDGE] + [("K8b", *s) for s in K8B_SHAPES + K4_EDGE]
+    for dname, (dtype, code) in dtypes.items():
+        for kid, label, b, h, w, c, d in cases:
+            halo = d if kid == "K8b" else 0
+            f0 = torch.randn((b, h, w, c), generator=gen, device=dev).to(dtype)
+            f1 = torch.randn((b, h + 2 * halo, w, c), generator=gen, device=dev).to(dtype)
+            out = torch.randn((b, h, w, (2 * d + 1) ** 2), generator=gen, device=dev).to(dtype)
+            g = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+            wrapper = cost_volume_hpad_bwd if kid == "K8b" else cost_volume_bwd
+            turns = {"current": lambda: wrapper(f0, f1, out, g, d)}
+            shape = f"{label} {dname} {b}x{h}x{w}x{c} d={d}"
+            if libs:
+                fn = getattr(libs["cost_volume_bwd"], "pwc_cost_volume_hpad_bwd" if halo else "pwc_cost_volume_bwd")
+                df0, df1 = torch.empty_like(f0), torch.empty_like(f1)
+
+                def old():
+                    if fn(f0.data_ptr(), f1.data_ptr(), out.data_ptr(), g.data_ptr(), df0.data_ptr(),
+                          df1.data_ptr(), b, h, w, c, d, code, stream()):
+                        raise SystemExit(f"the old {kid} failed to launch")
+                old()
+                new = turns["current"]()
+                torch.cuda.synchronize()
+                emit(kernel=kid, check="old vs current", shape=shape,
+                     max_abs_diff={k: (o.float() - n.float()).abs().max().item()
+                                   for k, o, n in zip(("df0", "df1"), (df0, df1), new)},
+                     bitwise=all(torch.equal(o, n) for o, n in zip((df0, df1), new)))
+                turns = {"old": old, **turns}
+            if label == "edge":
+                continue
+            for rnd in range(rounds):
+                time_turns(kid, shape, turns, rnd)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, help="csrc/ directory of the earlier commit")
     ap.add_argument("--rounds", type=int, default=2, help="times each (old, current, cuDNN) turn is taken")
-    ap.add_argument("--kernels", nargs="+", choices=("K3", "K6", "K7"), default=("K3", "K6", "K7"),
-                    help="which kernels (K7 includes K7b)")
+    ap.add_argument("--kernels", nargs="+", choices=("K3", "K6", "K7", "K4"), default=("K3", "K6", "K7", "K4"),
+                    help="which kernels (K7 includes K7b, K4 K8b)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA card")
@@ -347,11 +402,11 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    runs = {"K3": run_k3, "K6": run_k6, "K7": run_k7}
+    runs = {"K3": run_k3, "K6": run_k6, "K7": run_k7, "K4": run_k4}
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_old(args.old.resolve(), Path(tmp), args.kernels) if args.old else {}
         with torch.inference_mode():
-            for kid in ("K3", "K6", "K7"):
+            for kid in ("K3", "K6", "K7", "K4"):
                 if kid in args.kernels:
                     runs[kid](libs, gen, dev, stream, args.rounds)
     print(card)

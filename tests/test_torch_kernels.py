@@ -103,6 +103,11 @@ _F32_LEVEL_EDGE = [
 _BWD_EDGE = [((1, 34, 150, 3), 16), ((2, 26, 130, 16), 32), ((1, 2, 2, 16), 32), ((1, 6, 10, 3), 16)]
 
 
+# K4 at the five calls of the 384x448 training step (B=1; deep to fine)
+_CV_BWD_TRAIN = [((1, 6, 7, 192), 4), ((1, 12, 14, 128), 4), ((1, 24, 28, 96), 4), ((1, 48, 56, 64), 4),
+                 ((1, 96, 112, 32), 4)]
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
@@ -351,8 +356,11 @@ class TestKernelsOnCard:
         _assert_close(got, pyramid_level_plain(x, *tp), dtype)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("shape,d", [((2, 9, 37, 40), 4), ((1, 6, 7, 192), 4), ((1, 5, 6, 3), 2)])
+    @pytest.mark.parametrize("shape,d", [((2, 9, 37, 40), 4), ((1, 6, 7, 192), 4), ((1, 5, 6, 3), 2)] + _CV_BWD_TRAIN
+                             + [((1, 9, 13, 5), 1)])
     def test_cost_volume_bwd(self, cuda_device, rng, dtype, shape, d):
+        """K4 in one launch, against its plain version; a rerun gives the
+        same bits (no atomics: each output is one ordered sum)."""
         from pwcnet_tpu_torch.ops.cost_volume import cost_volume_bwd_plain
         from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_bwd
 
@@ -366,6 +374,7 @@ class TestKernelsOnCard:
         assert cost_volume_bwd.launches == before + 1
         for a, b in zip(got, cost_volume_bwd_plain(f0, f1, out, g, d)):
             _assert_close(a, b, dtype)
+        assert all(torch.equal(a, b) for a, b in zip(got, cost_volume_bwd(f0, f1, out, g, d)))
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("shape,fscale", [((2, 14, 33, 32), 3.0), ((1, 10, 12, 5), 40.0), ((1, 12, 14, 128), 0.4)])
