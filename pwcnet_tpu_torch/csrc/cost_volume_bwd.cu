@@ -38,8 +38,9 @@
 // dtype by 16-byte cp.async (4 float32 or 8 bf16 channels; zero-filled
 // outside the frame's rows and columns), all issued before any is waited
 // for; while they fly, the gt values the tile needs for all 81 taps are
-// loaded in batches of kCvbBatch per thread, every load of a batch issued
-// before its shared stores, and stored once: df0's are the tile's own
+// loaded in batches of kCvbBatch per thread (read-only loads with a 256-byte
+// L2 fill), every load of a batch issued before its shared stores, and
+// stored once: df0's are the tile's own
 // pixels' taps, df1's only the (pixel, tap) pairs some output of the tile
 // reads (TH x 9 x 8 x 9 at d = 4, not the (8 + 2d) x 9 columns of all
 // shifts). Both are TH x 8 x 81 floats (20.7 KB at TH = 8). One barrier,
@@ -61,9 +62,12 @@
 // operations, about 30 operations a byte at C = 32; in float32 the larger
 // of (2 * 81 + 4C) * 4 bytes and 4 * 81 * C operations at 67 TFLOP/s. The
 // kernel reads g and out once per 32-channel chunk and per half (L2 serves
-// the repeats) and the window's halo once per tile; at the coarse levels
-// it is bound by the latency of its staging, at the finest by the L2 reads
-// of df1's scattered gt runs and the shared-memory reads of its loop.
+// the repeats), df1's gt as 9-tap runs of the tile's 8 + 2d columns and the
+// window with its halo (4x the tile at 8 x 8, d = 4). At the coarse levels
+// it is bound by the latency of its staging; at the finest the gt loads
+// take over half its time (the tap loop under a fifth), held by the L2 and
+// device-memory traffic this tiling moves, not by the order of the loads:
+// see PERF.md.
 #include "common.cuh"
 
 namespace pwc {
@@ -114,6 +118,20 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&a)[4]) {
   q.x = *reinterpret_cast<const unsigned*>(&lo);
   q.y = *reinterpret_cast<const unsigned*>(&hi);
   *reinterpret_cast<uint2*>(p) = q;
+}
+
+// One value of g or out as float32, by the read-only path with a 256-byte
+// L2 fill: df1's gt runs are 9 taps of pixels 81 taps apart, and the
+// neighbouring runs other slots and tiles read come in with the first
+__device__ __forceinline__ float ld_gt(const float* p) {
+  float v;
+  asm("ld.global.nc.L2::256B.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float ld_gt(const __nv_bfloat16* p) {
+  unsigned short v;
+  asm("ld.global.nc.L2::256B.b16 %0, [%1];" : "=h"(v) : "l"(p));
+  return __uint_as_float((unsigned)v << 16);  // bf16 -> float32 is exact
 }
 
 // Where slot e of the gt staging reads g and out (false: outside the frame,
@@ -216,8 +234,8 @@ __device__ __forceinline__ void cv_bwd_tile(const T* __restrict__ g, const T* __
       gv[j] = 0.f;
       ov[j] = 0.f;
       if (j0 + j < PER && e < L::kGt && gt_source<D, DF1>(e, y0, x0, H, W, frame, at)) {
-        gv[j] = to_f32(g[at]);
-        ov[j] = to_f32(out[at]);
+        gv[j] = ld_gt(g + at);
+        ov[j] = ld_gt(out + at);
       }
     }
 #pragma unroll

@@ -22,7 +22,9 @@ and at edge frames no tile divides; K7 and K7b at levels 3 and 4 of both;
 K4 (``pwc_cost_volume_bwd``) at the training step's five calls and K8b
 (``pwc_cost_volume_hpad_bwd``) at its four sharded levels per rank of 2,
 both also checked at two edge frames, in float32 and bf16 (K4 has no
-cuDNN yardstick). The old kernels' largest differences from the
+cuDNN yardstick; its old body is two kernels, df0 then df1, the current
+one kernel, each given in device time by torch.profiler too). The old
+kernels' largest differences from the
 current ones come first. Each round times old, current and cuDNN in turn
 with CUDA events, every second round in reverse order (inputs reused, so
 they sit in L2 as in the model); the
@@ -384,6 +386,9 @@ def run_k4(libs, gen, dev, stream, rounds):
                 continue
             for rnd in range(rounds):
                 time_turns(kid, shape, turns, rnd)
+            if rounds:  # device time: the coarse calls are shorter than their host time
+                for variant, call in turns.items():
+                    emit(kernel=kid, variant=variant, shape=shape, per_kernel=conv_split(call, ("cv_bwd_kernel",)))
 
 
 def main():
