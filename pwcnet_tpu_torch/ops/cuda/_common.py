@@ -103,12 +103,10 @@ def correlation_plan(w: int, c: int) -> tuple[int, int]:
 
 
 # The cost-volume backward's tiling (csrc/cost_volume_bwd.cu): tiles of 8
-# columns and 8, 4 or 2 rows, 32 channels a block, a thread 4 channels of 4
-# columns of one row; df1's tiles (over the h + 2 pad rows) and df0's in one grid
+# columns and 8, 4 or 2 rows, 32 channels a block; df1's tiles (over the
+# h + 2 pad rows) and df0's in one grid
 CV_BWD_TILE_W = 8
 CV_BWD_CHUNK = 32
-CV_BWD_THREAD_CHANNELS = 4
-CV_BWD_THREAD_COLUMNS = 4
 CV_BWD_TILE_ROWS = (8, 4, 2)
 CV_BWD_MIN_BLOCKS = 264  # two blocks an SM of the H100's 132
 

@@ -27,7 +27,7 @@ import pytest
 from pwcnet_tpu_torch.ops.cuda import _build, _common
 
 TW, CC = _common.CV_BWD_TILE_W, _common.CV_BWD_CHUNK
-CPT, PX = _common.CV_BWD_THREAD_CHANNELS, _common.CV_BWD_THREAD_COLUMNS
+CPT, PX = 4, 4  # a thread's channels and tile columns (kCvbCPT, kCvbPX)
 GROUPS = CC // CPT
 
 # (B, H, W, C) of the five calls of the 384x448 training step, deep to fine
@@ -126,6 +126,7 @@ class TestCostVolumeBwdPlan:
         """The coarse calls take short tiles; the three finer ones 8 rows."""
         assert [_common.cv_bwd_plan(*s) for s in TRAIN] == [2, 4, 8, 8, 8]
         assert _common.cv_bwd_blocks(8, 6, 7, 192, 0, 8) == 96  # the single tile a frame of old
+        assert _common.cv_bwd_blocks(8, 6, 7, 192, 0, 2) == 288 >= 264  # two blocks an SM
 
     @pytest.mark.parametrize("b,h,w,c", TRAIN)
     @pytest.mark.parametrize("pad", [0, 4])
@@ -137,9 +138,6 @@ class TestCostVolumeBwdPlan:
         if th != _common.CV_BWD_TILE_ROWS[0]:  # a taller tile would not have held the target
             taller = _common.CV_BWD_TILE_ROWS[_common.CV_BWD_TILE_ROWS.index(th) - 1]
             assert _common.cv_bwd_blocks(b, h, w, c, pad, taller) < _common.CV_BWD_MIN_BLOCKS
-
-    def test_at_least_264_blocks_at_the_deepest_call(self):
-        assert _common.cv_bwd_blocks(8, 6, 7, 192, 0, _common.cv_bwd_plan(8, 6, 7, 192)) >= 264
 
     @pytest.mark.parametrize("b,h,w,c", TRAIN)
     def test_each_output_once_at_the_training_shapes(self, b, h, w, c):
