@@ -11,9 +11,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    nvcc (one process per source, all at once); log each kernel's registers
    and spills, the wgmma and correlation kernels' dynamic shared memory,
    the float32 K3, K6 and K7 kernels' and K4's shared memory, threads and
-   resident blocks an SM (K6's float32 kernels and K4 must not spill), K7's
+   resident blocks an SM (K6's float32 kernels, K4 and K5 must not spill), K7's
    float32 tile at each main-path shape, the correlation's tile and cluster
-   size and K4's and K8b's tile rows and blocks at each main-path shape;
+   size, K4's and K8b's tile rows and blocks, and K5's and K9b's lanes a
+   pixel and cooperative grid at each main-path shape;
 3. kernels: K1 (warped cost volume), K2 (cost volume) and K3 (fused
    pyramid level) at every shape the 448x1024 serving forward gives them,
    at batch 1 and 8, in float32 and bfloat16, against their plain PyTorch
@@ -24,7 +25,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    estimator's six-conv chain) forward, with and without residuals, and
    backward (every cotangent, the weight and bias gradients taken from
    them, and dxin) at the five estimator levels of both sizes; K3 and K7
-   also at edge shapes that no tile of theirs divides; then K1, K2, K3, K6,
+   also at edge shapes that no tile of theirs divides; one K5 call and one
+   K9b call must each be one device kernel, in float32 and bf16
+   (torch.profiler); then K1, K2, K3, K6,
    K7, K7b, K8 and K9, whose kernels use no float atomics, must give the
    same bits in two launches on the same inputs;
 4. serving: FlowPredictor with seeded random weights answers 448x1024
@@ -68,8 +71,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    resume, ``evaluate --spatial 2`` against the unsharded EPE); each rank
    reports its launch counts. NCCL across GPUs needs two cards and is not
    run on a one-card machine;
-8. timing: each kernel, its plain version and (K3, K6, K7) the cuDNN conv
-   chain timed with CUDA events at the main-path shapes (B=8, bf16; K3 also
+8. timing: each kernel, its plain version and its library call (K3, K6,
+   K7: the cuDNN conv chain; K5, K9b: grid_sample's backward) timed with
+   CUDA events at the main-path shapes (B=8, bf16; K3 also
    at the training step's levels), then every kernel again in float32
    beside cuDNN's float32 chains (TF32 off); pairs/s of the whole forward
    at 448x1024 B=8; device time by kernel and the device's busy share for
@@ -295,6 +299,56 @@ def cudnn_level(torch, F, x_nchw, k1, b1, k2, b2, k3, b3):
     y = F.leaky_relu(F.conv2d(y, k1, b1, stride=2), 0.1)
     y = F.leaky_relu(F.conv2d(y, k2, b2, padding=1), 0.1)
     return F.leaky_relu(F.conv2d(y, k3, b3, padding=1), 0.1)
+
+
+def grid_sample_bwd(torch, f1, flow, g, row0=0):
+    """K5's and K9b's library yardstick: a call of
+    ``aten::grid_sampler_2d_backward`` (bilinear, border, align_corners=True)
+    on the NHWC tensors viewed as NCHW, the sample ``(x + fx, y + row0 + fy)``
+    mapped to [-1, 1] once, outside the call. It computes the plain
+    versions' function (tests/test_torch_warp_bwd.py, float32); in bf16 it
+    sums ``grad_input`` with bf16 atomics, so it is a yardstick of time, not
+    of accuracy."""
+    b, hf, w, _ = f1.shape
+    ho = flow.shape[1]
+    fl = flow.float()
+    x = torch.arange(w, device=f1.device).view(1, 1, w) + fl[..., 0]
+    y = torch.arange(ho, device=f1.device).view(1, ho, 1) + row0 + fl[..., 1]
+    grid = torch.stack([x / (w - 1) * 2 - 1, y / (hf - 1) * 2 - 1], -1).to(f1.dtype)
+    gi, fi = g.permute(0, 3, 1, 2), f1.permute(0, 3, 1, 2)
+    return lambda: torch.ops.aten.grid_sampler_2d_backward(gi, fi, grid, 0, 1, True, [True, True])
+
+
+def library_ms(torch, fn, what):
+    """``cuda_ms`` of a library yardstick, or None (logged) where the
+    library does not take the dtype."""
+    try:
+        return cuda_ms(torch, fn)
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"  {what}: library call none ({str(exc).splitlines()[0][:120]})")
+        return None
+
+
+def device_ops(torch, fn, n=3, tries=3):
+    """The device operations (kernels, memsets, copies) one call of ``fn``
+    makes, by torch.profiler over ``n`` calls: ``(per call, names)``; a
+    trace that caught no device event is taken again, up to ``tries``
+    times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(tries):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return len(names) / n, sorted({nm.split("(")[0] for nm in names})
 
 
 # ------------------------------------------------------------ phases
@@ -548,7 +602,8 @@ def time_training_kernels(torch, device, b=8, dtype=None):
                     shape=f"{b}x{h}x{w}x{c}", times=1,
                     ms=cuda_ms(torch, lambda: warp_bwd(*a5)),
                     plain_ms=cuda_ms(torch, lambda: warp_bwd_plain(*a5)),
-                    library_ms=None, work=k5_work(b, h, w, c, s)))
+                    library_ms=library_ms(torch, grid_sample_bwd(torch, *a5), f"K5 {dname} {h}x{w}x{c}"),
+                    work=k5_work(b, h, w, c, s)))
         for level, (h, w, cin, c) in enumerate(K3_TRAIN):
             x, k1, b1, k2, b2, k3, b3 = k3_inputs(torch, b, h, w, cin, c, dtype, device, gen)
             out, s1, s2 = pyramid_level_plain(x, k1, b1, k2, b2, k3, b3, return_acts=True)
@@ -736,6 +791,35 @@ def check_shard_kernels(torch, F, device, compare, batches=(1, 8), dtypes=None):
                 torch.cuda.synchronize()
 
 
+def check_one_kernel_a_call(torch, F, device):
+    """One K5 call and one K9b call are one device operation each, the
+    cooperative ``warp_bwd_coop_kernel`` (no fill, no rounding kernel), in
+    float32 and bf16, at the finest training call and at its shard
+    (torch.profiler). Returns the log line's parts."""
+    from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd, warped_rows_bwd
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    d = SEARCH_RANGE
+    H, W, C = K1_TRAIN[-1]
+    h = H // SHARDS
+    found = []
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            _, f1, flow = k1_inputs(torch, 8, H, W, C, dtype, device, gen)
+            g = torch.randn(f1.shape, generator=gen, device=device).to(dtype)
+            _, flow_ext, vb = shard_inputs(torch, F, f1, flow, 1, h, d)
+            dwe = torch.randn((8, h + 2 * d, W, C), generator=gen, device=device).to(dtype)
+            calls = (("K5", lambda: warp_bwd(f1, flow, g)), ("K9b", lambda: warped_rows_bwd(f1, flow_ext, vb, dwe, d)))
+            for kid, fn in calls:
+                per_call, names = device_ops(torch, fn)
+                label = f"{kid} {dtype_name(dtype)}: {per_call:g} ({', '.join(names)})"
+                require(per_call == 1 and all("warp_bwd_coop_kernel" in nm for nm in names),
+                        f"{label}: one call is not one device kernel")
+                found.append(label)
+    log("  device operations a call (torch.profiler): " + "; ".join(found))
+    return found
+
+
 def check_determinism(torch, F, device, dtypes=None):
     """The kernels redesigned without float atomics give the same bits in
     two launches on the same inputs: K2 and K1 (with its warped map) at
@@ -834,6 +918,7 @@ def time_shard_kernels(torch, F, device, dtype=None):
     384x448 B=8 levels 1-4 per train step. K9b is timed alone, on the
     warped rows' cotangent K8b gives it."""
     from pwcnet_tpu_torch.ops.cost_volume import cost_volume_hpad, cost_volume_hpad_bwd_plain
+    from pwcnet_tpu_torch.ops.cuda import _common
     from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_hpad_bwd, cost_volume_hpad_cuda
     from pwcnet_tpu_torch.ops.cuda.warped_cv import (
         warped_cost_volume_global, warped_cost_volume_global_plain, warped_rows_bwd, warped_rows_bwd_plain)
@@ -881,11 +966,14 @@ def time_shard_kernels(torch, F, device, dtype=None):
                 ms=cuda_ms(torch, lambda: cost_volume_hpad_bwd(*a8)),
                 plain_ms=cuda_ms(torch, lambda: cost_volume_hpad_bwd_plain(*a8), iters=5, warmup=1),
                 library_ms=None, work=k8b_work(8, h, W, C, sz)))
+            live = _common.warp_bwd_live_rows(h + 2 * d, -d, *vb).to(device)[None, :, None, None]
+            lib9 = grid_sample_bwd(torch, f1, flow_ext, a9[3] * live.to(dtype), -d)
             rows["K9b"].append(dict(
                 shape=shape, times=1,
                 ms=cuda_ms(torch, lambda: warped_rows_bwd(*a9)),
                 plain_ms=cuda_ms(torch, lambda: warped_rows_bwd_plain(*a9), iters=5, warmup=1),
-                library_ms=None, work=k9b_work(8, h, H, W, C, sz)))
+                library_ms=library_ms(torch, lib9, f"K9b {dname} {shape}"),
+                work=k9b_work(8, h, H, W, C, sz)))
     finish_rows(rows, dname)
     return rows
 
@@ -1625,7 +1713,7 @@ PROFILE_GROUPS = (
     ("K2 cost_volume", ("PlainLoader",)),
     ("K3 pyramid_level", ("pyramid_level",)),
     ("K4 cost_volume_bwd", ("cv_bwd_kernel",)),
-    ("K5 warp_bwd", ("warp_bwd_kernel", "round_kernel")),
+    ("K5 warp_bwd", ("warp_bwd_coop_kernel",)),
     ("K6 pyramid_level_bwd", ("conv_t_col", "conv1_t_col", "conv_t_s2", "conv_t_wg", "conv1_t_wg")),
     ("K7 estimator chain, forward and backward", ("conv3x3_",)),
     ("K3, K6 and K7 weight packing (bf16)", ("pack_weights",)),
@@ -1725,8 +1813,12 @@ def log_build(report):
             require(counts <= {"0"}, f"ptxas spills registers in K6's float32 {entry}")
         if entry.startswith("cv_bwd_kernel"):
             require(counts <= {"0"}, f"ptxas spills registers in K4's {entry}")
+        if entry.startswith("warp_bwd_coop_kernel"):
+            require(counts <= {"0"}, f"ptxas spills registers in K5's {entry}")
     if report.get("cost_volume_bwd", {}).get("ptxas"):  # built in this run, not cached
         require(any(e.startswith("cv_bwd_kernel") for e in spills), "no ptxas report of K4's cv_bwd_kernel")
+    if report.get("warp_bwd", {}).get("ptxas"):
+        require(any(e.startswith("warp_bwd_coop_kernel") for e in spills), "no ptxas report of K5's kernel")
     k3 = _build.load("pyramid_conv").pwc_pyramid_level_smem_bytes
     k7 = _build.load("estimator_conv").pwc_estimator_conv_smem_bytes
     k3.argtypes, k7.argtypes = [ctypes.c_int] * 2, [ctypes.c_int]
@@ -1785,6 +1877,26 @@ def log_build(report):
             require(blocks > 0, f"{label} does not fit an SM")
             k4_info.append(f"{label} {smem} B, {threads} threads, {blocks} blocks an SM")
     log("  K4 / K8b (dynamic shared memory, threads, resident blocks an SM): " + "; ".join(k4_info))
+    f5 = _build.load("warp_bwd").pwc_warp_bwd_info
+    f5.argtypes = [ctypes.c_int] * 2 + [ip] * 3
+    resident, k5_info = {}, []
+    for dcode, dname in ((0, "f32"), (1, "bf16")):
+        for rows, kid in ((0, "K5"), (1, "K9b")):
+            label = f"warp_bwd_coop_kernel<{dname},{'f32' if rows or not dcode else 'bf16'}> ({kid})"
+            threads, per_sm, sms = ints(f5, label, dcode, rows)
+            require(per_sm > 0, f"{label} does not fit an SM")
+            resident[dcode, rows] = per_sm * sms
+            k5_info.append(f"{label} {threads} threads, {per_sm} blocks an SM x {sms} SMs")
+    log("  K5 / K9b (no shared memory; resident blocks, the cooperative grid's cap): " + "; ".join(k5_info))
+    k5_plans = []
+    for kid, shapes, rows in (("K5", K1_TRAIN, 0), ("K9b", K9_TRAIN, 1)):
+        for h, w, c in shapes:
+            ho, hf = (h // SHARDS + 2 * SEARCH_RANGE, h) if rows else (h, h)
+            for dcode, dname in ((0, "f32"), (1, "bf16")):
+                lanes = _common.warp_bwd_lanes(c)
+                blocks = _common.warp_bwd_blocks(8 * ho * w, lanes, 8 * hf * w * c, resident[dcode, rows])
+                k5_plans.append(f"{kid} {dname} 8x{ho}x{w}x{c}: {lanes} lanes a pixel, {blocks} blocks")
+    log("  K5 / K9b launch plans (one cooperative kernel a call): " + "; ".join(k5_plans))
     k4_plans = []
     for kid, shapes, pad in (("K4", K2_TRAIN + K1_TRAIN, 0), ("K8b", K9_TRAIN, SEARCH_RANGE)):
         for h, w, c in shapes:
@@ -1845,6 +1957,7 @@ def main() -> int:
     check_estimator_kernels(torch, device, compare)
     log(f"  K8, K8b, K9, K9b on the {SHARDS} stripes of one frame on the card, and stitched against K1/K2, K4/K5")
     check_shard_kernels(torch, F, device, compare)
+    check_one_kernel_a_call(torch, F, device)
     deterministic = check_determinism(torch, F, device)
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 

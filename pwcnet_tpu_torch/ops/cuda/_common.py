@@ -131,6 +131,55 @@ def cv_bwd_plan(b: int, h: int, w: int, c: int, pad: int = 0) -> int:
     return CV_BWD_TILE_ROWS[-1]
 
 
+# The warp backward's launch (csrc/warp_bwd.cu): 256 threads a block, a
+# lane 4 channels of a pixel at a time (one 16-byte float32 or 8-byte bf16
+# vector, one 4-float atomic a corner), a persistent cooperative grid
+WARP_BWD_THREADS = 256
+WARP_BWD_CHANNELS = 4
+
+
+WARP_BWD_NARROW_C, WARP_BWD_NARROW_LANES = 64, 8
+
+
+def warp_bwd_lanes(c: int) -> int:
+    """Lanes that serve one pixel in the warp backward (K5, K9b): its
+    4-channel vectors, ``ceil(C / 4)``, rounded up to a power of two, at
+    most a warp, and at most 8 up to ``C = 64`` (a lane then loops over
+    its vectors). On the H100 8 lanes of two vectors beat 16 of one at the
+    training step's C = 64 call, and a whole warp beat 8 lanes at C = 128."""
+    vectors = -(-c // WARP_BWD_CHANNELS)
+    cap = WARP_BWD_NARROW_LANES if c <= WARP_BWD_NARROW_C else 32
+    lanes = 1
+    while lanes < min(vectors, cap):
+        lanes *= 2
+    return lanes
+
+
+def warp_bwd_vectorised(c: int, *ptrs: int) -> bool:
+    """Whether a warp backward call loads and adds 4 channels at once (the
+    source decides the same way): C a multiple of 4 and f1 and g 16-byte
+    aligned; else the same lanes take their channels one by one (the scalar
+    tail)."""
+    return c % WARP_BWD_CHANNELS == 0 and all(p % 16 == 0 for p in ptrs)
+
+
+def warp_bwd_blocks(pixels: int, lanes: int, n_acc: int, resident: int) -> int:
+    """Blocks of the warp backward's persistent grid: enough for one pass of
+    the scatter (``lanes`` threads a pixel) or of the zeroing (4 of the
+    ``n_acc`` accumulator values a thread), at most the ``resident`` blocks
+    the card holds at once (SMs x blocks an SM)."""
+    t = WARP_BWD_THREADS
+    return max(1, min(resident, max(-(-pixels * lanes // t), -(-(n_acc // 4) // t))))
+
+
+def warp_bwd_live_rows(ho: int, row0: int, vlo: int, vhi: int) -> torch.Tensor:
+    """The flow rows the warp backward scatters from (bool, ``ho``): row j
+    where its frame row ``j + row0`` lies in ``[vlo, vhi]``. K9b's other
+    rows read their cotangent as zero; K5 passes the whole frame."""
+    rows = torch.arange(ho) + row0
+    return (rows >= vlo) & (rows <= vhi)
+
+
 def kernel(lib_name: str, fn_name: str, argtypes: list):
     """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu``, typed."""
     lib = _build.load(lib_name)

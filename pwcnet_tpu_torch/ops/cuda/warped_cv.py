@@ -20,11 +20,15 @@ against the whole frame 1 (Hf rows), with ``flow_ext`` (B, h + 2d, W, 2)
 float32 carrying d halo rows each side and the shard's global row offset in
 y, and ``vb = (vlo, vhi)`` (two ints) the global frame's rows in the shard's
 coordinates. Its backward, ``warped_cost_volume_global_bwd``, is K8b over
-the h + 2d warped rows K9 saved, then K9b (``warped_rows_bwd``): the rows
-outside ``vb`` zeroed and the warp backward on the tall frame
-(``csrc/warp_bwd.cu``'s ``pwc_warp_bwd_rows``), df1 over the whole frame,
-dflow over the h + 2d rows. The plain versions are
+the h + 2d warped rows K9 saved, then K9b (``warped_rows_bwd``): the warp
+backward on the tall frame (``csrc/warp_bwd.cu``'s ``pwc_warp_bwd_rows``),
+the rows outside ``vb`` reading their cotangent as zero, df1 over the whole
+frame, dflow over the h + 2d rows. The plain versions are
 ``warped_cost_volume_global_plain`` and ``warped_rows_bwd_plain``.
+
+K5 and K9b are one cooperative kernel a call and no other device
+operation: it zeroes its float32 accumulator (``df1`` itself in float32, a
+scratch buffer in bf16), scatters, and in bf16 rounds into ``df1``.
 """
 
 from __future__ import annotations
@@ -45,9 +49,9 @@ __all__ = [
 ]
 
 _ARGTYPES = [P] * 5 + [I] * 8 + [P]
-_BWD_ARGTYPES = [P] * 6 + [I] * 5 + [P]
+_BWD_ARGTYPES = [P] * 6 + [I] * 6 + [P]
 _GLOBAL_ARGTYPES = [P] * 5 + [I] * 11 + [P]
-_ROWS_BWD_ARGTYPES = [P] * 6 + [I] * 7 + [P]
+_ROWS_BWD_ARGTYPES = [P] * 6 + [I] * 10 + [P]
 
 
 def warped_cost_volume_plain(
@@ -90,6 +94,19 @@ def _forward(f0, f1, flow, d: int, save: bool):
     return out, f1w
 
 
+def _bwd_outputs(name: str, f1: torch.Tensor, g: torch.Tensor):
+    """``(df1, scratch)`` of a warp backward launch: in float32 the kernel
+    accumulates into ``df1`` (no scratch), in bf16 into a float32 scratch
+    buffer. The kernel zeroes either itself; nothing is zeroed here. Its
+    offsets are 32-bit: ``f1`` and ``g`` hold at most 2**30 elements."""
+    if max(f1.numel(), g.numel()) > 2**30:
+        raise ValueError(f"{name}: f1 {tuple(f1.shape)} or g {tuple(g.shape)} holds more than 2**30 elements")
+    df1 = torch.empty_like(f1)
+    if f1.dtype == torch.float32:
+        return df1, None
+    return df1, torch.empty(f1.shape, dtype=torch.float32, device=f1.device)
+
+
 def warp_bwd(f1: torch.Tensor, flow: torch.Tensor, g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K5: ``(df1, dflow)`` of ``bilinear_warp(f1, flow)`` for the cotangent
     ``g`` of the warped map.
@@ -107,13 +124,14 @@ def warp_bwd(f1: torch.Tensor, flow: torch.Tensor, g: torch.Tensor) -> tuple[tor
             "must be (B, H, W, C), (B, H, W, 2) and (B, H, W, C)"
         )
     b, h, w, c = f1.shape
-    acc = torch.zeros(f1.shape, dtype=torch.float32, device=f1.device)
-    df1 = acc if f1.dtype == torch.float32 else torch.empty_like(f1)
+    code = _common.DTYPE_CODES[f1.dtype]
+    df1, acc = _bwd_outputs("warp_bwd", f1, g)
     dflow = torch.empty_like(flow)
     _common.launch(
         "warp_bwd", "pwc_warp_bwd", _BWD_ARGTYPES, f1.device,
-        f1.data_ptr(), flow.data_ptr(), g.data_ptr(), acc.data_ptr(), df1.data_ptr(), dflow.data_ptr(),
-        b, h, w, c, _common.DTYPE_CODES[f1.dtype],
+        f1.data_ptr(), flow.data_ptr(), g.data_ptr(), acc if acc is None else acc.data_ptr(),
+        df1.data_ptr(), dflow.data_ptr(),
+        b, h, w, c, _common.warp_bwd_lanes(c), code,
     )
     warp_bwd.launches += 1
     return df1, dflow
@@ -221,10 +239,11 @@ def warped_rows_bwd_plain(f1_full, flow_ext, vb, dwe, search_range: int = 4):
 
 def warped_rows_bwd(f1_full, flow_ext, vb, dwe, search_range: int = 4):
     """K9b: ``(df1_full, dflow_ext)`` for the cotangent ``dwe`` of K9's
-    h + 2d warped rows: the rows outside ``vb`` zeroed (in place), then the
-    warp backward on the whole frame, its ``df1`` summed with float32
-    atomics (run-to-run variation in the last bits, as K5). A CPU tensor
-    goes to the plain version; a CUDA tensor to the kernel."""
+    h + 2d warped rows: the warp backward on the whole frame, the rows
+    outside ``vb`` reading their cotangent as zero, its ``df1`` summed with
+    float32 atomics (run-to-run variation in the last bits, as K5). A CPU
+    tensor goes to the plain version, which zeroes those rows of ``dwe`` in
+    place; a CUDA tensor to the kernel, which leaves ``dwe`` as it is."""
     if f1_full.device.type == "cpu":
         return warped_rows_bwd_plain(f1_full, flow_ext, vb, dwe, search_range)
     d = int(search_range)
@@ -238,14 +257,14 @@ def warped_rows_bwd(f1_full, flow_ext, vb, dwe, search_range: int = 4):
             f"warped_rows_bwd: f1_full {tuple(f1_full.shape)}, flow_ext {tuple(flow_ext.shape)}, "
             f"dwe {tuple(dwe.shape)} must be (B, Hf, W, C), (B, h + 2d, W, 2) and (B, h + 2d, W, C)"
         )
-    dwe = _mask_rows(dwe, vb, d)
-    acc = torch.zeros(f1_full.shape, dtype=torch.float32, device=f1_full.device)
-    df1 = acc if f1_full.dtype == torch.float32 else torch.empty_like(f1_full)
+    code = _common.DTYPE_CODES[f1_full.dtype]
+    df1, acc = _bwd_outputs("warped_rows_bwd", f1_full, dwe)
     dflow = torch.empty_like(flow_ext)
     _common.launch(
         "warp_bwd", "pwc_warp_bwd_rows", _ROWS_BWD_ARGTYPES, f1_full.device,
-        f1_full.data_ptr(), flow_ext.data_ptr(), dwe.data_ptr(), acc.data_ptr(), df1.data_ptr(), dflow.data_ptr(),
-        b, ho, hf, w, c, -d, _common.DTYPE_CODES[f1_full.dtype],
+        f1_full.data_ptr(), flow_ext.data_ptr(), dwe.data_ptr(), acc if acc is None else acc.data_ptr(),
+        df1.data_ptr(), dflow.data_ptr(),
+        b, ho, hf, w, c, -d, *_rows(vb), _common.warp_bwd_lanes(c), code,
     )
     warped_rows_bwd.launches += 1
     return df1, dflow

@@ -2,17 +2,18 @@
 """The float32 conv kernels on the card, an earlier version against the
 current one against cuDNN: K3 (the fused pyramid level), K6 (its
 backward) and K7's implicit-GEMM core (the estimator chain forward, and
-K7b's transposed stages), B=8, float32, TF32 off; and K4, the cost
-volume's backward (with K8b, its row-shard form), old against current in
-float32 and bf16.
+K7b's transposed stages), B=8, float32, TF32 off; K4, the cost
+volume's backward (with K8b, its row-shard form), and K5, the warp's
+backward (with K9b, its tall-frame form), old against current in float32
+and bf16.
 
     python3 scripts/torch_f32_conv_time.py [--old <dir holding an older csrc/>] [--rounds 2]
-                                           [--kernels K3 K6 K7 K4]
+                                           [--kernels K3 K6 K7 K4 K5]
 
 ``--old`` is the ``pwcnet_tpu_torch/csrc`` directory of an earlier commit
 (for example unpacked by ``git archive``); its sources of the chosen
 kernels (``pyramid_conv.cu``, ``pyramid_conv_bwd.cu``, ``estimator_conv.cu``,
-``estimator_conv_bwd.cu`` and ``cost_volume_bwd.cu``) are compiled with nvcc
+``estimator_conv_bwd.cu``, ``cost_volume_bwd.cu`` and ``warp_bwd.cu``) are compiled with nvcc
 into a temporary directory and called through the same C entries as the
 current package's (an old K4 entry takes no tile plan). Shapes: K3 at
 levels 0 and 1 of the 448x1024 serving forward and of the 384x448
@@ -23,7 +24,16 @@ K4 (``pwc_cost_volume_bwd``) at the training step's five calls and K8b
 (``pwc_cost_volume_hpad_bwd``) at its four sharded levels per rank of 2,
 both also checked at two edge frames, in float32 and bf16 (K4 has no
 cuDNN yardstick; its old body is two kernels, df0 then df1, the current
-one kernel, each given in device time by torch.profiler too). The old
+one kernel, each given in device time by torch.profiler too); K5 at the
+training step's four warped calls and K9b on the second of two shards of
+the same frames, with two edge frames checked only, in float32 and bf16,
+beside grid_sample's backward (``aten::grid_sampler_2d_backward``); the
+old K5 / K9b call is what the old wrapper launched (the accumulator's
+zeros, K9b's row fills, the kernel, in bf16 the rounding kernel), the
+current one also by a bare ctypes call, and each call's device
+operations are given in device time and by "queued" events (the calls
+queued behind a sleeping kernel, so the host is out of the way and the
+gaps between a call's kernels count). The old
 kernels' largest differences from the
 current ones come first. Each round times old, current and cuDNN in turn
 with CUDA events, every second round in reverse order (inputs reused, so
@@ -49,6 +59,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from chip_smoke import grid_sample_bwd  # noqa: E402  (K5's and K9b's library yardstick)
 from pwcnet_tpu_torch.ops.cuda import _build  # noqa: E402
 from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_bwd, cost_volume_hpad_bwd  # noqa: E402
 from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd, estimator_chain_residuals  # noqa: E402
@@ -77,6 +88,14 @@ K4_SHAPES = (("train K2", 8, 6, 7, 192, 4), ("train L1", 8, 12, 14, 128, 4), ("t
 K8B_SHAPES = (("shard L1", 8, 6, 14, 128, 4), ("shard L2", 8, 12, 28, 96, 4), ("shard L3", 8, 24, 56, 64, 4),
               ("shard L4", 8, 48, 112, 32, 4))
 K4_EDGE = (("edge", 2, 9, 37, 40, 4), ("edge", 1, 9, 13, 5, 1))
+# K5: (label, B, H, W, C) at the training step's four warped calls; K9b on
+# the second of two shards of the same frames (h + 2d rows against H);
+# edge frames (checked only), one with C off the 4-channel vector
+K5_SHAPES = (("train L1", 8, 12, 14, 128), ("train L2", 8, 24, 28, 96), ("train L3", 8, 48, 56, 64),
+             ("train L4", 8, 96, 112, 32))
+K9B_SHAPES = tuple((lab.replace("train", "shard"), *rest) for lab, *rest in K5_SHAPES)
+K5_EDGE = (("edge", 2, 10, 37, 40), ("edge", 1, 10, 13, 5))
+KERNELS = ("K3", "K6", "K7", "K4", "K5")
 P, I = ctypes.c_void_p, ctypes.c_int
 PP, IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 
@@ -95,7 +114,7 @@ def ms(fn, iters=20, warmup=3):
 
 
 SOURCES = {"K3": ("pyramid_conv",), "K6": ("pyramid_conv_bwd",), "K7": ("estimator_conv", "estimator_conv_bwd"),
-           "K4": ("cost_volume_bwd",)}
+           "K4": ("cost_volume_bwd",), "K5": ("warp_bwd",)}
 
 
 def build_old(old: Path, tmp: Path, kernels) -> dict:
@@ -119,6 +138,8 @@ def build_old(old: Path, tmp: Path, kernels) -> dict:
         ("estimator_conv_bwd", "pwc_estimator_chain_bwd"): [P, P, PP, PP, PP, P, IP] + [I] * 4 + [P],
         ("cost_volume_bwd", "pwc_cost_volume_bwd"): [P] * 6 + [I] * 6 + [P],
         ("cost_volume_bwd", "pwc_cost_volume_hpad_bwd"): [P] * 6 + [I] * 6 + [P],
+        ("warp_bwd", "pwc_warp_bwd"): [P] * 6 + [I] * 5 + [P],
+        ("warp_bwd", "pwc_warp_bwd_rows"): [P] * 6 + [I] * 7 + [P],
     }
     for (name, fn), types in argtypes.items():
         if name in libs:
@@ -150,6 +171,23 @@ def conv_split(fn, names=("conv3x3",), n=3, tries=3):
     per = len(evs) // n
     return [[evs[i].name.split("(")[0].removeprefix("void ").removeprefix("pwc::"),
              round(sum(evs[i + k * per].device_time_total for k in range(n)) / n / 1e3, 4)] for i in range(per)]
+
+
+def queued_ms(fn, iters=20, sleep_cycles=20_000_000):
+    """ms per call by CUDA events with the host out of the way: the calls
+    are queued behind a sleeping kernel (about 10 ms), so the card runs
+    them back to back and the time includes the gaps between a call's
+    kernels but not the host's launch time."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def ptrs(ts):
@@ -391,12 +429,101 @@ def run_k4(libs, gen, dev, stream, rounds):
                     emit(kernel=kid, variant=variant, shape=shape, per_kernel=conv_split(call, ("cv_bwd_kernel",)))
 
 
+def run_k5(libs, gen, dev, stream, rounds):
+    """K5 and K9b, old against current, float32 and bf16. The old call is
+    what the old wrapper launched: the float32 accumulator's zeros (and for
+    K9b the two row fills), the kernel, in bf16 the rounding kernel. Each
+    call's largest difference first (float32 atomics: the last bits vary
+    from run to run), then old, current and grid_sample's backward by
+    events in alternating rounds, then each call's device operations by
+    device time (torch.profiler)."""
+    from pwcnet_tpu_torch.ops.cuda import _common
+    from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd, warped_rows_bwd
+
+    d = 4
+    cases = [("K5", *s) for s in K5_SHAPES + K5_EDGE] + [("K9b", *s) for s in K9B_SHAPES + K5_EDGE]
+    for dname, (dtype, code) in {"float32": (torch.float32, 0), "bfloat16": (torch.bfloat16, 1)}.items():
+        for kid, label, b, hf, w, c in cases:
+            tall = kid == "K9b"
+            h = hf // 2 if tall else hf
+            ho = h + 2 * d if tall else hf
+            f1 = torch.randn((b, hf, w, c), generator=gen, device=dev).to(dtype)
+            flow = torch.randn((b, ho, w, 2), generator=gen, device=dev) * 3.0
+            flow[:, ::7, ::5] *= 20.0
+            g = torch.randn((b, ho, w, c), generator=gen, device=dev).to(dtype)
+            if tall:  # the second of two shards: its rows of the frame, its offset in the flow
+                vb, row0 = (-h, hf - 1 - h), -d
+                flow[..., 1] += h
+                live = _common.warp_bwd_live_rows(ho, row0, *vb).to(dev)[None, :, None, None]
+                g = g * live.to(dtype)  # the rows the old wrapper zeroed, so both read the same g
+                turns = {"current": lambda: warped_rows_bwd(f1, flow, vb, g, d)}
+            else:
+                flow, row0 = flow.to(dtype), 0
+                turns = {"current": lambda: warp_bwd(f1, flow, g)}
+            shape = f"{label} {dname} {b}x{ho}x{w}x{c}" + (f" of {hf}" if tall else "")
+            if libs:
+                lib = libs["warp_bwd"]
+                df1, dflow = torch.empty_like(f1), torch.empty_like(flow)
+
+                def old():
+                    acc = torch.zeros(f1.shape, dtype=torch.float32, device=dev)
+                    out = acc if code == 0 else df1
+                    if tall:
+                        g[:, : max(0, vb[0] + d)] = 0
+                        g[:, max(0, vb[1] + d + 1):] = 0
+                        err = lib.pwc_warp_bwd_rows(f1.data_ptr(), flow.data_ptr(), g.data_ptr(), acc.data_ptr(),
+                                                    out.data_ptr(), dflow.data_ptr(), b, ho, hf, w, c, row0, code,
+                                                    stream())
+                    else:
+                        err = lib.pwc_warp_bwd(f1.data_ptr(), flow.data_ptr(), g.data_ptr(), acc.data_ptr(),
+                                               out.data_ptr(), dflow.data_ptr(), b, hf, w, c, code, stream())
+                    if err:
+                        raise SystemExit(f"the old {kid} failed to launch")
+                    return out, dflow
+
+                cur = _common.kernel("warp_bwd", "pwc_warp_bwd_rows" if tall else "pwc_warp_bwd",
+                                     [P] * 6 + [I] * (10 if tall else 6) + [P])[0]
+                df1_b, dflow_b = torch.empty_like(f1), torch.empty_like(flow)
+                acc_b = torch.empty(f1.shape, dtype=torch.float32, device=dev) if code else None
+                lanes = _common.warp_bwd_lanes(c)
+                ptrs_b = (f1.data_ptr(), flow.data_ptr(), g.data_ptr(), acc_b.data_ptr() if code else None,
+                          df1_b.data_ptr(), dflow_b.data_ptr())
+
+                def bare():  # the current kernel by a bare ctypes call, as the old one is called
+                    dims = (b, ho, hf, w, c, row0, *vb) if tall else (b, hf, w, c)
+                    if cur(*ptrs_b, *dims, lanes, code, stream()):
+                        raise SystemExit(f"the current {kid} failed to launch")
+
+                got_old = old()
+                new = turns["current"]()
+                torch.cuda.synchronize()
+                emit(kernel=kid, check="old vs current", shape=shape,
+                     max_abs_diff={k: (o.float() - n.float()).abs().max().item()
+                                   for k, o, n in zip(("df1", "dflow"), got_old, new)},
+                     scale={k: n.float().abs().max().item() for k, n in zip(("df1", "dflow"), new)})
+                turns = {"old": old, **turns, "current bare": bare}
+            if label == "edge":
+                continue
+            turns["grid_sample"] = grid_sample_bwd(torch, f1, flow, g, row0)
+            try:
+                turns["grid_sample"]()
+            except (RuntimeError, NotImplementedError) as exc:
+                emit(kernel=kid, variant="grid_sample", shape=shape, unsupported=str(exc).splitlines()[0][:120])
+                del turns["grid_sample"]
+            for rnd in range(rounds):
+                time_turns(kid, shape, turns, rnd)
+            if rounds:  # device time: the coarse calls are shorter than their host time
+                for variant, call in turns.items():
+                    emit(kernel=kid, variant=variant, shape=shape, per_kernel=conv_split(call, ("",)),
+                         queued_ms=queued_ms(call))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, help="csrc/ directory of the earlier commit")
     ap.add_argument("--rounds", type=int, default=2, help="times each (old, current, cuDNN) turn is taken")
-    ap.add_argument("--kernels", nargs="+", choices=("K3", "K6", "K7", "K4"), default=("K3", "K6", "K7", "K4"),
-                    help="which kernels (K7 includes K7b, K4 K8b)")
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=KERNELS,
+                    help="which kernels (K7 includes K7b, K4 K8b, K5 K9b)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA card")
@@ -407,11 +534,11 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    runs = {"K3": run_k3, "K6": run_k6, "K7": run_k7, "K4": run_k4}
+    runs = {"K3": run_k3, "K6": run_k6, "K7": run_k7, "K4": run_k4, "K5": run_k5}
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_old(args.old.resolve(), Path(tmp), args.kernels) if args.old else {}
         with torch.inference_mode():
-            for kid in ("K3", "K6", "K7", "K4"):
+            for kid in KERNELS:
                 if kid in args.kernels:
                     runs[kid](libs, gen, dev, stream, args.rounds)
     print(card)

@@ -377,8 +377,13 @@ class TestKernelsOnCard:
         assert all(torch.equal(a, b) for a, b in zip(got, cost_volume_bwd(f0, f1, out, g, d)))
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("shape,fscale", [((2, 14, 33, 32), 3.0), ((1, 10, 12, 5), 40.0), ((1, 12, 14, 128), 0.4)])
+    @pytest.mark.parametrize("shape,fscale", [((2, 14, 33, 32), 3.0), ((1, 10, 12, 5), 40.0), ((1, 12, 14, 128), 0.4),
+                                              ((1, 9, 13, 40), 6.0), ((2, 8, 10, 96), 3.0), ((1, 5, 7, 304), 3.0)])
     def test_warp_bwd(self, cuda_device, rng, dtype, shape, fscale):
+        """K5 in one launch, against its plain version: 4-channel vectors,
+        a pixel's last sector half-filled (40 channels: 10 vectors), idle
+        lanes (96: 24 vectors on 32 lanes), lanes that loop (304) and the
+        scalar tail (5)."""
         from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd
         from pwcnet_tpu_torch.ops.warp import warp_bwd_plain
 
@@ -738,6 +743,28 @@ class TestKernelsOnCard:
         assert {k: after[k] - before[k] for k in ("K9", "K8b", "K9b")} == {"K9": 2, "K8b": 1, "K9b": 1}
         for a, e in zip(grads, warped_cost_volume_global_bwd_plain(*args)):
             _assert_close(a, e, dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("c", [32, 5])
+    def test_warped_rows_bwd_masks_without_writing(self, cuda_device, rng, dtype, c):
+        """K9b reads the cotangent of the rows outside ``vb`` as zero and
+        leaves ``dwe`` as it is; the plain version zeroes those rows."""
+        from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_rows_bwd, warped_rows_bwd_plain
+
+        b, h, w, d = 2, 6, 11, 4
+        vb = (-h, 2 * h - 1 - h)  # the second of two shards
+        full = torch.from_numpy(_normal(rng, (b, 2 * h, w, c))).to(cuda_device, dtype)
+        flow = torch.from_numpy(_normal(rng, (b, h + 2 * d, w, 2), 4.0)).to(cuda_device)
+        flow[..., 1] += h
+        dwe = torch.from_numpy(_normal(rng, (b, h + 2 * d, w, c))).to(cuda_device, dtype)
+        kept = dwe.clone()
+        got = warped_rows_bwd(full, flow, vb, dwe, d)
+        torch.cuda.synchronize()
+        assert torch.equal(dwe, kept)
+        want = warped_rows_bwd_plain(full, flow, vb, dwe.clone(), d)
+        for a, e in zip(got, want):
+            _assert_close(a, e, dtype)
+        assert not got[1][:, h + d:].any()  # rows past the frame: no dflow
 
     def test_autograd_runs_the_shard_kernels(self, cuda_device, rng):
         """A gradient through K8 and K9 launches K8b and K9b and equals
