@@ -11,8 +11,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    nvcc (one process per source, all at once); log each kernel's registers
    and spills, the wgmma and correlation kernels' dynamic shared memory,
    the float32 K3, K6 and K7 kernels' and K4's shared memory, threads and
-   resident blocks an SM (K6's float32 kernels, K4 and K5 must not spill), K7's
-   float32 tile at each main-path shape, the correlation's tile and cluster
+   resident blocks an SM, the bf16 K7 and K7b wgmma kernel's registers,
+   shared memory and blocks an SM at each width and K7b's dxin N tiles
+   (K6's float32 kernels, K4, K5 and the K7 / K7b wgmma kernel must not
+   spill), K7's float32 tile at each main-path shape, the correlation's tile and cluster
    size, K4's and K8b's tile rows and blocks, and K5's and K9b's lanes a
    pixel and cooperative grid at each main-path shape;
 3. kernels: K1 (warped cost volume), K2 (cost volume) and K3 (fused
@@ -26,8 +28,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    backward (every cotangent, the weight and bias gradients taken from
    them, and dxin) at the five estimator levels of both sizes; K3 and K7
    also at edge shapes that no tile of theirs divides; one K5 call and one
-   K9b call must each be one device kernel, in float32 and bf16
-   (torch.profiler); then K1, K2, K3, K6,
+   K9b call must each be one device kernel, in float32 and bf16, and one
+   bf16 K7b call the weight packer, the flow cotangent's padding and six
+   wgmma stages, no weight copy (torch.profiler); then K1, K2, K3, K6,
    K7, K7b, K8 and K9, whose kernels use no float atomics, must give the
    same bits in two launches on the same inputs;
 4. serving: FlowPredictor with seeded random weights answers 448x1024
@@ -794,8 +797,12 @@ def check_shard_kernels(torch, F, device, compare, batches=(1, 8), dtypes=None):
 def check_one_kernel_a_call(torch, F, device):
     """One K5 call and one K9b call are one device operation each, the
     cooperative ``warp_bwd_coop_kernel`` (no fill, no rounding kernel), in
-    float32 and bf16, at the finest training call and at its shard
-    (torch.profiler). Returns the log line's parts."""
+    float32 and bf16, at the finest training call and at its shard; one
+    bf16 K7b call at the trainer's finest estimator level (k1 padded to 152
+    input channels, as the model hands it over) is the weight packer, the
+    flow cotangent's padding and the six wgmma stages, with no weight copy
+    through aten (torch.profiler). Returns the log line's parts."""
+    from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd
     from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd, warped_rows_bwd
 
     gen = torch.Generator(device=device).manual_seed(9)
@@ -816,6 +823,17 @@ def check_one_kernel_a_call(torch, F, device):
                 require(per_call == 1 and all("warp_bwd_coop_kernel" in nm for nm in names),
                         f"{label}: one call is not one device kernel")
                 found.append(label)
+        h, w, cin = K7_TRAIN[-1]
+        xin, kbs = k7_inputs(torch, 8, h, w, -(-cin // 8) * 8, torch.bfloat16, device, gen)
+        ks = kbs[0::2]
+        acts = [torch.randn((8, h, w, c), generator=gen, device=device).to(torch.bfloat16) for c in EST_COUTS[:-1]]
+        g = [torch.randn((8, h, w, c), generator=gen, device=device).to(torch.bfloat16) for c in EST_COUTS[:-3:-1]]
+        per_call, names = device_ops(torch, lambda: estimator_chain_bwd(ks, acts, *g))
+        label = f"K7b bfloat16: {per_call:g} ({', '.join(names)})"
+        stages = ("pack_weights_kernel", "pad_channels_kernel", "conv3x3_wgmma_kernel")
+        require(per_call == 2 + len(EST_COUTS) and all(any(k in nm for k in stages) for nm in names),
+                f"{label}: not the packer, the padding and the six wgmma stages")
+        found.append(label)
     log("  device operations a call (torch.profiler): " + "; ".join(found))
     return found
 
@@ -1003,7 +1021,8 @@ def cudnn_chain_bwd(torch, ks, acts, g_flow, g_feat, cin):
 
 
 def time_estimator_kernels(torch, F, device, b=8, dtype=None):
-    """K7 forward (with residuals, as the trainer runs it) and backward:
+    """K7 forward (with residuals, as the trainer runs it) and backward (k1
+    padded to the input's 8-channel multiple, as the trainer runs it):
     kernel, plain and library times at levels 3 and 4 of both sizes. The
     rows of the 384x448 levels are the trainer's launches per step
     (``times`` 1); the 448x1024 rows are listed and not summed."""
@@ -1030,6 +1049,7 @@ def time_estimator_kernels(torch, F, device, b=8, dtype=None):
                 g_feat = torch.randn(feat.shape, generator=gen, device=device).to(dtype)
                 x_nchw = nchw(xin)
                 xpad = F.pad(xin, (0, -cin % 8))  # as the model's NHWC copy hands it over
+                kpad = [F.pad(ks[0], (0, 0, 0, 0, 0, -cin % 8))] + ks[1:]  # and k1 with it: dxin as the step takes it
                 lib_bwd = (ks, [nchw(a) for a in saved], nchw(g_flow), nchw(g_feat), cin)
                 shape = f"{b}x{h}x{w}x{cin}"
                 rows["K7"].append(dict(
@@ -1040,7 +1060,7 @@ def time_estimator_kernels(torch, F, device, b=8, dtype=None):
                     work=k7_work(b, h, w, cin, s, False)))
                 rows["K7b"].append(dict(
                     shape=shape, times=times,
-                    ms=cuda_ms(torch, lambda: estimator_chain_bwd(ks, saved, g_flow, g_feat), iters=10),
+                    ms=cuda_ms(torch, lambda: estimator_chain_bwd(kpad, saved, g_flow, g_feat), iters=10),
                     plain_ms=cuda_ms(torch, lambda: estimator_chain_bwd_plain(ks, saved, g_flow, g_feat),
                                      iters=5, warmup=1),
                     library_ms=cuda_ms(torch, lambda: cudnn_chain_bwd(torch, *lib_bwd), iters=10),
@@ -1715,7 +1735,7 @@ PROFILE_GROUPS = (
     ("K4 cost_volume_bwd", ("cv_bwd_kernel",)),
     ("K5 warp_bwd", ("warp_bwd_coop_kernel",)),
     ("K6 pyramid_level_bwd", ("conv_t_col", "conv1_t_col", "conv_t_s2", "conv_t_wg", "conv1_t_wg")),
-    ("K7 estimator chain, forward and backward", ("conv3x3_",)),
+    ("K7 estimator chain, forward and backward", ("conv3x3_", "pad_channels")),
     ("K3, K6 and K7 weight packing (bf16)", ("pack_weights",)),
     ("cuDNN wgrad", ("wgrad",)),
     ("cuDNN dgrad", ("dgrad",)),
@@ -1811,6 +1831,8 @@ def log_build(report):
     for entry, counts in spills.items():
         if entry.startswith(("conv_t_col_kernel", "conv1_t_col_kernel")):
             require(counts <= {"0"}, f"ptxas spills registers in K6's float32 {entry}")
+        if entry.startswith("conv3x3_wgmma_kernel"):
+            require(counts <= {"0"}, f"ptxas spills registers in K7's bf16 {entry}")
         if entry.startswith("cv_bwd_kernel"):
             require(counts <= {"0"}, f"ptxas spills registers in K4's {entry}")
         if entry.startswith("warp_bwd_coop_kernel"):
@@ -1819,20 +1841,23 @@ def log_build(report):
         require(any(e.startswith("cv_bwd_kernel") for e in spills), "no ptxas report of K4's cv_bwd_kernel")
     if report.get("warp_bwd", {}).get("ptxas"):
         require(any(e.startswith("warp_bwd_coop_kernel") for e in spills), "no ptxas report of K5's kernel")
+    if report.get("estimator_conv_bwd", {}).get("ptxas"):
+        require(any(e.startswith("conv3x3_wgmma_kernel") for e in spills), "no ptxas report of K7b's bf16 kernel")
     k3 = _build.load("pyramid_conv").pwc_pyramid_level_smem_bytes
-    k7 = _build.load("estimator_conv").pwc_estimator_conv_smem_bytes
-    k3.argtypes, k7.argtypes = [ctypes.c_int] * 2, [ctypes.c_int]
+    k3.argtypes = [ctypes.c_int] * 2
     k6 = _build.load("pyramid_conv_bwd").pwc_pyramid_level_bwd_smem_bytes
     corr = _build.load("cost_volume").pwc_correlation_smem_bytes
     k6.argtypes = corr.argtypes = [ctypes.c_int] * 2
     log("  dynamic shared memory per block: " + ", ".join(
         [f"pyramid_level_wg_kernel<{cin},{c}> {k3(cin, c)} B" for cin, c in ((3, 16), (16, 32))]
-        + [f"conv3x3_wgmma_kernel<{n}> {k7(n)} B" for n in _common.WGMMA_WIDTHS]
         + [f"conv_t_wg_kernel<{c}> {k6(c, 0)} B" for c in (16, 32)] + [f"conv1_t_wg_kernel<32> {k6(32, 1)} B"]
         + [f"correlation_kernel<{SEARCH_RANGE},{tw}> {corr(SEARCH_RANGE, tw)} B" for tw in (16, 32)]))
     f7 = _build.load("estimator_conv")
+    f7b = _build.load("estimator_conv_bwd")
     f3 = _build.load("pyramid_conv").pwc_pyramid_level_f32_info
     ip = ctypes.POINTER(ctypes.c_int)
+    f7.pwc_estimator_conv_info.argtypes = f7b.pwc_estimator_conv_bwd_info.argtypes = [ctypes.c_int] + [ip] * 3
+    f7b.pwc_wgmma_tiles.argtypes = [ctypes.c_int] + [ip] * 2
     f7.pwc_conv3x3_f32_tile.argtypes = [ctypes.c_int] * 4 + [ip] * 2
     f7.pwc_conv3x3_f32_info.argtypes = [ctypes.c_int] * 2 + [ip] * 3
     f3.argtypes = [ctypes.c_int] * 2 + [ip] * 3
@@ -1842,6 +1867,21 @@ def log_build(report):
         require(fn(*args, *[ctypes.byref(v) for v in vals]) == 0, f"query of {what}")
         return [v.value for v in vals]
 
+    wg_info = []
+    for fn, bwd in ((f7.pwc_estimator_conv_info, "false"), (f7b.pwc_estimator_conv_bwd_info, "true")):
+        for n in _common.WGMMA_WIDTHS:
+            label = f"conv3x3_wgmma_kernel<{n},{bwd}>"
+            smem, regs, blocks = ints(fn, label, n)
+            require(blocks > 0, f"{label} does not fit an SM")
+            wg_info.append(f"{label} {smem} B, {regs} registers, {blocks} blocks an SM")
+    log("  K7 / K7b bf16 (dynamic shared memory, registers, resident blocks an SM; 288 threads): "
+        + "; ".join(wg_info))
+    dx_plans = []
+    for cin in sorted({c for *_, c in K7_TRAIN + K7_SERVE + K7_EDGE} | {-(-c // 8) * 8 for *_, c in K7_TRAIN}):
+        tiles, n = ints(f7b.pwc_wgmma_tiles, "the N tiles", cin, n=2)
+        require((tiles, n) == _common.wgmma_tiles(cin), f"K7b's dxin plan for {cin} channels differs from Python's")
+        dx_plans.append(f"{cin}: {tiles} x N={n}")
+    log("  K7b's dxin N tiles (channels: tiles x width): " + "; ".join(dx_plans))
     tiles, used, f32_info = [], set(), []
     for label, b, shapes in (("train", 8, K7_TRAIN[-FUSED_ESTIMATOR:]), ("serve", 8, K7_SERVE[-FUSED_ESTIMATOR:])):
         for h, w, cin in shapes:

@@ -1,6 +1,7 @@
 // One 3x3 stride-1 SAME convolution as an implicit GEMM with a fused
 // epilogue, the building block of K7's float32 forward (estimator_conv.cu)
-// and of its backward (estimator_conv_bwd.cu, which adds its bf16 kernel):
+// and of its backward (estimator_conv_bwd.cu; in bf16 both run on
+// conv3x3_wgmma.cuh):
 //
 //   acc[p, co] = sum_{tap, ci} in[p + tap - (1, 1), ci] * wt[tap', ci, co]
 //   v = acc (+ bias[co]) ; (LeakyReLU(0.1)) ; (+ add[p, co]) ; (* mask(act[p, co]))

@@ -13,194 +13,41 @@
 // gz1..gz5 (the cotangents of the pre-activations) are outputs: the weight
 // and bias gradients are plain conv weight gradients on the saved
 // activations, taken outside, as the JAX package does. Sums are float32;
-// every gz_i and dxin is rounded to the model dtype on store, and each stage
-// reads the rounded cotangent the stage before stored (the values the
-// weight gradients see). dxin is skipped when the caller passes null.
+// every gz_i and dxin is rounded to the model dtype once, after the add and
+// the mask, and each stage reads the rounded cotangent the stage before
+// stored (the values the weight gradients see). dxin is skipped when the
+// caller passes null.
 //
-// Design. One launch per stage: each stage is a tiled implicit GEMM (float32:
-// conv3x3_gemm.cuh; bfloat16: conv3x3_tc_kernel below) with the taps
-// mirrored, reading the [ky][kx][cin][cout] kernels transposed, and the mask (and at
-// stage 5 the features' cotangent) fused into its epilogue. Every stage computes whole frames, so
-// no cotangent row depends on a neighbouring tile's partial sums: the halo
-// rows of the TPU kernel's exact-row scheme, and the tile-seam fault it
-// replaced, have no counterpart. Bound as the forward: operations.
-#include <mma.h>
-
-#include <type_traits>
-
+// Design. One launch per stage: each stage is a tiled implicit GEMM with the
+// taps mirrored and the channel roles swapped (the transpose of a stride-1
+// 3x3 conv is one), the mask (and at stage 5 the features' cotangent) fused
+// into its epilogue. Every stage computes whole frames, so no cotangent row
+// depends on a neighbouring tile's partial sums: the halo rows of the TPU
+// kernel's exact-row scheme, and the tile-seam fault it replaced, have no
+// counterpart. Bound as the forward: operations.
+//
+// - float32: conv3x3_fma_kernel (conv3x3_gemm.cuh) with `flip`, reading the
+//   forward's tap-major [ky][kx][cin][cout] kernels transposed.
+// - bfloat16: the forward's wgmma + TMA kernel (conv3x3_wgmma.cuh) with its
+//   backward epilogue, conv3x3_wgmma_kernel<N, true>. One launch of the
+//   packer lays out the transposed kernels (taps mirrored, K = the forward's
+//   output channels, N = its input channels) in a scratch buffer; dxin's
+//   147..280 channels are wider than the widest wgmma (128), so conv1^T runs
+//   in ceil(C / 128) N tiles over blockIdx.y, each packed on its own
+//   (wgmma_tiles: 152 and 184 channels take two tiles of 96, 280 three). The
+//   2-channel flow cotangent is padded to 8 channels in the scratch buffer
+//   by one small kernel, since TMA needs 16-byte global strides (its K step
+//   of 16 is zero past the 2 channels in the data and in the weights).
 #include "conv3x3_gemm.cuh"
+#include "conv3x3_wgmma.cuh"
 
 namespace pwc {
 
-// ------------------------------------------------------------ bfloat16 tensor cores
-// bfloat16 (conv3x3_tc_kernel): tensor cores, WMMA 16x16x16 with float32
-// accumulation, the transposed conv of conv3x3_gemm.cuh (`flip`). A block
-// owns 16 x 16 positions and 64 output channels; each of its 8 warps two
-// rows of 16 positions (2 x 4 accumulator fragments). Input channels go by
-// in chunks of 16: the tile + 1 halo is staged position-major [18][18][16],
-// so the A tile of one tap is 16 consecutive positions of 16 channels; the
-// weight tile is staged [tap][64][16] and read as column-major B tiles.
-// Chunks are double-buffered: 16-byte cp.async copies bring chunk k + 1 from
-// device memory (zero-filled outside the frame) while the tensor cores
-// multiply chunk k; two blocks share an SM. Where Cin is no multiple of 8
-// (the 2-channel flow cotangent) a pixel's channels do not start on 16
-// bytes, and the inputs of that conv are staged element by element instead.
-// The sums leave through a per-warp float32 scratch that reuses the staging
-// memory. (The bf16 forward runs on wgmma, estimator_conv.cu; this kernel
-// is already faster than cuDNN's conv2d_input chain and keeps WMMA.)
-constexpr int kTcT = 16;            // tile rows and columns
-constexpr int kTcI = kTcT + 2;      // staged rows and columns
-constexpr int kTcKC = 16;           // input channels per chunk (one WMMA depth)
-constexpr int kTcWT = kTcKC + 8;    // row stride of the transposed weight tile [64][16]: off the bank period
-constexpr int kTcWarps = kCgThreads / 32;
-constexpr int kTcInElems = kTcI * kTcI * kTcKC;
-constexpr int kTcWElems = 9 * kCgTN * kTcWT;
-constexpr int kTcStageElems = kTcInElems + kTcWElems;
-constexpr size_t kTcScratchBytes = (size_t)kTcWarps * 16 * kCgTN * sizeof(float);
-constexpr size_t kTcStageBytes = (size_t)2 * kTcStageElems * sizeof(__nv_bfloat16);  // two buffers
-constexpr size_t kTcSmemBytes = kTcScratchBytes > kTcStageBytes ? kTcScratchBytes : kTcStageBytes;
-static_assert((kTcInElems * sizeof(__nv_bfloat16)) % 32 == 0, "WMMA tiles start on 32 bytes");
-static_assert((kTcStageElems * sizeof(__nv_bfloat16)) % 32 == 0, "WMMA tiles start on 32 bytes");
-
-// ldw is a multiple of 8 and every tensor starts on 16 bytes, so a weight
-// row goes as 16-byte copies, and so do a pixel's channels where Cin is a
-// multiple of 8.
-__global__ void __launch_bounds__(kCgThreads, 2) conv3x3_tc_kernel(ConvArgs a) {
-  using bf16 = __nv_bfloat16;
-  namespace wmma = nvcuda::wmma;
-  extern __shared__ float4 cg_smem_f4[];
-  // 2 x ([18][18][16] inputs, [9][64][24] transposed weights)
-  bf16* stage = reinterpret_cast<bf16*>(cg_smem_f4);
-
-  const int tiles_x = (a.W + kTcT - 1) / kTcT;
-  const int ty0 = (blockIdx.x / tiles_x) * kTcT;
-  const int tx0 = (blockIdx.x % tiles_x) * kTcT;
-  const int n0 = blockIdx.y * kCgTN;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const bf16* in = static_cast<const bf16*>(a.in) + (size_t)b * a.H * a.W * a.Cin;
-  const bf16* wt = static_cast<const bf16*>(a.wt);
-  // 16-wide groups of output channels this block really has
-  const int nt_live = min(kCgTN / 16, (a.Cout - n0 + 15) / 16);
-  const bool in_by_16_bytes = a.Cin % 8 == 0;
-
-  auto load_chunk = [&](int c0, bf16* in_s) {
-    bf16* w_s = in_s + kTcInElems;
-    for (int i = tid; i < kTcI * kTcI * (kTcKC / 8); i += kCgThreads) {
-      const int v = i % (kTcKC / 8);
-      const int p = i / (kTcKC / 8);
-      const int gy = ty0 - 1 + p / kTcI;
-      const int gx = tx0 - 1 + p % kTcI;
-      const int c = c0 + v * 8;
-      const bool ok = c < a.Cin && gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
-      const bf16* src = in + ((size_t)gy * a.W + gx) * a.Cin + c;
-      bf16* dst = in_s + p * kTcKC + v * 8;
-      if (in_by_16_bytes) {
-        cp_async16(dst, ok ? src : in, ok);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) dst[j] = ok && c + j < a.Cin ? src[j] : from_f32<bf16>(0.f);
-      }
-    }
-    for (int i = tid; i < 9 * kCgTN * (kTcKC / 8); i += kCgThreads) {
-      const int v = i % (kTcKC / 8);
-      const int n = (i / (kTcKC / 8)) % kCgTN;
-      const int tap = i / (kTcKC / 8 * kCgTN);
-      const int c = c0 + v * 8;
-      const bool ok = c < a.ldw && n0 + n < a.Cout;
-      cp_async16(w_s + (tap * kCgTN + n) * kTcWT + v * 8,
-                 ok ? wt + ((size_t)(8 - tap) * a.Cout + n0 + n) * a.ldw + c : wt, ok);
-    }
-    cp_async_commit();
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][kCgTN / 16];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int nt = 0; nt < kCgTN / 16; ++nt) wmma::fill_fragment(acc[i][nt], 0.f);
-
-  const int chunks = (a.Cin + kTcKC - 1) / kTcKC;
-  load_chunk(0, stage);
-  for (int k = 0; k < chunks; ++k) {
-    const bf16* in_s = stage + (k & 1) * kTcStageElems;
-    const bf16* w_s = in_s + kTcInElems;
-    if (k + 1 < chunks) {  // the next chunk travels while this one is multiplied
-      load_chunk((k + 1) * kTcKC, stage + ((k + 1) & 1) * kTcStageElems);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], in_s + ((2 * warp + i + tap / 3) * kTcI + tap % 3) * kTcKC,
-                               kTcKC);
-#pragma unroll
-      for (int nt = 0; nt < kCgTN / 16; ++nt) {
-        if (nt < nt_live) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, w_s + (tap * kCgTN + nt * 16) * kTcWT, kTcWT);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][nt], fa[i], fb, acc[i][nt]);
-        }
-      }
-    }
-    __syncthreads();  // this buffer is refilled two chunks on; after the last chunk it becomes scratch
-  }
-
-  float* scratch = reinterpret_cast<float*>(cg_smem_f4) + warp * 16 * kCgTN;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int nt = 0; nt < kCgTN / 16; ++nt)
-      wmma::store_matrix_sync(scratch + nt * 16, acc[i][nt], kCgTN, wmma::mem_row_major);
-    __syncwarp();
-    const int gy = ty0 + 2 * warp + i;
-    if (gy < a.H) {
-      for (int e = lane; e < 16 * kCgTN; e += 32) {
-        const int m = e / kCgTN;
-        const int co = n0 + e % kCgTN;
-        const int gx = tx0 + m;
-        if (gx < a.W && co < a.Cout)
-          conv_epilogue<bf16>(a, ((size_t)b * a.H + gy) * a.W + gx, co, scratch[e]);
-      }
-    }
-    __syncwarp();  // scratch is reused for this warp's second row
-  }
-}
-
-// The kernel takes more dynamic shared memory than the default limit, which
-// is allowed once per device.
-constexpr int kTcMaxDevices = 64;
-static bool tc_smem_allowed[kTcMaxDevices] = {};
-
-cudaError_t conv3x3_tc(const ConvArgs& a, int B, cudaStream_t stream) {
-  const dim3 grid(((a.W + kTcT - 1) / kTcT) * ((a.H + kTcT - 1) / kTcT), (a.Cout + kCgTN - 1) / kCgTN, B);
-  if (a.ldw % 8 != 0 || !a.flip) return cudaErrorInvalidValue;  // 16-byte copies of the transposed tile
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device >= kTcMaxDevices || !tc_smem_allowed[device]) {
-    err = cudaFuncSetAttribute(conv3x3_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmemBytes);
-    if (err != cudaSuccess) return err;
-    if (device < kTcMaxDevices) tc_smem_allowed[device] = true;
-  }
-  conv3x3_tc_kernel<<<grid, kCgThreads, kTcSmemBytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
 constexpr int kEstConvs = 6;
 
-template <typename T>
-cudaError_t run_chain_bwd(const void* g_flow, const void* g_feat, const void* const* acts,
-                          const void* const* wts, void* const* gz, void* dxin, const int* chans,
-                          int B, int H, int W, cudaStream_t stream) {
+cudaError_t run_chain_bwd_f32(const void* g_flow, const void* g_feat, const void* const* acts,
+                              const void* const* wts, void* const* gz, void* dxin, const int* chans, int B,
+                              int H, int W, cudaStream_t stream) {
   const void* src = g_flow;
   for (int i = kEstConvs - 1; i >= 0; --i) {
     if (i == 0 && dxin == nullptr) break;
@@ -216,9 +63,62 @@ cudaError_t run_chain_bwd(const void* g_flow, const void* g_feat, const void* co
     a.Cout = chans[i];
     a.ldw = (a.Cin + 7) / 8 * 8;
     a.flip = 1;
-    const cudaError_t err = std::is_same_v<T, float> ? conv3x3_f32(a, B, stream) : conv3x3_tc(a, B, stream);
+    const cudaError_t err = conv3x3_f32(a, B, stream);
     if (err != cudaSuccess) return err;
     src = a.out;
+  }
+  return cudaSuccess;
+}
+
+// (pixels, c) -> (pixels, c8) with a zero tail: the flow cotangent with a 16-byte pixel stride
+__global__ void pad_channels_kernel(const __nv_bfloat16* __restrict__ in, __nv_bfloat16* __restrict__ out,
+                                    size_t pixels, int c, int c8) {
+  const size_t total = pixels * c8;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total; i += (size_t)gridDim.x * blockDim.x) {
+    const size_t p = i / c8;
+    const int ch = (int)(i % c8);
+    out[i] = ch < c ? in[p * c + ch] : __float2bfloat16_rn(0.f);
+  }
+}
+
+cudaError_t run_chain_bwd_bf16(const void* g_flow, const void* g_feat, const void* const* acts,
+                               const void* const* ks, void* const* gz, void* dxin, void* scratch,
+                               const int* chans, int B, int H, int W, cudaStream_t stream) {
+  TilePacker pk{static_cast<__nv_bfloat16*>(scratch), stream};
+  const __nv_bfloat16* wpk[kEstConvs];
+  const int first = dxin == nullptr ? 1 : 0;
+  for (int i = kEstConvs - 1; i >= first; --i) {
+    const cudaError_t err = pk.add(ks[i], chans[i + 1], chans[i], 1, &wpk[i]);
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = pk.flush();
+  if (err != cudaSuccess) return err;
+  const void* src = g_flow;
+  int cin = chans[kEstConvs];
+  if (cin % 8 != 0) {  // after the packed weights in the scratch buffer
+    const int c8 = round_up(cin, 8);
+    const size_t pixels = (size_t)B * H * W;
+    const size_t blocks = (pixels * c8 + 255) / 256;
+    pad_channels_kernel<<<(unsigned)(blocks < 1024 ? blocks : 1024), 256, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(g_flow), pk.dst, pixels, cin, c8);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    src = pk.dst;
+    cin = c8;
+  }
+  for (int i = kEstConvs - 1; i >= first; --i) {
+    EwArgs a{};
+    a.wpk = wpk[i];
+    a.add = i == kEstConvs - 1 ? static_cast<const __nv_bfloat16*>(g_feat) : nullptr;
+    a.act = i == 0 ? nullptr : static_cast<const __nv_bfloat16*>(acts[i - 1]);
+    a.out = static_cast<__nv_bfloat16*>(i == 0 ? dxin : gz[i - 1]);
+    a.H = H;
+    a.W = W;
+    a.Cout = chans[i];
+    err = conv_wgmma<true>(src, a, B, cin, stream);
+    if (err != cudaSuccess) return err;
+    src = a.out;
+    cin = chans[i];
   }
   return cudaSuccess;
 }
@@ -226,20 +126,48 @@ cudaError_t run_chain_bwd(const void* g_flow, const void* g_feat, const void* co
 }  // namespace pwc
 
 // g_flow: (B, H, W, chans[6]); g_feat: (B, H, W, chans[5]); acts[i]: s_{i+1}
-// (B, H, W, chans[i+1]), i < 5; wts[i]: conv i+1 as the forward takes it,
-// [ky][kx][chans[i]][ldw], ldw = chans[i+1] rounded up to a multiple of 8
-// (zero tail); gz[i]: gz_{i+1} like acts[i]; dxin: (B, H, W, chans[0]) or
-// null. chans[1..5] are multiples of 8. All contiguous and of one dtype:
-// 0 f32 / 1 bf16.
+// (B, H, W, chans[i+1]), i < 5; gz[i]: gz_{i+1} like acts[i]; dxin: (B, H,
+// W, chans[0]) or null. chans[1..5] are multiples of 8. wts[i], conv i+1:
+// float32 as the forward takes it, [ky][kx][chans[i]][ldw], ldw = chans[i+1]
+// rounded up to a multiple of 8 (zero tail); bfloat16 as PyTorch holds it,
+// OIHW (chans[i+1], chans[i], 3, 3), with `scratch` room for the transposed
+// kernels packed for wgmma (over the stages run, conv i+1^T: N tiles of
+// wgmma_tiles(chans[i]), each ceil(chans[i+1] / 16) * 9 * 2 * N * 8
+// elements) and, where chans[6] is no multiple of 8, for g_flow padded to
+// one (B * H * W * round_up(chans[6], 8) elements); unused in float32. All contiguous and of one
+// dtype: 0 f32 / 1 bf16.
 extern "C" int pwc_estimator_chain_bwd(const void* g_flow, const void* g_feat,
                                        const void* const* acts, const void* const* wts,
-                                       void* const* gz, void* dxin, const int* chans, int B, int H,
-                                       int W, int dtype, void* stream) {
+                                       void* const* gz, void* dxin, void* scratch, const int* chans, int B,
+                                       int H, int W, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == pwc::kF32)
-    return pwc::run_chain_bwd<float>(g_flow, g_feat, acts, wts, gz, dxin, chans, B, H, W, s);
+    return pwc::run_chain_bwd_f32(g_flow, g_feat, acts, wts, gz, dxin, chans, B, H, W, s);
   if (dtype == pwc::kBF16)
-    return pwc::run_chain_bwd<__nv_bfloat16>(g_flow, g_feat, acts, wts, gz, dxin, chans, B, H, W,
-                                             s);
+    return pwc::run_chain_bwd_bf16(g_flow, g_feat, acts, wts, gz, dxin, scratch, chans, B, H, W, s);
   return cudaErrorInvalidValue;
+}
+
+// The transpose of one OIHW bf16 forward kernel (cout, cin, 3, 3) packed
+// into `dst` as the backward packs it (K = cout, taps mirrored, the N tiles
+// of wgmma_tiles(cin) one after another): for holding the layout against its
+// PyTorch version.
+extern "C" int pwc_pack_wgmma_transposed_tiles(const void* k, void* dst, int cout, int cin, void* stream) {
+  pwc::TilePacker pk{static_cast<__nv_bfloat16*>(dst), static_cast<cudaStream_t>(stream)};
+  const __nv_bfloat16* at = nullptr;
+  const cudaError_t err = pk.add(k, cout, cin, 1, &at);
+  return err != cudaSuccess ? err : pk.flush();
+}
+
+// The N tiles of a conv of `cout` output channels (wgmma_tiles), for the
+// build log and for holding the plan against its PyTorch version.
+extern "C" int pwc_wgmma_tiles(int cout, int* tiles, int* n) {
+  *tiles = pwc::wgmma_tiles(cout, n);
+  return *n == 0 ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+// The bf16 backward conv kernel of wgmma width n, for the build log: its
+// dynamic shared memory, registers and resident blocks an SM.
+extern "C" int pwc_estimator_conv_bwd_info(int n, int* smem, int* regs, int* blocks) {
+  return pwc::wgmma_kernel_info<true>(n, smem, regs, blocks);
 }

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the bf16 kernels of K3
-// (pyramid_conv.cu), its backward K6 (pyramid_conv_bwd.cu) and K7
-// (estimator_conv.cu): mbarriers, TMA and bulk copies completing on them,
+// (pyramid_conv.cu), its backward K6 (pyramid_conv_bwd.cu) and K7 and its
+// backward (conv3x3_wgmma.cuh): mbarriers, TMA and bulk copies completing on them,
 // warpgroup matrix multiplies (wgmma) with both operands in shared memory,
 // the implicit-GEMM 3x3 conv over chunk-planar planes, the on-card weight
 // packer, and the tensor maps the copies read.
@@ -236,16 +236,19 @@ __device__ __forceinline__ void conv_wgmma_tiles(int n, uint32_t src_lbo, uint32
 // kernel): [ceil(cin / 16)][tap][2][n][8] with zero rows past cin and zero
 // columns past cout (ops/cuda/_common.py::pack_wgmma is the same layout in
 // PyTorch), or with `tap_major` [ky][kx][cin][cout]. `transposed` packs the
-// transpose of a forward kernel k (cin, cout, 3, 3) for K6's backward GEMMs,
-// K = the forward's output channels (cin here), N = its input channels
-// (cout here): 1 with the taps mirrored (tap 8 - t: the transpose of a
-// stride-1 conv is a conv), 2 as they are (the stride-2 conv's phases).
+// transpose of a forward kernel k (cin, cout, 3, 3) for the backward GEMMs
+// of K6 and K7, K = the forward's output channels (cin here), N = its input
+// channels (cout here): 1 with the taps mirrored (tap 8 - t: the transpose
+// of a stride-1 conv is a conv), 2 as they are (the stride-2 conv's phases).
+// A job packs the n columns from co0 on: one N tile of a conv wider than
+// the widest wgmma (wgmma_tiles).
 struct PackJob {
   const __nv_bfloat16* k;
   __nv_bfloat16* dst;
   int cin, cout, n, tap_major, transposed;
+  int co0;
 };
-constexpr int kMaxPackJobs = 6;
+constexpr int kMaxPackJobs = 8;
 
 // the N a conv of Cout channels runs at (ops/cuda/_common.py::wgmma_n); 0 past the widest
 inline int wgmma_n(int cout) {
@@ -253,6 +256,15 @@ inline int wgmma_n(int cout) {
   for (int n : kWidths)
     if (cout <= n) return n;
   return 0;
+}
+
+// The N tiles of a conv of Cout channels (ops/cuda/_common.py::wgmma_tiles):
+// ceil(Cout / 128) tiles of *n = the narrowest built width that holds an
+// equal share; tile j takes channels [j n, min((j + 1) n, Cout)).
+inline int wgmma_tiles(int cout, int* n) {
+  const int tiles = cout > 0 ? (cout + 127) / 128 : 1;
+  *n = wgmma_n((cout + tiles - 1) / tiles);
+  return tiles;
 }
 struct PackJobs {
   PackJob job[kMaxPackJobs];
@@ -272,7 +284,7 @@ __global__ void pack_weights_kernel(PackJobs jobs) {
       ci = (i / p.cout) % p.cin;
       tap = i / (p.cout * p.cin);
     } else {
-      co = (i / 8) % p.n;
+      co = p.co0 + (i / 8) % p.n;
       ci = i / (16 * p.n * 9) * 16 + (i / (8 * p.n)) % 2 * 8 + i % 8;
       tap = (i / (16 * p.n)) % 9;
     }
@@ -282,8 +294,9 @@ __global__ void pack_weights_kernel(PackJobs jobs) {
   }
 }
 
+// 64 blocks a job: K7's kernels run to 150 K elements a job (16 blocks took 15 us a call on the H100)
 inline cudaError_t pack_weights(const PackJobs& jobs, int count, cudaStream_t stream) {
-  pack_weights_kernel<<<dim3(16, count), 256, 0, stream>>>(jobs);
+  pack_weights_kernel<<<dim3(64, count), 256, 0, stream>>>(jobs);
   return cudaGetLastError();
 }
 

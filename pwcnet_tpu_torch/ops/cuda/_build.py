@@ -34,7 +34,7 @@ SOURCES = (
     "cost_volume_bwd", "warp_bwd", "pyramid_conv_bwd",  # K4, K5, K6
     "estimator_conv", "estimator_conv_bwd",  # K7 forward and backward
 )
-HEADERS = ("common.cuh", "correlation.cuh", "conv_fma.cuh", "conv3x3_gemm.cuh", "hopper.cuh")
+HEADERS = ("common.cuh", "correlation.cuh", "conv_fma.cuh", "conv3x3_gemm.cuh", "conv3x3_wgmma.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

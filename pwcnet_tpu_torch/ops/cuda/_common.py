@@ -48,21 +48,33 @@ def wgmma_n(cout: int) -> int:
     raise ValueError(f"{cout} output channels: the wgmma kernels are built for at most {WGMMA_WIDTHS[-1]}")
 
 
+def wgmma_tiles(cout: int) -> tuple[int, int]:
+    """``(tiles, n)``: the N tiles a bf16 wgmma conv of ``cout`` output
+    channels runs in (``csrc/hopper.cuh``): ``ceil(cout / 128)`` tiles of
+    the narrowest built width that holds an equal share; tile ``j`` takes
+    channels ``[j n, min((j + 1) n, cout))``. One tile up to 128 channels;
+    K7b's dxin (147..280) takes two or three."""
+    tiles = max(1, -(-cout // WGMMA_WIDTHS[-1]))
+    return tiles, wgmma_n(-(-cout // tiles))
+
+
 def packed_numel(cin: int, cout: int) -> int:
-    """Elements of one 3x3 kernel packed for wgmma (``pack_wgmma``)."""
-    return -(-cin // 16) * 9 * 2 * wgmma_n(cout) * 8
+    """Elements of one 3x3 kernel packed for wgmma, in the N tiles of
+    ``wgmma_tiles(cout)`` (one tile: ``pack_wgmma``)."""
+    tiles, n = wgmma_tiles(cout)
+    return tiles * -(-cin // 16) * 9 * 2 * n * 8
 
 
-def pack_wgmma(k: torch.Tensor) -> torch.Tensor:
+def pack_wgmma(k: torch.Tensor, n: int | None = None) -> torch.Tensor:
     """OIHW 3x3 kernel -> the wgmma B layout of the bf16 kernels,
     ``[K/16][tap][2][N][8]``: input channels zero-padded to K, a multiple of
     16, and split into two 8-channel halves per K step; output channels
-    zero-padded to ``N = wgmma_n(Cout)``; tap = ky * 3 + kx. One K step of
-    all nine taps is one contiguous block, a bulk copy. The kernels' own
-    packer (``csrc/hopper.cuh``, on the card) writes the same layout; this is
-    its reference."""
+    zero-padded to ``N = n`` or ``wgmma_n(Cout)``; tap = ky * 3 + kx. One K
+    step of all nine taps is one contiguous block, a bulk copy. The kernels'
+    own packer (``csrc/hopper.cuh``, on the card) writes the same layout;
+    this is its reference."""
     cout, cin = k.shape[:2]
-    kp, n = -(-cin // 16) * 16, wgmma_n(cout)
+    kp, n = -(-cin // 16) * 16, n or wgmma_n(cout)
     w = torch.nn.functional.pad(k.permute(2, 3, 1, 0).reshape(9, cin, cout), (0, n - cout, 0, kp - cin))
     return w.reshape(9, kp // 16, 2, 8, n).permute(1, 0, 2, 4, 3).contiguous()
 
@@ -73,9 +85,20 @@ def pack_wgmma_transposed(k: torch.Tensor, mirror: bool = True) -> torch.Tensor:
     output channels, N = its input channels, the taps mirrored (the
     transpose of a stride-1 conv is a conv with tap 8 - t) or, for the
     phases of the stride-2 conv1^T, as they are. The on-card packer
-    (``csrc/hopper.cuh``, ``transposed`` 1 or 2) writes the same layout."""
+    (``csrc/hopper.cuh``, ``transposed`` 1 or 2) writes the same layout;
+    K7b packs the mirrored transpose in N tiles (``transposed_tiles``)."""
     kt = k.transpose(0, 1)
     return pack_wgmma(kt.flip(2, 3) if mirror else kt)
+
+
+def transposed_tiles(k: torch.Tensor) -> torch.Tensor:
+    """The mirrored transpose of a forward OIHW kernel ``(cout, cin, 3, 3)``
+    cut into the N tiles of ``wgmma_tiles(cin)``, each packed by
+    ``pack_wgmma`` at the tile's width, one after another as K7b's packer
+    lays out conv^T: ``(tiles, ceil(cout / 16), 9, 2, n, 8)``."""
+    kt = k.transpose(0, 1).flip(2, 3)
+    tiles, n = wgmma_tiles(kt.shape[0])
+    return torch.stack([pack_wgmma(kt[j * n : (j + 1) * n], n) for j in range(tiles)])
 
 
 # The correlation kernel's tiling (csrc/correlation.cuh): tiles of 8 output

@@ -6,14 +6,17 @@ and its backward ``_est_bwd_pallas``. The function, its rounding and the
 plain versions are in ``pwcnet_tpu_torch/ops/estimator_conv.py``.
 
 Activations are NHWC; ``kbs`` is ``k1, b1, .., k6, b6`` with PyTorch's OIHW
-kernels. Each call lays the kernels out for its implicit GEMMs: the bf16
-forward packs them for wgmma on the card, all six in one small kernel, into
-a scratch buffer of ``_common.packed_numel`` elements a kernel (the layout
-of ``_common.pack_wgmma``); the float32 forward and the backward take them
+kernels. Each call lays the kernels out for its implicit GEMMs. In bf16 both
+directions pack them for wgmma on the card, all of a call in one small
+kernel, into a scratch buffer: the forward as ``_common.pack_wgmma``, the
+backward their transposes with the taps mirrored, in the N tiles of
+``_common.wgmma_tiles`` (``_common.transposed_tiles``; dxin's 147..280
+channels take two or three), followed by the flow cotangent padded to 8
+channels, which the backward's TMA loads need. In float32 both take them
 tap-major, six small copies, ``[ky][kx][cin][cout]`` with ``cout``
-zero-padded to a multiple of 8 (the backward reads that array transposed). The five hidden widths must be
-multiples of 8 (128, 128, 96, 64, 32 in the model), because the kernels copy
-their activations 16 bytes at a time.
+zero-padded to a multiple of 8 (the backward reads that array transposed).
+The five hidden widths must be multiples of 8 (128, 128, 96, 64, 32 in the
+model), because the kernels copy their activations 16 bytes at a time.
 
 The chain's input (147..273 channels in the model) may arrive with its
 channels zero-padded up to a multiple of 8, as the model's NHWC copy writes
@@ -53,7 +56,7 @@ __all__ = ["estimator_chain_fused", "estimator_chain_bwd"]
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _IP = ctypes.POINTER(ctypes.c_int)
 _ARGTYPES = [P, _PP, _PP, _PP, P, _IP] + [I] * 4 + [P]
-_BWD_ARGTYPES = [P, P, _PP, _PP, _PP, P, _IP] + [I] * 4 + [P]
+_BWD_ARGTYPES = [P, P, _PP, _PP, _PP, P, P, _IP] + [I] * 4 + [P]
 
 
 def _ptrs(tensors):
@@ -152,14 +155,24 @@ def estimator_chain_bwd(ks, acts, g_flow, g_feat, need_dx: bool = True):
     for i, k in enumerate(ks):
         if tuple(k.shape) != (chans[i + 1], chans[i], 3, 3):
             raise ValueError(f"{name}: k{i + 1} is {tuple(k.shape)}")
-    return _backward([_tap_major(k) for k in ks], chans, acts, g_flow, g_feat, need_dx)
+    return _backward(ks, chans, acts, g_flow, g_feat, need_dx)
 
 
-def _backward(wts, chans, acts, g_flow, g_feat, need_dx):
-    """Launch the backward on the tap-major kernels ``wts``;
-    ``chans`` are the channel counts ``[Cin, C1, .., C6]``."""
+def bwd_scratch_numel(chans, b: int, h: int, w: int, need_dx: bool) -> int:
+    """Elements of the bf16 backward's scratch buffer: the transposed
+    kernels of the stages it runs (conv_{i+1}^T: K = ``chans[i + 1]``, the
+    N tiles of ``chans[i]``; conv1^T only with dxin), then the flow
+    cotangent padded to a multiple of 8 channels where it is not one."""
+    n = sum(_common.packed_numel(chans[i + 1], chans[i]) for i in range(0 if need_dx else 1, NCONV))
+    return n + (b * h * w * -(-chans[-1] // 8) * 8 if chans[-1] % 8 else 0)
+
+
+def _backward(ks, chans, acts, g_flow, g_feat, need_dx):
+    """Launch the backward on the OIHW kernels ``ks`` (bf16: packed on the
+    card; float32: tap-major copies); ``chans`` are the channel counts
+    ``[Cin, C1, .., C6]``."""
     name = "estimator_chain_bwd"
-    _common.check_tensors(name, g_flow, g_feat, *acts, *wts)
+    _common.check_tensors(name, g_flow, g_feat, *acts, *ks)
     if len(acts) != NCONV - 1:
         raise ValueError(f"{name}: want {NCONV - 1} activations, got {len(acts)}")
     b, h, w, _ = g_flow.shape
@@ -172,11 +185,16 @@ def _backward(wts, chans, acts, g_flow, g_feat, need_dx):
         raise ValueError(f"{name}: a hidden width of {chans[1:-1]} is no multiple of 8")
     gzs = [torch.empty_like(a) for a in acts]
     dxin = torch.empty((b, h, w, chans[0]), dtype=g_flow.dtype, device=g_flow.device) if need_dx else None
+    if g_flow.dtype == torch.bfloat16:
+        wts = ks
+        scratch = torch.empty(bwd_scratch_numel(chans, b, h, w, need_dx), dtype=g_flow.dtype, device=g_flow.device)
+    else:
+        wts, scratch = [_tap_major(k) for k in ks], None
     _common.launch(
         "estimator_conv_bwd", "pwc_estimator_chain_bwd", _BWD_ARGTYPES, g_flow.device,
         g_flow.data_ptr(), g_feat.data_ptr(), _ptrs(acts), _ptrs(wts), _ptrs(gzs),
-        dxin.data_ptr() if need_dx else None, (ctypes.c_int * len(chans))(*chans),
-        b, h, w, _common.DTYPE_CODES[g_flow.dtype],
+        dxin.data_ptr() if need_dx else None, None if scratch is None else scratch.data_ptr(),
+        (ctypes.c_int * len(chans))(*chans), b, h, w, _common.DTYPE_CODES[g_flow.dtype],
     )
     estimator_chain_bwd.launches += 1
     return gzs, dxin
@@ -196,7 +214,7 @@ class _EstimatorChain(torch.autograd.Function):
         chans = [ks[0].shape[1]] + [k.shape[0] for k in ks]
         # autograd hands an unused output's cotangent over as zeros
         g_flow, g_feat = g_flow.contiguous(), g_feat.contiguous()
-        gzs, dxin = _backward([_tap_major(k) for k in ks], chans, acts, g_flow, g_feat, ctx.needs_input_grad[0])
+        gzs, dxin = _backward(ks, chans, acts, g_flow, g_feat, ctx.needs_input_grad[0])
         grads = chain_weight_grads(xin, acts, gzs, g_flow, [k.shape for k in ks])
         return (dxin, *grads)
 

@@ -2,7 +2,9 @@
 """The float32 conv kernels on the card, an earlier version against the
 current one against cuDNN: K3 (the fused pyramid level), K6 (its
 backward) and K7's implicit-GEMM core (the estimator chain forward, and
-K7b's transposed stages), B=8, float32, TF32 off; K4, the cost
+K7b's transposed stages), B=8, float32, TF32 off, with the bf16 K7 and
+K7b beside them (``--kernels K7``: old, current and cuDNN's chains,
+device time and the split per stage); K4, the cost
 volume's backward (with K8b, its row-shard form), and K5, the warp's
 backward (with K9b, its tall-frame form), old against current in float32
 and bf16.
@@ -19,7 +21,10 @@ current package's (an old K4 entry takes no tile plan). Shapes: K3 at
 levels 0 and 1 of the 448x1024 serving forward and of the 384x448
 training step; K6 at the training step's two levels (dx at level 1 only,
 as the step asks), its old-vs-current check also with dx at both levels
-and at edge frames no tile divides; K7 and K7b at levels 3 and 4 of both;
+and at edge frames no tile divides; K7 and K7b at levels 3 and 4 of both
+(the bf16 K7b with k1 padded to the input's 8-channel multiple, as the
+step calls it; an old K7b from before the wgmma body is called with the
+tap-major weights its C interface took, copied once outside the timing);
 K4 (``pwc_cost_volume_bwd``) at the training step's five calls and K8b
 (``pwc_cost_volume_hpad_bwd``) at its four sharded levels per rank of 2,
 both also checked at two edge frames, in float32 and bf16 (K4 has no
@@ -60,9 +65,10 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import grid_sample_bwd  # noqa: E402  (K5's and K9b's library yardstick)
-from pwcnet_tpu_torch.ops.cuda import _build  # noqa: E402
+from pwcnet_tpu_torch.ops.cuda import _build, _common  # noqa: E402
 from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_bwd, cost_volume_hpad_bwd  # noqa: E402
-from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd, estimator_chain_residuals  # noqa: E402
+from pwcnet_tpu_torch.ops.cuda.estimator_conv import (  # noqa: E402
+    bwd_scratch_numel, estimator_chain_bwd, estimator_chain_residuals)
 from pwcnet_tpu_torch.ops.cuda.pyramid_conv import (  # noqa: E402
     pyramid_level_bwd, pyramid_level_fused, pyramid_level_residuals)
 
@@ -141,10 +147,23 @@ def build_old(old: Path, tmp: Path, kernels) -> dict:
         ("warp_bwd", "pwc_warp_bwd"): [P] * 6 + [I] * 5 + [P],
         ("warp_bwd", "pwc_warp_bwd_rows"): [P] * 6 + [I] * 7 + [P],
     }
+    if "estimator_conv_bwd" in libs and "void* scratch" in (old / "estimator_conv_bwd.cu").read_text():
+        # the wgmma K7b's entry also takes the bf16 scratch buffer
+        argtypes["estimator_conv_bwd", "pwc_estimator_chain_bwd"] = [P, P, PP, PP, PP, P, P, IP] + [I] * 4 + [P]
+        libs["estimator_conv_bwd"].takes_scratch = True
     for (name, fn), types in argtypes.items():
         if name in libs:
             getattr(libs[name], fn).argtypes = types
     return libs
+
+
+def old_chain_bwd(lib, g_flow, g_feat, acts, wts, gzs, dxin, chans, b, h, w, code, stream, scratch=None):
+    """Call an old ``pwc_estimator_chain_bwd`` through its own C interface:
+    before the wgmma K7b it took no scratch buffer (and in bf16 tap-major
+    weights); raise if it fails to launch."""
+    extra = (scratch,) if getattr(lib, "takes_scratch", False) else ()
+    if lib.pwc_estimator_chain_bwd(g_flow, g_feat, acts, wts, gzs, dxin, *extra, chans, b, h, w, code, stream):
+        raise SystemExit("the old K7b failed to launch")
 
 
 def emit(**kw):
@@ -323,7 +342,6 @@ def run_k7(libs, gen, dev, stream, rounds):
         bwd = {"current": lambda: estimator_chain_bwd(ks, saved, g_flow, g_feat)}
         if libs:
             f_old = libs["estimator_conv"].pwc_estimator_chain
-            b_old = libs["estimator_conv_bwd"].pwc_estimator_chain_bwd
             kpad = [F.pad(ks[0], (0, 0, 0, 0, 0, xpad.shape[-1] - cin))] + ks[1:]
             wts = [tap_major(k) for k in kpad]
             wts_b = [tap_major(k) for k in ks]
@@ -340,9 +358,8 @@ def run_k7(libs, gen, dev, stream, rounds):
                     raise SystemExit("the old K7 failed to launch")
 
             def bwd_old():
-                if b_old(g_flow.data_ptr(), g_feat.data_ptr(), ap_, wbp, gp, dxin.data_ptr(), chans_b,
-                         B, h, w, 0, stream()):
-                    raise SystemExit("the old K7b failed to launch")
+                old_chain_bwd(libs["estimator_conv_bwd"], g_flow.data_ptr(), g_feat.data_ptr(), ap_, wbp, gp,
+                              dxin.data_ptr(), chans_b, B, h, w, 0, stream())
             for what, fn_ in (("old K7", fwd_old), ("old K7b", bwd_old)):
                 fn_()
                 try:
@@ -387,6 +404,137 @@ def run_k7(libs, gen, dev, stream, rounds):
                 if variant in fwd:
                     emit(kernel="K7", variant=variant, shape=shape, per_conv=conv_split(fwd[variant]))
                     emit(kernel="K7b", variant=variant, shape=shape, per_conv=conv_split(bwd[variant]))
+
+
+def device_split(fn, n=5):
+    """``([[kernel, device ms per call, launches per call], ...], device ms
+    per call)`` of ``fn`` by torch.profiler over ``n`` calls after one
+    warm-up step of the profiler's schedule, whose events it drops (so no
+    call is caught half traced); kernels in order of first launch;
+    ``(None, None)`` if the trace caught no device event."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cuda = torch.autograd.DeviceType.CUDA
+    caught = []
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=n),
+                 on_trace_ready=lambda p: caught.extend(e for e in p.events() if e.device_type == cuda)) as prof:
+        for _ in range(1 + n):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    if not caught:
+        return None, None
+    rows = {}
+    for e in caught:
+        name = e.name.split("(")[0].removeprefix("void ").removeprefix("pwc::")
+        t, c = rows.get(name, (0.0, 0))
+        rows[name] = (t + e.device_time_total, c + 1)
+    split = [[k, round(t / n / 1e3, 4), c / n] for k, (t, c) in rows.items()]
+    return split, round(sum(r[1] for r in split), 4)
+
+
+def run_k7_bf16(libs, gen, dev, stream, rounds):
+    """The bf16 K7 forward (with residuals) and K7b at the K7 shapes, B=8,
+    as the training step calls them (the input and k1 padded to an
+    8-channel multiple, so dxin has 152 / 184 channels): the old bodies
+    through their own C interfaces (an old K7b from before the wgmma body
+    takes tap-major weights, copied once outside the timed call), the
+    current ones through the wrapper (packing included), and cuDNN's
+    chains; the old results against the current first, then events in
+    alternating rounds, then each call's device kernels (torch.profiler:
+    device time, the split by kernel, which for K7b is by stage: N = 32,
+    64, 96 and 128 are conv6ᵀ, conv5ᵀ, conv4ᵀ and dxin's two tiles, conv3ᵀ
+    and conv2ᵀ) and its time with the calls queued on the card."""
+    dt = torch.bfloat16
+    for label, h, w, cin in K7_SHAPES:
+        cinp = -(-cin // 8) * 8
+        xin = torch.randn((B, h, w, cinp), generator=gen, device=dev)
+        xin[..., cin:] = 0
+        xin = xin.to(dt)
+        kbs, ci = [], cinp
+        for c in COUTS:
+            k = torch.randn((c, ci, 3, 3), generator=gen, device=dev) / (9 * cin) ** 0.5
+            if ci == cinp:
+                k[:, cin:] = 0  # the zero rows of the padded k1
+            kbs += [k.to(dt), (0.1 * torch.randn((c,), generator=gen, device=dev)).to(dt)]
+            ci = c
+        ks = kbs[0::2]
+        flow, feat, acts = estimator_chain_residuals(xin, *kbs)
+        saved = [*acts, feat]
+        g_flow = torch.randn(flow.shape, generator=gen, device=dev).to(dt)
+        g_feat = torch.randn(feat.shape, generator=gen, device=dev).to(dt)
+        shape = f"{label} bf16 {B}x{h}x{w}x{cin} (dxin {cinp})"
+        new_gz, new_dx = estimator_chain_bwd(ks, saved, g_flow, g_feat)
+        fwd = {"current": lambda: estimator_chain_residuals(xin, *kbs)}
+        bwd = {"current": lambda: estimator_chain_bwd(ks, saved, g_flow, g_feat)}
+        if libs:
+            outs = [torch.empty((B, h, w, c), dtype=dt, device=dev) for c in COUTS]
+            packed = torch.empty(sum(_common.packed_numel(a, c) for a, c in zip((cinp, *COUTS), COUTS)),
+                                 dtype=dt, device=dev)
+            fargs = (xin.data_ptr(), ptrs(ks), ptrs(kbs[1::2]), ptrs(outs), packed.data_ptr(),
+                     (ctypes.c_int * 7)(cinp, *COUTS), B, h, w, 1)
+
+            def fwd_old():
+                if libs["estimator_conv"].pwc_estimator_chain(*fargs, stream()):
+                    raise SystemExit("the old K7 failed to launch")
+            lib = libs["estimator_conv_bwd"]
+            wts = ks if getattr(lib, "takes_scratch", False) else [tap_major(k) for k in ks]
+            scratch = torch.empty(bwd_scratch_numel([cinp, *COUTS], B, h, w, True), dtype=dt, device=dev)
+            gzs = [torch.empty_like(a) for a in saved]
+            dxin = torch.empty((B, h, w, cinp), dtype=dt, device=dev)
+            bargs = (g_flow.data_ptr(), g_feat.data_ptr(), ptrs(saved[:5]), ptrs(wts), ptrs(gzs), dxin.data_ptr(),
+                     (ctypes.c_int * 7)(cinp, *COUTS), B, h, w, 1)
+
+            def bwd_old():
+                old_chain_bwd(lib, *bargs, stream(), scratch=scratch.data_ptr())
+            fwd_old()
+            bwd_old()
+            torch.cuda.synchronize()
+            emit(kernel="K7", check="old vs current", shape=shape,
+                 bitwise=all(torch.equal(a, b) for a, b in zip(outs, [*acts, feat, flow])))
+            emit(kernel="K7b", check="old vs current", shape=shape,
+                 max_abs_diff={k: (o.float() - n.float()).abs().max().item()
+                               for k, o, n in zip(("gz1", "gz2", "gz3", "gz4", "gz5", "dxin"),
+                                                  [*gzs, dxin], [*new_gz, new_dx])},
+                 bitwise=all(torch.equal(o, n) for o, n in zip([*gzs, dxin], [*new_gz, new_dx])),
+                 scale=max(t.float().abs().max().item() for t in [*new_gz, new_dx]))
+            fwd = {"old": fwd_old, **fwd}
+            bwd = {"old": bwd_old, **bwd}
+        xn = xin.permute(0, 3, 1, 2)
+        gfn, gftn = g_flow.permute(0, 3, 1, 2), g_feat.permute(0, 3, 1, 2)
+        sn = [a.permute(0, 3, 1, 2) for a in saved]
+
+        def cudnn7():
+            y = xn
+            for i in range(6):
+                y = F.conv2d(y, kbs[2 * i], kbs[2 * i + 1], padding=1)
+                y = F.leaky_relu(y, 0.1) if i < 5 else y
+            return y
+
+        def cudnn7b():
+            from torch.nn.grad import conv2d_input
+
+            gz = gfn
+            for i in range(5, 0, -1):
+                ds = conv2d_input((B, ks[i].shape[1], h, w), ks[i], gz, padding=1)
+                if i == 5:
+                    ds = ds + gftn
+                gz = ds * torch.where(sn[i - 1] >= 0, 1.0, 0.1).to(dt)
+            return conv2d_input((B, cinp, h, w), ks[0], gz, padding=1)
+
+        fwd["cuDNN chain"] = cudnn7
+        bwd["cuDNN conv2d_input chain"] = cudnn7b
+        for rnd in range(rounds):
+            time_turns("K7", shape, fwd, rnd, iters=10)
+            time_turns("K7b", shape, bwd, rnd, iters=10)
+        if rounds:
+            for kid, turns in (("K7", fwd), ("K7b", bwd)):
+                for variant, call in turns.items():
+                    split, total = device_split(call)
+                    emit(kernel=kid, variant=variant, shape=shape, device_ms=total, queued_ms=queued_ms(call),
+                         per_kernel=split if split is None or "cuDNN" not in variant else len(split))
 
 
 def run_k4(libs, gen, dev, stream, rounds):
@@ -437,7 +585,6 @@ def run_k5(libs, gen, dev, stream, rounds):
     from run to run), then old, current and grid_sample's backward by
     events in alternating rounds, then each call's device operations by
     device time (torch.profiler)."""
-    from pwcnet_tpu_torch.ops.cuda import _common
     from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd, warped_rows_bwd
 
     d = 4
@@ -534,7 +681,7 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    runs = {"K3": run_k3, "K6": run_k6, "K7": run_k7, "K4": run_k4, "K5": run_k5}
+    runs = {"K3": run_k3, "K6": run_k6, "K7": lambda *a: (run_k7(*a), run_k7_bf16(*a)), "K4": run_k4, "K5": run_k5}
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_old(args.old.resolve(), Path(tmp), args.kernels) if args.old else {}
         with torch.inference_mode():

@@ -553,18 +553,28 @@ class TestKernelsOnCard:
         torch.cuda.synchronize()
         assert torch.equal(dst.view(want.shape), want)
 
-    @pytest.mark.parametrize("cout,cin,mirror", [(32, 32, True), (16, 16, True), (32, 16, False), (16, 3, False)])
-    def test_device_packer_transposes_for_k6(self, cuda_device, rng, cout, cin, mirror):
-        """K6 packs its transposed kernels on the card: the very layout of
-        ``_common.pack_wgmma_transposed``."""
+    @pytest.mark.parametrize("cout,cin,mirror,k7", [
+        (32, 32, True, False), (16, 16, True, False), (32, 16, False, False), (16, 3, False, False),
+        # K7b's conv^T: dxin in N tiles above 128 (147..280 channels), the flow conv's 2 and 3 channels
+        (128, 152, True, True), (128, 147, True, True), (128, 184, True, True), (128, 280, True, True),
+        (128, 273, True, True), (24, 37, True, True), (2, 32, True, True), (3, 40, True, True),
+        (64, 96, True, True)])
+    def test_device_packer_transposes_for_k6(self, cuda_device, rng, cout, cin, mirror, k7):
+        """K6 and K7b pack their transposed kernels on the card: the very
+        layout of ``_common.pack_wgmma_transposed``, and for K7b of
+        ``_common.transposed_tiles`` (N tiles of ``wgmma_tiles(cin)``)."""
         from pwcnet_tpu_torch.ops.cuda import _common
         from pwcnet_tpu_torch.ops.cuda._common import I, P
 
         k = torch.from_numpy(_normal(rng, (cout, cin, 3, 3))).to(cuda_device, torch.bfloat16)
-        want = _common.pack_wgmma_transposed(k, mirror)
+        want = _common.transposed_tiles(k) if k7 else _common.pack_wgmma_transposed(k, mirror)
         dst = torch.full((want.numel(),), float("nan"), dtype=torch.bfloat16, device=cuda_device)
-        _common.launch("pyramid_conv_bwd", "pwc_pack_wgmma_transposed", [P, P, I, I, I, P], cuda_device,
-                       k.data_ptr(), dst.data_ptr(), cout, cin, int(mirror))
+        if k7:
+            _common.launch("estimator_conv_bwd", "pwc_pack_wgmma_transposed_tiles", [P, P, I, I, P], cuda_device,
+                           k.data_ptr(), dst.data_ptr(), cout, cin)
+        else:
+            _common.launch("pyramid_conv_bwd", "pwc_pack_wgmma_transposed", [P, P, I, I, I, P], cuda_device,
+                           k.data_ptr(), dst.data_ptr(), cout, cin, int(mirror))
         torch.cuda.synchronize()
         assert torch.equal(dst.view(want.shape), want)
 
