@@ -334,9 +334,9 @@ def library_ms(torch, fn, what):
 
 def device_ops(torch, fn, n=3, tries=3):
     """The device operations (kernels, memsets, copies) one call of ``fn``
-    makes, by torch.profiler over ``n`` calls: ``(per call, names)``; a
-    trace that caught no device event is taken again, up to ``tries``
-    times."""
+    makes, by torch.profiler over ``n`` calls: ``(per call, {name: launches
+    a call})``; a trace that caught no device event is taken again, up to
+    ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -351,7 +351,10 @@ def device_ops(torch, fn, n=3, tries=3):
         names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
         if names:
             break
-    return len(names) / n, sorted({nm.split("(")[0] for nm in names})
+    counts = {}
+    for nm in sorted(nm.split("(")[0] for nm in names):
+        counts[nm] = counts.get(nm, 0) + 1
+    return len(names) / n, {nm: c / n for nm, c in counts.items()}
 
 
 # ------------------------------------------------------------ phases
@@ -630,7 +633,9 @@ def check_estimator_kernels(torch, device, compare, batches=(1, 8), dtypes=None)
     the 448x1024 serving forward: the forward with and without residuals
     (flow, features, s1..s4) and the backward (gz1..gz5, dxin, and the
     weight and bias gradients taken from the kernel's gz against those taken
-    from the plain gz), all against the plain versions.
+    from the plain gz; gz1..gz5 and dxin again with k1 padded to the input's
+    8-channel multiple, as the model hands it over, whose padded dxin
+    channels must be 0), all against the plain versions.
 
     bfloat16 tolerance: 2 ulps of the result's scale, as for a one-stage
     kernel. The tensor-core body is another body than the float32 one, so it
@@ -681,6 +686,14 @@ def check_estimator_kernels(torch, device, compare, batches=(1, 8), dtypes=None)
                         compare("K7b", f"{name} {label}", a, e, dtype, f32_rel=1e-4)
                     nodx = estimator_chain_bwd(ks, saved, g_flow, g_feat, need_dx=False)[1]
                     require(nodx is None, f"K7b returned a dxin nobody asked for at {label}")
+                    # k1 padded to the input's 8-channel multiple, as the model hands it over: dxin's
+                    # 16-byte stores and its second and third N tiles
+                    kpad = [torch.nn.functional.pad(ks[0], (0, 0, 0, 0, 0, -cin % 8)), *ks[1:]]
+                    gzs, dxpad = estimator_chain_bwd(kpad, saved, g_flow, g_feat)
+                    for i, (a, e) in enumerate(zip(gzs, want_gzs)):
+                        compare("K7b", f"gz{i + 1} (padded k1) {label}", a, e, dtype)
+                    compare("K7b", f"dxin (padded k1) {label}", dxpad[..., :cin], want_dxin, dtype)
+                    require(not dxpad[..., cin:].any().item(), f"K7b's padded dxin channels are not 0 at {label}")
                     # the input as the model hands it over: channels zero-padded to a multiple of 8
                     xpad = torch.nn.functional.pad(xin, (0, -cin % 8))
                     flow, feat = estimator_chain_fused(xpad, *kbs)
@@ -799,9 +812,10 @@ def check_one_kernel_a_call(torch, F, device):
     cooperative ``warp_bwd_coop_kernel`` (no fill, no rounding kernel), in
     float32 and bf16, at the finest training call and at its shard; one
     bf16 K7b call at the trainer's finest estimator level (k1 padded to 152
-    input channels, as the model hands it over) is the weight packer, the
-    flow cotangent's padding and the six wgmma stages, with no weight copy
-    through aten (torch.profiler). Returns the log line's parts."""
+    input channels, as the model hands it over) is one launch of the weight
+    packer, six wgmma stages and the flow cotangent's padding (the device
+    operations of the same ``F.pad`` alone), with no weight copy through
+    aten (torch.profiler). Returns the log line's parts."""
     from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd
     from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd, warped_rows_bwd
 
@@ -828,11 +842,15 @@ def check_one_kernel_a_call(torch, F, device):
         ks = kbs[0::2]
         acts = [torch.randn((8, h, w, c), generator=gen, device=device).to(torch.bfloat16) for c in EST_COUTS[:-1]]
         g = [torch.randn((8, h, w, c), generator=gen, device=device).to(torch.bfloat16) for c in EST_COUTS[:-3:-1]]
-        per_call, names = device_ops(torch, lambda: estimator_chain_bwd(ks, acts, *g))
-        label = f"K7b bfloat16: {per_call:g} ({', '.join(names)})"
-        stages = ("pack_weights_kernel", "pad_channels_kernel", "conv3x3_wgmma_kernel")
-        require(per_call == 2 + len(EST_COUTS) and all(any(k in nm for k in stages) for nm in names),
-                f"{label}: not the packer, the padding and the six wgmma stages")
+        per_call, counts = device_ops(torch, lambda: estimator_chain_bwd(ks, acts, *g))
+        _, pad = device_ops(torch, lambda: F.pad(g[0], (0, -EST_COUTS[-1] % 8)))
+        label = f"K7b bfloat16: {per_call:g} ({', '.join(f'{nm} x{c:g}' for nm, c in counts.items())})"
+        rest = dict(counts)
+        packs = sum(rest.pop(nm) for nm in list(rest) if "pack_weights_kernel" in nm)
+        stages = sum(rest.pop(nm) for nm in list(rest) if "conv3x3_wgmma_kernel" in nm)
+        require(packs == 1 and stages == len(EST_COUTS) and rest == pad,
+                f"{label}: not one packer launch, {len(EST_COUTS)} wgmma stages and the flow's padding "
+                f"({', '.join(f'{nm} x{c:g}' for nm, c in pad.items())})")
         found.append(label)
     log("  device operations a call (torch.profiler): " + "; ".join(found))
     return found
@@ -843,8 +861,10 @@ def check_determinism(torch, F, device, dtypes=None):
     two launches on the same inputs: K2 and K1 (with its warped map) at
     every serving level, K8, K9 (with its warped rows) at the deepest and
     finest sharded level, K3 (with s1 and s2) at its serving and training
-    levels, K7 (flow, features) and K7b (gz1..gz5, dxin) at the trainer's
-    two estimator levels, K6 at both training levels (dx at level 1), B=8.
+    levels, K7 (flow, features) and K7b (gz1..gz5, dxin, with k1 as given
+    and padded to the input's 8-channel multiple as the model hands it
+    over) at the trainer's two estimator levels, K6 at both training levels
+    (dx at level 1), B=8.
     Returns the number of results compared."""
     from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda, cost_volume_hpad_cuda
     from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd, estimator_chain_residuals
@@ -887,10 +907,12 @@ def check_determinism(torch, F, device, dtypes=None):
                 flow, feat, acts = estimator_chain_residuals(xin, *kbs)
                 same("K7", f"{dtype} {h}x{w}x{cin}", lambda: (*estimator_chain_residuals(xin, *kbs)[:2],))
                 g = [torch.randn(t.shape, generator=gen, device=device).to(dtype) for t in (flow, feat)]
+                kpad = [F.pad(kbs[0], (0, 0, 0, 0, 0, -cin % 8)), *kbs[2::2]]
 
                 def k7b():
                     gz, dx = estimator_chain_bwd(kbs[0::2], [*acts, feat], *g)
-                    return [*gz, dx]
+                    gzp, dxp = estimator_chain_bwd(kpad, [*acts, feat], *g)
+                    return [*gz, dx, *gzp, dxp]
 
                 same("K7b", f"{dtype} {h}x{w}x{cin}", k7b)
             for level, (h, w, cin, c) in enumerate(K3_TRAIN):
@@ -1735,7 +1757,7 @@ PROFILE_GROUPS = (
     ("K4 cost_volume_bwd", ("cv_bwd_kernel",)),
     ("K5 warp_bwd", ("warp_bwd_coop_kernel",)),
     ("K6 pyramid_level_bwd", ("conv_t_col", "conv1_t_col", "conv_t_s2", "conv_t_wg", "conv1_t_wg")),
-    ("K7 estimator chain, forward and backward", ("conv3x3_", "pad_channels")),
+    ("K7 estimator chain, forward and backward", ("conv3x3_",)),
     ("K3, K6 and K7 weight packing (bf16)", ("pack_weights",)),
     ("cuDNN wgrad", ("wgrad",)),
     ("cuDNN dgrad", ("dgrad",)),

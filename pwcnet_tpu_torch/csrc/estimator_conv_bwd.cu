@@ -35,9 +35,9 @@
 //   147..280 channels are wider than the widest wgmma (128), so conv1^T runs
 //   in ceil(C / 128) N tiles over blockIdx.y, each packed on its own
 //   (wgmma_tiles: 152 and 184 channels take two tiles of 96, 280 three). The
-//   2-channel flow cotangent is padded to 8 channels in the scratch buffer
-//   by one small kernel, since TMA needs 16-byte global strides (its K step
-//   of 16 is zero past the 2 channels in the data and in the weights).
+//   2-channel flow cotangent arrives padded to 8 channels by the caller,
+//   since TMA needs 16-byte global strides (its K step of 16 is zero past
+//   the 2 channels in the data and in the weights).
 #include "conv3x3_gemm.cuh"
 #include "conv3x3_wgmma.cuh"
 
@@ -70,17 +70,6 @@ cudaError_t run_chain_bwd_f32(const void* g_flow, const void* g_feat, const void
   return cudaSuccess;
 }
 
-// (pixels, c) -> (pixels, c8) with a zero tail: the flow cotangent with a 16-byte pixel stride
-__global__ void pad_channels_kernel(const __nv_bfloat16* __restrict__ in, __nv_bfloat16* __restrict__ out,
-                                    size_t pixels, int c, int c8) {
-  const size_t total = pixels * c8;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total; i += (size_t)gridDim.x * blockDim.x) {
-    const size_t p = i / c8;
-    const int ch = (int)(i % c8);
-    out[i] = ch < c ? in[p * c + ch] : __float2bfloat16_rn(0.f);
-  }
-}
-
 cudaError_t run_chain_bwd_bf16(const void* g_flow, const void* g_feat, const void* const* acts,
                                const void* const* ks, void* const* gz, void* dxin, void* scratch,
                                const int* chans, int B, int H, int W, cudaStream_t stream) {
@@ -94,18 +83,7 @@ cudaError_t run_chain_bwd_bf16(const void* g_flow, const void* g_feat, const voi
   cudaError_t err = pk.flush();
   if (err != cudaSuccess) return err;
   const void* src = g_flow;
-  int cin = chans[kEstConvs];
-  if (cin % 8 != 0) {  // after the packed weights in the scratch buffer
-    const int c8 = round_up(cin, 8);
-    const size_t pixels = (size_t)B * H * W;
-    const size_t blocks = (pixels * c8 + 255) / 256;
-    pad_channels_kernel<<<(unsigned)(blocks < 1024 ? blocks : 1024), 256, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(g_flow), pk.dst, pixels, cin, c8);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    src = pk.dst;
-    cin = c8;
-  }
+  int cin = round_up(chans[kEstConvs], 8);  // g_flow's channel stride
   for (int i = kEstConvs - 1; i >= first; --i) {
     EwArgs a{};
     a.wpk = wpk[i];
@@ -125,17 +103,17 @@ cudaError_t run_chain_bwd_bf16(const void* g_flow, const void* g_feat, const voi
 
 }  // namespace pwc
 
-// g_flow: (B, H, W, chans[6]); g_feat: (B, H, W, chans[5]); acts[i]: s_{i+1}
-// (B, H, W, chans[i+1]), i < 5; gz[i]: gz_{i+1} like acts[i]; dxin: (B, H,
-// W, chans[0]) or null. chans[1..5] are multiples of 8. wts[i], conv i+1:
-// float32 as the forward takes it, [ky][kx][chans[i]][ldw], ldw = chans[i+1]
-// rounded up to a multiple of 8 (zero tail); bfloat16 as PyTorch holds it,
-// OIHW (chans[i+1], chans[i], 3, 3), with `scratch` room for the transposed
-// kernels packed for wgmma (over the stages run, conv i+1^T: N tiles of
-// wgmma_tiles(chans[i]), each ceil(chans[i+1] / 16) * 9 * 2 * N * 8
-// elements) and, where chans[6] is no multiple of 8, for g_flow padded to
-// one (B * H * W * round_up(chans[6], 8) elements); unused in float32. All contiguous and of one
-// dtype: 0 f32 / 1 bf16.
+// g_flow: (B, H, W, chans[6]) in float32, (B, H, W, round_up(chans[6], 8))
+// with a zero tail in bfloat16 (the TMA loads need 16-byte strides); g_feat:
+// (B, H, W, chans[5]); acts[i]: s_{i+1} (B, H, W, chans[i+1]), i < 5; gz[i]:
+// gz_{i+1} like acts[i]; dxin: (B, H, W, chans[0]) or null. chans[1..5] are
+// multiples of 8. wts[i], conv i+1: float32 as the forward takes it,
+// [ky][kx][chans[i]][ldw], ldw = chans[i+1] rounded up to a multiple of 8
+// (zero tail); bfloat16 as PyTorch holds it, OIHW (chans[i+1], chans[i], 3,
+// 3), with `scratch` room for the transposed kernels packed for wgmma (over
+// the stages run, conv i+1^T: N tiles of wgmma_tiles(chans[i]), each
+// ceil(chans[i+1] / 16) * 9 * 2 * N * 8 elements); unused in float32. All
+// contiguous and of one dtype: 0 f32 / 1 bf16.
 extern "C" int pwc_estimator_chain_bwd(const void* g_flow, const void* g_feat,
                                        const void* const* acts, const void* const* wts,
                                        void* const* gz, void* dxin, void* scratch, const int* chans, int B,

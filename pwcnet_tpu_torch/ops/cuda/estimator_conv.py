@@ -11,8 +11,9 @@ directions pack them for wgmma on the card, all of a call in one small
 kernel, into a scratch buffer: the forward as ``_common.pack_wgmma``, the
 backward their transposes with the taps mirrored, in the N tiles of
 ``_common.wgmma_tiles`` (``_common.transposed_tiles``; dxin's 147..280
-channels take two or three), followed by the flow cotangent padded to 8
-channels, which the backward's TMA loads need. In float32 both take them
+channels take two or three); the backward's TMA loads need 16-byte strides,
+so it takes the 2-channel flow cotangent padded to 8 channels (one small
+copy a call). In float32 both take them
 tap-major, six small copies, ``[ky][kx][cin][cout]`` with ``cout``
 zero-padded to a multiple of 8 (the backward reads that array transposed).
 The five hidden widths must be multiples of 8 (128, 128, 96, 64, 32 in the
@@ -158,19 +159,17 @@ def estimator_chain_bwd(ks, acts, g_flow, g_feat, need_dx: bool = True):
     return _backward(ks, chans, acts, g_flow, g_feat, need_dx)
 
 
-def bwd_scratch_numel(chans, b: int, h: int, w: int, need_dx: bool) -> int:
+def bwd_scratch_numel(chans, need_dx: bool) -> int:
     """Elements of the bf16 backward's scratch buffer: the transposed
     kernels of the stages it runs (conv_{i+1}^T: K = ``chans[i + 1]``, the
-    N tiles of ``chans[i]``; conv1^T only with dxin), then the flow
-    cotangent padded to a multiple of 8 channels where it is not one."""
-    n = sum(_common.packed_numel(chans[i + 1], chans[i]) for i in range(0 if need_dx else 1, NCONV))
-    return n + (b * h * w * -(-chans[-1] // 8) * 8 if chans[-1] % 8 else 0)
+    N tiles of ``chans[i]``; conv1^T only with dxin)."""
+    return sum(_common.packed_numel(chans[i + 1], chans[i]) for i in range(0 if need_dx else 1, NCONV))
 
 
 def _backward(ks, chans, acts, g_flow, g_feat, need_dx):
     """Launch the backward on the OIHW kernels ``ks`` (bf16: packed on the
-    card; float32: tap-major copies); ``chans`` are the channel counts
-    ``[Cin, C1, .., C6]``."""
+    card, ``g_flow`` padded to a multiple of 8 channels; float32: tap-major
+    copies); ``chans`` are the channel counts ``[Cin, C1, .., C6]``."""
     name = "estimator_chain_bwd"
     _common.check_tensors(name, g_flow, g_feat, *acts, *ks)
     if len(acts) != NCONV - 1:
@@ -187,7 +186,8 @@ def _backward(ks, chans, acts, g_flow, g_feat, need_dx):
     dxin = torch.empty((b, h, w, chans[0]), dtype=g_flow.dtype, device=g_flow.device) if need_dx else None
     if g_flow.dtype == torch.bfloat16:
         wts = ks
-        scratch = torch.empty(bwd_scratch_numel(chans, b, h, w, need_dx), dtype=g_flow.dtype, device=g_flow.device)
+        scratch = torch.empty(bwd_scratch_numel(chans, need_dx), dtype=g_flow.dtype, device=g_flow.device)
+        g_flow = F.pad(g_flow, (0, -chans[-1] % 8)) if chans[-1] % 8 else g_flow
     else:
         wts, scratch = [_tap_major(k) for k in ks], None
     _common.launch(

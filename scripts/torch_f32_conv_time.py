@@ -10,7 +10,7 @@ backward (with K9b, its tall-frame form), old against current in float32
 and bf16.
 
     python3 scripts/torch_f32_conv_time.py [--old <dir holding an older csrc/>] [--rounds 2]
-                                           [--kernels K3 K6 K7 K4 K5]
+                                           [--kernels K3 K6 K7 K4 K5] [--old-k7b tap-major|packed]
 
 ``--old`` is the ``pwcnet_tpu_torch/csrc`` directory of an earlier commit
 (for example unpacked by ``git archive``); its sources of the chosen
@@ -23,8 +23,10 @@ training step; K6 at the training step's two levels (dx at level 1 only,
 as the step asks), its old-vs-current check also with dx at both levels
 and at edge frames no tile divides; K7 and K7b at levels 3 and 4 of both
 (the bf16 K7b with k1 padded to the input's 8-channel multiple, as the
-step calls it; an old K7b from before the wgmma body is called with the
-tap-major weights its C interface took, copied once outside the timing);
+step calls it; an old K7b is called through the C interface that
+``--old-k7b`` names: ``tap-major``, the default, the one before the wgmma
+body, with the tap-major weights it took, copied once outside the timing,
+or ``packed``, the current one);
 K4 (``pwc_cost_volume_bwd``) at the training step's five calls and K8b
 (``pwc_cost_volume_hpad_bwd``) at its four sharded levels per rank of 2,
 both also checked at two edge frames, in float32 and bf16 (K4 has no
@@ -123,8 +125,17 @@ SOURCES = {"K3": ("pyramid_conv",), "K6": ("pyramid_conv_bwd",), "K7": ("estimat
            "K4": ("cost_volume_bwd",), "K5": ("warp_bwd",)}
 
 
-def build_old(old: Path, tmp: Path, kernels) -> dict:
-    """Compile the old sources of ``kernels`` into ``tmp``; returns source name -> CDLL."""
+# pwc_estimator_chain_bwd's C interface by generation: "tap-major", before
+# the wgmma K7b (no scratch; bf16 kernels tap-major, [ky][kx][cin][cout]),
+# and "packed" (OIHW bf16 kernels, a scratch of bwd_scratch_numel elements,
+# the bf16 g_flow padded to 8 channels)
+K7B_ARGTYPES = {"tap-major": [P, P, PP, PP, PP, P, IP] + [I] * 4 + [P],
+                "packed": [P, P, PP, PP, PP, P, P, IP] + [I] * 4 + [P]}
+
+
+def build_old(old: Path, tmp: Path, kernels, k7b_abi: str = "tap-major") -> dict:
+    """Compile the old sources of ``kernels`` into ``tmp``; returns source
+    name -> CDLL, the old K7b called through the interface ``k7b_abi``."""
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     procs = {}
     for name in [src for kid in kernels for src in SOURCES[kid]]:
@@ -141,16 +152,14 @@ def build_old(old: Path, tmp: Path, kernels) -> dict:
         ("pyramid_conv", "pwc_pyramid_level"): [P] * 11 + [I] * 6 + [P],
         ("pyramid_conv_bwd", "pwc_pyramid_level_bwd"): [P] * 12 + [I] * 6 + [P],
         ("estimator_conv", "pwc_estimator_chain"): [P, PP, PP, PP, P, IP] + [I] * 4 + [P],
-        ("estimator_conv_bwd", "pwc_estimator_chain_bwd"): [P, P, PP, PP, PP, P, IP] + [I] * 4 + [P],
         ("cost_volume_bwd", "pwc_cost_volume_bwd"): [P] * 6 + [I] * 6 + [P],
         ("cost_volume_bwd", "pwc_cost_volume_hpad_bwd"): [P] * 6 + [I] * 6 + [P],
         ("warp_bwd", "pwc_warp_bwd"): [P] * 6 + [I] * 5 + [P],
         ("warp_bwd", "pwc_warp_bwd_rows"): [P] * 6 + [I] * 7 + [P],
     }
-    if "estimator_conv_bwd" in libs and "void* scratch" in (old / "estimator_conv_bwd.cu").read_text():
-        # the wgmma K7b's entry also takes the bf16 scratch buffer
-        argtypes["estimator_conv_bwd", "pwc_estimator_chain_bwd"] = [P, P, PP, PP, PP, P, P, IP] + [I] * 4 + [P]
-        libs["estimator_conv_bwd"].takes_scratch = True
+    if "estimator_conv_bwd" in libs:
+        argtypes["estimator_conv_bwd", "pwc_estimator_chain_bwd"] = K7B_ARGTYPES[k7b_abi]
+        libs["estimator_conv_bwd"].abi = k7b_abi
     for (name, fn), types in argtypes.items():
         if name in libs:
             getattr(libs[name], fn).argtypes = types
@@ -158,10 +167,9 @@ def build_old(old: Path, tmp: Path, kernels) -> dict:
 
 
 def old_chain_bwd(lib, g_flow, g_feat, acts, wts, gzs, dxin, chans, b, h, w, code, stream, scratch=None):
-    """Call an old ``pwc_estimator_chain_bwd`` through its own C interface:
-    before the wgmma K7b it took no scratch buffer (and in bf16 tap-major
-    weights); raise if it fails to launch."""
-    extra = (scratch,) if getattr(lib, "takes_scratch", False) else ()
+    """Call an old ``pwc_estimator_chain_bwd`` through the C interface of
+    its generation (``lib.abi``); raise if it fails to launch."""
+    extra = (scratch,) if lib.abi == "packed" else ()
     if lib.pwc_estimator_chain_bwd(g_flow, g_feat, acts, wts, gzs, dxin, *extra, chans, b, h, w, code, stream):
         raise SystemExit("the old K7b failed to launch")
 
@@ -439,8 +447,8 @@ def run_k7_bf16(libs, gen, dev, stream, rounds):
     """The bf16 K7 forward (with residuals) and K7b at the K7 shapes, B=8,
     as the training step calls them (the input and k1 padded to an
     8-channel multiple, so dxin has 152 / 184 channels): the old bodies
-    through their own C interfaces (an old K7b from before the wgmma body
-    takes tap-major weights, copied once outside the timed call), the
+    through their own C interfaces (an old K7b of the ``tap-major``
+    generation takes tap-major weights, copied once outside the timed call), the
     current ones through the wrapper (packing included), and cuDNN's
     chains; the old results against the current first, then events in
     alternating rounds, then each call's device kernels (torch.profiler:
@@ -480,11 +488,13 @@ def run_k7_bf16(libs, gen, dev, stream, rounds):
                 if libs["estimator_conv"].pwc_estimator_chain(*fargs, stream()):
                     raise SystemExit("the old K7 failed to launch")
             lib = libs["estimator_conv_bwd"]
-            wts = ks if getattr(lib, "takes_scratch", False) else [tap_major(k) for k in ks]
-            scratch = torch.empty(bwd_scratch_numel([cinp, *COUTS], B, h, w, True), dtype=dt, device=dev)
+            packed_abi = lib.abi == "packed"
+            wts = ks if packed_abi else [tap_major(k) for k in ks]
+            scratch = torch.empty(bwd_scratch_numel([cinp, *COUTS], True), dtype=dt, device=dev)
+            g_flow_old = F.pad(g_flow, (0, -COUTS[-1] % 8)) if packed_abi else g_flow
             gzs = [torch.empty_like(a) for a in saved]
             dxin = torch.empty((B, h, w, cinp), dtype=dt, device=dev)
-            bargs = (g_flow.data_ptr(), g_feat.data_ptr(), ptrs(saved[:5]), ptrs(wts), ptrs(gzs), dxin.data_ptr(),
+            bargs = (g_flow_old.data_ptr(), g_feat.data_ptr(), ptrs(saved[:5]), ptrs(wts), ptrs(gzs), dxin.data_ptr(),
                      (ctypes.c_int * 7)(cinp, *COUTS), B, h, w, 1)
 
             def bwd_old():
@@ -671,6 +681,8 @@ def main():
     ap.add_argument("--rounds", type=int, default=2, help="times each (old, current, cuDNN) turn is taken")
     ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=KERNELS,
                     help="which kernels (K7 includes K7b, K4 K8b, K5 K9b)")
+    ap.add_argument("--old-k7b", choices=tuple(K7B_ARGTYPES), default="tap-major",
+                    help="the C interface of the old K7b: tap-major (before the wgmma body) or packed")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA card")
@@ -683,7 +695,7 @@ def main():
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     runs = {"K3": run_k3, "K6": run_k6, "K7": lambda *a: (run_k7(*a), run_k7_bf16(*a)), "K4": run_k4, "K5": run_k5}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_old(args.old.resolve(), Path(tmp), args.kernels) if args.old else {}
+        libs = build_old(args.old.resolve(), Path(tmp), args.kernels, args.old_k7b) if args.old else {}
         with torch.inference_mode():
             for kid in KERNELS:
                 if kid in args.kernels:

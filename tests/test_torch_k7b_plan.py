@@ -20,8 +20,8 @@ kernel:
   from N tiles of 96 or 128, equals ``estimator_chain_bwd_plain`` and, at
   the odd widths, the JAX kernel's gradient (interpret mode);
 - the N tiles cover every output channel exactly once; the scratch buffer
-  holds every stage's packed weights and the padded flow cotangent on 16
-  bytes; the source's constants are the model's.
+  holds every stage's packed weights on 16 bytes; the source's constants
+  are the model's.
 
 Tolerances. float32: rtol=1e-5, atol=1e-5 at O(1) values against the plain
 version (the same float32 products summed in another order; the masks read
@@ -242,15 +242,13 @@ class TestNTiles:
     @pytest.mark.parametrize("cin,couts,need_dx", [(152, REAL, True), (280, REAL, True), (147, REAL, False),
                                                    (37, ODD, True), (40, ODD, False)])
     def test_scratch_holds_every_stage(self, cin, couts, need_dx):
-        """The wrapper's scratch: each stage's tiles, then the padded flow
-        cotangent starting on 16 bytes."""
+        """The wrapper's scratch: each stage's tiles, each starting on 16
+        bytes."""
         chans = [cin, *couts]
-        b, h, w = 8, 48, 56
-        wts = sum(_common.transposed_tiles(torch.zeros((chans[i + 1], chans[i], 3, 3))).numel()
-                  for i in range(0 if need_dx else 1, NCONV))
-        assert wts * 2 % 16 == 0
-        flow = b * h * w * 8 if couts[-1] % 8 else 0
-        assert bwd_scratch_numel(chans, b, h, w, need_dx) == wts + flow
+        sizes = [_common.transposed_tiles(torch.zeros((chans[i + 1], chans[i], 3, 3))).numel()
+                 for i in range(0 if need_dx else 1, NCONV)]
+        assert all(n * 2 % 16 == 0 for n in sizes)
+        assert bwd_scratch_numel(chans, need_dx) == sum(sizes)
 
 
 class TestSourceConstants:
