@@ -38,7 +38,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    then batched raw_forward at B=8 in bf16 and f32; the launch counters
    must show K1 4x, K2 1x and K3 4x per forward; flows must match the same
    predictor on the plain path (use_kernels=False) and, on a small pair,
-   the float32 CPU path;
+   the float32 CPU path. Then ``[sequence]``: ``predict_sequence`` on 17
+   drifting 448x1024 frames through the bf16 kernel predictor (B=8 at
+   depth 2 with flows only, and B=3 with pyramids and frames, which leaves
+   a ragged tail), K1 4x, K2 1x and K3 4x per dispatch, every pair against
+   ``__call__`` (bf16 within 5% of the flow's scale, float32 on 3 pairs
+   within 1e-4), its pairs/s at B=8 with depth 2 and depth 1 beside
+   raw_forward's, and ``python -m pwcnet_tpu_torch.test_continuous --time``
+   on the frames written as PNGs; ``[ckpt]``: the seeded weights written
+   as a TF bundle load through ``FlowPredictor(checkpoint=<prefix>.ckpt)``
+   and give the msgpack weights' flow bit for bit; ``[bf16px]``:
+   ``scripts/torch_bf16_parity.py`` at 448x1024 B=4, EPE(bf16 vs f32) at
+   most 0.05 px on the kernel and the plain path;
 5. training: the train step at 384x448 with seeded random weights and a
    seeded smooth batch, float32 parameters, bfloat16 and float32 compute:
    every parameter's gradient on the kernel path against the plain path
@@ -1205,6 +1216,226 @@ def serve(torch, np, device):
     return counts, pairs, {dtype_name(dt): preds[(dt, True)] for dt in (torch.bfloat16, torch.float32)}, batch_dev
 
 
+# ------------------------------------------------------------ sequence serving, TF checkpoints, bf16 in pixels
+SEQ_FRAMES = 17  # 16 pairs: two dispatches at B=8
+SEQ_TIMED_FRAMES = 65  # 64 pairs, the 17 frames over again: eight dispatches at B=8
+BF16_PX_BUDGET = 0.05  # EPE(bf16 vs f32) in px, BASELINE.md's budget for bf16 serving
+
+
+def smooth_frames(np, h, w, n, seed, shift=(3, 5)):
+    """n uint8 frames of ``smooth_pair``'s texture, each shifted by ``shift``
+    pixels from the one before."""
+    rng = np.random.default_rng(seed)
+    base = rng.random((h // 16 + 2, w // 16 + 2, 3))
+    img = np.roll(np.kron(base, np.ones((16, 16, 1))), (7, 11), (0, 1))
+    return [(np.roll(img, (k * shift[0], k * shift[1]), (0, 1))[:h, :w] * 255).astype(np.uint8) for k in range(n)]
+
+
+def pairs_close(np, kind, got, want, rtol):
+    """Each (flow, pyramid or None) of ``got`` within rtol of the scale of
+    ``want``'s, + a floor for all-small flows; logs the worst pair."""
+    require(len(got) == len(want), f"{kind}: {len(got)} pairs, want {len(want)}")
+    rows = []  # (share of the tolerance, max |diff|, pair, scale)
+    for i, ((gf, gp), (wf, wp)) in enumerate(zip(got, want)):
+        require(gf.shape == wf.shape and bool(np.isfinite(gf).all()), f"{kind}: pair {i} flow {gf.shape}")
+        for a, b in [(gf, wf)] + list(zip(gp or [], wp or [])):
+            err, scale = float(abs(a - b).max()), float(abs(b).max())
+            require(err <= rtol * scale + 1e-4, f"{kind}: pair {i} differs by {err:.3e} px (scale {scale:.3e})")
+            rows.append((err / (rtol * scale + 1e-4), err, i, scale))
+    _, err, i, scale = max(rows, key=lambda r: r[0])
+    log(f"  {kind}: {len(got)} pairs, worst pair {i} max |diff| {err:.3e} px "
+        f"(tol {rtol * scale + 1e-4:.3e}, max |flow| {scale:.3e})")
+
+
+def sequence_phase(torch, np, card, device, batch_dev, tmp_root):
+    """``predict_sequence`` on 17 frames of 448x1024 through a bf16 kernel
+    predictor with variance-scaled weights (flows of several px, where the
+    default init gives tenths), every pair against ``__call__``; pairs/s
+    at depth 2 and 1 beside raw_forward's; the test_continuous CLI's
+    --time on PNGs."""
+    import io
+
+    import pwcnet_tpu_torch.test_continuous as test_continuous
+    from pwcnet_tpu_torch.inference import FlowPredictor
+    from pwcnet_tpu_torch.models import PWCDCNet
+    from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from pwcnet_tpu_torch.weights import from_jax_params, to_jax_params
+
+    state = from_jax_params(load_script("torch_bf16_parity").scaled_params(to_jax_params(PWCDCNet().state_dict())))
+    pred, pred32 = (FlowPredictor(dtype=dt, device=device) for dt in (torch.bfloat16, torch.float32))
+    pred.model.load_state_dict(state)
+    pred32.model.load_state_dict(state)
+    frames = smooth_frames(np, 448, 1024, SEQ_FRAMES, seed=30)
+
+    # -- the main path, counted: B=8 depth 2 (2 dispatches), B=3 'all' (5 + a ragged tail of 1 pair)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    seq8 = list(pred.predict_sequence(frames, depth=2, batch=8, fetch="flow"))
+    seq3 = list(pred.predict_sequence(frames, batch=3, fetch="all"))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n_dispatch = 2 + 6
+    log(f"  main path: {n_dispatch} dispatches, launches {counts}")
+    for kid, per in PER_FORWARD.items():
+        require(counts[kid] == per * n_dispatch,
+                f"{kid} launched {counts[kid]}x, want {per}x per dispatch x {n_dispatch}")
+
+    # -- every pair against __call__ on the same pair
+    calls = [pred(frames[i], frames[i + 1]) for i in range(SEQ_FRAMES - 1)]
+    pairs_close(np, "bf16 B=8 depth 2 'flow' vs __call__", [(f, None) for f in seq8], [(c[0], None) for c in calls],
+                5e-2)
+    pairs_close(np, "bf16 B=3 'all' vs __call__", [(f, p) for f, p, _ in seq3], [(c[0], c[1]) for c in calls], 5e-2)
+    for i, (_, _, imgs) in enumerate(seq3):
+        require(imgs.dtype == np.float32 and np.array_equal(imgs, calls[i][2]), f"pair {i}'s frames")
+    seq32 = list(pred32.predict_sequence(frames[:4], batch=3, fetch="all"))
+    calls32 = [pred32(frames[i], frames[i + 1]) for i in range(3)]
+    pairs_close(np, "f32 B=3 'all' vs __call__", [(f, p) for f, p, _ in seq32], [(c[0], c[1]) for c in calls32], 1e-4)
+
+    # -- throughput: host clock around whole sequences (the generator ends on the last event)
+    timed = [frames[k % SEQ_FRAMES] for k in range(SEQ_TIMED_FRAMES)]
+
+    def seq_pairs_per_s(depth):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in pred.predict_sequence(timed, depth=depth, batch=8, fetch="flow"))
+        return n / (time.perf_counter() - t0)
+
+    rounds = {2: [], 1: []}
+    seq_pairs_per_s(2)  # warm
+    for depth in (2, 1, 1, 2, 2, 1):
+        rounds[depth].append(seq_pairs_per_s(depth))
+    raw = 8e3 / cuda_ms(torch, lambda: pred.raw_forward(batch_dev), iters=10, warmup=3)
+    stats = {f"depth {d}": sorted(r)[1] for d, r in rounds.items()}
+    stats["raw_forward"] = raw
+    log(f"  448x1024 bf16 kernels, {SEQ_TIMED_FRAMES - 1} pairs at B=8: depth 2 "
+        + ", ".join(f"{v:.1f}" for v in rounds[2]) + " pairs/s; depth 1 " + ", ".join(f"{v:.1f}" for v in rounds[1])
+        + f" pairs/s; raw_forward B=8 {raw:.1f} pairs/s (CUDA events) on {card}")
+    n_pairs = SEQ_TIMED_FRAMES - 1
+    stats["profile depth 2"] = profile_steps(
+        torch, lambda: sum(1 for _ in pred.predict_sequence(timed, depth=2, batch=8, fetch="flow")), 1,
+        f"sequence runs of {n_pairs} pairs at B=8, depth 2", n_pairs * 1e3 / stats["depth 2"])
+
+    # -- the CLI on the frames written as PNGs
+    from PIL import Image
+
+    png_dir = os.path.join(tmp_root, "sequence")
+    os.makedirs(png_dir)
+    for k, f in enumerate(frames):
+        Image.fromarray(f).save(os.path.join(png_dir, f"frame_{k + 1:04d}.png"))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        test_continuous.main(["-i", os.path.join(png_dir, "frame_*.png"), "--time", "--batch", "8",
+                              "--dtype", "bfloat16"])
+    line = [x for x in out.getvalue().splitlines() if x.startswith("sequence throughput")]
+    require(len(line) == 1 and f"{SEQ_FRAMES - 1} pairs" in line[0], "test_continuous --time printed no throughput")
+    log(f"  python -m pwcnet_tpu_torch.test_continuous -i 'frame_*.png' --time --batch 8 --dtype bfloat16: "
+        f"{line[0]} on {card}")
+    stats["cli"] = line[0]
+    return counts, {**stats, "rounds": rounds}
+
+
+def write_tf_bundle(np, prefix, tensors):
+    """A TF bundle checkpoint (``<prefix>.index`` + one ``.data`` shard,
+    uncompressed) of float32 ``tensors`` by name: the LevelDB table of
+    ``BundleEntryProto``s that ``tf.train.Saver`` writes."""
+
+    def varint(n):
+        out = b""
+        while True:
+            b, n = n & 0x7F, n >> 7
+            if not n:
+                return out + bytes([b])
+            out += bytes([b | 0x80])
+
+    def block(pairs):  # no prefix sharing, one restart point
+        body = b"".join(varint(0) + varint(len(k)) + varint(len(v)) + k + v for k, v in pairs)
+        return body + (0).to_bytes(4, "little") + (1).to_bytes(4, "little")
+
+    def entry(shape, offset, size):  # dtype DT_FLOAT, shape, shard 0, offset, size
+        dims = b"".join(b"\x12" + varint(len(d)) + d for d in (b"\x08" + varint(n) for n in shape))
+        return (b"\x08\x01" + b"\x12" + varint(len(dims)) + dims + b"\x18\x00" + b"\x20" + varint(offset)
+                + b"\x28" + varint(size))
+
+    data, entries = b"", [(b"", b"")]  # the empty key holds the BundleHeaderProto
+    for name in sorted(tensors):
+        arr = np.asarray(tensors[name], dtype=np.float32)
+        entries.append((name.encode(), entry(arr.shape, len(data), arr.nbytes)))
+        data += arr.tobytes()
+    with open(f"{prefix}.data-00000-of-00001", "wb") as f:
+        f.write(data)
+    trailer = b"\x00" * 5  # type byte (uncompressed) and a CRC the reader does not check
+    data_block, meta_block = block(entries), block([])
+    index_block = block([(entries[-1][0] + b"\xff", varint(0) + varint(len(data_block)))])
+    meta_off = len(data_block) + 5
+    index_off = meta_off + len(meta_block) + 5
+    footer = varint(meta_off) + varint(len(meta_block)) + varint(index_off) + varint(len(index_block))
+    footer += b"\x00" * (40 - len(footer)) + (0xDB4775248B80FB57).to_bytes(8, "little")
+    with open(f"{prefix}.index", "wb") as f:
+        f.write(data_block + trailer + meta_block + trailer + index_block + trailer + footer)
+
+
+def ckpt_phase(torch, np, device, preds, tmp_root):
+    """The seeded predictor's weights written as a TF bundle and as msgpack:
+    FlowPredictor(checkpoint=<prefix>.ckpt) on the card gives the msgpack
+    weights' flow bit for bit, in bf16 and float32."""
+    from pwcnet_tpu_torch.inference import FlowPredictor
+    from pwcnet_tpu_torch.weights import save_tree, to_jax_params
+
+    tree = to_jax_params(preds["float32"].model.state_dict())
+    tensors = {}
+
+    def collect(node, path):
+        for key, val in node.items():
+            if isinstance(val, dict):
+                collect(val, path + [key])
+            else:
+                tensors["/".join(["pwcdcnet", *path, key])] = val
+
+    collect(tree, [])
+    tensors.update({"pwcdcnet/context/conv2d/bias/Adam": np.ones(128, np.float32), "beta1_power": np.float32(0.9),
+                    "global_step": np.float32(600.0)})  # skipped, as in the reference bundles
+    prefix = os.path.join(tmp_root, "model_600.ckpt")
+    write_tf_bundle(np, prefix, tensors)
+    msgpack = save_tree(os.path.join(tmp_root, "model_600.msgpack"), tree)
+    log(f"  wrote a TF bundle of {len(tensors)} tensors ({len(tensors) - 3} model) and the msgpack of the same tree")
+    pair = smooth_pair(np, 448, 1024, 40)
+    for dtype in (torch.bfloat16, torch.float32):
+        flows = {}
+        for kind, path in (("tf", prefix), ("tf .index", prefix + ".index"), ("msgpack", msgpack)):
+            flows[kind] = FlowPredictor(checkpoint=path, dtype=dtype, device=device)(*pair)[0]
+        for kind in ("tf", "tf .index"):
+            require(np.array_equal(flows[kind], flows["msgpack"]),
+                    f"{dtype_name(dtype)} flow from the {kind} checkpoint differs from the msgpack one")
+        log(f"  {dtype_name(dtype)} 448x1024: the flow from <prefix>.ckpt and .ckpt.index is bitwise the msgpack "
+            f"weights' (max |flow| {float(abs(flows['msgpack']).max()):.3e})")
+
+
+def load_script(name):
+    """A script of ``scripts/`` as a module (the directory is no package)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bf16px_phase(device):
+    """scripts/torch_bf16_parity.py at 448x1024 B=4 on both paths, held to the budget."""
+    parity = load_script("torch_bf16_parity")
+    out = {}
+    for path, use_kernels in (("kernels", True), ("plain", False)):
+        res = parity.measure(path, 448, 1024, 4, use_kernels, device)
+        log(f"  {path}: EPE(bf16 vs f32) {res['epe_bf16_vs_f32']:.4f} px, mean |delta| {res['delta_px_mean']:.4f}, "
+            f"p99 {res['delta_px_p99']:.4f}, max {res['delta_px_max']:.4f} px (f32 flow mean |f| "
+            f"{res['f32_flow_px_mean_mag']:.3f}, max {res['f32_flow_px_max_mag']:.3f} px) on {res['card']}")
+        require(res["epe_bf16_vs_f32"] <= BF16_PX_BUDGET,
+                f"{path} path: EPE(bf16 vs f32) {res['epe_bf16_vs_f32']:.4f} px above the {BF16_PX_BUDGET} px budget")
+        out[path] = res
+    return out
+
+
 def train_batch(torch, np, device, b, seed=20):
     """A seeded smooth batch at 384x448: frame pairs shifted by a few
     pixels and a smooth ground-truth flow of the same size."""
@@ -1764,6 +1995,7 @@ PROFILE_GROUPS = (
     ("cuDNN forward convs and layout kernels", ("xmma", "cutlass", "cudnn", "implicit_gemm", "nhwc", "nchw")),
     ("reductions (bias gradients, sums)", ("reduce_kernel",)),
     ("copies and casts", ("copy",)),
+    ("host <-> device copies", ("Memcpy",)),
     ("gather / scatter / index", ("gather", "scatter", "index")),
     ("foreach (Adam, decay)", ("multi_tensor",)),
     ("elementwise (bias add, LeakyReLU, resize, loss)", ("elementwise",)),
@@ -2028,6 +2260,24 @@ def main() -> int:
     serve_counts, pairs, preds, batch_dev = serve(torch, np, device)
     log(f"[serve] done in {time.perf_counter() - t0:.1f} s")
 
+    with tempfile.TemporaryDirectory(prefix="pwc_smoke_") as tmp_root:
+        t0 = time.perf_counter()
+        log(f"[sequence] FlowPredictor.predict_sequence on {SEQ_FRAMES} frames of 448x1024 (bf16, kernels), "
+            "and the test_continuous CLI")
+        seq_counts, seq_stats = sequence_phase(torch, np, card, device, batch_dev, tmp_root)
+        log(f"[sequence] done in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        log("[ckpt] a TF checkpoint of the seeded weights through FlowPredictor(checkpoint=<prefix>.ckpt)")
+        ckpt_phase(torch, np, device, preds, tmp_root)
+        log(f"[ckpt] done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[bf16px] scripts/torch_bf16_parity.py: bf16 against float32 flow in px at 448x1024 B=4, "
+        "variance-scaled random weights (seed 0)")
+    bf16px = bf16px_phase(device)
+    log(f"[bf16px] done in {time.perf_counter() - t0:.1f} s")
+
     t0 = time.perf_counter()
     log("[train] the train step at 384x448, seeded random weights, float32 parameters")
     train_counts, train_stats, grad_err = train(torch, np, device)
@@ -2075,11 +2325,12 @@ def main() -> int:
         on_step = train_counts.get(kid, 0)
         on_trainer = trainer_counts[kid]
         on_spatial = spatial_counts[kid]
+        on_sequence = seq_counts.get(kid, 0)
         if kid in SHARD_KERNELS:
             require(on_spatial > 0, f"{kid} was not launched on the sharded paths")
         else:
             require(on_trainer > 0 and (on_step > 0 or kid not in PER_STEP)
-                    and (on_serve > 0 or kid not in PER_FORWARD),
+                    and (on_serve > 0 and on_sequence > 0 or kid not in PER_FORWARD),
                     f"{kid} was not launched on a path that runs it")
         if kid in SHARD_KERNELS:
             timed_at = ("one rank of 2 shards, bf16, summed over "
@@ -2095,8 +2346,9 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": on_serve + on_step + on_trainer + on_spatial,
+            "launches": on_serve + on_sequence + on_step + on_trainer + on_spatial,
             "launches_serving": on_serve,
+            "launches_sequence": on_sequence,
             "launches_training": on_step,
             "launches_trainer": on_trainer,
             "launches_spatial": on_spatial,
@@ -2108,6 +2360,13 @@ def main() -> int:
         })
     log(f"[e2e] 448x1024 B=8 serving pairs/s: " + ", ".join(f"{k} {v:.1f}" for k, v in pairs.items())
         + f" on {card}")
+    log(f"[e2e] sequence serving 448x1024 bf16 kernels (reported, not claimed): predict_sequence B=8 "
+        f"{seq_stats['depth 2']:.1f} pairs/s at depth 2, {seq_stats['depth 1']:.1f} at depth 1 (host clock, "
+        f"{SEQ_TIMED_FRAMES - 1} pairs, median of 3), raw_forward B=8 {seq_stats['raw_forward']:.1f} (CUDA events); "
+        f"device busy {100 * seq_stats['profile depth 2']['busy_share']:.1f}% at depth 2 on {card}")
+    log(f"[e2e] bf16 serving accuracy (reported, not claimed): EPE(bf16 vs f32) at 448x1024 B=4 "
+        + ", ".join(f"{k} path {v['epe_bf16_vs_f32']:.4f} px" for k, v in bf16px.items())
+        + f" (budget {BF16_PX_BUDGET}) on {card}")
     log(f"[e2e] 384x448 B=8 training pairs/s: "
         + ", ".join(f"{k} {v['pairs_per_s']:.1f}" for k, v in train_stats.items()) + f" on {card}")
     bare = train_stats["bfloat16 kernels + K7"]["pairs_per_s"]
@@ -2129,7 +2388,8 @@ def main() -> int:
         f"{spatial_stats['train_pairs_per_s']:.1f} pairs/s on {card}")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": card, "train": train_stats, "gradient_kernels_vs_plain": grad_err,
-                      "k5_df1_run_to_run": atomics_rerun, "bitwise_equal_reruns": deterministic, "trainer": trainer_stats, "spatial": spatial_stats}))
+                      "k5_df1_run_to_run": atomics_rerun, "bitwise_equal_reruns": deterministic, "trainer": trainer_stats, "spatial": spatial_stats,
+                      "sequence": seq_stats, "bf16px": bf16px}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,18 +21,27 @@ stripes, K8 at level 0 when that level holds at least 4 rows per shard,
 K9 at the warped levels, the unsharded kernels on the levels too small to
 shard), and the rows are all-gathered at the end. K7 stays off under
 H-sharding, as in the JAX package.
+
+``predict_sequence`` streams consecutive pairs of a frame sequence in
+batches, with up to ``depth`` dispatches in flight on the card: frames go
+up from pinned host memory and flows come back into pinned host buffers,
+both without blocking the host, which waits on a CUDA event only when it
+hands a batch out. A checkpoint is a flax msgpack file or a TF checkpoint
+(``.ckpt`` / ``.ckpt.index``), the latter checked against the model's
+parameter tree.
 """
 
 from __future__ import annotations
 
 import os
+from collections import deque
 from typing import Optional
 
 import numpy as np
 import torch
 
 from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
-from pwcnet_tpu_torch.weights import from_jax_params, load_params
+from pwcnet_tpu_torch.weights import from_jax_params, load_params, to_jax_params
 
 __all__ = ["factor_crop", "load_image", "resolve_device", "spatial_hooks", "FlowPredictor"]
 
@@ -146,7 +155,13 @@ class FlowPredictor:
             **hooks,
         )
         if checkpoint is not None:
-            model.load_state_dict(from_jax_params(load_params(checkpoint)))
+            if str(checkpoint).endswith((".ckpt", ".ckpt.index")):
+                from pwcnet_tpu_torch.train_lib.tf_converter import load_tf_checkpoint_params
+
+                tree = load_tf_checkpoint_params(checkpoint, to_jax_params(model.state_dict()))
+            else:
+                tree = load_params(checkpoint)
+            model.load_state_dict(from_jax_params(tree))
         else:
             print("!!! Inference with randomly initialized model !!!")
         self.model = model.to(device=self.device, dtype=dtype).eval()
@@ -214,3 +229,110 @@ class FlowPredictor:
         if self.size_handling == "pad":
             flow_out = flow_out[:orig_h, :orig_w]
         return flow_out, pyramid_px, images
+
+    # -- pipelined sequence inference -------------------------------------
+    def _preprocess(self, image: np.ndarray) -> np.ndarray:
+        """A sequence frame prepared once: uint8 stays uint8 (divided by
+        255 on the device); other dtypes are taken on the 0..255 scale and
+        normalised to float32 here, as ``__call__`` does."""
+        image = self.prepare(np.asarray(image))
+        return image if image.dtype == np.uint8 else image.astype(np.float32) / 255.0
+
+    def predict_sequence(self, frames, depth: int = 2, batch: int = 1, fetch: str = "all"):
+        """Batched, pipelined inference over consecutive frame pairs.
+
+        - **batching**: each dispatch runs ``batch`` consecutive pairs:
+          frames [i..i+B] give images_0 = [i..i+B) and images_1 = [i+1..i+B];
+        - **pipelining**: up to ``depth`` dispatches stay in flight. A
+          dispatch's frames are written into a pinned uint8 (or float32)
+          staging tensor and copied up with ``non_blocking=True``; its
+          flows (and pyramids for ``fetch='all'``) are copied into pinned
+          host tensors with ``non_blocking=True`` and a CUDA event is
+          recorded after them. The host waits on that event only when it
+          hands the batch out, and each dispatch keeps its staging and
+          output tensors until then, so no buffer is reused or read while a
+          copy is pending. All of it runs on the device's current stream.
+          On the CPU the same code runs without pinning or events.
+
+        Each frame is preprocessed once and reused as the next batch's
+        frame 0. The tail batch is padded with the last frame and the
+        padding pairs are dropped. ``size_handling='pad'`` crops each flow
+        back to its frame.
+
+        Args:
+          frames: iterable of file paths or uint8 HxWx3 arrays (other
+            dtypes on the 0..255 scale); consecutive elements form pairs.
+          depth: dispatches in flight.
+          batch: consecutive pairs per dispatch.
+          fetch: 'all' yields ``(flow_px, pyramid_px, images)`` per pair as
+            ``__call__`` returns them; 'flow' yields only ``flow_px``.
+
+        Yields per consecutive pair, in order. Not on a serving mesh yet.
+        """
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "predict_sequence on a serving mesh (spatial / data > 1) is not ported yet: ROADMAP.md Queue 1")
+        if fetch not in ("all", "flow"):
+            raise ValueError(f"fetch must be all|flow: {fetch!r}")
+        if batch < 1 or depth < 1:
+            raise ValueError(f"batch ({batch}) and depth ({depth}) must be at least 1")
+        pin = self.device.type == "cuda"
+
+        def load(src):
+            img = load_image(src) if isinstance(src, (str, os.PathLike)) else np.asarray(src)
+            return img.shape[:2], self._preprocess(img)
+
+        def dispatch(buf, n_valid):
+            """buf: batch + 1 (orig_hw, frame) tuples; returns what finalize needs."""
+            uint8 = all(f.dtype == np.uint8 for _, f in buf)
+            staged = torch.empty((len(buf), *buf[0][1].shape), dtype=torch.uint8 if uint8 else torch.float32,
+                                 pin_memory=pin)
+            host = staged.numpy()
+            for k, (_, f) in enumerate(buf):
+                host[k] = f if f.dtype == host.dtype else f.astype(np.float32) / 255.0
+            with torch.inference_mode():
+                t = self._to_device(staged)
+                flow_final, pyramid = self.model(t[:-1], t[1:])
+                outs = [flow_final, *pyramid] if fetch == "all" else [flow_final]
+                fetched = [torch.empty(o.shape, dtype=torch.float32, pin_memory=pin) for o in outs]
+                for dst, o in zip(fetched, outs):
+                    dst.copy_(o, non_blocking=True)
+            done = None
+            if pin:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+            return staged, fetched, done, [hw for hw, _ in buf[:-1]], n_valid
+
+        def finalize(item):
+            staged, fetched, done, orig_hws, n_valid = item
+            if done is not None:
+                done.synchronize()
+            flows, *pyramid = [f.numpy() for f in fetched]
+            imgs = staged.numpy()
+            for i in range(n_valid):
+                flow_out = flows[i]
+                if self.size_handling == "pad":
+                    orig_h, orig_w = orig_hws[i]
+                    flow_out = flow_out[:orig_h, :orig_w]
+                if fetch == "flow":
+                    yield flow_out
+                    continue
+                pyramid_px = [f[i] * (20.0 / 2 ** (self.num_levels - l)) for l, f in enumerate(pyramid)]
+                pair = imgs[i : i + 2]
+                # normalised float32 frames of this pair only, not the whole stack
+                yield flow_out, pyramid_px, pair.astype(np.float32) / 255.0 if pair.dtype == np.uint8 else pair
+
+        pending: deque = deque()
+        buf: list = []
+        for src in frames:
+            buf.append(load(src))
+            if len(buf) == batch + 1:
+                pending.append(dispatch(buf, batch))
+                buf = buf[-1:]  # the last frame starts the next batch
+                if len(pending) >= depth:
+                    yield from finalize(pending.popleft())
+        if len(buf) >= 2:  # tail: pad with the last frame
+            n_valid = len(buf) - 1
+            pending.append(dispatch(buf + [buf[-1]] * (batch + 1 - len(buf)), n_valid))
+        while pending:
+            yield from finalize(pending.popleft())

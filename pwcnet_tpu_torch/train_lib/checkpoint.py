@@ -64,7 +64,8 @@ def save_params(path: str | os.PathLike, state_dict: dict) -> str:
 
 
 def load_params(path: str | os.PathLike) -> dict:
-    """The port's state dict from a parameter-only or whole-state msgpack file."""
+    """The port's state dict from a parameter-only or whole-state msgpack
+    file, or from a TF checkpoint (``.ckpt`` / ``.ckpt.index``)."""
     return weights.from_jax_params(weights.load_params(path))
 
 

@@ -12,8 +12,10 @@ with OIHW weights. Both directions are transposes, so a round trip is
 bit-exact.
 
 ``load_params`` reads a flax msgpack file (params only, or a whole
-TrainState) with ``msgpack`` and numpy alone; ``save_tree`` writes that
-encoding, so a file written by either package restores in the other.
+TrainState) with ``msgpack`` and numpy alone, and a TF checkpoint
+(``.ckpt`` / ``.ckpt.index``) through ``train_lib.tf_converter``;
+``save_tree`` writes the msgpack encoding, so a file written by either
+package restores in the other.
 ``to_jax_state`` / ``from_jax_state`` carry a whole training state
 (parameters, Adam moments, counts) across as numpy arrays in the layout
 flax gives ``TrainState`` with ``optax.adam``::
@@ -22,7 +24,7 @@ flax gives ``TrainState`` with ``optax.adam``::
      "opt_state": {"0": {"count", "mu": tree, "nu": tree},
                    "1": {"count"} under a schedule, {} at a constant rate}}
 
-Orbax directories and TF ``.ckpt`` conversion are not read yet.
+Orbax directories are not read yet.
 """
 
 from __future__ import annotations
@@ -125,17 +127,23 @@ def load_tree(path: str | os.PathLike) -> dict:
     if path.is_dir():
         raise NotImplementedError(f"{path}: orbax checkpoint directories are not read yet")
     if str(path).endswith((".ckpt", ".ckpt.index")):
-        raise NotImplementedError(f"{path}: TF checkpoints must be converted first")
+        raise NotImplementedError(f"{path}: a TF checkpoint holds parameters only; read it with load_params")
     raw = msgpack.unpackb(path.read_bytes(), ext_hook=_ext_hook, raw=False, strict_map_key=False)
     return _unchunk(raw)
 
 
 def load_params(path: str | os.PathLike) -> dict:
-    """The parameter tree of a flax msgpack checkpoint.
+    """The parameter tree of a flax msgpack checkpoint or a TF checkpoint.
 
     A whole TrainState keeps the parameters under ``params`` next to
-    ``opt_state`` or ``step``; it is unwrapped.
+    ``opt_state`` or ``step``; it is unwrapped. A path ending in ``.ckpt``
+    or ``.ckpt.index`` is a TF bundle, converted by name without a check
+    of the tree (``FlowPredictor`` checks it against its model).
     """
+    if str(path).endswith((".ckpt", ".ckpt.index")):
+        from pwcnet_tpu_torch.train_lib.tf_converter import convert_tf_checkpoint
+
+        return convert_tf_checkpoint(path)
     raw = load_tree(path)
     if isinstance(raw, dict) and "params" in raw and ("opt_state" in raw or "step" in raw):
         raw = raw["params"]

@@ -494,6 +494,35 @@ class TestKernelsOnCard:
                 _assert_close(a, b, torch.float32)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_predict_sequence_is_call(self, cuda_device, rng, dtype):
+        """FlowPredictor.predict_sequence through the kernels (pinned staging,
+        copies back, events, two dispatches in flight) against __call__ on
+        every pair: the flow within 1e-4 of its scale in float32 and 5% in
+        bf16 (chip_smoke.py's [serve] bounds), the frames equal; K1 4, K2 1
+        and K3 4 launches a dispatch."""
+        from pwcnet_tpu_torch.inference import FlowPredictor
+
+        base = (rng.random((140, 220, 3)) * 255).astype(np.uint8)
+        frames = [np.ascontiguousarray(base[2 * k : 2 * k + 128, 3 * k : 3 * k + 192]) for k in range(6)]
+        pred = FlowPredictor(dtype=dtype, device=cuda_device)
+        rtol = 1e-4 if dtype == torch.float32 else 5e-2
+        for batch, depth, fetch in ((3, 2, "all"), (2, 1, "flow"), (8, 2, "flow")):
+            reset_launch_counts()
+            got = list(pred.predict_sequence(frames, depth=depth, batch=batch, fetch=fetch))
+            n = -(-5 // batch)
+            assert {k: v for k, v in launch_counts().items() if v} == {"K1": 4 * n, "K2": n, "K3": 4 * n}
+            assert len(got) == 5
+            for i, out in enumerate(got):
+                want = pred(frames[i], frames[i + 1])
+                flow = out[0] if fetch == "all" else out
+                assert flow.shape == (128, 192, 2) and flow.dtype == np.float32
+                assert np.abs(flow - want[0]).max() <= rtol * np.abs(want[0]).max() + 1e-4, (batch, i)
+                if fetch == "all":
+                    for a, b in zip(out[1], want[1]):
+                        assert np.abs(a - b).max() <= rtol * np.abs(b).max() + 1e-4, (batch, i)
+                    np.testing.assert_array_equal(out[2], want[2])
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("shape,couts", _CHAIN_CASES)
     def test_estimator_chain(self, cuda_device, rng, dtype, shape, couts):
         """K7 forward and its residuals, at sizes that are no multiple of a tile."""
