@@ -38,7 +38,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    then batched raw_forward at B=8 in bf16 and f32; the launch counters
    must show K1 4x, K2 1x and K3 4x per forward; flows must match the same
    predictor on the plain path (use_kernels=False) and, on a small pair,
-   the float32 CPU path. Then ``[sequence]``: ``predict_sequence`` on 17
+   the float32 CPU path; ``FlowPredictor(batched_pyramid=True)`` at B=8 in
+   bf16 and f32 (K3 on both frames in one call: K1 4x, K2 1x, K3 2x per
+   forward) within those bounds of the default predictor, and its pairs/s
+   against the default's in turns (reported). Then ``[sequence]``: ``predict_sequence`` on 17
    drifting 448x1024 frames through the bf16 kernel predictor (B=8 at
    depth 2 with flows only, and B=3 with pyramids and frames, which leaves
    a ragged tail), K1 4x, K2 1x and K3 4x per dispatch, every pair against
@@ -55,7 +58,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    every parameter's gradient on the kernel path against the plain path
    (ordinary autograd), five steps at B=8 with a finite falling loss, the
    launch counters (K1 4x, K2 1x, K3 4x, K4 5x, K5 4x, K6 4x per step),
-   pairs/s of the step on both paths and the peak memory;
+   pairs/s of the step on both paths and the peak memory. Then ``[remat]``:
+   the step with ``PWCDCNet(remat=True)`` (the pyramid, estimators and
+   context net under ``torch.utils.checkpoint``, so the backward reruns K3
+   and K7): at B=4 its loss (rtol 1e-6) and every gradient against the step
+   without remat on the same weights (float32 within 1e-4 of each tensor's
+   largest entry, bf16 at the gates above), with and without K7 on 2
+   levels; five steps at B=8 with a falling loss and K1 4x, K2 1x, K3 8x,
+   K4 5x, K5 4x, K6 4x per step (with K7 on 2 levels also K7 4x, K7b 2x);
+   ms per step and peak memory with and without remat at B=8 and B=32 in
+   both dtypes, and the remat step's profile (reported);
 6. trainer: a FlyingChairs-layout dataset (P6 .ppm pairs and .flo files,
    384x512, a seeded texture shifted by a known flow) is written under a
    temporary directory with numpy alone, and ``pwcnet_tpu_torch.train.main``
@@ -66,8 +78,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    metrics must exist, a run resumed from ``model_1.msgpack`` must see the
    bytes of the first run's first batch of epoch 2, and
    ``pwcnet_tpu_torch.evaluate.main`` must give the same EPE with the
-   kernels on and off; then the loader alone and one more epoch with
-   ``--fused-estimator 0`` are timed;
+   kernels on and off; one epoch with ``--remat`` must launch its kernels
+   as above per step, log finite losses and write a ``model_1.msgpack``
+   that ``FlowPredictor`` serves; then the loader alone and one more epoch
+   with ``--fused-estimator 0`` are timed;
 7. spatial: H-sharding on the one card. In ``[kernels]`` K8 and K8b (the
    cost volume of a row shard against halo-extended rows, and its
    backward) and K9 and K9b (a shard's warped cost volume against the whole
@@ -139,6 +153,13 @@ FUSED_ESTIMATOR = 2  # the trainer run's --fused-estimator: levels 3 and 4
 # per trainer step with --fused-estimator 2; a validation batch is one forward
 TRAINER_PER_STEP = {**PER_STEP, "K7": FUSED_ESTIMATOR, "K7b": FUSED_ESTIMATOR}
 TRAINER_PER_FORWARD = {**PER_FORWARD, "K7": FUSED_ESTIMATOR}
+# a remat step: the backward recomputes the pyramid (K3 again), the
+# estimators (K7 again) and the context net; K1 and K2 stay outside
+REMAT_PER_STEP = {"K1": 4, "K2": 1, "K3": 8, "K4": 5, "K5": 4, "K6": 4}
+TRAINER_REMAT_PER_STEP = {**REMAT_PER_STEP, "K7": 2 * FUSED_ESTIMATOR, "K7b": FUSED_ESTIMATOR}
+# a forward with batched_pyramid: K3 on both frames in one call a level
+BATCHED_PER_FORWARD = {"K1": 4, "K2": 1, "K3": 2}
+REMAT_BATCHES = (8, 32)  # the [remat] phase's timed batches
 CHAIRS_SAMPLES = 200  # 180 train (22 batches of 8) and 20 val (2 batches) by the 1-in-10 split
 CHAIRS_HW = (384, 512)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -346,8 +367,9 @@ def library_ms(torch, fn, what):
 def device_ops(torch, fn, n=3, tries=3):
     """The device operations (kernels, memsets, copies) one call of ``fn``
     makes, by torch.profiler over ``n`` calls: ``(per call, {name: launches
-    a call})``; a trace that caught no device event is taken again, up to
-    ``tries`` times."""
+    a call})``; a trace that caught no device event, or lost one (a count
+    that is no multiple of ``n``: the first trace of a process once read a
+    one-kernel call at 2 of 3), is taken again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -360,7 +382,7 @@ def device_ops(torch, fn, n=3, tries=3):
                 fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if names:
+        if names and len(names) % n == 0:
             break
     counts = {}
     for nm in sorted(nm.split("(")[0] for nm in names):
@@ -1206,14 +1228,37 @@ def serve(torch, np, device):
     flow_close("f32 64x128 card kernels vs CPU plain", preds[(torch.float32, True)](*small)[0],
                cpu_pred(*small)[0], 1e-4)
 
-    # -- throughput
+    # -- batched_pyramid: both frames through K3 in one call a level, counted
+    batched = {dt: FlowPredictor(dtype=dt, use_kernels=True, device=device, batched_pyramid=True)
+               for dt in (torch.bfloat16, torch.float32)}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out_batched = {dt: p.raw_forward(batch_dev) for dt, p in batched.items()}
+    torch.cuda.synchronize()
+    batched_counts = launch_counts()
+    log(f"  batched_pyramid: 2 forwards, launches {batched_counts}")
+    want = {k: 2 * BATCHED_PER_FORWARD.get(k, 0) for k in batched_counts}
+    require(batched_counts == want, f"batched_pyramid launches {batched_counts}, want {want}")
+    flow_close("f32 B=8 batched_pyramid vs default, kernels", out_batched[torch.float32][0], out_f32[0], 1e-4)
+    flow_close("bf16 B=8 batched_pyramid vs default, kernels", out_batched[torch.bfloat16][0], out_b16[0], 5e-2)
+
+    # -- throughput; the batched pyramid in turns with the default (reported, not gated)
     pairs = {}
     for (dt, k), p in preds.items():
         ms = cuda_ms(torch, lambda: p.raw_forward(batch_dev), iters=10, warmup=3)
         name = f"{str(dt).replace('torch.', '')} {'kernels' if k else 'plain'}"
         pairs[name] = 8e3 / ms
         log(f"  448x1024 B=8 {name}: {ms:.3f} ms per batch, {8e3 / ms:.1f} pairs/s")
-    return counts, pairs, {dtype_name(dt): preds[(dt, True)] for dt in (torch.bfloat16, torch.float32)}, batch_dev
+    ab = {}
+    for dt, p in batched.items():
+        for name, pred in (("default", preds[(dt, True)]), ("batched_pyramid", p), ("batched_pyramid", p),
+                           ("default", preds[(dt, True)])):
+            ab.setdefault(f"{dtype_name(dt)} kernels {name}", []).append(
+                8e3 / cuda_ms(torch, lambda: pred.raw_forward(batch_dev), iters=10, warmup=2))
+    for name, v in ab.items():
+        log(f"  448x1024 B=8 A/B {name}: {' / '.join(f'{x:.1f}' for x in v)} pairs/s")
+    preds_kernels = {dtype_name(dt): preds[(dt, True)] for dt in (torch.bfloat16, torch.float32)}
+    return counts, pairs, preds_kernels, batch_dev, {"launches": batched_counts, "pairs_per_s": ab}
 
 
 # ------------------------------------------------------------ sequence serving, TF checkpoints, bf16 in pixels
@@ -1450,10 +1495,10 @@ def train_batch(torch, np, device, b, seed=20):
     return images, torch.as_tensor(base + 0.5 * wobble).to(device)
 
 
-def train_model(torch, compute_dtype, use_kernels, seed=0, fused_estimator=0):
+def train_model(torch, compute_dtype, use_kernels, seed=0, fused_estimator=0, remat=False):
     """The default PWCDCNet as the JAX trainer builds it with --pallas: K2 at
     level 0, K1 at levels 1-4, K3 on the two finest pyramid levels, and K7 on
-    the ``fused_estimator`` finest estimator levels."""
+    the ``fused_estimator`` finest estimator levels; ``remat`` as --remat."""
     from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
     from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
     from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
@@ -1462,7 +1507,7 @@ def train_model(torch, compute_dtype, use_kernels, seed=0, fused_estimator=0):
     if use_kernels:
         hooks = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume, fused_pyramid_levels=2,
                      fused_estimator_levels=fused_estimator)
-    return PWCDCNet(compute_dtype=compute_dtype, generator=torch.Generator().manual_seed(seed), **hooks)
+    return PWCDCNet(compute_dtype=compute_dtype, generator=torch.Generator().manual_seed(seed), remat=remat, **hooks)
 
 
 def train(torch, np, device):
@@ -1565,6 +1610,109 @@ def train(torch, np, device):
     return total_counts, stats, grad_err
 
 
+def remat_phase(torch, np, device):
+    """--remat's step at 384x448 with the kernels: (a) loss and gradients
+    against the step without remat on the same weights, (b) five counted
+    steps, (c) step time and peak memory with and without it (reported)."""
+    from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from pwcnet_tpu_torch.train_lib.step import create_train_state, make_loss_fn, make_train_step
+
+    dtypes = (torch.bfloat16, torch.float32)
+    stats = {"agreement": {}, "steps": {}, "timing": {}, "profile": {}}
+
+    # -- (a) B=4, one seed, so the same weights: the forward runs the same
+    # deterministic kernels with and without remat, so the loss should be
+    # bitwise the same (gated at rtol 1e-6); the backwards differ only by
+    # their float atomics (K5, about 3e-7 of scale): float32 gradients
+    # within 1e-4 of each tensor's largest entry; bf16 at [train]'s gates
+    images, flows_gt = train_batch(torch, np, device, 4)
+    for dt in dtypes:
+        for fe in (0, FUSED_ESTIMATOR):
+            out = {}
+            for remat in (False, True):
+                model = train_model(torch, dt, True, fused_estimator=fe, remat=remat).to(device)
+                total, _ = make_loss_fn(model, decoupled_wd=True)(images, flows_gt)
+                params = dict(model.named_parameters())
+                out[remat] = total.detach(), dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+            loss_rel = abs(float(out[True][0]) - float(out[False][0])) / abs(float(out[False][0]))
+            worst, worst_name, rel_l2, cos = grad_agreement(torch, out[True][1], out[False][1])
+            name = f"{dtype_name(dt)}{f' + K7 on {fe} levels' if fe else ''}"
+            log(f"  {name} B=4, remat vs not: loss {float(out[True][0]):.6f} / {float(out[False][0]):.6f} "
+                f"(rel {loss_rel:.3e}, bitwise {bool(torch.equal(out[True][0], out[False][0]))}); gradients of "
+                f"{len(out[True][1])} tensors: worst max|diff|/max|g| {worst:.3e} ({worst_name}), |diff|/|g| "
+                f"{rel_l2:.3e}, cosine {cos:.7f}")
+            require(loss_rel <= 1e-6, f"{name}: the remat loss differs from the loss without it")
+            if dt == torch.float32:
+                require(worst <= 1e-4, f"{name}: remat and no-remat float32 gradients disagree")
+            else:
+                require(rel_l2 <= 0.03 and cos >= 0.999 and worst <= 0.2,
+                        f"{name}: remat and no-remat bfloat16 gradients disagree")
+            stats["agreement"][name] = {"loss_rel": loss_rel, "worst_rel": worst, "rel_l2": rel_l2, "cosine": cos}
+    del out, model
+
+    # -- (b) five counted remat steps at B=8
+    images, flows_gt = train_batch(torch, np, device, 8)
+    counts = {}
+    for dt, fe in ((torch.bfloat16, 0), (torch.float32, 0), (torch.bfloat16, FUSED_ESTIMATOR)):
+        name = f"{dtype_name(dt)}{f' + K7 on {fe} levels' if fe else ''}"
+        model = train_model(torch, dt, True, fused_estimator=fe, remat=True)
+        state = create_train_state(model, device=device)
+        step = make_train_step(model)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses = []
+        for _ in range(5):
+            state, metrics = step(state, images, flows_gt)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        got = launch_counts()
+        losses = [float(v) for v in losses]
+        per = REMAT_PER_STEP if not fe else TRAINER_REMAT_PER_STEP
+        log(f"  {name} remat B=8: loss {' '.join(f'{v:.3f}' for v in losses)}; launches {got}")
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0], f"{name} remat: loss not finite and falling")
+        want = {k: 5 * per.get(k, 0) for k in got}
+        require(got == want, f"{name} remat: launches {got}, want {want}")
+        counts[name] = got
+        stats["steps"][name] = losses
+
+    # -- (c) ms per step and peak memory, remat against not, in turns
+    for b in REMAT_BATCHES:
+        images, flows_gt = (images, flows_gt) if b == 8 else train_batch(torch, np, device, b)
+        for dt in dtypes:
+            for remat in (False, True, True, False):
+                name = f"{dtype_name(dt)} B={b} {'remat' if remat else 'no remat'}"
+                model = train_model(torch, dt, True, remat=remat)
+                state = create_train_state(model, device=device)
+                step = make_train_step(model)
+                step(state, images, flows_gt)  # warm-up: Adam's moments exist from here on
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                step(state, images, flows_gt)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                ms = cuda_ms(torch, lambda: step(state, images, flows_gt), iters=5, warmup=1)
+                row = stats["timing"].setdefault(name, {"ms": [], "peak_mib": peak / 2**20,
+                                                        "step_mib": (peak - before) / 2**20})
+                row["ms"].append(ms)
+                log(f"  384x448 {name}: {ms:.2f} ms per step, {b * 1e3 / ms:.1f} pairs/s; peak memory "
+                    f"{peak / 2**20:.0f} MiB ({(peak - before) / 2**20:.0f} MiB above the step's start)")
+                if remat and b == 8 and name not in stats["profile"]:
+                    stats["profile"][name] = profile_steps(
+                        torch, lambda: step(state, images, flows_gt), 2, f"train steps at 384x448 {name}", ms)
+                del model, state, step
+        if b != 8:
+            del images, flows_gt
+        torch.cuda.empty_cache()
+    for dt in dtypes:
+        for b in REMAT_BATCHES:
+            off, on = (stats["timing"][f"{dtype_name(dt)} B={b} {k}"] for k in ("no remat", "remat"))
+            log(f"  remat at 384x448 {dtype_name(dt)} B={b}: {sum(on['ms']) / 2:.2f} ms per step against "
+                f"{sum(off['ms']) / 2:.2f} ({100 * (sum(on['ms']) / sum(off['ms']) - 1):+.1f}%), peak memory "
+                f"{on['peak_mib']:.0f} MiB against {off['peak_mib']:.0f} ({100 * (on['peak_mib'] / off['peak_mib'] - 1):+.1f}%)")
+    return {k: sum(c[k] for c in counts.values()) for k in got}, stats
+
+
 def write_chairs(np, root, n=CHAIRS_SAMPLES, seed=100):
     """A FlyingChairs-layout dataset written with numpy alone:
     ``<root>/data/NNNNN_img1.ppm``, ``_img2.ppm`` (P6) and ``_flow.flo``.
@@ -1642,6 +1790,7 @@ def trainer_phase(torch, np, card, tmp_root):
     under ``tmp_root/chairs`` (which the [spatial] phase reads again)."""
     from pwcnet_tpu_torch import evaluate as evaluate_cli, train as train_cli
     from pwcnet_tpu_torch.data import DataLoader, get_dataset
+    from pwcnet_tpu_torch.inference import FlowPredictor
     from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     stats = {}
@@ -1699,6 +1848,30 @@ def trainer_phase(torch, np, card, tmp_root):
     log(f"  --resume model_1.msgpack: first batch of epoch 2 has the bytes of the first run's (sha1 {first[1][:12]})")
     stats["resumed_epochs"] = resumed
 
+    # -- --remat: one epoch, counted; its checkpoint serves
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with working_directory(os.path.join(tmp_root, "remat")):
+        remat = train_cli.main(base + fused + ["--remat", "-e", "1"])
+        remat_dir = os.path.abspath(remat.logdir)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    r_steps, r_vals = len(remat.tloader), len(remat.vloader)
+    want = {k: TRAINER_REMAT_PER_STEP.get(k, 0) * r_steps + TRAINER_PER_FORWARD.get(k, 0) * r_vals for k in got}
+    log(f"  --remat: {r_steps} steps and {r_vals} validation batches, launches {got}")
+    require(remat.model.remat and remat.state.step == r_steps == steps // 2, f"--remat: step {remat.state.step}")
+    require(got == want, f"--remat trainer launches {got}, want {want}")
+    remat_losses = [r["loss/pwc"] for r in read_jsonl(os.path.join(remat_dir, "train", "metrics.jsonl"))]
+    remat_val = [r["loss/pwc"] for r in read_jsonl(os.path.join(remat_dir, "val", "metrics.jsonl"))]
+    log(f"  --remat logged train loss {' '.join(f'{v:.3f}' for v in remat_losses)}, validation "
+        f"{' '.join(f'{v:.3f}' for v in remat_val)} (the first run's epoch 1: {' '.join(f'{v:.3f}' for v in losses[:2])}, "
+        f"{val[0]:.3f})")
+    require(len(remat_losses) == 2 and all(np.isfinite(remat_losses + remat_val)), "--remat: the logged losses")
+    pred = FlowPredictor(checkpoint=os.path.join(remat_dir, "model", "model_1.msgpack"), dtype=torch.bfloat16)
+    flow = pred(*smooth_pair(np, 384, 448, 5))[0]
+    require(flow.shape == (384, 448, 2) and bool(np.isfinite(flow).all()), "--remat: model_1.msgpack does not serve")
+    stats["remat"] = {"counts": got, "losses": remat_losses, "val_losses": remat_val, "epoch": remat.epoch_stats[-1]}
+
     # -- evaluate the trained checkpoint, kernels on and off
     epe = {}
     for flag in ("--pallas", "--no-pallas"):
@@ -1733,6 +1906,7 @@ def trainer_phase(torch, np, card, tmp_root):
         "trainer epoch 2 (K7 on 2 levels)": rate(stats["trainer_epochs"][1]),
         "resumed epoch 2 (K7 on 2 levels)": rate(resumed["resumed"]),
         "resumed epoch 2 (cuDNN estimators)": rate(resumed["resumed_cudnn_estimator"]),
+        "remat epoch 1 (K7 on 2 levels)": rate(stats["remat"]["epoch"]),
         "loader alone": stats["loader_pairs_per_s"],
     }
     for k, v in stats["pairs_per_s"].items():
@@ -2257,7 +2431,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log("[serve] FlowPredictor, seeded random weights")
-    serve_counts, pairs, preds, batch_dev = serve(torch, np, device)
+    serve_counts, pairs, preds, batch_dev, batched = serve(torch, np, device)
     log(f"[serve] done in {time.perf_counter() - t0:.1f} s")
 
     with tempfile.TemporaryDirectory(prefix="pwc_smoke_") as tmp_root:
@@ -2282,6 +2456,12 @@ def main() -> int:
     log("[train] the train step at 384x448, seeded random weights, float32 parameters")
     train_counts, train_stats, grad_err = train(torch, np, device)
     log(f"[train] done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[remat] the train step with --remat at 384x448 (the pyramid, estimators and context net recomputed in "
+        "the backward), float32 parameters")
+    remat_counts, remat_stats = remat_phase(torch, np, device)
+    log(f"[remat] done in {time.perf_counter() - t0:.1f} s")
 
     with tempfile.TemporaryDirectory(prefix="pwc_smoke_") as tmp_root:
         t0 = time.perf_counter()
@@ -2326,10 +2506,11 @@ def main() -> int:
         on_trainer = trainer_counts[kid]
         on_spatial = spatial_counts[kid]
         on_sequence = seq_counts.get(kid, 0)
+        on_remat = remat_counts.get(kid, 0)
         if kid in SHARD_KERNELS:
             require(on_spatial > 0, f"{kid} was not launched on the sharded paths")
         else:
-            require(on_trainer > 0 and (on_step > 0 or kid not in PER_STEP)
+            require(on_trainer > 0 and (on_step > 0 or kid not in PER_STEP) and (on_remat > 0 or kid not in REMAT_PER_STEP)
                     and (on_serve > 0 and on_sequence > 0 or kid not in PER_FORWARD),
                     f"{kid} was not launched on a path that runs it")
         if kid in SHARD_KERNELS:
@@ -2346,10 +2527,11 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": on_serve + on_sequence + on_step + on_trainer + on_spatial,
+            "launches": on_serve + on_sequence + on_step + on_remat + on_trainer + on_spatial,
             "launches_serving": on_serve,
             "launches_sequence": on_sequence,
             "launches_training": on_step,
+            "launches_remat": on_remat,
             "launches_trainer": on_trainer,
             "launches_spatial": on_spatial,
             "max_abs_err": max(errs[kid].values()),
@@ -2383,13 +2565,23 @@ def main() -> int:
         f"{bare:.1f}, the loader alone {tp['loader alone']:.1f}; one epoch resumed from model_1: "
         f"{tp['resumed epoch 2 (K7 on 2 levels)']:.1f} with K7, {tp['resumed epoch 2 (cuDNN estimators)']:.1f} "
         f"with --fused-estimator 0 (cuDNN) on {card}")
+    ab = batched["pairs_per_s"]
+    log(f"[e2e] batched_pyramid A/B at 448x1024 B=8 with the kernels (reported, not claimed; in turns, default / "
+        f"batched / batched / default): " + "; ".join(
+            f"{d} " + " / ".join(f"{v:.1f}" for v in (ab[f'{d} kernels default'][0], *ab[f'{d} kernels batched_pyramid'],
+                                                     ab[f'{d} kernels default'][1])) for d in ("bfloat16", "float32"))
+        + f" pairs/s on {card}")
+    log(f"[e2e] --remat at 384x448 (reported, not claimed): " + "; ".join(
+        f"{k} {sum(v['ms']) / len(v['ms']):.2f} ms, peak {v['peak_mib']:.0f} MiB" for k, v in remat_stats["timing"].items())
+        + f"; the trainer's --remat epoch {trainer_stats['pairs_per_s']['remat epoch 1 (K7 on 2 levels)']:.1f} pairs/s "
+        f"on {card}")
     log(f"[e2e] H-sharded over 2 ranks sharing the card (correctness, not scaling): serving 448x1024 B=8 bf16 "
         f"{spatial_stats['serve_pairs_per_s']:.1f} pairs/s, train step 384x448 B=8 bf16 "
         f"{spatial_stats['train_pairs_per_s']:.1f} pairs/s on {card}")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": card, "train": train_stats, "gradient_kernels_vs_plain": grad_err,
                       "k5_df1_run_to_run": atomics_rerun, "bitwise_equal_reruns": deterministic, "trainer": trainer_stats, "spatial": spatial_stats,
-                      "sequence": seq_stats, "bf16px": bf16px}))
+                      "sequence": seq_stats, "bf16px": bf16px, "remat": remat_stats, "batched_pyramid": batched}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

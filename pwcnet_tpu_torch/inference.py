@@ -108,7 +108,10 @@ class FlowPredictor:
         output_level: int = 4,
         dtype: torch.dtype = torch.float32,
         use_kernels: str | bool = "auto",
+        use_fused: str | bool = "auto",
+        fused_pyramid: str | int = "auto",
         fused_estimator: str | int = "auto",
+        batched_pyramid: str | bool = "auto",
         size_handling: str = "crop",
         device=None,
         spatial: int = 1,
@@ -118,8 +121,20 @@ class FlowPredictor:
         """``use_kernels``: 'auto' runs the CUDA kernels on a CUDA device;
         on the CPU their wrappers run the plain versions anyway. Without a
         checkpoint the weights are the flax-style init from seed 0.
-        ``fused_estimator``: the N finest estimator levels through K7;
-        'auto' is 0 (opt-in), and it needs ``use_kernels``.
+        Resolved as the JAX predictor resolves them:
+
+        - ``use_fused``: K1, the fused bilinear warp + cost volume; 'auto'
+          is on with the kernels and the bilinear warp. H-sharding always
+          runs the fused one (K9 or its plain version), so False there
+          raises;
+        - ``fused_pyramid``: the N finest pyramid levels through K3; 'auto'
+          is ``FUSED_PYRAMID_LEVELS`` with the kernels, else 0;
+        - ``fused_estimator``: the N finest estimator levels through K7;
+          'auto' is 0 (opt-in), and it needs ``use_kernels``; 0 under
+          H-sharding;
+        - ``batched_pyramid``: both frames through one pyramid call at 2B;
+          'auto' is False (an opt-in A/B).
+
         ``spatial`` / ``data`` / ``mesh``: serving across processes
         (``parallel.make_mesh``; the mesh's device is this rank's)."""
         if size_handling not in ("crop", "pad"):
@@ -133,8 +148,16 @@ class FlowPredictor:
         self.device = mesh.device if mesh is not None else resolve_device(device)
         if use_kernels == "auto":
             use_kernels = self.device.type == "cuda"
+        spatial_on = mesh is not None and mesh.spatial > 1
+        if spatial_on and use_fused != "auto" and not use_fused:
+            raise NotImplementedError("H-sharding runs the fused warp + cost volume only (use_fused)")
+        if use_fused == "auto":
+            use_fused = bool(use_kernels) and warp_type == "bilinear"
+        fused_pyramid = (FUSED_PYRAMID_LEVELS if use_kernels else 0) if fused_pyramid == "auto" else int(fused_pyramid)
+        fused_estimator = 0 if fused_estimator == "auto" else int(fused_estimator)
+        batched_pyramid = False if batched_pyramid == "auto" else bool(batched_pyramid)
         hooks = {}
-        if mesh is not None and mesh.spatial > 1:
+        if spatial_on:
             hooks = spatial_hooks(mesh, bool(use_kernels), warp_type)
         elif use_kernels:
             from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
@@ -142,16 +165,17 @@ class FlowPredictor:
 
             hooks = dict(
                 cost_volume_fn=cost_volume_cuda,
-                warp_cv_fn=warped_cost_volume if warp_type == "bilinear" else None,
-                fused_pyramid_levels=FUSED_PYRAMID_LEVELS,
-                fused_estimator_levels=0 if fused_estimator == "auto" else int(fused_estimator),
+                warp_cv_fn=warped_cost_volume if use_fused else None,
+                fused_estimator_levels=fused_estimator,
             )
+        hooks["fused_pyramid_levels"] = fused_pyramid
         model = PWCDCNet(
             num_levels=num_levels,
             search_range=search_range,
             warp_type=warp_type,
             use_dc=use_dc,
             output_level=output_level,
+            batched_pyramid=batched_pyramid,
             **hooks,
         )
         if checkpoint is not None:

@@ -36,6 +36,20 @@ Hooks, with the JAX package's meaning:
   its rows of the upsampled flow and features (``split``).
   ``flows_final`` and each pyramid level come back as row shards where
   their level is sharded (``sharded_levels`` says which), else whole.
+
+Options, with the JAX package's meaning:
+
+- ``remat``: each ``fp_extractor`` call, each estimator and the context
+  net run under ``torch.utils.checkpoint`` (non-reentrant), so the backward
+  recomputes their activations instead of keeping them (the JAX model's
+  ``nn.remat`` on the same three); the cost volumes and resizes stay
+  outside. The recompute reruns K3 and K7 with their residuals, and under
+  H-sharding the halo exchanges and gathers of those modules. Values and
+  gradients are those of the model without it.
+- ``batched_pyramid``: both frames through one extractor call at 2B, each
+  level split at B; under H-sharding the frames are concatenated along the
+  batch, so each rank's row shard stays whole.
+- ``forward(..., with_features=True)`` also returns frame 0's pyramid.
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pwcnet_tpu_torch.models.context import ContextNetwork
 from pwcnet_tpu_torch.models.conv import Conv2d, glorot_init_, to_nchw, to_nhwc
@@ -84,6 +99,8 @@ class PWCDCNet(nn.Module):
         compute_dtype: Optional[torch.dtype] = None,
         spatial_guard_fn=None,
         pyramid_level_fn=None,
+        remat: bool = False,
+        batched_pyramid: bool = False,
     ):
         super().__init__()
         if output_level >= num_levels:
@@ -103,6 +120,8 @@ class PWCDCNet(nn.Module):
         self.cost_volume_fn = cost_volume_fn
         self.warp_cv_fn = warp_cv_fn
         self.spatial_guard_fn = spatial_guard_fn
+        self.remat = remat
+        self.batched_pyramid = batched_pyramid
 
         self.fp_extractor = FeaturePyramidExtractor(
             num_levels, fused_levels=fused_pyramid_levels, level_fn=pyramid_level_fn)
@@ -129,16 +148,31 @@ class PWCDCNet(nn.Module):
             for l in range(self.output_level + 1)
         ]
 
-    def forward(self, images_0: torch.Tensor, images_1: torch.Tensor):
+    def _run(self, module, *args, **kwargs):
+        """``module(*args, **kwargs)``; under ``remat`` its activations are
+        recomputed in the backward instead of kept. The model draws no random
+        numbers, so no RNG state is saved for the recompute."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
+        return module(*args, **kwargs)
+
+    def forward(self, images_0: torch.Tensor, images_1: torch.Tensor, with_features: bool = False):
         """``images_*`` (B, H, W, 3) in [0, 1], H and W multiples of
         ``2**num_levels`` (row shards of such frames under H-sharding).
         Returns ``(flows_final (B, H, W, 2) pixels, flows_pyramid)``, the
         pyramid deep -> output level in internal units (pixels / 20 at full
-        resolution), each (B, h, w, 2)."""
+        resolution), each (B, h, w, 2); ``with_features`` appends frame 0's
+        feature pyramid, deep first, each (B, h, w, C) (row shards where
+        the level is sharded)."""
         g = self.spatial_guard_fn
         dtype = self.compute_dtype or self.fp_extractor.conv2d.weight.dtype
-        pyramid_0 = self.fp_extractor(to_nchw(images_0.to(dtype)), g)
-        pyramid_1 = self.fp_extractor(to_nchw(images_1.to(dtype)), g)
+        if self.batched_pyramid:
+            b = images_0.shape[0]
+            pyramid = self._run(self.fp_extractor, to_nchw(torch.cat([images_0, images_1]).to(dtype)), g)
+            pyramid_0, pyramid_1 = [p[:b] for p in pyramid], [p[b:] for p in pyramid]
+        else:
+            pyramid_0 = self._run(self.fp_extractor, to_nchw(images_0.to(dtype)), g)
+            pyramid_1 = self._run(self.fp_extractor, to_nchw(images_1.to(dtype)), g)
         scales = flow_scales(self.num_levels)
         sharded = self.sharded_levels(images_0.shape[1] * (g.size if g is not None else 1))
         d = self.search_range
@@ -161,8 +195,8 @@ class PWCDCNet(nn.Module):
                     cv = wcv_fn(f0n, f1n, flow_px, d)
                 else:
                     cv = (cv_fn or cost_volume)(f0n, warp(f1n, flow_px, self.warp_type), d)
-            flows, features = getattr(self, f"optflow_{l}")(
-                to_nchw(cv), f0, flows_up, features_up, rows=rows
+            flows, features = self._run(
+                getattr(self, f"optflow_{l}"), to_nchw(cv), f0, flows_up, features_up, rows=rows
             )
             if l < self.output_level:
                 # one joint 2+C-channel upsample: bilinear resize is
@@ -172,10 +206,11 @@ class PWCDCNet(nn.Module):
                 flows_up, features_up = fu[:, :2], fu[:, 2:]
                 flows_pyramid.append(flows)
             else:
-                flows = self.context(flows, features, rows=rows)
+                flows = self._run(self.context, flows, features, rows=rows)
                 flows_pyramid.append(flows)
                 up = 2 ** (self.num_levels - self.output_level)
                 h, w = flows.shape[2], flows.shape[3]
                 fn = to_nhwc(flows)
                 flows_final = (g.upsample(fn, up) if sh else resize_bilinear(fn, (h * up, w * up))) * 20.0
-                return flows_final, [to_nhwc(f) for f in flows_pyramid]
+                out = flows_final, [to_nhwc(f) for f in flows_pyramid]
+                return (*out, [to_nhwc(f) for f in pyramid_0]) if with_features else out

@@ -229,6 +229,13 @@ def estimator_chain_fused(xin: torch.Tensor, *kbs: torch.Tensor):
     xin, kbs = _pad_input(xin, kbs)
     if xin.device.type == "cpu":
         return estimator_chain_plain(xin, *kbs)
+    return _on_card(xin, kbs)
+
+
+def _on_card(xin, kbs):
+    """The kernels' path: ``_EstimatorChain`` where a gradient is wanted
+    (also in a checkpoint's recompute, which runs with grad enabled), else
+    the forward alone."""
     if _common.wants_grad(xin, *kbs):
         return _EstimatorChain.apply(xin, *kbs)
     flow, acts = _forward(xin, kbs)

@@ -227,6 +227,13 @@ def pyramid_level_fused(x, k1, b1, k2, b2, k3, b3) -> torch.Tensor:
     """
     if x.device.type == "cpu":
         return pyramid_level_plain(x, k1, b1, k2, b2, k3, b3)
+    return _on_card(x, k1, b1, k2, b2, k3, b3)
+
+
+def _on_card(x, k1, b1, k2, b2, k3, b3):
+    """The kernel's path: ``_PyramidLevel`` where a gradient is wanted (also
+    in a checkpoint's recompute, which runs with grad enabled), else the
+    forward alone."""
     if _common.wants_grad(x, k1, b1, k2, b2, k3, b3):
         return _PyramidLevel.apply(x, k1, b1, k2, b2, k3, b3)
     return _forward(x, k1, b1, k2, b2, k3, b3, False)[0]

@@ -1,8 +1,10 @@
 """Single-pair inference CLI with a latency measurement (the root test.py's counterpart).
 
-Runs PWCDCNet on one image pair, optionally writes the final flow as a
-.flo file, and with --time reports the mean forward latency: on CUDA
-timed with CUDA events after warm-up, on the CPU with the host clock.
+Runs PWCDCNet on one image pair, writes the flow pyramid beside the frames
+to ./test_figure/test_<name>.pdf (as the root CLI does; matplotlib is
+imported only there), optionally writes the final flow as a .flo file, and
+with --time reports the mean forward latency: on CUDA timed with CUDA
+events after warm-up, on the CPU with the host clock.
 
 ``--spatial N`` shards the frame's rows over N processes, one per GPU,
 started by torchrun; every rank computes the whole flow and rank 0 prints
@@ -17,6 +19,8 @@ Example:
 from __future__ import annotations
 
 import argparse
+import os
+import re
 import time
 
 
@@ -57,6 +61,11 @@ def build_parser():
                         help="Shard the frame's H axis over N processes, "
                         "one per GPU (torchrun) [1]")
     return parser
+
+
+def figure_path(image_path: str) -> str:
+    """./test_figure/test_<name>.pdf, <name> from the first frame's path."""
+    return f"./test_figure/test_{'_'.join(re.split('[/.]', image_path)[-3:-1])}.pdf"
 
 
 def time_forward(predictor, batch, iters: int, warmup: int = 10) -> float:
@@ -111,7 +120,7 @@ def main(argv=None):
     )
     img0 = load_image(args.input_images[0])
     img1 = load_image(args.input_images[1])
-    flow_final, _, _ = predictor(img0, img1)
+    flow_final, pyramid_px, images = predictor(img0, img1)
 
     if args.time:
         batch = np.stack([predictor.prepare(img0), predictor.prepare(img1)])[None]
@@ -120,9 +129,16 @@ def main(argv=None):
         if is_main:
             print(f"Inference time: {sec} sec (averaged over {args.iters} iterations, "
                   f"{clock}, {predictor.device})")
-    if args.save_flow and is_main:
+    if not is_main:
+        return
+    from pwcnet_tpu_torch.utils import vis_flow_pyramid
+
+    os.makedirs("./test_figure", exist_ok=True)
+    vis_flow_pyramid(pyramid_px, images=images, filename=figure_path(args.input_images[0]))
+    if args.save_flow:
         save_flow(args.save_flow, flow_final)
         print(f"Flow saved to {args.save_flow}")
+    print("Figure saved")
 
 
 if __name__ == "__main__":

@@ -130,7 +130,7 @@ def build_parser():
                         "[float32]")
     parser.add_argument("--remat", action="store_true",
                         help="Rematerialize activations in the backward "
-                        "[disabled; not supported by this package yet]")
+                        "(bigger crops/batches per GPU) [disabled]")
     parser.add_argument("--pallas", dest="pallas", action="store_true",
                         help="Use the hand-written CUDA kernels (CUDA only; "
                         "the flag keeps the JAX package's name)")

@@ -22,9 +22,12 @@
 (K2 at level 0, K1 above, K3/K6 on the two finest pyramid levels, K7 on the
 ``args.fused_estimator`` finest estimator levels) against the plain path.
 
-Not here yet, each refused with a ``NotImplementedError`` that names it:
-``--ckpt_backend orbax`` and ``--remat``. Under a mesh the flow
-visualization is off (it would run a forward on rank 0 alone).
+``args.remat`` recomputes the pyramid, every estimator and the context
+net in the backward (``PWCDCNet(remat=True)``), under every mesh.
+
+Not here yet, refused with a ``NotImplementedError`` that names it:
+``--ckpt_backend orbax``. Under a mesh the flow visualization is off, as
+the JAX trainer's is in more than one process (a mesh here always is).
 """
 
 from __future__ import annotations
@@ -57,8 +60,6 @@ def check_supported(args) -> None:
         raise NotImplementedError(
             "--ckpt_backend orbax is not supported by pwcnet_tpu_torch yet; use msgpack"
         )
-    if getattr(args, "remat", False):
-        raise NotImplementedError("--remat is not supported by pwcnet_tpu_torch yet")
 
 
 class Trainer:
@@ -149,6 +150,7 @@ class Trainer:
             output_level=args.output_level,
             generator=torch.Generator().manual_seed(seed),
             compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+            remat=bool(getattr(args, "remat", False)),
             **hooks,
         )
         self.state = create_train_state(

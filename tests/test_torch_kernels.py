@@ -494,6 +494,48 @@ class TestKernelsOnCard:
                 _assert_close(a, b, torch.float32)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_remat_step_reruns_k3_and_k7(self, cuda_device, rng, dtype):
+        """PWCDCNet(remat=True) with the kernels (K7 on 2 levels) at 128x192
+        B=2: the loss as without remat (rtol 1e-6), the gradients within
+        1e-4 of each tensor's largest entry in float32 (the backwards differ
+        only by K5's atomics) and at cosine 0.999 in bf16; K3 8, K7 4 and
+        K7b 2 launches a step. Then batched_pyramid: K3 2 a forward, the
+        flow as two pyramid calls give it."""
+        from pwcnet_tpu_torch.models import PWCDCNet
+        from pwcnet_tpu_torch.train_lib import make_loss_fn
+
+        images = torch.from_numpy(rng.random((2, 2, 128, 192, 3)).astype(np.float32)).to(cuda_device)
+        flows = torch.from_numpy(_normal(rng, (2, 128, 192, 2), 2.0)).to(cuda_device)
+        hooks = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume, fused_pyramid_levels=2,
+                     fused_estimator_levels=2, compute_dtype=dtype)
+        out = {}
+        for remat in (False, True):
+            model = PWCDCNet(remat=remat, **hooks).to(cuda_device)
+            reset_launch_counts()
+            total, _ = make_loss_fn(model, decoupled_wd=True)(images, flows)
+            grads = torch.autograd.grad(total, list(model.parameters()))
+            counts = {k: v for k, v in launch_counts().items() if v}
+            assert counts == {"K1": 4, "K2": 1, "K3": 4 * (1 + remat), "K4": 5, "K5": 4, "K6": 4,
+                              "K7": 2 * (1 + remat), "K7b": 2}
+            out[remat] = total.detach(), grads
+        torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-6, atol=0)
+        if dtype == torch.float32:
+            for a, b in zip(out[True][1], out[False][1]):
+                assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+        else:
+            a, b = (torch.cat([g.flatten() for g in out[k][1]]) for k in (True, False))
+            assert F.cosine_similarity(a, b, dim=0) >= 0.999
+        model = PWCDCNet(batched_pyramid=True, **hooks).to(cuda_device)
+        with torch.no_grad():
+            reset_launch_counts()
+            got = model(images[:, 0], images[:, 1])[0]
+            assert {k: v for k, v in launch_counts().items() if v} == {"K1": 4, "K2": 1, "K3": 2, "K7": 2}
+            model.batched_pyramid = False
+            want = model(images[:, 0], images[:, 1])[0]
+        rtol = 1e-4 if dtype == torch.float32 else 5e-2
+        assert (got - want).abs().max() <= rtol * want.abs().max() + 1e-4
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_predict_sequence_is_call(self, cuda_device, rng, dtype):
         """FlowPredictor.predict_sequence through the kernels (pinned staging,
         copies back, events, two dispatches in flight) against __call__ on

@@ -242,7 +242,7 @@ class TestFlowPredictor:
 
 
 class TestCli:
-    def test_writes_flow_and_times(self, tmp_path, capsys):
+    def test_writes_flow_and_times(self, tmp_path, capsys, monkeypatch):
         from PIL import Image
 
         from pwcnet_tpu.utils.flo_io import load_flow as jax_load_flow
@@ -255,6 +255,7 @@ class TestCli:
         Image.fromarray(base).save(paths[0])
         Image.fromarray(np.roll(base, (1, 1), (0, 1))).save(paths[1])
         out = tmp_path / "out.flo"
+        monkeypatch.chdir(tmp_path)  # the figure goes to ./test_figure
         main(["--input_images", str(paths[0]), str(paths[1]), "--device", "cpu", "--num_levels", "3",
               "--search_range", "2", "--output_level", "1", "--save_flow", str(out), "--time", "--iters", "2",
               "--size_handling", "pad"])
@@ -262,6 +263,7 @@ class TestCli:
         assert flow.shape == (20, 28, 2) and np.isfinite(flow).all()
         np.testing.assert_array_equal(flow, jax_load_flow(out))
         assert "Inference time:" in capsys.readouterr().out
+        assert (tmp_path / "test_figure" / f"test_{tmp_path.name}_a.pdf").is_file()
 
 
 class TestNoJax:
@@ -278,7 +280,7 @@ class TestNoJax:
             "    'data.datasets', 'data.native', 'data.cache', 'data.pipeline', 'train_lib.metrics',\n"
             "    'train_lib.trainer', 'train', 'evaluate', 'test', 'parallel', 'parallel.mesh',\n"
             "    'parallel.spatial', 'parallel._comm', 'test_continuous', 'convert_checkpoint',\n"
-            "    'train_lib.tf_converter')}\n"
+            "    'train_lib.tf_converter', 'transcode_dataset')}\n"
             "print(len(names), bad, want - set(names))\n"
             "sys.exit(1 if bad or len(names) < 48 or want - set(names) else 0)\n"
         )

@@ -391,13 +391,17 @@ class TestShardedTrainSteps:
     forward and gradient are held against the JAX sharded model in
     ``TestSpatialModel``."""
 
-    @pytest.mark.parametrize("data,spatial", [(2, 1), (1, 2), (2, 2)])
-    def test_matches_jax(self, tmp_path, train_reference, data, spatial):
+    @pytest.mark.parametrize("data,spatial,remat", [(2, 1, False), (1, 2, False), (2, 2, False), (1, 2, True)],
+                             ids=["2-1", "1-2", "2-2", "1-2-remat"])
+    def test_matches_jax(self, tmp_path, train_reference, data, spatial, remat):
+        """``remat``: the pyramid, estimators and context net recomputed in
+        the backward, their halo exchanges, gathers and K8 / K9's plain
+        versions with them; held to the same reference and bounds."""
         r = train_reference
         inputs = dict(images=r["images"], flows=r["flows"], **_state_inputs(r["tree"]))
         outs = run_ranks("train", data * spatial, tmp_path, inputs,
-                         {"model": TINY, "data": data, "spatial": spatial, "lr": TRAIN_LR, "steps": TRAIN_N,
-                          "losses": TRAIN_LOSSES, "fused_pyramid_levels": 2})
+                         {"model": dict(TINY, remat=remat), "data": data, "spatial": spatial, "lr": TRAIN_LR,
+                          "steps": TRAIN_N, "losses": TRAIN_LOSSES, "fused_pyramid_levels": 2})
         for loss in TRAIN_LOSSES:
             want_grads, want_metrics, want = r["ref"][loss]
             _assert_tree_close(_port_flat(outs, f"{loss}/grad/"), want_grads, 2e-4)

@@ -220,7 +220,7 @@ class TestPredictor:
         for a, b in zip(got[1], want[1]):
             assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
 
-    def test_test_cli_takes_a_tf_checkpoint(self, small_bundle, tmp_path):
+    def test_test_cli_takes_a_tf_checkpoint(self, small_bundle, tmp_path, monkeypatch):
         from PIL import Image
 
         from pwcnet_tpu_torch.utils import load_flow
@@ -231,6 +231,7 @@ class TestPredictor:
         Image.fromarray(img0).save(paths[0])
         Image.fromarray(img1).save(paths[1])
         out = tmp_path / "out.flo"
+        monkeypatch.chdir(tmp_path)  # the figure goes to ./test_figure
         port_test_cli.main(["--input_images", str(paths[0]), str(paths[1]), "-r", str(prefix), "--device", "cpu",
                             "--save_flow", str(out), *SMALL_FLAGS])
         want = FlowPredictor(checkpoint=str(prefix), device="cpu", **SMALL)(img0, img1)[0]

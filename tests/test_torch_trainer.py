@@ -72,15 +72,11 @@ def _flat(tree):
     return {jax.tree_util.keystr(p): np.asarray(v) for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.fixture(scope="module")
-def shared(tmp_path_factory):
-    """model_0.msgpack and the JAX side of one epoch from it: the loss of
-    every step and the final parameters. The JAX step is built once."""
-    root = tmp_path_factory.mktemp("shared")
-    model = JaxPWCDCNet(**TINY)
+def _jax_epoch(model):
+    """One epoch of the JAX loop from ``_jax_tree(31)``: the first state,
+    the loss of every step, the final parameters and the batches."""
     tx = optax.adam(jax_make_lr(LR, True), b1=0.9, b2=0.999, eps=1e-8)
-    state = jax_step.TrainState.create(apply_fn=model.apply, params=_jax_tree(31), tx=tx)
-    ckpt = jax_checkpoint.save_checkpoint(root / "model_0.msgpack", state)
+    state = first = jax_step.TrainState.create(apply_fn=model.apply, params=_jax_tree(31), tx=tx)
     dset = jax_data.SyntheticFlow(train_or_val="train", dataset_dir=".", origin_size=None, crop_type="center",
                                   crop_shape=[32, 32], resize_shape=None, resize_scale=None,
                                   random_flip=False, seed=4)
@@ -92,7 +88,17 @@ def shared(tmp_path_factory):
         batches.append((images, flows))
         state, metrics = step(state, jnp.asarray(images), jnp.asarray(flows))
         losses.append(float(metrics["loss"]))
-    return {"ckpt": ckpt, "losses": losses, "params": _flat(state.params), "batches": batches}
+    return first, losses, _flat(state.params), batches
+
+
+@pytest.fixture(scope="module")
+def shared(tmp_path_factory):
+    """model_0.msgpack and the JAX side of one epoch from it: the loss of
+    every step and the final parameters. The JAX step is built once."""
+    root = tmp_path_factory.mktemp("shared")
+    first, losses, params, batches = _jax_epoch(JaxPWCDCNet(**TINY))
+    ckpt = jax_checkpoint.save_checkpoint(root / "model_0.msgpack", first)
+    return {"ckpt": ckpt, "losses": losses, "params": params, "batches": batches}
 
 
 def _logdir(tmp_path):
@@ -130,6 +136,21 @@ class TestTrainerAgainstJax:
         tx = optax.adam(jax_make_lr(LR, True), b1=0.9, b2=0.999, eps=1e-8)
         template = jax_step.TrainState.create(apply_fn=model.apply, params=_jax_tree(0), tx=tx)
         assert int(jax_checkpoint.restore_checkpoint(ckpt, template).step) == N_STEPS
+
+    def test_remat_epoch_matches_the_jax_remat_loop(self, shared, tmp_path, monkeypatch):
+        """--remat from the shared checkpoint: the JAX loop with
+        ``PWCDCNet(remat=True)`` over the same batches, at the tolerances
+        of the epoch above."""
+        monkeypatch.chdir(tmp_path)
+        _, want_losses, want, _ = _jax_epoch(JaxPWCDCNet(**TINY, remat=True))
+        trainer = port_train_cli.main(TRAIN_ARGS + ["-r", shared["ckpt"], "--remat", "--device", "cpu"])
+        assert trainer.model.remat and trainer.state.step == N_STEPS == len(want_losses)
+        logdir = _logdir(tmp_path)
+        rows = [json.loads(l) for l in (logdir / "train" / "metrics.jsonl").read_text().splitlines()]
+        np.testing.assert_allclose([r["loss/pwc"] for r in rows], want_losses, rtol=1e-4)
+        got = _flat(load_tree(logdir / "model" / "model_1.msgpack")["params"])
+        diffs = np.concatenate([np.abs(got[k] - want[k]).ravel() for k in want])
+        assert diffs.max() <= N_STEPS * LR / 10 and diffs.mean() <= 1e-3 * N_STEPS * LR
 
     def test_fused_estimator_and_kernel_hooks_train_alike_on_the_cpu(self, shared, tmp_path, monkeypatch):
         """--pallas --fused-estimator 2 on the CPU goes through every
@@ -255,11 +276,10 @@ class TestNamedErrors:
         (["--spatial", "2"], ValueError, "--spatial"),
         (["--coordinator", "localhost:1234"], ValueError, "--coordinator"),
         (["--ckpt_backend", "orbax"], NotImplementedError, "orbax"),
-        (["--remat"], NotImplementedError, "--remat"),
     ])
     def test_train_refuses_what_is_not_ported(self, tmp_path, monkeypatch, flags, error, match):
-        """Refused by name before anything is written: the options not
-        ported (orbax, remat), and a sharded or multi-process run that no
+        """Refused by name before anything is written: the option not
+        ported (orbax), and a sharded or multi-process run that no
         launcher started (one process, no torchrun, a coordinator with no
         process count)."""
         monkeypatch.chdir(tmp_path)
