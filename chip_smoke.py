@@ -67,7 +67,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    levels; five steps at B=8 with a falling loss and K1 4x, K2 1x, K3 8x,
    K4 5x, K5 4x, K6 4x per step (with K7 on 2 levels also K7 4x, K7b 2x);
    ms per step and peak memory with and without remat at B=8 and B=32 in
-   both dtypes, and the remat step's profile (reported);
+   both dtypes, and the remat step's profile (reported). Then
+   ``[converge]``: the SyntheticFlow convergence proof
+   (``pwcnet_tpu_torch/train_lib/convergence.py``: 3 levels, 32x32, B=8)
+   with the kernels from port seed ``CONVERGE_SEED``, a seed whose four
+   cases converge on the CPU's plain path: multiscale float32 and remat
+   400 steps, robust 150 and bf16 120 after a 300-step warm start, each
+   gated below 0.5 px full-set EPE, every step launching exactly
+   ``CONVERGE_PER_STEP`` (K3 8 under remat); one line per case with its
+   steps, EPE, seconds and whether it ended on the 1.862 px constant flow
+   (where a failing case from an init that did not escape it ends), and
+   the multiscale case on the plain path as a witness (reported, not
+   gated);
 6. trainer: a FlyingChairs-layout dataset (P6 .ppm pairs and .flo files,
    384x512, a seeded texture shifted by a known flow) is written under a
    temporary directory with numpy alone, and ``pwcnet_tpu_torch.train.main``
@@ -93,7 +104,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    spawns 2 ranks on the card, joined by a gloo group that stages every
    halo and gather through the host: ``FlowPredictor`` H-sharded at
    448x1024 B=8 and at one 1024x1024 pair (level 0 sharded: K8), bf16 and
-   f32, the sharded train step at 384x448 B=8 (the first step's gradients
+   f32; ``FlowPredictor(spatial=2, use_fused=False)`` and ``(...,
+   warp_type='nearest')`` at 448x1024 B=8 in bf16 and f32 against the
+   unsharded predictor with the same option (per rank and forward exactly
+   K2 1, K3 4, K8 4, no K9); ``predict_sequence`` on the (1 x 2) mesh over
+   ``[sequence]``'s 17 frames (bf16, B=8, depth 2, flows only) and over 5
+   of them in float32 (B=3: a padded tail), every pair against the
+   unsharded stream, and the bf16 streams' pairs/s (reported); the
+   sharded train step at 384x448 B=8 (the first step's gradients
    against the unsharded step in f32 and bf16, 5 bf16 steps), and
    ``train.main --spatial 2`` on the written dataset (one epoch, one
    resume, ``evaluate --spatial 2`` against the unsharded EPE); each rank
@@ -159,6 +177,15 @@ REMAT_PER_STEP = {"K1": 4, "K2": 1, "K3": 8, "K4": 5, "K5": 4, "K6": 4}
 TRAINER_REMAT_PER_STEP = {**REMAT_PER_STEP, "K7": 2 * FUSED_ESTIMATOR, "K7b": FUSED_ESTIMATOR}
 # a forward with batched_pyramid: K3 on both frames in one call a level
 BATCHED_PER_FORWARD = {"K1": 4, "K2": 1, "K3": 2}
+# the [converge] phase: the SyntheticFlow proof of pwcnet_tpu_torch/train_lib/convergence.py
+# from the parameters torch.Generator().manual_seed(CONVERGE_SEED) draws, a seed whose four
+# cases converge on the CPU's plain path (scripts/torch_record_convergence.py --sweep / --cases;
+# the sweep is in PERF.md)
+CONVERGE_SEED = 5
+# a step of its 3-level model with 2 fused pyramid levels: K2 at level 0, K1 at level 1, K3 on
+# both frames' two finest levels; backward K4 behind K2 and K1, K5 behind K1, K6 behind each K3
+CONVERGE_PER_STEP = {"K1": 1, "K2": 1, "K3": 4, "K4": 2, "K5": 1, "K6": 4}
+CONVERGE_REMAT_PER_STEP = {**CONVERGE_PER_STEP, "K3": 8}  # the backward reruns K3
 REMAT_BATCHES = (8, 32)  # the [remat] phase's timed batches
 CHAIRS_SAMPLES = 200  # 180 train (22 batches of 8) and 20 val (2 batches) by the 1-in-10 split
 CHAIRS_HW = (384, 512)
@@ -192,6 +219,13 @@ KERNEL_INFO = {
 }
 SHARD_KERNELS = ("K8", "K8b", "K9", "K9b")
 SHARDS = 2
+# per rank and forward at 448x1024 over 2 shards with use_fused=False or the nearest warp:
+# level 0 (7 rows) whole through K2, levels 1-4 warped by the guard and correlated by K8,
+# K3 on both frames' two finest levels per shard; no K1, no K9
+SPATIAL_UNFUSED_PER_FORWARD = {"K2": 1, "K3": 4, "K8": 4}
+# per rank and dispatch of the sharded predict_sequence (fused, bilinear): K9 at levels 1-4
+SPATIAL_SEQ_PER_DISPATCH = {"K2": 1, "K3": 4, "K9": 4}
+SPATIAL_OPTIONS = {"unfused": {"use_fused": False}, "nearest": {"warp_type": "nearest"}}
 # (frame H, W) of the sharded paths: serving, training, and the frame whose
 # level 0 holds 8 rows a shard (K8)
 SPATIAL_SERVE_HW = (448, 1024)
@@ -1455,6 +1489,58 @@ def ckpt_phase(torch, np, device, preds, tmp_root):
             f"weights' (max |flow| {float(abs(flows['msgpack']).max()):.3e})")
 
 
+def converge_phase(torch, card, device):
+    """The SyntheticFlow convergence proof on the card with the kernels:
+    its four cases from port seed ``CONVERGE_SEED``, each gated at 0.5 px,
+    the launches of every step counted against the 3-level model's; the
+    multiscale case on the plain path from the same seed as a witness
+    (reported, not gated)."""
+    from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from pwcnet_tpu_torch.train_lib import convergence as conv
+
+    params = conv.port_init(CONVERGE_SEED)
+    counts = {}
+    curves = {}
+
+    def on_start(name):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+
+    def on_step(name, i, metrics):
+        per = CONVERGE_REMAT_PER_STEP if name == "remat" else CONVERGE_PER_STEP
+        got = launch_counts()
+        want = {k: (i + 1) * per.get(k, 0) for k in got}
+        require(got == want, f"[converge] {name} step {i + 1}: launches {got}, want {want}")
+        if (i + 1) % 50 == 0:
+            curves.setdefault(name, []).append(round(float(metrics["epe"]), 4))
+        if i + 1 == conv.STEPS[name]:
+            counts[name] = got
+
+    res = conv.run_cases(params, device, use_kernels=True, on_step=on_step, on_start=on_start)
+    # a case that fails on the constant flow did not escape it from this init (the run-to-run
+    # atomics of K5 move where it does, PERF.md); one that fails elsewhere points at the path
+    dset = conv.dataset()
+    for name in ("warm", *conv.CASES):
+        r = res[name]
+        r["constant_flow"] = conv.on_constant_flow(r["epe"], dset)
+        log(f"  {name}: {r['steps']} steps, full-set EPE {r['epe']:.4f} px, {r['seconds']:.1f} s with the kernels, "
+            f"{'on' if r['constant_flow'] else 'off'} the {conv.constant_flow_epe(dset):.4f} px constant flow "
+            f"(training batch EPE every 50 steps: {curves[name]}) on {card}")
+        res[name]["batch_epe_every_50"] = curves[name]
+    on_start("witness")
+    witness = conv.run_cases(params, device, use_kernels=False, cases=("multiscale",))["multiscale"]
+    require(not any(launch_counts().values()), "the plain witness launched a kernel")
+    log(f"  witness, plain path: multiscale {witness['steps']} steps, full-set EPE {witness['epe']:.4f} px, "
+        f"{witness['seconds']:.1f} s (reported, not gated) on {card}")
+    for name in conv.CASES:
+        require(res[name]["epe"] < conv.EPE_TARGET,
+                f"[converge] {name}: full-set EPE {res[name]['epe']:.4f} px, not below {conv.EPE_TARGET} ("
+                + ("the constant-flow state: the init did not escape it" if res[name]["constant_flow"]
+                   else "not the constant-flow state") + ")")
+    total = {k: sum(c.get(k, 0) for c in counts.values()) for k in KERNEL_INFO}
+    return total, {"seed": CONVERGE_SEED, "kernels": res, "plain_multiscale": witness}
+
+
 def load_script(name):
     """A script of ``scripts/`` as a module (the directory is no package)."""
     import importlib.util
@@ -1991,6 +2077,73 @@ def spatial_rank(rank, port, out_dir, chairs_root):
                 f"sharded vs unsharded {name} 1024x1024 (level 0 sharded)", big[dt], unsharded(*pair)[0], rtol)
     del preds, flows, big
 
+    # -- the unfused and the nearest warp (448x1024 B=8, bf16 and f32): the
+    # guard warps each shard's rows against the gathered frame 1, K8
+    # correlates them; held as the default predictor is. [sequence]'s
+    # variance-scaled weights give flows of several px (the default init's
+    # tenths would truncate to no displacement in the nearest warp)
+    from pwcnet_tpu_torch.weights import from_jax_params, to_jax_params
+
+    scaled = from_jax_params(load_script("torch_bf16_parity").scaled_params(to_jax_params(PWCDCNet().state_dict())))
+    for opt, kw in SPATIAL_OPTIONS.items():
+        preds = {dt: FlowPredictor(dtype=dt, mesh=mesh, **kw) for dt in (torch.bfloat16, torch.float32)}
+        for p in preds.values():
+            p.model.load_state_dict(scaled)
+        flows = counted(f"serve_{opt}", lambda: {dt: p.raw_forward(batch_dev)[0] for dt, p in preds.items()})
+        if main:
+            for dt, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+                name = dtype_name(dt)
+                unsharded = FlowPredictor(dtype=dt, device=device, **kw)
+                unsharded.model.load_state_dict(scaled)
+                report[f"serve_err_{opt}_{name}"] = flow_close(
+                    f"sharded vs unsharded {opt} {name} 448x1024 B=8", flows[dt], unsharded.raw_forward(batch_dev)[0],
+                    rtol)
+        del preds, flows
+
+    # -- predict_sequence on the (1 x 2) mesh: [sequence]'s 17 frames and
+    # weights, bf16, B=8 depth 2, flows only; every pair against the
+    # unsharded stream (rank 0), pairs/s of both on the host clock
+    frames = smooth_frames(np, *SPATIAL_SERVE_HW, SEQ_FRAMES, seed=30)
+    timed_frames = [frames[k % SEQ_FRAMES] for k in range(SEQ_TIMED_FRAMES)]
+    pred = FlowPredictor(dtype=torch.bfloat16, mesh=mesh)
+    pred.model.load_state_dict(scaled)
+    seq = counted("sequence", lambda: list(pred.predict_sequence(frames, depth=2, batch=8, fetch="flow")))
+
+    def pairs_per_s(p):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in p.predict_sequence(timed_frames, depth=2, batch=8, fetch="flow"))
+        return n / (time.perf_counter() - t0)
+
+    pairs_per_s(pred)  # warm
+    dist.barrier()
+    report["sequence_pairs_per_s"] = pairs_per_s(pred)
+    if main:
+        unsharded = FlowPredictor(dtype=torch.bfloat16, device=device)
+        unsharded.model.load_state_dict(scaled)
+        want = list(unsharded.predict_sequence(frames, depth=2, batch=8, fetch="flow"))
+        pairs_close(np, "sharded vs unsharded predict_sequence bf16 B=8 depth 2 'flow'", [(f, None) for f in seq],
+                    [(f, None) for f in want], 5e-2)
+        pairs_per_s(unsharded)  # warm
+        report["sequence_unsharded_pairs_per_s"] = pairs_per_s(unsharded)
+        del unsharded
+    dist.barrier()
+    del pred
+    # the same weights in float32 on 5 frames at B=3 (a dispatch of 3 pairs and a padded one of 1),
+    # every pair held at [serve]'s float32 bound
+    pred = FlowPredictor(dtype=torch.float32, mesh=mesh)
+    pred.model.load_state_dict(scaled)
+    seq = counted("sequence_f32", lambda: list(pred.predict_sequence(frames[:5], depth=2, batch=3, fetch="flow")))
+    if main:
+        unsharded = FlowPredictor(dtype=torch.float32, device=device)
+        unsharded.model.load_state_dict(scaled)
+        want = list(unsharded.predict_sequence(frames[:5], depth=2, batch=3, fetch="flow"))
+        pairs_close(np, "sharded vs unsharded predict_sequence float32 B=3 depth 2 'flow'", [(f, None) for f in seq],
+                    [(f, None) for f in want], 1e-4)
+        del unsharded
+    dist.barrier()
+    del pred
+
     # -- the train step, 384x448 B=8, data 1 x spatial 2: the first step's
     # gradients against the unsharded step in float32 and bf16 compute, then
     # five bf16 steps. Bounds as the [train] phase's kernel-vs-plain check:
@@ -2140,16 +2293,25 @@ def spatial_phase(torch, card, chairs_root):
         require(all(got[ph]["K8b"] > 0 and got[ph]["K9b"] > 0 for ph in ("train", "trainer", "trainer_resumed")),
                 f"rank {rep['rank']}: K8b / K9b not launched in the sharded steps")
         require(all(got[ph]["K7"] == 0 for ph in got), "K7 ran under H-sharding")
+        for ph, per, n in [(f"serve_{opt}", SPATIAL_UNFUSED_PER_FORWARD, 2) for opt in SPATIAL_OPTIONS] + [
+                ("sequence", SPATIAL_SEQ_PER_DISPATCH, 2), ("sequence_f32", SPATIAL_SEQ_PER_DISPATCH, 2)]:
+            want = {k: n * per.get(k, 0) for k in got[ph]}
+            require(got[ph] == want, f"rank {rep['rank']} {ph}: launches {got[ph]}, want {want}")
     counts = {k: sum(rep["launches"][ph][k] for rep in reports for ph in rep["launches"]) for k in KERNEL_INFO}
     log(f"  2 ranks sharing one card, halos and gathers staged through the host: these pairs/s measure "
         f"correctness, not scaling: serving 448x1024 B=8 bf16 {r0['serve_pairs_per_s']:.1f}, train step 384x448 "
         f"B=8 bf16 {r0['train_pairs_per_s']:.1f}, trainer epoch 1 "
         f"{r0['trainer_epochs'][0]['steps'] * 8 / r0['trainer_epochs'][0]['train_seconds']:.1f} pairs/s on {card}")
+    log(f"  predict_sequence 448x1024 bf16 B=8 depth 2 (reported, not gated; host clock, {SEQ_TIMED_FRAMES - 1} "
+        f"pairs): sharded over 2 ranks sharing the card {r0['sequence_pairs_per_s']:.1f} pairs/s, unsharded "
+        f"{r0['sequence_unsharded_pairs_per_s']:.1f} pairs/s on {card}")
     log(f"  NCCL across GPUs: not run here (torch.cuda.device_count() = {torch.cuda.device_count()}); "
         "tests/test_torch_kernels.py's multigpu test runs it on a machine with two or more cards")
     stats = {k: r0[k] for k in ("serve_pairs_per_s", "train_pairs_per_s", "train_losses", "gradient", "epe",
                                 "serve_err_float32", "serve_err_bfloat16", "serve_err_1024_float32",
-                                "serve_err_1024_bfloat16", "seconds")}
+                                "serve_err_1024_bfloat16", "seconds", "sequence_pairs_per_s",
+                                "sequence_unsharded_pairs_per_s")}
+    stats.update({k: v for k, v in r0.items() if k.startswith(tuple(f"serve_err_{o}_" for o in SPATIAL_OPTIONS))})
     stats["unsharded_epe"] = epe
     return counts, stats
 
@@ -2463,6 +2625,12 @@ def main() -> int:
     remat_counts, remat_stats = remat_phase(torch, np, device)
     log(f"[remat] done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log(f"[converge] the SyntheticFlow convergence proof with the kernels (3 levels, 32x32, B=8) from port seed "
+        f"{CONVERGE_SEED}: multiscale and remat 400 steps, robust 150 and bf16 120 after a 300-step warm start")
+    converge_counts, converge_stats = converge_phase(torch, card, device)
+    log(f"[converge] done in {time.perf_counter() - t0:.1f} s")
+
     with tempfile.TemporaryDirectory(prefix="pwc_smoke_") as tmp_root:
         t0 = time.perf_counter()
         log("[trainer] pwcnet_tpu_torch.train and .evaluate on a written FlyingChairs-layout dataset")
@@ -2507,10 +2675,12 @@ def main() -> int:
         on_spatial = spatial_counts[kid]
         on_sequence = seq_counts.get(kid, 0)
         on_remat = remat_counts.get(kid, 0)
+        on_converge = converge_counts.get(kid, 0)
         if kid in SHARD_KERNELS:
             require(on_spatial > 0, f"{kid} was not launched on the sharded paths")
         else:
             require(on_trainer > 0 and (on_step > 0 or kid not in PER_STEP) and (on_remat > 0 or kid not in REMAT_PER_STEP)
+                    and (on_converge > 0 or kid not in CONVERGE_PER_STEP)
                     and (on_serve > 0 and on_sequence > 0 or kid not in PER_FORWARD),
                     f"{kid} was not launched on a path that runs it")
         if kid in SHARD_KERNELS:
@@ -2527,11 +2697,12 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": on_serve + on_sequence + on_step + on_remat + on_trainer + on_spatial,
+            "launches": on_serve + on_sequence + on_step + on_remat + on_converge + on_trainer + on_spatial,
             "launches_serving": on_serve,
             "launches_sequence": on_sequence,
             "launches_training": on_step,
             "launches_remat": on_remat,
+            "launches_converge": on_converge,
             "launches_trainer": on_trainer,
             "launches_spatial": on_spatial,
             "max_abs_err": max(errs[kid].values()),
@@ -2577,11 +2748,17 @@ def main() -> int:
         f"on {card}")
     log(f"[e2e] H-sharded over 2 ranks sharing the card (correctness, not scaling): serving 448x1024 B=8 bf16 "
         f"{spatial_stats['serve_pairs_per_s']:.1f} pairs/s, train step 384x448 B=8 bf16 "
-        f"{spatial_stats['train_pairs_per_s']:.1f} pairs/s on {card}")
+        f"{spatial_stats['train_pairs_per_s']:.1f} pairs/s, predict_sequence B=8 depth 2 "
+        f"{spatial_stats['sequence_pairs_per_s']:.1f} pairs/s on {card}")
+    log(f"[e2e] convergence proof with the kernels from port seed {CONVERGE_SEED}, full-set EPE (gate "
+        f"0.5 px): " + ", ".join(f"{k} {converge_stats['kernels'][k]['epe']:.4f} px" for k in
+                                 ("multiscale", "remat", "robust", "bf16"))
+        + f"; the plain witness {converge_stats['plain_multiscale']['epe']:.4f} px on {card}")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": card, "train": train_stats, "gradient_kernels_vs_plain": grad_err,
                       "k5_df1_run_to_run": atomics_rerun, "bitwise_equal_reruns": deterministic, "trainer": trainer_stats, "spatial": spatial_stats,
-                      "sequence": seq_stats, "bf16px": bf16px, "remat": remat_stats, "batched_pyramid": batched}))
+                      "sequence": seq_stats, "bf16px": bf16px, "remat": remat_stats, "batched_pyramid": batched,
+                      "converge": converge_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

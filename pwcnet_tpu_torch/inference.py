@@ -19,16 +19,20 @@ frames and gets the whole flow back. ``data`` splits the batch (when it
 divides); ``spatial`` shards each frame's rows (K3 on halo-extended
 stripes, K8 at level 0 when that level holds at least 4 rows per shard,
 K9 at the warped levels, the unsharded kernels on the levels too small to
-shard), and the rows are all-gathered at the end. K7 stays off under
-H-sharding, as in the JAX package.
+shard), and the rows are all-gathered at the end. With ``use_fused=False``
+or ``warp_type='nearest'`` the sharded levels warp apart from the cost
+volume, against the all-gathered frame 1, and run K8 on the warped rows,
+as the JAX predictor keeps its spatial cost volume there. K7 stays off
+under H-sharding, as in the JAX package.
 
 ``predict_sequence`` streams consecutive pairs of a frame sequence in
 batches, with up to ``depth`` dispatches in flight on the card: frames go
 up from pinned host memory and flows come back into pinned host buffers,
 both without blocking the host, which waits on a CUDA event only when it
-hands a batch out. A checkpoint is a flax msgpack file or a TF checkpoint
-(``.ckpt`` / ``.ckpt.index``), the latter checked against the model's
-parameter tree.
+hands a batch out. On a mesh every dispatch goes through the sharded
+forward and every rank yields every pair. A checkpoint is a flax msgpack
+file or a TF checkpoint (``.ckpt`` / ``.ckpt.index``), the latter checked
+against the model's parameter tree.
 """
 
 from __future__ import annotations
@@ -76,19 +80,19 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def spatial_hooks(mesh, use_kernels: bool, warp_type: str = "bilinear") -> dict:
+def spatial_hooks(mesh, use_kernels: bool, use_fused: bool = True) -> dict:
     """PWCDCNet's hooks for H-sharding over ``mesh``'s rows: the spatial
-    cost volume (K8), warped cost volume (K9) and, with the kernels, K3 on
-    the two finest pyramid levels per shard; no K7 (as the JAX package)."""
+    cost volume (K8), with ``use_fused`` the warped cost volume (K9, bilinear
+    warp only; without it the guard warps, bilinear or nearest, and K8
+    correlates the warped rows) and, with the kernels, K3 on the two finest
+    pyramid levels per shard; no K7 (as the JAX package)."""
     from pwcnet_tpu_torch.parallel import (
         make_spatial_cost_volume, make_spatial_guard, make_spatial_pyramid_level, make_spatial_warped_cv)
 
-    if warp_type != "bilinear":
-        raise NotImplementedError("H-sharding runs the bilinear warp only (warp_type='bilinear')")
     return dict(
         spatial_guard_fn=make_spatial_guard(mesh, use_kernels),
         cost_volume_fn=make_spatial_cost_volume(mesh, use_kernels),
-        warp_cv_fn=make_spatial_warped_cv(mesh, use_kernels),
+        warp_cv_fn=make_spatial_warped_cv(mesh, use_kernels) if use_fused else None,
         pyramid_level_fn=make_spatial_pyramid_level(mesh, use_kernels) if use_kernels else None,
         fused_pyramid_levels=FUSED_PYRAMID_LEVELS if use_kernels else 0,
         fused_estimator_levels=0,
@@ -123,10 +127,8 @@ class FlowPredictor:
         checkpoint the weights are the flax-style init from seed 0.
         Resolved as the JAX predictor resolves them:
 
-        - ``use_fused``: K1, the fused bilinear warp + cost volume; 'auto'
-          is on with the kernels and the bilinear warp. H-sharding always
-          runs the fused one (K9 or its plain version), so False there
-          raises;
+        - ``use_fused``: K1 (K9 under H-sharding), the fused bilinear warp +
+          cost volume; 'auto' is on with the kernels and the bilinear warp;
         - ``fused_pyramid``: the N finest pyramid levels through K3; 'auto'
           is ``FUSED_PYRAMID_LEVELS`` with the kernels, else 0;
         - ``fused_estimator``: the N finest estimator levels through K7;
@@ -149,8 +151,6 @@ class FlowPredictor:
         if use_kernels == "auto":
             use_kernels = self.device.type == "cuda"
         spatial_on = mesh is not None and mesh.spatial > 1
-        if spatial_on and use_fused != "auto" and not use_fused:
-            raise NotImplementedError("H-sharding runs the fused warp + cost volume only (use_fused)")
         if use_fused == "auto":
             use_fused = bool(use_kernels) and warp_type == "bilinear"
         fused_pyramid = (FUSED_PYRAMID_LEVELS if use_kernels else 0) if fused_pyramid == "auto" else int(fused_pyramid)
@@ -158,7 +158,7 @@ class FlowPredictor:
         batched_pyramid = False if batched_pyramid == "auto" else bool(batched_pyramid)
         hooks = {}
         if spatial_on:
-            hooks = spatial_hooks(mesh, bool(use_kernels), warp_type)
+            hooks = spatial_hooks(mesh, bool(use_kernels), bool(use_fused))
         elif use_kernels:
             from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
             from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
@@ -216,23 +216,30 @@ class FlowPredictor:
         of a mesh."""
         with torch.inference_mode():
             t = self._to_device(images)
-            if self.mesh is None:
-                return self.model(t[:, 0], t[:, 1])
-            from pwcnet_tpu_torch.parallel import shard_batch
-            from pwcnet_tpu_torch.parallel._comm import all_gather_rows
+            return self._forward(t[:, 0], t[:, 1])
 
-            mesh = self.mesh
-            local = shard_batch(t, mesh, 2)
-            flows_final, pyramid = self.model(local[:, 0], local[:, 1])
-            split = mesh.data > 1 and t.shape[0] % mesh.data == 0
+    def _forward(self, images_0: torch.Tensor, images_1: torch.Tensor):
+        """The model on whole device frames (B, H, W, 3) each. On a mesh
+        each rank takes its data index's slice of the batch (when B divides
+        over ``data``, else the whole batch) and its rows, and the flows are
+        all-gathered: every rank gets them whole. Every rank must call it
+        with the same frames, in the same order: it runs collectives."""
+        if self.mesh is None:
+            return self.model(images_0, images_1)
+        from pwcnet_tpu_torch.parallel import shard_batch
+        from pwcnet_tpu_torch.parallel._comm import all_gather_rows
 
-            def whole(x, sharded):
-                if sharded:
-                    x = all_gather_rows(x, mesh.rows, 1)
-                return all_gather_rows(x, mesh.column, 0) if split else x
+        mesh = self.mesh
+        flows_final, pyramid = self.model(shard_batch(images_0, mesh, 1), shard_batch(images_1, mesh, 1))
+        split = mesh.data > 1 and images_0.shape[0] % mesh.data == 0
 
-            sharded = self.model.sharded_levels(t.shape[2])
-            return whole(flows_final, sharded[-1]), [whole(f, sh) for f, sh in zip(pyramid, sharded)]
+        def whole(x, sharded):
+            if sharded:
+                x = all_gather_rows(x, mesh.rows, 1)
+            return all_gather_rows(x, mesh.column, 0) if split else x
+
+        sharded = self.model.sharded_levels(images_0.shape[1])
+        return whole(flows_final, sharded[-1]), [whole(f, sh) for f, sh in zip(pyramid, sharded)]
 
     def __call__(self, image_0: np.ndarray, image_1: np.ndarray):
         """Run on a raw frame pair (uint8, or floats on the same 0..255 scale).
@@ -280,8 +287,21 @@ class FlowPredictor:
 
         Each frame is preprocessed once and reused as the next batch's
         frame 0. The tail batch is padded with the last frame and the
-        padding pairs are dropped. ``size_handling='pad'`` crops each flow
-        back to its frame.
+        padding pairs are dropped, so every dispatch holds ``batch`` pairs.
+        ``size_handling='pad'`` crops each flow back to its frame.
+
+        On a serving mesh every rank passes the same frames and yields every
+        pair, whole: each dispatch runs the sharded forward of ``raw_forward``
+        (the batch split over ``data`` when ``batch`` divides, else run whole
+        by each data index; the rows over ``spatial``). The ranks issue the
+        same collectives in the same order because they dispatch the same
+        batches. The halo exchanges and gathers inside the forward hold the
+        host until their data has arrived: over NCCL they are queued on the
+        device and ``depth`` keeps dispatches in flight as without a mesh;
+        over gloo (CPU ranks, or ranks sharing one card) each collective
+        waits for the device, so a dispatch returns when its forward is
+        nearly done and ``depth`` overlaps little beyond the flows' copy
+        back.
 
         Args:
           frames: iterable of file paths or uint8 HxWx3 arrays (other
@@ -291,11 +311,8 @@ class FlowPredictor:
           fetch: 'all' yields ``(flow_px, pyramid_px, images)`` per pair as
             ``__call__`` returns them; 'flow' yields only ``flow_px``.
 
-        Yields per consecutive pair, in order. Not on a serving mesh yet.
+        Yields per consecutive pair, in order.
         """
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "predict_sequence on a serving mesh (spatial / data > 1) is not ported yet: ROADMAP.md Queue 1")
         if fetch not in ("all", "flow"):
             raise ValueError(f"fetch must be all|flow: {fetch!r}")
         if batch < 1 or depth < 1:
@@ -316,7 +333,7 @@ class FlowPredictor:
                 host[k] = f if f.dtype == host.dtype else f.astype(np.float32) / 255.0
             with torch.inference_mode():
                 t = self._to_device(staged)
-                flow_final, pyramid = self.model(t[:-1], t[1:])
+                flow_final, pyramid = self._forward(t[:-1], t[1:])
                 outs = [flow_final, *pyramid] if fetch == "all" else [flow_final]
                 fetched = [torch.empty(o.shape, dtype=torch.float32, pin_memory=pin) for o in outs]
                 for dst, o in zip(fetched, outs):

@@ -29,11 +29,14 @@ Hooks, with the JAX package's meaning:
   ranks of a mesh row. The images are then this rank's row shard; a level
   stays sharded while it holds at least 4 rows per shard, as the JAX
   guard decides, and coarser levels run whole on every rank. Sharded levels
-  use ``cost_volume_fn`` / ``warp_cv_fn`` (then the spatial ones, K8 and K9),
-  ``pyramid_level_fn`` on the fused pyramid levels, and the guard's convs
-  and resizes with halos; replicated levels use the guard's unsharded
-  ``cost_volume_fn`` / ``warp_cv_fn`` (K2, K1). The first sharded level takes
-  its rows of the upsampled flow and features (``split``).
+  use ``cost_volume_fn`` / ``warp_cv_fn`` (then the spatial ones, K8 and K9;
+  without ``warp_cv_fn`` the guard's warp against the whole frame 1, nearest
+  or bilinear, then ``cost_volume_fn``), ``pyramid_level_fn`` on the fused
+  pyramid levels, and the guard's convs and resizes with halos; replicated
+  levels use the guard's unsharded ``cost_volume_fn`` and, where the model
+  has a ``warp_cv_fn``, the guard's (K2, K1; else the unfused warp). The
+  first sharded level takes its rows of the upsampled flow and features
+  (``split``).
   ``flows_final`` and each pyramid level come back as row shards where
   their level is sharded (``sharded_levels`` says which), else whole.
 
@@ -115,8 +118,6 @@ class PWCDCNet(nn.Module):
         self.search_range = search_range
         self.warp_type = warp_type
         self.output_level = output_level
-        if spatial_guard_fn is not None and warp_cv_fn is None:
-            raise ValueError("H-sharding needs warp_cv_fn (the spatial warped cost volume, bilinear warp)")
         self.cost_volume_fn = cost_volume_fn
         self.warp_cv_fn = warp_cv_fn
         self.spatial_guard_fn = spatial_guard_fn
@@ -182,8 +183,9 @@ class PWCDCNet(nn.Module):
         for l, (f0, f1) in enumerate(zip(pyramid_0, pyramid_1)):
             sh = sharded[l]
             rows = g if sh else None
+            # a replicated level fuses the warp only where the model does
             cv_fn, wcv_fn = (self.cost_volume_fn, self.warp_cv_fn) if g is None or sh else (
-                g.cost_volume_fn, g.warp_cv_fn)
+                g.cost_volume_fn, g.warp_cv_fn if self.warp_cv_fn is not None else None)
             if sh and flows_up is not None and not sharded[l - 1]:
                 flows_up, features_up = g.split(flows_up), g.split(features_up)
             f0n, f1n = to_nhwc(f0), to_nhwc(f1)
@@ -194,7 +196,8 @@ class PWCDCNet(nn.Module):
                 if wcv_fn is not None:
                     cv = wcv_fn(f0n, f1n, flow_px, d)
                 else:
-                    cv = (cv_fn or cost_volume)(f0n, warp(f1n, flow_px, self.warp_type), d)
+                    warped = g.warp(f1n, flow_px, self.warp_type) if sh else warp(f1n, flow_px, self.warp_type)
+                    cv = (cv_fn or cost_volume)(f0n, warped, d)
             flows, features = self._run(
                 getattr(self, f"optflow_{l}"), to_nchw(cv), f0, flows_up, features_up, rows=rows
             )

@@ -15,9 +15,12 @@ what the fused warp + cost-volume kernel (K1) stores before correlating.
 ``warp_bwd_plain`` is the plain version of the warp's backward kernel (K5).
 
 Under H-sharding a shard warps its rows against the whole frame:
-``bilinear_warp_rows`` samples a frame of Hf rows at Ho flow rows, flow row
-j sitting at frame row ``j + row0`` (the shard's global row offset is
-folded into flow y, ``row0`` is -d for the d halo rows above);
+``bilinear_warp_rows`` and ``nearest_warp_rows`` sample a frame of Hf rows
+at Ho flow rows, flow row j sitting at frame row ``j + row0`` (``row0`` is
+the shard's global row offset, or -d for the d halo rows above when the
+offset is folded into flow y, as the fused path does); the nearest warp
+truncates the flow before ``row0`` is added, as the unsharded warp
+truncates it before adding its grid;
 ``masked_warp_rows`` zeroes the rows outside the global frame, the plain
 half of K9, and ``warp_rows_bwd_plain`` is the plain version of K9b's warp
 backward.
@@ -28,8 +31,8 @@ from __future__ import annotations
 import torch
 
 __all__ = [
-    "nearest_warp", "bilinear_warp", "bilinear_warp_rows", "masked_warp_rows", "warp_bwd_plain",
-    "warp_rows_bwd_plain", "warp",
+    "nearest_warp", "nearest_warp_rows", "bilinear_warp", "bilinear_warp_rows", "masked_warp_rows",
+    "warp_bwd_plain", "warp_rows_bwd_plain", "warp", "warp_rows",
 ]
 
 
@@ -49,11 +52,20 @@ def _grid(h: int, w: int, device, row0: int = 0) -> tuple[torch.Tensor, torch.Te
 
 def nearest_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour warp of ``x`` by ``flow`` (NHWC / NHW2)."""
-    b, h, w, _ = x.shape
+    return nearest_warp_rows(x, flow, 0)
+
+
+def nearest_warp_rows(x: torch.Tensor, flow: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """``nearest_warp`` of the frame ``x`` (B, Hf, W, C) at the rows of
+    ``flow`` (B, Ho, W, 2), flow row j at frame row ``j + row0``: the flow
+    truncates toward zero first (``trunc(row0 + fy)`` would differ from
+    ``row0 + trunc(fy)`` for a negative fraction), then the target clamps
+    into the Hf rows."""
+    hf, w = x.shape[1], x.shape[2]
     fi = flow.to(torch.int64)  # truncation toward zero, like tf.cast
-    gy = torch.arange(h, device=x.device)[None, :, None]
+    gy = torch.arange(row0, row0 + flow.shape[1], device=x.device)[None, :, None]
     gx = torch.arange(w, device=x.device)[None, None, :]
-    yi = (gy + fi[..., 1]).clamp(0, h - 1)
+    yi = (gy + fi[..., 1]).clamp(0, hf - 1)
     xi = (gx + fi[..., 0]).clamp(0, w - 1)
     return _gather_2d(x, yi, xi)
 
@@ -154,8 +166,14 @@ def warp_rows_bwd_plain(
 
 def warp(x: torch.Tensor, flow: torch.Tensor, warp_type: str = "bilinear") -> torch.Tensor:
     """Dispatching warp (the reference's WarpingLayer)."""
+    return warp_rows(x, flow, 0, warp_type)
+
+
+def warp_rows(x: torch.Tensor, flow: torch.Tensor, row0: int = 0, warp_type: str = "bilinear") -> torch.Tensor:
+    """``warp`` of the frame ``x`` at the rows of ``flow``, flow row j at
+    frame row ``j + row0`` (a row shard's warp against the whole frame)."""
     if warp_type == "nearest":
-        return nearest_warp(x, flow)
+        return nearest_warp_rows(x, flow, row0)
     if warp_type == "bilinear":
-        return bilinear_warp(x, flow)
+        return bilinear_warp_rows(x, flow, row0)
     raise ValueError(f"warp_type must be 'nearest' or 'bilinear', got {warp_type!r}")

@@ -12,6 +12,12 @@ counterparts of the ordinary ops:
 - ``make_spatial_warped_cv``: frame 1 all-gathered (the warp's reach
   depends on the flow), d flow halo rows each way kept in float32 with the
   shard's global row offset folded into y, then K9;
+- ``SpatialGuard.warp``: the unfused warp (bilinear or nearest) of a
+  shard's rows against the all-gathered frame 1, the shard's global row
+  offset given to the warp's row grid (float32 in the bilinear warp, so the
+  blend weights are those of the unsharded warp; an integer added after the
+  nearest warp's truncation), then the spatial cost volume (K8) in the
+  model;
 - ``make_spatial_pyramid_level``: K3 on 6-row halo-extended stripes,
   cropped, with the first and last shard's 3 edge rows recomputed by the
   plain chain on a 12-row strip of the true frame edge (SAME padding of the
@@ -39,6 +45,7 @@ from pwcnet_tpu_torch.ops.activation import leaky_relu
 from pwcnet_tpu_torch.ops.cost_volume import cost_volume, cost_volume_hpad
 from pwcnet_tpu_torch.ops.cuda.pyramid_conv import same_pad_stride2
 from pwcnet_tpu_torch.ops.resize import upsample_with_next
+from pwcnet_tpu_torch.ops.warp import warp_rows
 from pwcnet_tpu_torch.parallel._comm import all_gather_rows, halo_exchange, split_rows
 
 __all__ = [
@@ -72,7 +79,8 @@ class SpatialGuard:
     """Row sharding of the model over one mesh row (``mesh.rows``).
 
     ``cost_volume_fn`` and ``warp_cv_fn`` are the unsharded ops that
-    replicated levels run (K2 and K1 with ``use_kernels``)."""
+    replicated levels run (K2 and K1 with ``use_kernels``; a model without
+    a ``warp_cv_fn`` of its own warps apart from the cost volume there)."""
 
     def __init__(self, rows, use_kernels: bool = True):
         self.rows = rows
@@ -92,6 +100,14 @@ class SpatialGuard:
 
     def split(self, x: torch.Tensor, dim: int = 2) -> torch.Tensor:
         return split_rows(x, self.rows, dim)
+
+    # -- the unfused warp of a sharded NHWC level
+    def warp(self, f1: torch.Tensor, flow: torch.Tensor, warp_type: str = "bilinear") -> torch.Tensor:
+        """This shard's rows of ``f1`` warped by its ``flow`` rows: the warp
+        reaches across shards, so it samples the all-gathered frame, each
+        flow row at its global row (the grid's ``row0``, never added to a
+        bf16 flow); the rows equal the unsharded warp's."""
+        return warp_rows(self.gather(f1, 1), flow, self.rows.index * f1.shape[1], warp_type)
 
     # -- the convs on a sharded NCHW tensor
     def conv(self, conv, x: torch.Tensor) -> torch.Tensor:
@@ -131,7 +147,7 @@ class SpatialGuard:
 
 def make_spatial_guard(mesh, use_kernels: bool = True) -> SpatialGuard:
     """The guard of ``mesh``'s row: which levels stay sharded, the
-    transitions and the row-sharded convs and resizes."""
+    transitions, the row-sharded convs, resizes and warp."""
     return SpatialGuard(mesh.rows, use_kernels)
 
 

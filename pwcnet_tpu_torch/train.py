@@ -5,8 +5,8 @@ Runs on CUDA unless ``--device cpu``; without a GPU and without that flag it
 raises. Checkpoints are full-state msgpack files (parameters, Adam state,
 step) that either package resumes from. ``--pallas`` / ``--no-pallas`` keep
 their names and choose the hand-written CUDA kernels against the plain
-PyTorch path (auto: on for CUDA, off for the CPU). Not supported yet, each
-refused by name: ``--ckpt_backend orbax``, ``--remat``.
+PyTorch path (auto: on for CUDA, off for the CPU). Not supported yet,
+refused by name: ``--ckpt_backend orbax``.
 
 Across GPUs, one process each: ``torchrun --nproc_per_node N -m
 pwcnet_tpu_torch.train --spatial S ...`` runs a (N / S data) x (S spatial)

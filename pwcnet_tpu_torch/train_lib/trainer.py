@@ -124,14 +124,14 @@ class Trainer:
         args = self.args
         use_kernels = bool(getattr(args, "pallas", False))
         hooks = {}
+        use_fused = getattr(args, "fused", True) and args.warp_type == "bilinear"
         if self.mesh is not None and self.mesh.spatial > 1:
-            # K3 per shard, K8, K9; no K7 under H-sharding, as in the JAX package
-            hooks = spatial_hooks(self.mesh, use_kernels, args.warp_type)
+            # K3 per shard, K8, K9 (or the guard's warp); no K7 under H-sharding, as in the JAX package
+            hooks = spatial_hooks(self.mesh, use_kernels, use_fused)
         elif use_kernels:
             from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
             from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
 
-            use_fused = getattr(args, "fused", True) and args.warp_type == "bilinear"
             hooks = dict(
                 cost_volume_fn=cost_volume_cuda,
                 # warp + correlation in one kernel forward, K4 and K5 backward

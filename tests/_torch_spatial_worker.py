@@ -13,7 +13,11 @@ Tasks:
   and pyramid level on this rank's rows, values and input gradients;
 - ``model``: the sharded PWCDCNet forward, gathered, and the parameter
   gradient of ``sum(flows_final * g)`` summed over the ranks;
-- ``predictor``: ``FlowPredictor(spatial=..., data=...)`` on a frame batch;
+- ``predictor``: ``FlowPredictor(spatial=..., data=...)`` on a frame batch
+  and on one frame pair, with the model options of ``cfg["model"]``;
+- ``sequence``: ``FlowPredictor.predict_sequence`` on a mesh, every pair;
+- ``warp``: ``SpatialGuard.warp`` (nearest and bilinear) on this rank's
+  rows, values and the bilinear warp's input gradients;
 - ``train``: train steps on a (data, spatial) mesh from shared parameters;
 - ``trainer``: ``pwcnet_tpu_torch.train.main`` with ``--spatial``, joined
   by ``--coordinator``;
@@ -81,19 +85,19 @@ def task_ops(mesh, inp, cfg, out):
 
 
 def _model(cfg, mesh, state_dict, use_kernels=True):
+    """The model as the trainer wires it: under H-sharding
+    ``spatial_hooks``, fused unless ``cfg["use_fused"]`` is False or the
+    warp is nearest."""
+    from pwcnet_tpu_torch.inference import spatial_hooks
     from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
     from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
     from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
 
     hooks = {}
     if mesh is not None and mesh.spatial > 1:
-        hooks = dict(
-            spatial_guard_fn=make_spatial_guard(mesh, use_kernels),
-            cost_volume_fn=make_spatial_cost_volume(mesh, use_kernels),
-            warp_cv_fn=make_spatial_warped_cv(mesh, use_kernels),
-            pyramid_level_fn=make_spatial_pyramid_level(mesh, use_kernels) if use_kernels else None,
-            fused_pyramid_levels=cfg.get("fused_pyramid_levels", 0),
-        )
+        fused = cfg.get("use_fused", True) and cfg["model"].get("warp_type", "bilinear") == "bilinear"
+        hooks = dict(spatial_hooks(mesh, use_kernels, fused),
+                     fused_pyramid_levels=cfg.get("fused_pyramid_levels", 0))
     elif use_kernels:
         hooks = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume)
     model = PWCDCNet(**cfg["model"], **hooks)
@@ -140,6 +144,39 @@ def task_predictor(mesh, inp, cfg, out):
         out[f"pyramid_{l}"] = f.numpy()
     a, b = inp["pair"]
     out["call_flow"] = pred(a, b)[0]
+    out["fused"] = np.bool_(pred.model.warp_cv_fn is not None)
+    crop = pred.crop_factor
+    out["sharded"] = np.array(pred.model.sharded_levels(inp["frames"].shape[2]))
+    out["sharded_call"] = np.array(pred.model.sharded_levels(a.shape[0] // crop * crop))
+
+
+def task_sequence(mesh, inp, cfg, out):
+    from pwcnet_tpu_torch.inference import FlowPredictor
+
+    pred = FlowPredictor(**cfg["model"], mesh=mesh, device="cpu")
+    pred.model.load_state_dict(_state_dict(inp))
+    n = 0
+    for i, res in enumerate(pred.predict_sequence(list(inp["frames"]), **cfg["sequence"])):
+        n += 1
+        if cfg["sequence"]["fetch"] == "flow":
+            out[f"flow_{i}"] = res
+            continue
+        out[f"flow_{i}"], pyramid, out[f"images_{i}"] = res
+        for l, f in enumerate(pyramid):
+            out[f"pyramid_{i}_{l}"] = f
+    out["pairs"] = np.int64(n)
+    out["fused"] = np.bool_(pred.model.warp_cv_fn is not None)
+
+
+def task_warp(mesh, inp, cfg, out):
+    guard = make_spatial_guard(mesh, use_kernels=False)
+    f1 = shard_batch(_t(inp["f1"]), mesh, 1, split_batch=False).clone().requires_grad_()
+    flow = shard_batch(_t(inp["flow"]), mesh, 1, split_batch=False).clone().requires_grad_()
+    out["nearest"] = guard.warp(f1, flow, "nearest").detach().numpy()
+    warped = guard.warp(f1, flow, "bilinear")
+    out["bilinear"] = warped.detach().numpy()
+    g = shard_batch(_t(inp["g"]), mesh, 1, split_batch=False)
+    out["df1"], out["dflow"] = (t.numpy() for t in torch.autograd.grad(warped, [f1, flow], g))
 
 
 def task_train(mesh, inp, cfg, out):
@@ -149,6 +186,7 @@ def task_train(mesh, inp, cfg, out):
     flows = shard_batch(_t(inp["flows"]).to(mesh.device), mesh, 1)
     for loss in cfg["losses"]:
         model = _model(cfg, mesh, _state_dict(inp))
+        out["fused"] = np.bool_(model.warp_cv_fn is not None)
         state = create_train_state(model, learning_rate=cfg["lr"], lr_scheduling=False, device=mesh.device)
         objective, _ = make_loss_fn(model, mesh=mesh, loss_name=loss, decoupled_wd=True)(images, flows)
         named = dict(model.named_parameters())
@@ -214,7 +252,8 @@ def main():
         mesh = make_mesh(data=cfg.get("data", 1), spatial=cfg.get("spatial", world), device=device,
                          init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world,
                          backend=cfg.get("backend", "gloo"))
-        {"ops": task_ops, "model": task_model, "predictor": task_predictor, "train": task_train}[task](
+        {"ops": task_ops, "model": task_model, "predictor": task_predictor, "sequence": task_sequence,
+         "warp": task_warp, "train": task_train}[task](
             mesh, inp, cfg, out)
     np.savez(os.path.join(io_dir, f"out_{rank}.npz"), **out)
     if torch.distributed.is_initialized():

@@ -26,8 +26,6 @@ from pwcnet_tpu.inference import FlowPredictor as JaxFlowPredictor
 from pwcnet_tpu.models import PWCDCNet as JaxPWCDCNet
 from pwcnet_tpu_torch import test_continuous as port_cli
 from pwcnet_tpu_torch.inference import FlowPredictor
-from pwcnet_tpu_torch.parallel import Mesh
-from pwcnet_tpu_torch.parallel._comm import RowGroup
 from pwcnet_tpu_torch.weights import save_tree
 
 torch.set_num_threads(1)
@@ -159,15 +157,6 @@ class TestPredictSequence:
         for kwargs in (dict(fetch="pyramid"), dict(batch=0), dict(depth=0)):
             with pytest.raises(ValueError):
                 next(pred.predict_sequence(frames, **kwargs))
-
-    @pytest.mark.parametrize("data,spatial", [(1, 2), (2, 1)])
-    def test_a_mesh_predictor_raises(self, data, spatial):
-        """The mesh of rank 0 (no process group is needed to build the predictor)."""
-        mesh = Mesh(data=data, spatial=spatial, rank=0, device=torch.device("cpu"),
-                    rows=RowGroup(None, tuple(range(spatial)), 0), column=RowGroup(None, tuple(range(data)), 0))
-        pred = FlowPredictor(device="cpu", mesh=mesh, **SMALL)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            next(pred.predict_sequence(_frames(3, 32, 32)))
 
     @pytest.mark.parametrize("size_handling,batch", [("crop", 3), ("pad", 2), ("crop", 1)])
     def test_matches_the_jax_predict_sequence(self, ckpt, size_handling, batch):

@@ -312,8 +312,10 @@ class TestSpatialModel:
 class TestSpatialServing:
     @pytest.mark.parametrize("data,spatial", [(1, 2), (2, 2)])
     def test_predictor_matches_unsharded(self, tmp_path, data, spatial):
-        """``FlowPredictor`` on a (data, spatial) mesh: every rank gets the
-        whole flow of the whole batch, equal to the unsharded predictor's."""
+        """``FlowPredictor(use_fused=True)`` on a (data, spatial) mesh, the
+        card's default wiring (K9's plain version here): every rank gets
+        the whole flow of the whole batch, equal to the unsharded
+        predictor's (plain, unfused on the CPU)."""
         from pwcnet_tpu_torch.inference import FlowPredictor
 
         rng = np.random.default_rng(5)
@@ -322,7 +324,8 @@ class TestSpatialServing:
         pair = rng.integers(0, 255, (2, 70, 40, 3), dtype=np.uint8)
         inp = dict(frames=frames, pair=pair, **_state_inputs(tree))
         outs = run_ranks("predictor", data * spatial, tmp_path, inp,
-                         {"model": TINY, "data": data, "spatial": spatial})
+                         {"model": dict(TINY, use_fused=True), "data": data, "spatial": spatial})
+        assert all(bool(o["fused"]) for o in outs)
         ref = FlowPredictor(**TINY, device="cpu")
         ref.model.load_state_dict(from_jax_params(tree))
         want, want_pyr = ref.raw_forward(frames)
@@ -338,17 +341,12 @@ TRAIN_N, TRAIN_LR, TRAIN_HW = 3, 1e-3, (64, 32)
 TRAIN_LOSSES = ("multiscale", "robust")
 
 
-@pytest.fixture(scope="module")
-def train_reference():
-    """The inputs of the train-step tests and the JAX package's unsharded
-    steps on them: the gradient of the first step, the metrics of every
-    step and the parameters after the last, per loss."""
-    rng = np.random.default_rng(21)
-    tree = _jax_tree(TINY, TRAIN_HW, seed=11)
-    images = rng.random((4, 2) + TRAIN_HW + (3,)).astype(np.float32)
-    flows = (rng.standard_normal((4,) + TRAIN_HW + (2,)) * 2).astype(np.float32)
+def _jax_train_steps(tree, images, flows, **model_kwargs):
+    """The JAX package's unsharded steps per loss: the gradient of the
+    first step, the metrics of every step and the parameters after the
+    last."""
     mesh = _jax_mesh(1, 1)
-    model = JaxPWCDCNet(**TINY)
+    model = JaxPWCDCNet(**TINY, **model_kwargs)
     img, flo = jnp.asarray(images), jnp.asarray(flows)
     ref = {}
     for loss in TRAIN_LOSSES:
@@ -362,7 +360,18 @@ def train_reference():
             state, m = step(state, img, flo)
             metrics.append({k: float(v) for k, v in m.items()})
         ref[loss] = (grads, metrics, _flat(state.params))
-    return dict(images=images, flows=flows, tree=tree, ref=ref)
+    return ref
+
+
+@pytest.fixture(scope="module")
+def train_reference():
+    """The inputs of the train-step tests and the JAX package's unsharded
+    steps on them (``_jax_train_steps``), bilinear warp."""
+    rng = np.random.default_rng(21)
+    tree = _jax_tree(TINY, TRAIN_HW, seed=11)
+    images = rng.random((4, 2) + TRAIN_HW + (3,)).astype(np.float32)
+    flows = (rng.standard_normal((4,) + TRAIN_HW + (2,)) * 2).astype(np.float32)
+    return dict(images=images, flows=flows, tree=tree, ref=_jax_train_steps(tree, images, flows))
 
 
 class TestShardedTrainSteps:
@@ -398,12 +407,31 @@ class TestShardedTrainSteps:
         the backward, their halo exchanges, gathers and K8 / K9's plain
         versions with them; held to the same reference and bounds."""
         r = train_reference
+        self._check(tmp_path, r, r["ref"], data, spatial, dict(TINY, remat=remat), {})
+
+    @pytest.mark.parametrize("option", ["unfused", "nearest"])
+    def test_unfused_and_nearest_match_jax(self, tmp_path, train_reference, option):
+        """The trainer's ``--no-fused`` and ``--warp_type nearest`` under
+        ``--spatial 2`` (data 1 x spatial 2): the guard warps each shard's
+        rows against the gathered frame 1 and K8 / K8b's plain versions
+        correlate them, no K9; held to the JAX unsharded step with the same
+        warp, at the same bounds."""
+        r = train_reference
+        if option == "unfused":
+            model, extra, ref = TINY, {"use_fused": False}, r["ref"]
+        else:
+            model, extra = dict(TINY, warp_type="nearest"), {}
+            ref = _jax_train_steps(r["tree"], r["images"], r["flows"], warp_type="nearest")
+        outs = self._check(tmp_path, r, ref, 1, 2, model, extra)
+        assert not any(bool(o["fused"]) for o in outs)
+
+    def _check(self, tmp_path, r, ref, data, spatial, model, extra):
         inputs = dict(images=r["images"], flows=r["flows"], **_state_inputs(r["tree"]))
         outs = run_ranks("train", data * spatial, tmp_path, inputs,
-                         {"model": dict(TINY, remat=remat), "data": data, "spatial": spatial, "lr": TRAIN_LR,
-                          "steps": TRAIN_N, "losses": TRAIN_LOSSES, "fused_pyramid_levels": 2})
+                         {"model": model, "data": data, "spatial": spatial, "lr": TRAIN_LR,
+                          "steps": TRAIN_N, "losses": TRAIN_LOSSES, "fused_pyramid_levels": 2, **extra})
         for loss in TRAIN_LOSSES:
-            want_grads, want_metrics, want = r["ref"][loss]
+            want_grads, want_metrics, want = ref[loss]
             _assert_tree_close(_port_flat(outs, f"{loss}/grad/"), want_grads, 2e-4)
             for i, m in enumerate(want_metrics):
                 for k, v in m.items():
@@ -415,6 +443,7 @@ class TestShardedTrainSteps:
             diffs = np.concatenate([np.abs(got[k] - want[k]).ravel() for k in want])
             assert diffs.mean() <= 1e-3 * TRAIN_N * TRAIN_LR, loss
             assert (diffs > TRAIN_N * TRAIN_LR / 10).mean() <= 1e-4, loss
+        return outs
 
 
 class TestShardedTrainer:
