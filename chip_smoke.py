@@ -18,7 +18,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    size, K4's and K8b's tile rows and blocks, and K5's and K9b's lanes a
    pixel and cooperative grid at each main-path shape;
 3. kernels: K1 (warped cost volume), K2 (cost volume) and K3 (fused
-   pyramid level) at every shape the 448x1024 serving forward gives them,
+   pyramid level) at every shape the 448x1024 serving forward gives them
+   (K2 also at the four finer levels, where the legacy PWCNet runs it, and
+   K4 there too),
    at batch 1 and 8, in float32 and bfloat16, against their plain PyTorch
    versions on the card; then, at every shape of the 384x448 training
    step, the residuals K1 and K3 write for the backward (the warped map;
@@ -41,7 +43,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the float32 CPU path; ``FlowPredictor(batched_pyramid=True)`` at B=8 in
    bf16 and f32 (K3 on both frames in one call: K1 4x, K2 1x, K3 2x per
    forward) within those bounds of the default predictor, and its pairs/s
-   against the default's in turns (reported). Then ``[sequence]``: ``predict_sequence`` on 17
+   against the default's in turns (reported). Then ``[legacy]``: the
+   legacy ``PWCNet`` (6 levels, 'final', no BatchNorm, seeded weights)
+   through ``make_forward`` at 448x1024 B=8 in bf16 and f32, K2 exactly 5
+   a forward and nothing else, flows against the plain cost volume at the
+   bounds above, 'all' with BatchNorm statistics moved by ``train=True``
+   calls likewise, one float32 backward (K4 exactly 5) with every gradient
+   of a seeded positive cotangent within 1e-3 of its tensor's largest
+   entry, and its pairs/s on both paths (reported). Then ``[sequence]``: ``predict_sequence`` on 17
    drifting 448x1024 frames through the bf16 kernel predictor (B=8 at
    depth 2 with flows only, and B=3 with pyramids and frames, which leaves
    a ragged tail), K1 4x, K2 1x and K3 4x per dispatch, every pair against
@@ -50,7 +59,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    raw_forward's, and ``python -m pwcnet_tpu_torch.test_continuous --time``
    on the frames written as PNGs; ``[ckpt]``: the seeded weights written
    as a TF bundle load through ``FlowPredictor(checkpoint=<prefix>.ckpt)``
-   and give the msgpack weights' flow bit for bit; ``[bf16px]``:
+   and give the msgpack weights' flow bit for bit, and a CUDA
+   ``TrainState`` goes through ``save_checkpoint_orbax`` /
+   ``restore_checkpoint_orbax`` bitwise where ``tensorstore`` imports (one
+   line saying so where it does not, after checking the refusal names it);
+   ``[bf16px]``:
    ``scripts/torch_bf16_parity.py`` at 448x1024 B=4, EPE(bf16 vs f32) at
    most 0.05 px on the kernel and the plain path;
 5. training: the train step at 384x448 with seeded random weights and a
@@ -148,7 +161,9 @@ import time
 
 # shapes at 448x1024 (per sample): level -> (H, W, C)
 K1_SHAPES = ((14, 32, 128), (28, 64, 96), (56, 128, 64), (112, 256, 32))
-K2_SHAPES = ((7, 16, 192),)
+# K2: level 0 of PWCDCNet's forward, then the four finer levels, which the
+# legacy PWCNet's forward also gives it (every level's cost volume is K2's)
+K2_SHAPES = ((7, 16, 192),) + K1_SHAPES
 K3_SHAPES = ((448, 1024, 3, 16), (224, 512, 16, 32))  # (H, W, Cin, C)
 # levels whose half height and half width are no multiple of the bf16 kernel's 8 x 64 tile
 K3_EDGE = ((34, 150, 3, 16), (26, 140, 16, 32))
@@ -177,6 +192,9 @@ REMAT_PER_STEP = {"K1": 4, "K2": 1, "K3": 8, "K4": 5, "K5": 4, "K6": 4}
 TRAINER_REMAT_PER_STEP = {**REMAT_PER_STEP, "K7": 2 * FUSED_ESTIMATOR, "K7b": FUSED_ESTIMATOR}
 # a forward with batched_pyramid: K3 on both frames in one call a level
 BATCHED_PER_FORWARD = {"K1": 4, "K2": 1, "K3": 2}
+# the legacy PWCNet: K2 at all five levels of a forward, K4 at all five of a backward
+LEGACY_PER_FORWARD = {"K2": 5}
+LEGACY_PER_BACKWARD = {"K4": 5}
 # the [converge] phase: the SyntheticFlow proof of pwcnet_tpu_torch/train_lib/convergence.py
 # from the parameters torch.Generator().manual_seed(CONVERGE_SEED) draws, a seed whose four
 # cases converge on the CPU's plain path (scripts/torch_record_convergence.py --sweep / --cases;
@@ -494,7 +512,8 @@ def check_training_kernels(torch, device, compare, batches=(1, 8), dtypes=None):
     """At every shape of the 384x448 training step: K1, K2 and K3 and the
     residuals K1 and K3 write (warped map; s1, s2) against the plain
     forward, and K4, K5, K6 against their plain versions on the same
-    residuals and cotangents.
+    residuals and cotangents; K4 also at the four finer 448x1024 levels,
+    where the legacy PWCNet's backward runs it.
 
     bfloat16 tolerances: 2 ulps of the result's scale for K4, K5 and the
     residuals (one rounding of a float32 sum on each side); 4 for K6, whose
@@ -548,6 +567,14 @@ def check_training_kernels(torch, device, compare, batches=(1, 8), dtypes=None):
                     want_df0, want_df1 = cost_volume_bwd_plain(f0, f1, out, g, SEARCH_RANGE)
                     compare("K4", f"df0 {dtype} B={b} {h}x{w}x{c}", df0, want_df0, dtype)
                     compare("K4", f"df1 {dtype} B={b} {h}x{w}x{c}", df1, want_df1, dtype)
+                for h, w, c in K2_SHAPES[1:]:  # the legacy PWCNet's backward at 448x1024
+                    f0, f1 = k2_inputs(torch, b, h, w, c, dtype, device, gen)
+                    out = cost_volume(f0, f1, SEARCH_RANGE)
+                    g = cotangent(out)
+                    df0, df1 = cost_volume_bwd(f0, f1, out, g, SEARCH_RANGE)
+                    want_df0, want_df1 = cost_volume_bwd_plain(f0, f1, out, g, SEARCH_RANGE)
+                    compare("K4", f"df0 {dtype} B={b} {h}x{w}x{c} (legacy)", df0, want_df0, dtype)
+                    compare("K4", f"df1 {dtype} B={b} {h}x{w}x{c} (legacy)", df1, want_df1, dtype)
                 for h, w, cin, c in K3_TRAIN + K3_EDGE:
                     args = k3_inputs(torch, b, h, w, cin, c, dtype, device, gen)
                     label = f"{dtype} B={b} {h}x{w}x{cin}->{c}"
@@ -593,10 +620,10 @@ def time_kernels(torch, F, device, b=8, dtype=None):
                 ms=cuda_ms(torch, lambda: warped_cost_volume(*a, SEARCH_RANGE)),
                 plain_ms=cuda_ms(torch, lambda: warped_cost_volume_plain(*a, SEARCH_RANGE)),
                 library_ms=None, work=k1_work(b, h, w, c, s)))
-        for h, w, c in K2_SHAPES:
+        for i, (h, w, c) in enumerate(K2_SHAPES):  # PWCDCNet's level 0 summed; the legacy levels listed
             a = k2_inputs(torch, b, h, w, c, dtype, device, gen)
             rows["K2"].append(dict(
-                shape=f"{b}x{h}x{w}x{c}", times=1,
+                shape=f"{b}x{h}x{w}x{c}" + (" (legacy)" if i else ""), times=int(i == 0),
                 ms=cuda_ms(torch, lambda: cost_volume_cuda(*a, SEARCH_RANGE)),
                 plain_ms=cuda_ms(torch, lambda: cost_volume(*a, SEARCH_RANGE)),
                 library_ms=None, work=k2_work(b, h, w, c, s)))
@@ -1295,6 +1322,127 @@ def serve(torch, np, device):
     return counts, pairs, preds_kernels, batch_dev, {"launches": batched_counts, "pairs_per_s": ab}
 
 
+# ------------------------------------------------------------ the legacy PWCNet
+def legacy_phase(torch, device, batch_dev):
+    """The legacy PWCNet at full width and depth (6 levels, search range 4,
+    output level 4, bilinear warp, context 'final', no BatchNorm) through
+    ``make_forward`` on [serve]'s 448x1024 B=8 batch, bf16 and float32: its
+    default cost volume is K2's wrapper, so each forward launches K2 at all
+    five levels and no other kernel. Flows against the same weights with
+    the plain cost volume (``cost_volume_fn=cost_volume``) at [serve]'s
+    bounds; then 'all' with BatchNorm, its running statistics moved by three
+    ``train=True`` calls, in float32 at the same bound; one float32 backward
+    against a seeded positive cotangent (K4 at all five levels) with every
+    parameter gradient within 1e-3 of its largest entry of the plain
+    witness's ([train]'s float32 gate); pairs/s on both paths (reported).
+    The plain witness's weights are moved last (the noise floor)."""
+    from pwcnet_tpu_torch.models.pwcnet import PWCNet
+    from pwcnet_tpu_torch.ops.cost_volume import cost_volume
+    from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from pwcnet_tpu_torch.train_lib.step import make_forward
+
+    x0 = batch_dev[:, 0].float() / 255.0
+    x1 = batch_dev[:, 1].float() / 255.0
+
+    def pair(dtype, **kw):
+        """The model on K2 and its plain witness, on the same seeded weights."""
+        models = []
+        for cv in ({}, {"cost_volume_fn": cost_volume}):
+            m = PWCNet(generator=torch.Generator().manual_seed(0), **kw, **cv)
+            models.append(m.to(device=device, dtype=dtype).eval())
+        return models
+
+    models = {dt: pair(dt) for dt in (torch.bfloat16, torch.float32)}
+    forwards = {dt: [make_forward(m) for m in ms] for dt, ms in models.items()}
+
+    # -- the main path, counted: one forward a dtype
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = {dt: fw[0](x0, x1) for dt, fw in forwards.items()}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"  make_forward(PWCNet()) at 448x1024 B=8, bf16 and f32: launches {counts}")
+    want = {k: 2 * LEGACY_PER_FORWARD.get(k, 0) for k in counts}
+    require(counts == want, f"legacy launches {counts}, want {want}")
+    for dt, (flow, flows, pyr) in out.items():
+        require(flow.shape == (8, 448, 1024, 2) and len(flows) == 5 and len(pyr) == 6
+                and bool(torch.isfinite(flow.float()).all()), f"legacy {dtype_name(dt)} outputs")
+    refs = {dt: fw[1](x0, x1) for dt, fw in forwards.items()}
+    errs = {"float32": flow_close("legacy f32 B=8 K2 vs plain", out[torch.float32][0], refs[torch.float32][0], 1e-4),
+            "bfloat16": flow_close("legacy bf16 B=8 K2 vs plain", out[torch.bfloat16][0], refs[torch.bfloat16][0],
+                                   5e-2)}
+
+    # -- 'all' with BatchNorm: running statistics moved by train=True calls
+    bn = pair(torch.float32, context="all", batch_norm=True)
+    with torch.no_grad():
+        for i in range(3):
+            bn[0](x0[2 * i:2 * i + 4], x1[2 * i:2 * i + 4], train=True)
+    moved = max((bn[0].optflow_4.bn_0.var - 1).abs().max().item(), bn[0].optflow_4.bn_0.mean.abs().max().item())
+    require(moved > 1e-3, "legacy BatchNorm statistics did not move")
+    bn[1].load_state_dict(bn[0].state_dict())
+    reset_launch_counts()
+    got = make_forward(bn[0])(x0, x1)
+    torch.cuda.synchronize()
+    bn_counts = launch_counts()
+    require(bn_counts == {k: LEGACY_PER_FORWARD.get(k, 0) for k in counts}, f"legacy 'all' + BN launches {bn_counts}")
+    errs["float32 all+bn"] = flow_close("legacy f32 B=8 'all' + BN K2 vs plain", got[0],
+                                        make_forward(bn[1])(x0, x1)[0], 1e-4)
+    del bn, got
+
+    # -- one backward of the float32 forward: K2 5 and K4 5 counted. The
+    # cotangent is seeded and positive (uniform in [0.5, 1.5]): under a
+    # zero-mean one every parameter gradient is a random-walk sum over the
+    # pixels in which one LeakyReLU slope flipped by rounding weighs
+    # 1/sqrt(N) of it, and the plain path against itself with its weights
+    # moved by 1e-7 of themselves differed by 4.0e-3 of a tensor's largest
+    # entry on an H100 (PERF.md). The same check on this cotangent is
+    # logged as the gate's noise floor.
+    per_step = {k: LEGACY_PER_FORWARD.get(k, 0) + LEGACY_PER_BACKWARD.get(k, 0) for k in counts}
+    gen = torch.Generator(device=device)
+
+    def grads(model):
+        flow, flows, _ = model(x0, x1)
+        outs = [flow, *flows]
+        cots = [0.5 + torch.rand(o.shape, generator=gen.manual_seed(30 + i), device=device)
+                for i, o in enumerate(outs)]
+        total = sum((o * c).sum() for o, c in zip(outs, cots))
+        params = dict(model.named_parameters())
+        return dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+
+    grads_of = {}
+    for name, model in zip(("kernels", "plain"), models[torch.float32]):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        grads_of[name] = grads(model)
+        torch.cuda.synchronize()
+        step_counts = launch_counts()
+        want = per_step if name == "kernels" else {k: 0 for k in counts}
+        require(step_counts == want, f"legacy {name} forward + backward launches {step_counts}, want {want}")
+    counts = {k: counts[k] + bn_counts[k] + per_step[k] for k in counts}
+    worst, worst_name, rel_l2, cos = grad_agreement(torch, grads_of["kernels"], grads_of["plain"])
+    moved = models[torch.float32][1]
+    with torch.no_grad():
+        noise = torch.Generator(device=device).manual_seed(31)
+        for p in moved.parameters():
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=noise, device=device))
+    floor = grad_agreement(torch, grads(moved), grads_of["plain"])[0]
+    log(f"  legacy f32 backward, K4 vs plain, {len(grads_of['plain'])} tensors: worst max|diff|/max|g| {worst:.3e} "
+        f"({worst_name}), |diff|/|g| {rel_l2:.3e}, cosine {cos:.6f}; forward + backward launches {per_step}; "
+        f"the plain path against itself with weights moved by 1e-7: {floor:.3e} (reported)")
+    require(worst <= 1e-3, "legacy float32 gradients: K2/K4 path and plain path disagree")
+    del grads_of
+
+    # -- pairs/s (reported, not claimed)
+    pairs = {}
+    for dt, (kern, plain) in forwards.items():
+        for name, fw in (("K2", kern), ("plain", plain)):
+            ms = cuda_ms(torch, lambda: fw(x0, x1), iters=10, warmup=3)
+            pairs[f"{dtype_name(dt)} {name}"] = 8e3 / ms
+            log(f"  legacy 448x1024 B=8 {dtype_name(dt)} {name}: {ms:.3f} ms per batch, {8e3 / ms:.1f} pairs/s")
+    return counts, {"pairs_per_s": pairs, "flow_err": errs, "grad_worst_rel": worst, "grad_cosine": cos,
+                    "grad_noise_floor": floor}
+
+
 # ------------------------------------------------------------ sequence serving, TF checkpoints, bf16 in pixels
 SEQ_FRAMES = 17  # 16 pairs: two dispatches at B=8
 SEQ_TIMED_FRAMES = 65  # 64 pairs, the 17 frames over again: eight dispatches at B=8
@@ -1487,6 +1635,44 @@ def ckpt_phase(torch, np, device, preds, tmp_root):
                     f"{dtype_name(dtype)} flow from the {kind} checkpoint differs from the msgpack one")
         log(f"  {dtype_name(dtype)} 448x1024: the flow from <prefix>.ckpt and .ckpt.index is bitwise the msgpack "
             f"weights' (max |flow| {float(abs(flows['msgpack']).max()):.3e})")
+    orbax_round_trip(torch, device, tmp_root)
+
+
+def orbax_round_trip(torch, device, tmp_root):
+    """A CUDA model's TrainState through save_checkpoint_orbax /
+    restore_checkpoint_orbax, bitwise, where tensorstore imports; where it
+    does not, the save must refuse by naming it (one line)."""
+    from pwcnet_tpu_torch.train_lib.checkpoint import restore_checkpoint_orbax, save_checkpoint_orbax
+    from pwcnet_tpu_torch.train_lib.step import create_train_state
+
+    directory = os.path.join(tmp_root, "orbax_state")
+    state = create_train_state(train_model(torch, torch.float32, True, seed=3), device=device)
+    try:
+        import tensorstore  # noqa: F401
+    except ImportError:
+        try:
+            save_checkpoint_orbax(directory, state)
+        except ModuleNotFoundError as exc:
+            require("tensorstore" in str(exc), f"the refusal does not name tensorstore: {exc}")
+        else:
+            require(False, "save_checkpoint_orbax wrote a directory without tensorstore")
+        log("  orbax: tensorstore does not import on this machine; save_checkpoint_orbax refuses by naming it "
+            "(round trip not run)")
+        return
+    gen = torch.Generator(device=device).manual_seed(4)
+    for t in [*state.mu.values(), *state.nu.values()]:
+        t.copy_(torch.randn(t.shape, generator=gen, device=device))
+    state.step = 11
+    save_checkpoint_orbax(directory, state)
+    fresh = restore_checkpoint_orbax(directory, create_train_state(train_model(torch, torch.float32, True, seed=5),
+                                                                   device=device))
+    require(fresh.step == 11, "orbax round trip: step")
+    pairs = [(state.model.state_dict(), fresh.model.state_dict()), (state.mu, fresh.mu), (state.nu, fresh.nu)]
+    for a, b in pairs:
+        for k in a:
+            require(b[k].device.type == "cuda" and torch.equal(a[k], b[k]), f"orbax round trip: {k}")
+    log(f"  orbax: a CUDA TrainState ({len(state.mu)} parameters, Adam moments, step) through "
+        "save_checkpoint_orbax / restore_checkpoint_orbax, bitwise")
 
 
 def converge_phase(torch, card, device):
@@ -2596,6 +2782,12 @@ def main() -> int:
     serve_counts, pairs, preds, batch_dev, batched = serve(torch, np, device)
     log(f"[serve] done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log("[legacy] the legacy PWCNet (6 levels, 'final', no BN) through make_forward at 448x1024 B=8: K2 at every "
+        "level, K4 in its backward, against the plain cost volume")
+    legacy_counts, legacy_stats = legacy_phase(torch, device, batch_dev)
+    log(f"[legacy] done in {time.perf_counter() - t0:.1f} s")
+
     with tempfile.TemporaryDirectory(prefix="pwc_smoke_") as tmp_root:
         t0 = time.perf_counter()
         log(f"[sequence] FlowPredictor.predict_sequence on {SEQ_FRAMES} frames of 448x1024 (bf16, kernels), "
@@ -2676,12 +2868,14 @@ def main() -> int:
         on_sequence = seq_counts.get(kid, 0)
         on_remat = remat_counts.get(kid, 0)
         on_converge = converge_counts.get(kid, 0)
+        on_legacy = legacy_counts.get(kid, 0)
         if kid in SHARD_KERNELS:
             require(on_spatial > 0, f"{kid} was not launched on the sharded paths")
         else:
             require(on_trainer > 0 and (on_step > 0 or kid not in PER_STEP) and (on_remat > 0 or kid not in REMAT_PER_STEP)
                     and (on_converge > 0 or kid not in CONVERGE_PER_STEP)
-                    and (on_serve > 0 and on_sequence > 0 or kid not in PER_FORWARD),
+                    and (on_serve > 0 and on_sequence > 0 or kid not in PER_FORWARD)
+                    and (on_legacy > 0 or kid not in {**LEGACY_PER_FORWARD, **LEGACY_PER_BACKWARD}),
                     f"{kid} was not launched on a path that runs it")
         if kid in SHARD_KERNELS:
             timed_at = ("one rank of 2 shards, bf16, summed over "
@@ -2697,12 +2891,13 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": on_serve + on_sequence + on_step + on_remat + on_converge + on_trainer + on_spatial,
+            "launches": on_serve + on_sequence + on_step + on_remat + on_converge + on_trainer + on_spatial + on_legacy,
             "launches_serving": on_serve,
             "launches_sequence": on_sequence,
             "launches_training": on_step,
             "launches_remat": on_remat,
             "launches_converge": on_converge,
+            "launches_legacy": on_legacy,
             "launches_trainer": on_trainer,
             "launches_spatial": on_spatial,
             "max_abs_err": max(errs[kid].values()),
@@ -2717,6 +2912,8 @@ def main() -> int:
         f"{seq_stats['depth 2']:.1f} pairs/s at depth 2, {seq_stats['depth 1']:.1f} at depth 1 (host clock, "
         f"{SEQ_TIMED_FRAMES - 1} pairs, median of 3), raw_forward B=8 {seq_stats['raw_forward']:.1f} (CUDA events); "
         f"device busy {100 * seq_stats['profile depth 2']['busy_share']:.1f}% at depth 2 on {card}")
+    log(f"[e2e] legacy PWCNet serving 448x1024 B=8 (reported, not claimed): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in legacy_stats["pairs_per_s"].items()) + f" pairs/s on {card}")
     log(f"[e2e] bf16 serving accuracy (reported, not claimed): EPE(bf16 vs f32) at 448x1024 B=4 "
         + ", ".join(f"{k} path {v['epe_bf16_vs_f32']:.4f} px" for k, v in bf16px.items())
         + f" (budget {BF16_PX_BUDGET}) on {card}")
@@ -2758,7 +2955,7 @@ def main() -> int:
     print(json.dumps({"card": card, "train": train_stats, "gradient_kernels_vs_plain": grad_err,
                       "k5_df1_run_to_run": atomics_rerun, "bitwise_equal_reruns": deterministic, "trainer": trainer_stats, "spatial": spatial_stats,
                       "sequence": seq_stats, "bf16px": bf16px, "remat": remat_stats, "batched_pyramid": batched,
-                      "converge": converge_stats}))
+                      "converge": converge_stats, "legacy": legacy_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,7 @@ def build_parser():
     parser.add_argument("--split", choices=["train", "val"], default="val")
     parser.add_argument("-b", "--batch_size", type=int, default=4)
     parser.add_argument("-r", "--resume", type=str, default=None,
-                        help="Checkpoint (flax msgpack, or TF .ckpt) [None]")
+                        help="Checkpoint (flax msgpack, orbax directory, or TF .ckpt) [None]")
     parser.add_argument("--size_handling", choices=["pad", "crop"],
                         default="pad",
                         help="Full-frame eval via edge padding (standard "

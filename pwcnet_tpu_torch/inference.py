@@ -31,8 +31,9 @@ up from pinned host memory and flows come back into pinned host buffers,
 both without blocking the host, which waits on a CUDA event only when it
 hands a batch out. On a mesh every dispatch goes through the sharded
 forward and every rank yields every pair. A checkpoint is a flax msgpack
-file or a TF checkpoint (``.ckpt`` / ``.ckpt.index``), the latter checked
-against the model's parameter tree.
+file, an orbax checkpoint directory (read through ``tensorstore``) or a TF
+checkpoint (``.ckpt`` / ``.ckpt.index``), the last checked against the
+model's parameter tree.
 """
 
 from __future__ import annotations

@@ -1,8 +1,11 @@
-"""PWCDCNet and its parts in PyTorch."""
+"""PWCDCNet, the legacy PWCNet and their parts in PyTorch."""
 
 from pwcnet_tpu_torch.models.context import ContextNetwork
-from pwcnet_tpu_torch.models.estimator import FlowEstimator
-from pwcnet_tpu_torch.models.pwcnet import PWCDCNet, flow_scales
-from pwcnet_tpu_torch.models.pyramid import FeaturePyramidExtractor
+from pwcnet_tpu_torch.models.estimator import FlowEstimator, FlowEstimatorLegacy
+from pwcnet_tpu_torch.models.pwcnet import PWCDCNet, PWCNet, flow_scales
+from pwcnet_tpu_torch.models.pyramid import FeaturePyramidExtractor, FeaturePyramidExtractorLegacy
 
-__all__ = ["ContextNetwork", "FeaturePyramidExtractor", "FlowEstimator", "PWCDCNet", "flow_scales"]
+__all__ = [
+    "ContextNetwork", "FeaturePyramidExtractor", "FeaturePyramidExtractorLegacy", "FlowEstimator",
+    "FlowEstimatorLegacy", "PWCDCNet", "PWCNet", "flow_scales",
+]

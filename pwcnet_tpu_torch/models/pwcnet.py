@@ -53,6 +53,16 @@ Options, with the JAX package's meaning:
   level split at B; under H-sharding the frames are concatenated along the
   batch, so each rank's row shard stays whole.
 - ``forward(..., with_features=True)`` also returns frame 0's pyramid.
+
+``PWCNet`` is the legacy variant (the JAX package's ``PWCNet``, the
+reference's original model as it was meant to work): a 2-conv pyramid, a
+zero flow at the deepest level and ``resize_bilinear(flow) * 2`` between
+levels, warp by that flow, cost volume, ``FlowEstimatorLegacy`` (optional
+BatchNorm), the context net at every level (``'all'``) or at the output
+level (``'final'``), and a final resize by ``2**(num_levels -
+output_level)`` times that factor. It is a serving model: its forward
+always returns three values, so neither package trains it through
+``make_train_step`` (``make_forward`` serves it).
 """
 
 from __future__ import annotations
@@ -65,18 +75,26 @@ from torch.utils.checkpoint import checkpoint
 
 from pwcnet_tpu_torch.models.context import ContextNetwork
 from pwcnet_tpu_torch.models.conv import Conv2d, glorot_init_, to_nchw, to_nhwc
-from pwcnet_tpu_torch.models.estimator import FlowEstimator
-from pwcnet_tpu_torch.models.pyramid import DEFAULT_FILTERS, FeaturePyramidExtractor
+from pwcnet_tpu_torch.models.estimator import DEFAULT_EST_FILTERS, FlowEstimator, FlowEstimatorLegacy
+from pwcnet_tpu_torch.models.pyramid import DEFAULT_FILTERS, FeaturePyramidExtractor, FeaturePyramidExtractorLegacy
 from pwcnet_tpu_torch.ops.cost_volume import cost_volume
+from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
 from pwcnet_tpu_torch.ops.resize import resize_bilinear, upsample2x_bilinear
 from pwcnet_tpu_torch.ops.warp import warp
 
-__all__ = ["PWCDCNet", "flow_scales"]
+__all__ = ["PWCDCNet", "PWCNet", "flow_scales"]
 
 
 def flow_scales(num_levels: int) -> list:
     """Pixel-unit factor per level, ``20 / 2**(num_levels - l)`` (None at 0)."""
     return [None] + [20.0 / 2 ** (num_levels - l) for l in range(1, num_levels + 1)]
+
+
+def _set_compute_dtype(model: nn.Module, compute_dtype: Optional[torch.dtype]) -> None:
+    model.compute_dtype = compute_dtype
+    for m in model.modules():
+        if isinstance(m, Conv2d):
+            m.compute_dtype = compute_dtype
 
 
 class PWCDCNet(nn.Module):
@@ -135,10 +153,7 @@ class PWCDCNet(nn.Module):
             feat = est.out_channels
         self.context = ContextNetwork(2 + feat)
         glorot_init_(self, generator or torch.Generator().manual_seed(0))
-        self.compute_dtype = compute_dtype
-        for m in self.modules():
-            if isinstance(m, Conv2d):
-                m.compute_dtype = compute_dtype
+        _set_compute_dtype(self, compute_dtype)
 
     def sharded_levels(self, frame_rows: int) -> list:
         """Per level (deep first, to ``output_level``): whether it runs as row
@@ -217,3 +232,95 @@ class PWCDCNet(nn.Module):
                 flows_final = (g.upsample(fn, up) if sh else resize_bilinear(fn, (h * up, w * up))) * 20.0
                 out = flows_final, [to_nhwc(f) for f in flows_pyramid]
                 return (*out, [to_nhwc(f) for f in pyramid_0]) if with_features else out
+
+
+class PWCNet(nn.Module):
+    """The legacy PWC-Net (``pwcnet_tpu/models/pwcnet.py`` ``PWCNet``).
+
+    Only the estimators (and with ``context='all'`` the context nets) of
+    levels ``0 .. output_level`` exist, as flax creates them. ``batch_norm``
+    puts flax's BatchNorm after each hidden estimator conv. ``generator``
+    seeds the flax-style init (seed 0 when omitted); ``compute_dtype`` as
+    in ``PWCDCNet``.
+
+    ``cost_volume_fn(f0, f1, d)`` on NHWC tensors defaults to K2's wrapper
+    ``ops.cuda.cost_volume.cost_volume_cuda``: the plain version on a CPU
+    tensor, K2 on a CUDA tensor, with K4 as its backward. ``PWCDCNet``'s
+    default is None, wired by ``FlowPredictor``; the legacy model has no
+    such entry point, so a bare ``PWCNet().to("cuda")`` runs the kernel.
+    Pass ``ops.cost_volume.cost_volume`` for the plain version on the card.
+    """
+
+    def __init__(
+        self,
+        num_levels: int = 6,
+        search_range: int = 4,
+        warp_type: str = "bilinear",
+        context: str = "final",
+        batch_norm: bool = False,
+        output_level: int = 4,
+        cost_volume_fn: Callable = cost_volume_cuda,
+        generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        if output_level >= num_levels:
+            raise ValueError("Should set output_level < num_levels")
+        if context not in ("all", "final"):
+            raise ValueError(f"context argument should be all/final, got {context!r}")
+        if warp_type not in ("bilinear", "nearest"):
+            raise ValueError(f"warp_type must be 'nearest' or 'bilinear', got {warp_type!r}")
+        self.num_levels = num_levels
+        self.search_range = search_range
+        self.warp_type = warp_type
+        self.context_mode = context
+        self.output_level = output_level
+        self.cost_volume_fn = cost_volume_fn
+
+        self.fp_extractor = FeaturePyramidExtractorLegacy(num_levels)
+        taps = (2 * search_range + 1) ** 2
+        feat = DEFAULT_EST_FILTERS[-1]
+        for l in range(output_level + 1):
+            cin = taps + DEFAULT_FILTERS[num_levels - 1 - l] + 2
+            self.add_module(f"optflow_{l}", FlowEstimatorLegacy(cin, batch_norm=batch_norm))
+            if context == "all":
+                self.add_module(f"context_{l}", ContextNetwork(2 + feat))
+        if context == "final":
+            self.context = ContextNetwork(2 + feat)
+        glorot_init_(self, generator or torch.Generator().manual_seed(0))
+        _set_compute_dtype(self, compute_dtype)
+
+    def forward(self, images_0: torch.Tensor, images_1: torch.Tensor, train: bool = False):
+        """``images_*`` (B, H, W, 3) in [0, 1], H and W multiples of
+        ``2**num_levels``. Returns ``(final_flow (B, H, W, 2), flows,
+        pyramid_0)``: the per-level flows deep -> output level, each (B, h,
+        w, 2), and frame 0's feature pyramid, deep first, each (B, h, w, C).
+
+        ``train`` is the JAX model's flag, not ``self.training``: with it
+        the BatchNorm layers normalise by the batch's statistics and update
+        their running ones (flax's ``mutable=["batch_stats"]``); the default
+        call leaves them as they are, whatever mode the module is in."""
+        dtype = self.compute_dtype or self.fp_extractor.conv2d.weight.dtype
+        pyramid_0 = self.fp_extractor(to_nchw(images_0.to(dtype)))
+        pyramid_1 = self.fp_extractor(to_nchw(images_1.to(dtype)))
+        flows = []
+        flow = None
+        for l, (f0, f1) in enumerate(zip(pyramid_0, pyramid_1)):
+            b, _, h, w = f0.shape
+            if l == 0:
+                flow = f0.new_zeros((b, h, w, 2))
+            else:
+                flow = resize_bilinear(flow, (h, w)) * 2.0
+            warped = warp(to_nhwc(f1), flow, self.warp_type)
+            cost = self.cost_volume_fn(to_nhwc(f0), warped, self.search_range)
+            feature, flow = getattr(self, f"optflow_{l}")(to_nchw(cost), f0, to_nchw(flow), train=train)
+            if self.context_mode == "all":
+                flow = getattr(self, f"context_{l}")(flow, feature)
+            elif l == self.output_level:
+                flow = self.context(flow, feature)
+            flow = to_nhwc(flow)
+            flows.append(flow)
+            if l == self.output_level:
+                up = 2 ** (self.num_levels - self.output_level)
+                final_flow = resize_bilinear(flow, (h * up, w * up)) * up
+                return final_flow, flows, [to_nhwc(p) for p in pyramid_0]

@@ -16,6 +16,11 @@ as row shards; a level stays sharded while its output holds at least 4
 rows per shard (the JAX guard's ``guard(x, 8)`` on its input), and the
 first level that does not gathers its input and runs replicated, as does
 every coarser one. Sharded levels run ``level_fn`` or the convs with halos.
+
+``FeaturePyramidExtractorLegacy`` is the legacy ``PWCNet``'s pyramid (the
+reference's original variant): two convs a level, strides (2, 1), each
+followed by LeakyReLU(0.1), ``conv2d`` .. ``conv2d_11`` for 6 levels; no
+fused kernel and no sharding, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from pwcnet_tpu_torch.models.conv import Conv2d, cast_params, conv_name, to_nchw
 from pwcnet_tpu_torch.ops.activation import leaky_relu
 from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_fused, same_pad_stride2
 
-__all__ = ["DEFAULT_FILTERS", "FeaturePyramidExtractor"]
+__all__ = ["DEFAULT_FILTERS", "FeaturePyramidExtractor", "FeaturePyramidExtractorLegacy"]
 
 DEFAULT_FILTERS = (16, 32, 64, 96, 128, 192)
 
@@ -83,3 +88,26 @@ class FeaturePyramidExtractor(nn.Module):
         params = [t for c in convs for t in cast_params(c)]
         level_fn = self.level_fn if level < self.fused_levels and self.level_fn is not None else guard.level_chain
         return to_nchw(level_fn(to_nhwc(x), *params))
+
+
+class FeaturePyramidExtractorLegacy(nn.Module):
+    def __init__(self, num_levels: int = 6, filters: Sequence[int] = DEFAULT_FILTERS):
+        super().__init__()
+        self.num_levels = num_levels
+        cin = 3
+        for level in range(num_levels):
+            for i, stride in enumerate((2, 1)):
+                conv = Conv2d(cin, filters[level], 3, stride=stride, padding=0 if stride == 2 else 1)
+                self.add_module(conv_name(2 * level + i), conv)
+                cin = filters[level]
+
+    def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
+        """``images`` (B, 3, H, W) -> per-level (B, C_l, H_l, W_l), deep first."""
+        x = images
+        pyramid = []
+        for level in range(self.num_levels):
+            x = F.pad(x, same_pad_stride2(x.shape[2], x.shape[3]))
+            for i in range(2):
+                x = leaky_relu(getattr(self, conv_name(2 * level + i))(x), 0.1)
+            pyramid.append(x)
+        return pyramid[::-1]

@@ -29,7 +29,7 @@ def build_parser():
     parser.add_argument("--input_images", type=str, nargs=2, required=True,
                         help="Target images (required)")
     parser.add_argument("-r", "--resume", type=str, default=None,
-                        help="Learned parameter checkpoint file (flax msgpack, or TF .ckpt) [None]")
+                        help="Learned parameter checkpoint file (flax msgpack, orbax directory, or TF .ckpt) [None]")
     parser.add_argument("--time", "-t", action="store_true",
                         help="Measure inference speed")
     parser.add_argument("--iters", type=int, default=1000,

@@ -26,7 +26,7 @@ def build_parser():
     parser.add_argument("-i", "--input_images", type=str, nargs="+", required=True,
                         help="Target images (required)")
     parser.add_argument("-r", "--resume", type=str, default=None,
-                        help="Learned parameter checkpoint (flax msgpack, or TF .ckpt) [None]")
+                        help="Learned parameter checkpoint (flax msgpack, orbax directory, or TF .ckpt) [None]")
     parser.add_argument("--num_levels", type=int, default=6,
                         help="# of levels for feature extraction [6]")
     parser.add_argument("--search_range", type=int, default=4,

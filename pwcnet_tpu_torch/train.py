@@ -3,10 +3,12 @@
 
 Runs on CUDA unless ``--device cpu``; without a GPU and without that flag it
 raises. Checkpoints are full-state msgpack files (parameters, Adam state,
-step) that either package resumes from. ``--pallas`` / ``--no-pallas`` keep
-their names and choose the hand-written CUDA kernels against the plain
-PyTorch path (auto: on for CUDA, off for the CPU). Not supported yet,
-refused by name: ``--ckpt_backend orbax``.
+step) that either package resumes from, or with ``--ckpt_backend orbax``
+orbax directories of the same state, read and written through the
+``tensorstore`` package (refused by name where it is missing); ``-r``
+takes either. ``--pallas`` / ``--no-pallas`` keep their names and choose
+the hand-written CUDA kernels against the plain PyTorch path (auto: on for
+CUDA, off for the CPU).
 
 Across GPUs, one process each: ``torchrun --nproc_per_node N -m
 pwcnet_tpu_torch.train --spatial S ...`` runs a (N / S data) x (S spatial)
@@ -101,9 +103,9 @@ def build_parser():
                         help="Learned parameter checkpoint file [None]")
     parser.add_argument("--ckpt_backend", choices=["msgpack", "orbax"],
                         default="msgpack",
-                        help="Checkpoint format: single-file msgpack; "
-                        "orbax is not supported by this package yet "
-                        "[msgpack]")
+                        help="Checkpoint format: single-file msgpack, or "
+                        "orbax directory (written on a background thread; "
+                        "needs tensorstore) [msgpack]")
 
     parser.add_argument("--seed", type=int, default=0, help="PRNG seed [0]")
     parser.add_argument("--log_interval", type=int, default=1000,
@@ -156,9 +158,8 @@ def main(argv=None):
         for key, item in vars(args).items():
             print(f"{key} : {item}")
 
-    from pwcnet_tpu_torch.train_lib.trainer import Trainer, check_supported
+    from pwcnet_tpu_torch.train_lib.trainer import Trainer
 
-    check_supported(args)
     trainer = Trainer(args)
     trainer.train()
     return trainer

@@ -1,13 +1,20 @@
 """Checkpoints of the whole training state: parameters, Adam moments, step
-(counterpart of the msgpack part of ``pwcnet_tpu/train_lib/checkpoint.py``).
+(counterpart of ``pwcnet_tpu/train_lib/checkpoint.py``).
 
-The file is flax's msgpack serialization of the JAX package's
-``TrainState`` (layout in ``pwcnet_tpu_torch/weights.py``), so a
-checkpoint written by either package restores in the other and a resumed
-run continues the learning-rate schedule exactly. ``save_params`` /
-``load_params`` handle parameter-only files for inference and distribution.
-Orbax directories are not read or written yet: ``restore_checkpoint_auto``
-raises ``NotImplementedError`` for one.
+Two backends, each the JAX package's, so a checkpoint written by either
+package restores in the other and a resumed run continues the
+learning-rate schedule exactly:
+
+- a file: flax's msgpack serialization of the JAX package's ``TrainState``
+  (layout in ``pwcnet_tpu_torch/weights.py``);
+- a directory: orbax's ``StandardCheckpointer`` layout of the same tree,
+  read and written through ``tensorstore`` (``pwcnet_tpu_torch/orbax_format.py``);
+  ``save_checkpoint_orbax(..., wait=False)`` writes on a background thread,
+  ``wait_for_orbax_saves`` flushes it.
+
+``restore_checkpoint_auto`` and ``load_params`` tell them apart by path
+type. ``save_params`` / ``load_params`` handle parameter-only files for
+inference and distribution.
 """
 
 from __future__ import annotations
@@ -15,28 +22,51 @@ from __future__ import annotations
 import os
 from pathlib import Path
 
-from pwcnet_tpu_torch import weights
+from pwcnet_tpu_torch import orbax_format, weights
 from pwcnet_tpu_torch.train_lib.step import TrainState
 from pwcnet_tpu_torch.weights import from_jax_state, load_tree, save_tree, to_jax_state
 
 __all__ = [
-    "save_checkpoint", "restore_checkpoint", "restore_checkpoint_auto",
-    "save_params", "load_params", "latest_checkpoint",
+    "save_checkpoint", "save_checkpoint_orbax", "restore_checkpoint", "restore_checkpoint_orbax",
+    "restore_checkpoint_auto", "wait_for_orbax_saves", "save_params", "load_params", "latest_checkpoint",
 ]
+
+
+def _state_tree(state: TrainState) -> dict:
+    return to_jax_state(state.model.state_dict(), state.mu, state.nu, state.step, callable(state.learning_rate))
 
 
 def save_checkpoint(path: str | os.PathLike, state: TrainState) -> str:
     """Write ``state`` to ``path`` (atomically, through ``path + '.tmp'``)."""
-    tree = to_jax_state(
-        state.model.state_dict(), state.mu, state.nu, state.step, callable(state.learning_rate)
-    )
-    return save_tree(path, tree)
+    return save_tree(path, _state_tree(state))
+
+
+def save_checkpoint_orbax(directory: str | os.PathLike, state: TrainState, wait: bool = True) -> str:
+    """Write ``state`` as an orbax checkpoint directory, replacing one
+    already there. ``wait=False``: the host copy is made here and the write
+    runs on a background thread (a save still in flight is awaited first);
+    call ``wait_for_orbax_saves`` before exit or before reading it back."""
+    return orbax_format.save_tree(directory, _state_tree(state), wait=wait)
+
+
+def wait_for_orbax_saves() -> None:
+    """Block until an asynchronous orbax save has landed."""
+    orbax_format.wait_for_saves()
 
 
 def restore_checkpoint(path: str | os.PathLike, state: TrainState) -> TrainState:
     """Restore into ``state`` (e.g. a fresh one), in place; its model must
     have the checkpoint's structure. The learning rate stays ``state``'s."""
-    params, mu, nu, step = from_jax_state(load_tree(path))
+    return _restore(path, load_tree(path), state)
+
+
+def restore_checkpoint_orbax(directory: str | os.PathLike, state: TrainState) -> TrainState:
+    """``restore_checkpoint`` from an orbax checkpoint directory."""
+    return _restore(directory, orbax_format.load_tree(directory), state)
+
+
+def _restore(path, tree: dict, state: TrainState) -> TrainState:
+    params, mu, nu, step = from_jax_state(tree)
     state.model.load_state_dict(params)
     for name, have, got in (("mu", state.mu, mu), ("nu", state.nu, nu)):
         if have.keys() != got.keys():
@@ -48,13 +78,10 @@ def restore_checkpoint(path: str | os.PathLike, state: TrainState) -> TrainState
 
 
 def restore_checkpoint_auto(path: str | os.PathLike, state: TrainState) -> TrainState:
-    """Restore a TrainState by path type: a file is msgpack; a directory is
-    an orbax checkpoint, which this package does not read yet."""
+    """Restore a TrainState by path type: a directory is an orbax
+    checkpoint, a file is msgpack."""
     if Path(path).is_dir():
-        raise NotImplementedError(
-            f"{path}: orbax checkpoint directories are not supported by pwcnet_tpu_torch yet; "
-            "resume from a .msgpack file"
-        )
+        return restore_checkpoint_orbax(path, state)
     return restore_checkpoint(path, state)
 
 
@@ -65,7 +92,8 @@ def save_params(path: str | os.PathLike, state_dict: dict) -> str:
 
 def load_params(path: str | os.PathLike) -> dict:
     """The port's state dict from a parameter-only or whole-state msgpack
-    file, or from a TF checkpoint (``.ckpt`` / ``.ckpt.index``)."""
+    file or orbax directory, or from a TF checkpoint (``.ckpt`` /
+    ``.ckpt.index``)."""
     return weights.from_jax_params(weights.load_params(path))
 
 

@@ -39,7 +39,7 @@ from pwcnet_tpu_torch.inference import resolve_device
 from pwcnet_tpu_torch.models.conv import glorot_init_
 from pwcnet_tpu_torch.train_lib.schedule import make_lr
 
-__all__ = ["TrainState", "create_train_state", "make_loss_fn", "make_train_step", "make_eval_step"]
+__all__ = ["TrainState", "create_train_state", "make_loss_fn", "make_train_step", "make_eval_step", "make_forward"]
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -234,3 +234,18 @@ def make_eval_step(model: torch.nn.Module, mesh=None, **loss_kwargs) -> Callable
             return loss_fn(images, flows_gt)[1]
 
     return eval_step
+
+
+def make_forward(model: torch.nn.Module, with_pyramid: bool = True) -> Callable:
+    """Inference: (images_0, images_1) -> whatever ``model`` returns
+    (``PWCDCNet``: final flow and pyramid; ``PWCNet``: also frame 0's
+    features), under ``torch.inference_mode`` on the model's own
+    parameters. ``with_pyramid`` is accepted and unused, as in the JAX
+    package; unlike it, the function takes no parameters argument (the
+    model owns them, as ``TrainState`` does)."""
+
+    def forward(images_0: torch.Tensor, images_1: torch.Tensor):
+        with torch.inference_mode():
+            return model(images_0, images_1)
+
+    return forward

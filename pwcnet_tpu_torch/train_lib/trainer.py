@@ -12,7 +12,10 @@
   the data index with the fewest; only rank 0 writes logs, checkpoints and
   the cursor sidecar and prints;
 - per-epoch validation, flow-pyramid visualization and full-state
-  checkpoints that either package resumes from;
+  checkpoints that either package resumes from: msgpack files, or orbax
+  directories with ``--ckpt_backend orbax`` (through ``tensorstore``;
+  epoch saves are written on a background thread while the next epoch
+  trains, flushed at the end of ``train()`` and before a preemption save);
 - metrics to ``logs/history_<ts>/{train,val}`` as JSONL (+ TensorBoard when
   available), config snapshot and artifact collection via ExperimentSaver;
 - a SIGTERM/SIGINT handler that saves the state with its loader cursor, so
@@ -25,9 +28,8 @@
 ``args.remat`` recomputes the pyramid, every estimator and the context
 net in the backward (``PWCDCNet(remat=True)``), under every mesh.
 
-Not here yet, refused with a ``NotImplementedError`` that names it:
-``--ckpt_backend orbax``. Under a mesh the flow visualization is off, as
-the JAX trainer's is in more than one process (a mesh here always is).
+Under a mesh the flow visualization is off, as the JAX trainer's is in
+more than one process (a mesh here always is).
 """
 
 from __future__ import annotations
@@ -45,21 +47,15 @@ from pwcnet_tpu_torch.data import DataLoader, device_prefetch, get_dataset
 from pwcnet_tpu_torch.inference import FUSED_PYRAMID_LEVELS, resolve_device, spatial_hooks
 from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
 from pwcnet_tpu_torch.parallel.mesh import mesh_from_args
-from pwcnet_tpu_torch.train_lib.checkpoint import restore_checkpoint_auto, save_checkpoint
+from pwcnet_tpu_torch.orbax_format import require_tensorstore
+from pwcnet_tpu_torch.train_lib.checkpoint import (
+    restore_checkpoint_auto, save_checkpoint, save_checkpoint_orbax, wait_for_orbax_saves)
 from pwcnet_tpu_torch.train_lib.metrics import MetricsLogger
 from pwcnet_tpu_torch.train_lib.step import create_train_state, make_eval_step, make_train_step
 from pwcnet_tpu_torch.utils.config import ExperimentSaver, timestamp
 from pwcnet_tpu_torch.utils.flow_viz import vis_flow_pyramid
 
-__all__ = ["Trainer", "check_supported"]
-
-
-def check_supported(args) -> None:
-    """Raise for the options of the JAX trainer that this package lacks."""
-    if getattr(args, "ckpt_backend", "msgpack") == "orbax":
-        raise NotImplementedError(
-            "--ckpt_backend orbax is not supported by pwcnet_tpu_torch yet; use msgpack"
-        )
+__all__ = ["Trainer"]
 
 
 class Trainer:
@@ -68,7 +64,9 @@ class Trainer:
         which must exist (``'cpu'`` runs the plain path on the CPU), and
         ``cuda:LOCAL_RANK`` under a mesh. ``mesh``: a ``parallel.Mesh``,
         else the one the arguments ask for (``mesh_from_args``)."""
-        check_supported(args)
+        self.orbax = getattr(args, "ckpt_backend", "msgpack") == "orbax"
+        if self.orbax:
+            require_tensorstore()  # refused by name before anything is written
         self.args = args
         if device is None:
             device = getattr(args, "device", None)
@@ -234,7 +232,7 @@ class Trainer:
     @staticmethod
     def _cursor_path(ckpt_path: str) -> str:
         """Sidecar path of a checkpoint's loader cursor: X.msgpack ->
-        X.cursor.json."""
+        X.cursor.json; an orbax directory X -> sibling X.cursor.json."""
         p = str(ckpt_path)
         if p.endswith(".msgpack"):
             p = p[: -len(".msgpack")]
@@ -254,8 +252,13 @@ class Trainer:
             return {"epoch": int(m.group(1)), "batch": 0}
         return None
 
-    def _save_state(self, stem: str, cursor: dict | None = None):
-        """Save the TrainState under ./model/<stem>.msgpack.
+    def _save_state(self, stem: str, wait: bool = True, cursor: dict | None = None):
+        """Save the TrainState under ./model/<stem>.msgpack, or as the orbax
+        directory ./model/<stem>.
+
+        ``wait=False`` (orbax): the write overlaps the next epoch's steps;
+        a save that writes a cursor is always synchronous, so a cursor never
+        refers to a state that has not landed.
 
         ``cursor``: the loader position {"epoch", "batch"} to persist as a
         sidecar json, written AFTER the (atomic) state write. A stale
@@ -267,11 +270,14 @@ class Trainer:
         if not self.is_main:
             return None
         os.makedirs("./model", exist_ok=True)
-        path = f"./model/{stem}.msgpack"
+        path = f"./model/{stem}" if self.orbax else f"./model/{stem}.msgpack"
         cpath = self._cursor_path(path)
         if os.path.exists(cpath):
             os.remove(cpath)
-        out = save_checkpoint(path, self.state)
+        if self.orbax:
+            out = save_checkpoint_orbax(path, self.state, wait=wait or cursor is not None)
+        else:
+            out = save_checkpoint(path, self.state)
         if cursor is not None:
             with open(cpath, "w") as f:
                 json.dump(cursor, f)
@@ -388,7 +394,8 @@ class Trainer:
                 self._visualize(val_batch, epoch)
 
             # -- checkpoint ------------------------------------------------
-            self._save_state(f"model_{epoch + 1}")
+            # orbax: asynchronous, the write overlaps the next epoch's steps
+            self._save_state(f"model_{epoch + 1}", wait=False)
             data = self.mesh.data if self.mesh is not None else 1
             pairs = steps * args.batch_size * data / seconds if seconds > 0 and steps else 0.0
             where = self.device if self.mesh is None else f"{self.mesh.data}x{self.mesh.spatial} ranks"
@@ -402,6 +409,7 @@ class Trainer:
                 + f"({steps} steps in {seconds:.2f} s, {pairs:.1f} pairs/s on {where})"
             )
 
+        wait_for_orbax_saves()  # flush the last epoch's save
         if self.is_main:
             self.tlogger.close()
             self.vlogger.close()

@@ -8,11 +8,17 @@ The JAX parameter tree is nested dicts of arrays, conv kernels HWIO::
 
 each ``{"kernel", "bias"}``: 110 tensors for the 6-level model. The port's
 state dict keeps the names as module keys (``fp_extractor.conv2d.weight``)
-with OIHW weights. Both directions are transposes, so a round trip is
+with OIHW weights. The legacy ``PWCNet`` with BatchNorm adds
+``optflow_l/bn_i/{scale, bias}`` to the parameters and flax's
+``batch_stats`` collection ``optflow_l/bn_i/{mean, var}``, which the port
+keeps as buffers of the same names; ``to_jax_variables`` /
+``from_jax_variables`` carry both collections (``{"params",
+"batch_stats"}``). Both directions are transposes, so a round trip is
 bit-exact.
 
 ``load_params`` reads a flax msgpack file (params only, or a whole
-TrainState) with ``msgpack`` and numpy alone, and a TF checkpoint
+TrainState) with ``msgpack`` and numpy alone, an orbax checkpoint directory
+through ``tensorstore`` (``orbax_format``), and a TF checkpoint
 (``.ckpt`` / ``.ckpt.index``) through ``train_lib.tf_converter``;
 ``save_tree`` writes the msgpack encoding, so a file written by either
 package restores in the other.
@@ -23,8 +29,6 @@ flax gives ``TrainState`` with ``optax.adam``::
     {"step", "params": tree,
      "opt_state": {"0": {"count", "mu": tree, "nu": tree},
                    "1": {"count"} under a schedule, {} at a constant rate}}
-
-Orbax directories are not read yet.
 """
 
 from __future__ import annotations
@@ -36,9 +40,11 @@ import numpy as np
 import torch
 
 __all__ = [
-    "from_jax_params", "to_jax_params", "from_jax_state", "to_jax_state",
-    "load_params", "load_tree", "save_tree",
+    "from_jax_params", "to_jax_params", "from_jax_variables", "to_jax_variables", "from_jax_state",
+    "to_jax_state", "load_params", "load_tree", "save_tree",
 ]
+
+BATCH_STATS = ("mean", "var")
 
 
 def _leaves(tree, path=()):
@@ -57,8 +63,8 @@ def from_jax_params(tree: dict) -> dict:
         arr = np.asarray(arr)
         if leaf == "kernel":
             key, arr = "weight", arr.transpose(3, 2, 0, 1)
-        elif leaf == "bias":
-            key = "bias"
+        elif leaf in ("bias", "scale"):
+            key = leaf
         else:
             raise KeyError(f"unexpected parameter {'/'.join(path)}")
         state[".".join([*mods, key])] = torch.from_numpy(np.array(arr, dtype=np.float32))
@@ -73,15 +79,47 @@ def to_jax_params(state_dict: dict) -> dict:
         arr = t.detach().to("cpu", torch.float32).numpy()
         if leaf == "weight":
             key, arr = "kernel", arr.transpose(2, 3, 1, 0)
-        elif leaf == "bias":
-            key = "bias"
+        elif leaf in ("bias", "scale"):
+            key = leaf
+        elif leaf in BATCH_STATS:
+            raise KeyError(f"{name} is a batch statistic, not a parameter: use to_jax_variables")
         else:
             raise KeyError(f"unexpected parameter {name}")
-        node = tree
-        for m in mods:
-            node = node.setdefault(m, {})
-        node[key] = np.ascontiguousarray(arr)
+        _put(tree, mods, key, arr)
     return tree
+
+
+def _put(tree: dict, mods, key, arr) -> None:
+    node = tree
+    for m in mods:
+        node = node.setdefault(m, {})
+    node[key] = np.ascontiguousarray(arr)
+
+
+def to_jax_variables(state_dict: dict) -> dict:
+    """Port state dict -> ``{"params": tree}``, plus ``"batch_stats"`` (the
+    BatchNorm buffers ``mean`` / ``var``) where the model has any."""
+    params = {k: v for k, v in state_dict.items() if k.rsplit(".", 1)[-1] not in BATCH_STATS}
+    out = {"params": to_jax_params(params)}
+    stats: dict = {}
+    for name, t in state_dict.items():
+        if name not in params:
+            *mods, leaf = name.split(".")
+            _put(stats, mods, leaf, t.detach().to("cpu", torch.float32).numpy())
+    if stats:
+        out["batch_stats"] = stats
+    return out
+
+
+def from_jax_variables(variables: dict) -> dict:
+    """``{"params": tree[, "batch_stats": tree]}`` -> port state dict
+    (parameters and BatchNorm buffers), float32."""
+    state = from_jax_params(variables["params"])
+    for path, arr in _leaves(variables.get("batch_stats", {})):
+        if path[-1] not in BATCH_STATS:
+            raise KeyError(f"unexpected batch statistic {'/'.join(path)}")
+        state[".".join(path)] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    return state
 
 
 def _array_from_bytes(data: bytes) -> np.ndarray:
@@ -120,12 +158,15 @@ def _unchunk(tree):
 
 
 def load_tree(path: str | os.PathLike) -> dict:
-    """A flax msgpack file as nested dicts of numpy arrays and scalars."""
+    """A flax msgpack file, or an orbax checkpoint directory, as nested
+    dicts of numpy arrays and scalars."""
     import msgpack
 
     path = Path(path)
     if path.is_dir():
-        raise NotImplementedError(f"{path}: orbax checkpoint directories are not read yet")
+        from pwcnet_tpu_torch import orbax_format
+
+        return orbax_format.load_tree(path)
     if str(path).endswith((".ckpt", ".ckpt.index")):
         raise NotImplementedError(f"{path}: a TF checkpoint holds parameters only; read it with load_params")
     raw = msgpack.unpackb(path.read_bytes(), ext_hook=_ext_hook, raw=False, strict_map_key=False)
@@ -133,7 +174,8 @@ def load_tree(path: str | os.PathLike) -> dict:
 
 
 def load_params(path: str | os.PathLike) -> dict:
-    """The parameter tree of a flax msgpack checkpoint or a TF checkpoint.
+    """The parameter tree of a flax msgpack checkpoint, an orbax checkpoint
+    directory or a TF checkpoint.
 
     A whole TrainState keeps the parameters under ``params`` next to
     ``opt_state`` or ``step``; it is unwrapped. A path ending in ``.ckpt``
