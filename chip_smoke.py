@@ -32,9 +32,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    also at edge shapes that no tile of theirs divides; one K5 call and one
    K9b call must each be one device kernel, in float32 and bf16, and one
    bf16 K7b call the weight packer, the flow cotangent's padding and six
-   wgmma stages, no weight copy (torch.profiler); then K1, K2, K3, K6,
-   K7, K7b, K8 and K9, whose kernels use no float atomics, must give the
-   same bits in two launches on the same inputs;
+   wgmma stages, no weight copy (torch.profiler); K5 and K9b with a NaN,
+   a +Inf, a -Inf and a +Inf beside a -Inf in g must give each element the
+   class of the plain version's float sum; K5 and K9b with one image's g at
+   1e-8 of the others' must give each image the bits of a call on it
+   alone, that image within tolerance of its own scale; then every kernel
+   (K5 and K9b sum df1 in fixed point, the rest use no atomics) must give
+   the same bits in two launches on the same inputs, K5 and K9b also in a third after
+   another kernel has filled the L2 and the SMs, and K5's run-to-run
+   difference in check_training_kernels must be 0;
 4. serving: FlowPredictor with seeded random weights answers 448x1024
    requests and a 1024x436 (Sintel-sized) request edge-padded to 448x1024,
    then batched raw_forward at B=8 in bf16 and f32; the launch counters
@@ -76,11 +82,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    context net under ``torch.utils.checkpoint``, so the backward reruns K3
    and K7): at B=4 its loss (rtol 1e-6) and every gradient against the step
    without remat on the same weights (float32 within 1e-4 of each tensor's
-   largest entry, bf16 at the gates above), with and without K7 on 2
+   largest entry, bf16 at [train]'s gates; both bitwise with cuDNN's
+   deterministic algorithms), with and without K7 on 2
    levels; five steps at B=8 with a falling loss and K1 4x, K2 1x, K3 8x,
    K4 5x, K5 4x, K6 4x per step (with K7 on 2 levels also K7 4x, K7b 2x);
    ms per step and peak memory with and without remat at B=8 and B=32 in
-   both dtypes, and the remat step's profile (reported). Then
+   both dtypes, and the remat step's profile (reported); the largest
+   gradient difference of remat against no remat is printed. Then
+   ``[determinism]``: two
+   float32 and two bf16 train steps at 384x448 B=8 with the kernels, from
+   one state and batch, by default, with ``cudnn.deterministic`` and under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)`` (the ops it
+   warns about listed): the parameter tensors that come out identical and
+   the largest difference (reported, not gated: ``[kernels]``'
+   ``check_determinism`` is the bitwise gate on the port's kernels). Then
    ``[converge]``: the SyntheticFlow convergence proof
    (``pwcnet_tpu_torch/train_lib/convergence.py``: 3 levels, 32x32, B=8)
    with the kernels from port seed ``CONVERGE_SEED``, a seed whose four
@@ -89,9 +104,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    gated below 0.5 px full-set EPE, every step launching exactly
    ``CONVERGE_PER_STEP`` (K3 8 under remat); one line per case with its
    steps, EPE, seconds and whether it ended on the 1.862 px constant flow
-   (where a failing case from an init that did not escape it ends), and
-   the multiscale case on the plain path as a witness (reported, not
-   gated);
+   (where a failing case from an init that did not escape it ends), each
+   EPE also in full precision (repr), and the multiscale case on the plain
+   path as a witness (reported, not gated);
 6. trainer: a FlyingChairs-layout dataset (P6 .ppm pairs and .flo files,
    384x512, a seeded texture shifted by a known flow) is written under a
    temporary directory with numpy alone, and ``pwcnet_tpu_torch.train.main``
@@ -346,6 +361,14 @@ def k5_work(b, h, w, c, s):
     return px * (3 * c + 4) * s, px * c * 14
 
 
+def warp_bwd_design_bytes(work, g_elems, df1_elems, s):
+    """K5's and K9b's traffic beyond the function's bytes (``work``'s), which
+    their fixed-point design adds: phase 0's second read of g, and the int64
+    scratch written, reduced into and read back, 16 bytes an element of df1.
+    Reported beside ``bound_ms`` as ``design_bound_ms``; not in the bound."""
+    return work[0] + g_elems * s + df1_elems * 16
+
+
 def k6_work(b, h, w, cin, c, s, need_dx):
     # reads g, out, s1, s2 and the kernels; writes gz1..gz3 and dx
     out_px = b * (h // 2) * (w // 2)
@@ -451,8 +474,8 @@ def make_compare(torch, errs):
     """compare(kid, label, got, want, dtype, ulps): fail unless the kernel's
     result is finite, of the plain version's shape and within tolerance.
 
-    Tolerances: float32 (TF32 off) differs only in summation order (and,
-    for K5, in the order of its float32 atomics): 1e-5 + 1e-5 * scale.
+    Tolerances: float32 (TF32 off) differs only in summation order (K5's
+    fixed point adds under 1e-9 of its scale): 1e-5 + 1e-5 * scale.
     bfloat16 results are rounded from float32 sums, so the two can land one
     bf16 ulp apart, and more where a stage reads a rounded intermediate
     that itself flipped: ``ulps`` bf16 ulps of the result's scale
@@ -518,8 +541,9 @@ def check_training_kernels(torch, device, compare, batches=(1, 8), dtypes=None):
     bfloat16 tolerances: 2 ulps of the result's scale for K4, K5 and the
     residuals (one rounding of a float32 sum on each side); 4 for K6, whose
     stages read the rounded cotangent the previous stage stored.
-    Returns, by dtype, the largest run-to-run difference of K5's df1
-    (float32 atomics) relative to its scale.
+    K5 runs twice on the same inputs: its df1 (summed in fixed point)
+    must not differ (gated at exactly 0). Returns, by dtype, that largest
+    run-to-run difference relative to df1's scale.
     """
     from pwcnet_tpu_torch.ops.cost_volume import cost_volume, cost_volume_bwd_plain
     from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_bwd, cost_volume_cuda
@@ -557,6 +581,7 @@ def check_training_kernels(torch, device, compare, batches=(1, 8), dtypes=None):
                     compare("K5", f"dflow {label}", dflow, want_dflow, dtype)
                     again = warp_bwd(f1, flow, want_df1w)[0]
                     diff = (again.float() - df1.float()).abs().max().item() / want_df1.float().abs().max().item()
+                    require(diff == 0.0 and torch.equal(again, df1), f"K5 {label}: df1 differs from run to run")
                     rerun[dtype_name(dtype)] = max(rerun.get(dtype_name(dtype), 0.0), diff)
                 for h, w, c in K2_TRAIN:
                     f0, f1 = k2_inputs(torch, b, h, w, c, dtype, device, gen)
@@ -596,7 +621,7 @@ def check_training_kernels(torch, device, compare, batches=(1, 8), dtypes=None):
                             else:
                                 compare("K6", f"{name} {label} dx={need_dx}", a, e, dtype, ulps=4)
                 torch.cuda.synchronize()
-    log(f"  K5 df1 run to run (float32 atomics): max |diff| / max |df1| = {rerun}")
+    log(f"  K5 df1 run to run (fixed point, gated at 0): max |diff| / max |df1| = {rerun}")
     return rerun
 
 
@@ -665,7 +690,9 @@ def cudnn_level_bwd(torch, g, out, s1, s2, k1, k2, k3, x_shape):
 
 
 def time_training_kernels(torch, device, b=8, dtype=None):
-    """K4, K5, K6: kernel, plain and library times at the training-step shapes."""
+    """K4, K5, K6: kernel, plain and library times at the training-step
+    shapes; K4 also at the four finer 448x1024 levels of the legacy
+    PWCNet's backward (listed, ``times`` 0)."""
     from pwcnet_tpu_torch.ops.cost_volume import cost_volume, cost_volume_bwd_plain
     from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_bwd
     from pwcnet_tpu_torch.ops.cuda.pyramid_conv import (
@@ -703,7 +730,17 @@ def time_training_kernels(torch, device, b=8, dtype=None):
                     ms=cuda_ms(torch, lambda: warp_bwd(*a5)),
                     plain_ms=cuda_ms(torch, lambda: warp_bwd_plain(*a5)),
                     library_ms=library_ms(torch, grid_sample_bwd(torch, *a5), f"K5 {dname} {h}x{w}x{c}"),
-                    work=k5_work(b, h, w, c, s)))
+                    work=k5_work(b, h, w, c, s),
+                    design_bytes=warp_bwd_design_bytes(k5_work(b, h, w, c, s), b * h * w * c, b * h * w * c, s)))
+        for h, w, c in K2_SHAPES[1:]:
+            f0, f1 = k2_inputs(torch, b, h, w, c, dtype, device, gen)
+            out = cost_volume(f0, f1, SEARCH_RANGE)
+            a4 = (f0, f1, out, torch.randn(out.shape, generator=gen, device=device).to(dtype), SEARCH_RANGE)
+            rows["K4"].append(dict(
+                shape=f"{b}x{h}x{w}x{c} (legacy)", times=0,
+                ms=cuda_ms(torch, lambda: cost_volume_bwd(*a4)),
+                plain_ms=cuda_ms(torch, lambda: cost_volume_bwd_plain(*a4), iters=5, warmup=1),
+                library_ms=None, work=k4_work(b, h, w, c, s)))
         for level, (h, w, cin, c) in enumerate(K3_TRAIN):
             x, k1, b1, k2, b2, k3, b3 = k3_inputs(torch, b, h, w, cin, c, dtype, device, gen)
             out, s1, s2 = pyramid_level_plain(x, k1, b1, k2, b2, k3, b3, return_acts=True)
@@ -950,9 +987,121 @@ def check_one_kernel_a_call(torch, F, device):
     return found
 
 
+NON_FINITE_CASES = ("nan", "+inf", "-inf", "+inf and -inf")
+
+
+def same_bits(torch, a, b):
+    """Bitwise equality (NaN included, which torch.equal never finds equal)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if a.dtype != b.dtype or a.dtype not in ints:
+        return torch.equal(a, b)
+    return torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+
+
+def check_non_finite(torch, F, device):
+    """K5 at the finest training call and K9b on its second stripe, B=8,
+    float32 and bf16, with g holding a NaN, a +Inf, a -Inf, or a +Inf and a
+    -Inf in neighbouring pixels whose corners meet (flows of 0.3-0.5 px
+    there): element by element df1 has the class of the plain version's
+    float sum (NaN, +Inf, -Inf or finite), the finite elements within
+    tolerance, the same bits in a second launch. Returns the cases run."""
+    from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd, warped_rows_bwd, warped_rows_bwd_plain
+    from pwcnet_tpu_torch.ops.warp import warp_bwd_plain
+
+    gen = torch.Generator(device=device).manual_seed(10)
+    d = SEARCH_RANGE
+    H, W, C = K1_TRAIN[-1]
+    h = H // SHARDS
+    ran = []
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            _, f1, flow = k1_inputs(torch, 8, H, W, C, dtype, device, gen)
+            _, flow_ext, vb = shard_inputs(torch, F, f1, flow, 1, h, d)
+            for kid in ("K5", "K9b"):
+                ho = H if kid == "K5" else h + 2 * d
+                for case in NON_FINITE_CASES:
+                    fl = (flow if kid == "K5" else flow_ext).clone()
+                    g = torch.randn((8, ho, W, C), generator=gen, device=device).to(dtype)
+                    row = 20 + (d if kid == "K9b" else 0)  # a live row of either
+                    fl[3, row, 40:42] = torch.tensor([0.3, 0.4], device=device).to(fl.dtype)
+                    if case == "+inf and -inf":
+                        g[3, row, 40, 5], g[3, row, 41, 5] = float("inf"), float("-inf")
+                    else:
+                        g[3, row, 40, 5] = {"nan": float("nan"), "+inf": float("inf"), "-inf": float("-inf")}[case]
+                    if kid == "K5":
+                        got, again, want = warp_bwd(f1, fl, g), warp_bwd(f1, fl, g), warp_bwd_plain(f1, fl, g)
+                    else:
+                        got, again = warped_rows_bwd(f1, fl, vb, g, d), warped_rows_bwd(f1, fl, vb, g, d)
+                        want = warped_rows_bwd_plain(f1, fl, vb, g.clone(), d)
+                    label = f"{kid} {dtype_name(dtype)} g with {case}"
+                    require(all(same_bits(torch, a, b) for a, b in zip(got, again)), f"{label}: two launches differ")
+                    df1, want_df1 = got[0].float(), want[0].float()
+                    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+                        require(torch.equal(test(df1), test(want_df1)), f"{label}: {test.__name__} differs")
+                    bad = ~torch.isfinite(want_df1)
+                    require(bad.sum().item() == (6 if case == "+inf and -inf" else 4), f"{label}: {bad.sum().item()} "
+                            "non-finite elements, not those of the pixels' corners")
+                    scale = want_df1[~bad].abs().max().item()
+                    err = (df1[~bad] - want_df1[~bad]).abs().max().item()
+                    tol = 1e-5 + 1e-5 * scale if dtype == torch.float32 else 2 * scale / 128
+                    require(err <= tol, f"{label}: finite elements off by {err:.3e} (tol {tol:.3e})")
+                    ran.append(f"{label}: NaN {int(torch.isnan(df1).sum())}, +Inf {int(torch.isposinf(df1).sum())}, "
+                               f"-Inf {int(torch.isneginf(df1).sum())}, finite within {err:.1e}")
+        torch.cuda.synchronize()
+    log("  non-finite g (the class of the float sum, element by element): " + "; ".join(ran))
+    return ran
+
+
+def check_image_scales(torch, F, device):
+    """K5 at the finest training call and K9b on its second stripe, B=8,
+    float32 and bf16, with image 3's g at 1e-8 of the others': each image's
+    df1 and dflow have the bits of a call on that image alone (each image
+    sums in fixed point at its own scale), and image 3's df1 is within
+    tolerance of its own scale (float32 1e-5 of its largest entry, bf16 2
+    ulps) of the plain version. Returns the largest relative errors."""
+    from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd, warped_rows_bwd, warped_rows_bwd_plain
+    from pwcnet_tpu_torch.ops.warp import warp_bwd_plain
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    d = SEARCH_RANGE
+    H, W, C = K1_TRAIN[-1]
+    h = H // SHARDS
+    errs = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            _, f1, flow = k1_inputs(torch, 8, H, W, C, dtype, device, gen)
+            _, flow_ext, vb = shard_inputs(torch, F, f1, flow, 1, h, d)
+            for kid in ("K5", "K9b"):
+                ho = H if kid == "K5" else h + 2 * d
+                g = torch.randn((8, ho, W, C), generator=gen, device=device).to(dtype)
+                g[3] *= 1e-8
+                if kid == "K5":
+                    run = lambda i: warp_bwd(f1[i], flow[i], g[i])  # noqa: E731
+                    want = warp_bwd_plain(f1, flow, g)[0][3].float()
+                else:
+                    run = lambda i: warped_rows_bwd(f1[i], flow_ext[i], vb, g[i], d)  # noqa: E731
+                    want = warped_rows_bwd_plain(f1, flow_ext, vb, g.clone(), d)[0][3].float()
+                got = run(slice(None))
+                label = f"{kid} {dtype_name(dtype)}"
+                for i in range(8):
+                    require(all(torch.equal(a[i : i + 1], e) for a, e in zip(got, run(slice(i, i + 1)))),
+                            f"{label}: image {i}'s df1 or dflow differs from a call on it alone")
+                scale = want.abs().max().item()
+                err = (got[0][3].float() - want).abs().max().item() / scale
+                tol = 1e-5 if dtype == torch.float32 else 2 / 128
+                require(err <= tol, f"{label}: the image at 1e-8 is off by {err:.3e} of its scale (tol {tol:.1e})")
+                errs[label] = err
+        torch.cuda.synchronize()
+    log("  each image its own scale (image 3's g at 1e-8 of the others'; every image bitwise as alone): "
+        "image 3's df1 off by " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " of its scale")
+    return errs
+
+
 def check_determinism(torch, F, device, dtypes=None):
-    """The kernels redesigned without float atomics give the same bits in
-    two launches on the same inputs: K2 and K1 (with its warped map) at
+    """Every kernel gives the same bits in two launches on the same inputs:
+    K5 at the four 384x448 training calls and K9b on the second stripe of
+    each (df1 summed in fixed point; also in a third launch after K3 at
+    448x1024 B=8 has filled the L2 and every SM), K2 and K1 (with its warped map) at
     every serving level, K8, K9 (with its warped rows) at the deepest and
     finest sharded level, K3 (with s1 and s2) at its serving and training
     levels, K7 (flow, features) and K7b (gz1..gz5, dxin, with k1 as given
@@ -963,21 +1112,35 @@ def check_determinism(torch, F, device, dtypes=None):
     from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda, cost_volume_hpad_cuda
     from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd, estimator_chain_residuals
     from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_plain, pyramid_level_residuals
-    from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume_global_residual, warped_cost_volume_residual
+    from pwcnet_tpu_torch.ops.cuda.warped_cv import (
+        warp_bwd, warped_cost_volume_global_residual, warped_cost_volume_residual, warped_rows_bwd)
 
     dtypes = dtypes or (torch.float32, torch.bfloat16)
     gen = torch.Generator(device=device).manual_seed(8)
     d, n = SEARCH_RANGE, 0
+    filler = k3_inputs(torch, 8, *K3_SHAPES[0], torch.bfloat16, device, gen)  # 448x1024: every SM, over 50 MB
 
-    def same(kid, label, fn):
+    def same(kid, label, fn, third=False):
         nonlocal n
-        first, second = fn(), fn()
-        for a, b in zip(first, second):
-            require(torch.equal(a, b), f"{kid} {label}: two launches on the same inputs differ")
-            n += 1
+        runs = [fn(), fn()]
+        if third:
+            pyramid_level_residuals(*filler)
+            runs.append(fn())
+        for outs in runs[1:]:
+            for a, b in zip(runs[0], outs):
+                require(torch.equal(a, b), f"{kid} {label}: launches on the same inputs differ")
+                n += 1
 
     with torch.inference_mode():
         for dtype in dtypes:
+            for h, w, c in K1_TRAIN:
+                _, f1, flow = k1_inputs(torch, 8, h, w, c, dtype, device, gen)
+                g = torch.randn(f1.shape, generator=gen, device=device).to(dtype)
+                same("K5", f"{dtype} {h}x{w}x{c}", lambda: warp_bwd(f1, flow, g), third=True)
+                _, flow_ext, vb = shard_inputs(torch, F, f1, flow, 1, h // SHARDS, d)
+                dwe = torch.randn((8, h // SHARDS + 2 * d, w, c), generator=gen, device=device).to(dtype)
+                same("K9b", f"{dtype} {h // SHARDS + 2 * d}x{w}x{c} of {h}",
+                     lambda: warped_rows_bwd(f1, flow_ext, vb, dwe, d), third=True)
             for h, w, c in K2_SHAPES:
                 a = k2_inputs(torch, 8, h, w, c, dtype, device, gen)
                 same("K2", f"{dtype} {h}x{w}x{c}", lambda: (cost_volume_cuda(*a, d),))
@@ -1017,7 +1180,8 @@ def check_determinism(torch, F, device, dtypes=None):
                 same("K6", f"{dtype} {h}x{w}x{cin}->{c}",
                      lambda: [t for t in pyramid_level_bwd(*a, need_dx=level > 0) if t is not None])
         torch.cuda.synchronize()
-    log(f"  K1, K2, K3, K6, K7, K7b, K8, K9: {n} results bitwise equal in two launches")
+    log(f"  K1-K6, K7, K7b, K8, K9, K9b: {n} results bitwise equal to the first launch's (K5 and K9b also "
+        "after K3 filled the card)")
     return n
 
 
@@ -1107,7 +1271,9 @@ def time_shard_kernels(torch, F, device, dtype=None):
                 ms=cuda_ms(torch, lambda: warped_rows_bwd(*a9)),
                 plain_ms=cuda_ms(torch, lambda: warped_rows_bwd_plain(*a9), iters=5, warmup=1),
                 library_ms=library_ms(torch, lib9, f"K9b {dname} {shape}"),
-                work=k9b_work(8, h, H, W, C, sz)))
+                work=k9b_work(8, h, H, W, C, sz),
+                design_bytes=warp_bwd_design_bytes(k9b_work(8, h, H, W, C, sz), 8 * (h + 2 * d) * W * C,
+                                                   8 * H * W * C, sz)))
     finish_rows(rows, dname)
     return rows
 
@@ -1203,8 +1369,12 @@ def finish_rows(rows, dname):
     for kid, rs in rows.items():
         for r in rs:
             r["bound_ms"], r["bound_by"] = bound(dname, *r.pop("work"))
+            design = ""
+            if "design_bytes" in r:
+                r["design_bound_ms"] = r.pop("design_bytes") / HBM_BYTES_PER_S * 1e3
+                design = f", the design's bytes {r['design_bound_ms']:.4f} ms"
             log(f"  {kid} {dname} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){design}")
 
 
 def smooth_pair(np, h, w, seed, shift=(3, 5)):
@@ -1703,13 +1873,14 @@ def converge_phase(torch, card, device):
             counts[name] = got
 
     res = conv.run_cases(params, device, use_kernels=True, on_step=on_step, on_start=on_start)
-    # a case that fails on the constant flow did not escape it from this init (the run-to-run
-    # atomics of K5 move where it does, PERF.md); one that fails elsewhere points at the path
+    # a case that fails on the constant flow did not escape it from this init (which inits
+    # escape depends on the float order, PERF.md); one that fails elsewhere points at the path
     dset = conv.dataset()
     for name in ("warm", *conv.CASES):
         r = res[name]
         r["constant_flow"] = conv.on_constant_flow(r["epe"], dset)
-        log(f"  {name}: {r['steps']} steps, full-set EPE {r['epe']:.4f} px, {r['seconds']:.1f} s with the kernels, "
+        log(f"  {name}: {r['steps']} steps, full-set EPE {r['epe']:.4f} px ({float(r['epe'])!r}), "
+            f"{r['seconds']:.1f} s with the kernels, "
             f"{'on' if r['constant_flow'] else 'off'} the {conv.constant_flow_epe(dset):.4f} px constant flow "
             f"(training batch EPE every 50 steps: {curves[name]}) on {card}")
         res[name]["batch_epe_every_50"] = curves[name]
@@ -1791,7 +1962,7 @@ def train(torch, np, device):
     dtypes = (torch.bfloat16, torch.float32)
 
     # -- (a) every parameter's gradient, kernel path vs plain path (B=4)
-    # float32: the two paths differ in summation order (and K5's atomics)
+    # float32: the two paths differ in summation order
     # through about 50 layers: each tensor's gradient within 1e-3 of its
     # largest entry. bfloat16: the two paths round activations and
     # cotangents at different places (K3 sums in float32 and rounds, cuDNN
@@ -1894,33 +2065,61 @@ def remat_phase(torch, np, device):
 
     # -- (a) B=4, one seed, so the same weights: the forward runs the same
     # deterministic kernels with and without remat, so the loss should be
-    # bitwise the same (gated at rtol 1e-6); the backwards differ only by
-    # their float atomics (K5, about 3e-7 of scale): float32 gradients
-    # within 1e-4 of each tensor's largest entry; bf16 at [train]'s gates
+    # bitwise the same (gated at rtol 1e-6). The backwards run the same
+    # kernels, all of which give the same bits on the same inputs (K5 sums
+    # in fixed point), and cuDNN, whose default algorithms promise no bits:
+    # an H100 read float32 differences up to 1.9e-6 on
+    # optflow_0.conv2d_4.bias (9.9e-7 of a tensor's largest entry). So the
+    # default pass prints the largest difference and its tensor and gates
+    # float32 within 1e-4 of each tensor's largest entry, bf16 at [train]'s
+    # gates; a second pass with cuDNN's deterministic algorithms (inside
+    # this phase only) gates both dtypes at 0
     images, flows_gt = train_batch(torch, np, device, 4)
+
+    def grads(dt, fe, remat):
+        model = train_model(torch, dt, True, fused_estimator=fe, remat=remat).to(device)
+        total, _ = make_loss_fn(model, decoupled_wd=True)(images, flows_gt)
+        params = dict(model.named_parameters())
+        return total.detach(), dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+
+    def largest_diff(got, want):
+        return max((((got[k] - w).abs().max().item(), k) for k, w in want.items()), default=(0.0, ""))
+
     for dt in dtypes:
         for fe in (0, FUSED_ESTIMATOR):
-            out = {}
-            for remat in (False, True):
-                model = train_model(torch, dt, True, fused_estimator=fe, remat=remat).to(device)
-                total, _ = make_loss_fn(model, decoupled_wd=True)(images, flows_gt)
-                params = dict(model.named_parameters())
-                out[remat] = total.detach(), dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+            out = {remat: grads(dt, fe, remat) for remat in (False, True)}
             loss_rel = abs(float(out[True][0]) - float(out[False][0])) / abs(float(out[False][0]))
             worst, worst_name, rel_l2, cos = grad_agreement(torch, out[True][1], out[False][1])
+            diff, diff_name = largest_diff(out[True][1], out[False][1])
             name = f"{dtype_name(dt)}{f' + K7 on {fe} levels' if fe else ''}"
             log(f"  {name} B=4, remat vs not: loss {float(out[True][0]):.6f} / {float(out[False][0]):.6f} "
                 f"(rel {loss_rel:.3e}, bitwise {bool(torch.equal(out[True][0], out[False][0]))}); gradients of "
                 f"{len(out[True][1])} tensors: worst max|diff|/max|g| {worst:.3e} ({worst_name}), |diff|/|g| "
-                f"{rel_l2:.3e}, cosine {cos:.7f}")
+                f"{rel_l2:.3e}, cosine {cos:.7f}; largest |diff| {diff!r} ({diff_name or 'none'}), "
+                f"{sum(torch.equal(out[True][1][k], w) for k, w in out[False][1].items())} tensors bitwise equal")
             require(loss_rel <= 1e-6, f"{name}: the remat loss differs from the loss without it")
+            row = {"loss_rel": loss_rel, "worst_rel": worst, "rel_l2": rel_l2, "cosine": cos,
+                   "max_abs_diff": diff, "max_abs_diff_tensor": diff_name}
             if dt == torch.float32:
                 require(worst <= 1e-4, f"{name}: remat and no-remat float32 gradients disagree")
             else:
                 require(rel_l2 <= 0.03 and cos >= 0.999 and worst <= 0.2,
                         f"{name}: remat and no-remat bfloat16 gradients disagree")
-            stats["agreement"][name] = {"loss_rel": loss_rel, "worst_rel": worst, "rel_l2": rel_l2, "cosine": cos}
-    del out, model
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                again = {remat: grads(dt, fe, remat)[1] for remat in (False, True)}
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            row["max_abs_diff_cudnn_deterministic"], row["tensor_cudnn_deterministic"] = largest_diff(
+                again[True], again[False])
+            log(f"  {name} B=4, remat vs not with cudnn.deterministic: largest |diff| "
+                f"{row['max_abs_diff_cudnn_deterministic']!r} ({row['tensor_cudnn_deterministic'] or 'none'})")
+            require(row["max_abs_diff_cudnn_deterministic"] == 0.0,
+                    f"{name}: remat and no-remat gradients differ with cudnn.deterministic")
+            del again
+            stats["agreement"][name] = row
+    del out
 
     # -- (b) five counted remat steps at B=8
     images, flows_gt = train_batch(torch, np, device, 8)
@@ -1983,6 +2182,66 @@ def remat_phase(torch, np, device):
                 f"{sum(off['ms']) / 2:.2f} ({100 * (sum(on['ms']) / sum(off['ms']) - 1):+.1f}%), peak memory "
                 f"{on['peak_mib']:.0f} MiB against {off['peak_mib']:.0f} ({100 * (on['peak_mib'] / off['peak_mib'] - 1):+.1f}%)")
     return {k: sum(c[k] for c in counts.values()) for k in got}, stats
+
+
+def determinism_phase(torch, np, device):
+    """Two train steps at 384x448 B=8 with the kernels from one seed's
+    state on one batch, in float32 and bf16: by default, with
+    ``cudnn.deterministic``, and under ``torch.use_deterministic_algorithms
+    (True, warn_only=True)``, whose warnings name the ops it has no
+    deterministic version of. Reported, not gated: the parameter tensors
+    (and Adam moments) that come out identical and the largest difference.
+    The bitwise gate on the port's kernels is ``check_determinism``."""
+    import warnings
+
+    from pwcnet_tpu_torch.train_lib.step import create_train_state, make_train_step
+
+    images, flows_gt = train_batch(torch, np, device, 8)
+    stats = {}
+
+    def two_steps(dt):
+        states = []
+        for _ in range(2):
+            model = train_model(torch, dt, True)
+            state = create_train_state(model, device=device)
+            state, _ = make_train_step(model)(state, images, flows_gt)
+            torch.cuda.synchronize()
+            # the first moment is (1 - b1) g: one Adam step from zero moments moves each weight by about
+            # lr sign(g), which hides a difference in g's last bits, so the moments are compared too
+            states.append({**{f"param {k}": v for k, v in model.named_parameters()},
+                           **{f"mu {k}": v for k, v in state.mu.items()}})
+        return states
+
+    for mode in ("default", "cudnn.deterministic", "use_deterministic_algorithms"):
+        deterministic = torch.backends.cudnn.deterministic
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if mode == "cudnn.deterministic":
+                torch.backends.cudnn.deterministic = True
+            if mode == "use_deterministic_algorithms":
+                torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                for dt in (torch.float32, torch.bfloat16):
+                    a, b = two_steps(dt)
+                    equal = {part: sum(torch.equal(a[k], b[k]) for k in a if k.startswith(part)) for part in ("param", "mu")}
+                    diff, where = max(((a[k] - b[k]).abs().max().item(), k) for k in a)
+                    name = f"{mode} {dtype_name(dt)}"
+                    log(f"  {name}: of {len(a) // 2} tensors after one step, {equal['param']} parameters and "
+                        f"{equal['mu']} first moments (0.1 g) identical, largest |diff| {diff!r} "
+                        f"({where if diff else 'none'})")
+                    stats[name] = {"identical": equal, "tensors": len(a) // 2, "max_abs_diff": diff,
+                                   "max_abs_diff_tensor": where if diff else None}
+                    del a, b
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+                torch.use_deterministic_algorithms(False)
+        named = sorted({str(w.message).split(" does not have")[0] for w in caught
+                        if "deterministic" in str(w.message)})
+        if named:
+            log(f"  {mode}: PyTorch warned of " + "; ".join(named))
+        stats[f"{mode} warnings"] = named
+        torch.cuda.empty_cache()
+    return stats
 
 
 def write_chairs(np, root, n=CHAIRS_SAMPLES, seed=100):
@@ -2704,6 +2963,11 @@ def log_build(report):
             resident[dcode, rows] = per_sm * sms
             k5_info.append(f"{label} {threads} threads, {per_sm} blocks an SM x {sms} SMs")
     log("  K5 / K9b (no shared memory; resident blocks, the cooperative grid's cap): " + "; ".join(k5_info))
+    words = _build.load("warp_bwd").pwc_warp_bwd_scratch_words
+    words.argtypes, words.restype = [ctypes.c_longlong, ctypes.c_longlong], ctypes.c_longlong
+    for n, b in ((1, 1), (33, 3), (8 * 96 * 112 * 32, 8), (8 * 384 * 448 * 32, 8), (5000 * 12 * 14, 5000)):
+        require(words(n, b) == _common.warp_bwd_scratch(n, b), f"K5's scratch for {n} elements in {b} images: "
+                "the source and _common.warp_bwd_scratch differ")
     k5_plans = []
     for kid, shapes, rows in (("K5", K1_TRAIN, 0), ("K9b", K9_TRAIN, 1)):
         for h, w, c in shapes:
@@ -2711,7 +2975,8 @@ def log_build(report):
             for dcode, dname in ((0, "f32"), (1, "bf16")):
                 lanes = _common.warp_bwd_lanes(c)
                 blocks = _common.warp_bwd_blocks(8 * ho * w, lanes, 8 * hf * w * c, resident[dcode, rows])
-                k5_plans.append(f"{kid} {dname} 8x{ho}x{w}x{c}: {lanes} lanes a pixel, {blocks} blocks")
+                k5_plans.append(f"{kid} {dname} 8x{ho}x{w}x{c}: {lanes} lanes a pixel, {blocks} blocks, scratch "
+                                f"{_common.warp_bwd_scratch(8 * hf * w * c, 8) * 8 / 2**20:.1f} MiB")
     log("  K5 / K9b launch plans (one cooperative kernel a call): " + "; ".join(k5_plans))
     k4_plans = []
     for kid, shapes, pad in (("K4", K2_TRAIN + K1_TRAIN, 0), ("K8b", K9_TRAIN, SEARCH_RANGE)):
@@ -2774,6 +3039,8 @@ def main() -> int:
     log(f"  K8, K8b, K9, K9b on the {SHARDS} stripes of one frame on the card, and stitched against K1/K2, K4/K5")
     check_shard_kernels(torch, F, device, compare)
     check_one_kernel_a_call(torch, F, device)
+    check_non_finite(torch, F, device)
+    check_image_scales(torch, F, device)
     deterministic = check_determinism(torch, F, device)
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
@@ -2816,6 +3083,11 @@ def main() -> int:
         "the backward), float32 parameters")
     remat_counts, remat_stats = remat_phase(torch, np, device)
     log(f"[remat] done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[determinism] two train steps at 384x448 B=8 with the kernels from one state and batch, float32 and bf16")
+    determinism_stats = determinism_phase(torch, np, device)
+    log(f"[determinism] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     log(f"[converge] the SyntheticFlow convergence proof with the kernels (3 levels, 32x32, B=8) from port seed "
@@ -2948,14 +3220,18 @@ def main() -> int:
         f"{spatial_stats['train_pairs_per_s']:.1f} pairs/s, predict_sequence B=8 depth 2 "
         f"{spatial_stats['sequence_pairs_per_s']:.1f} pairs/s on {card}")
     log(f"[e2e] convergence proof with the kernels from port seed {CONVERGE_SEED}, full-set EPE (gate "
-        f"0.5 px): " + ", ".join(f"{k} {converge_stats['kernels'][k]['epe']:.4f} px" for k in
+        f"0.5 px): " + ", ".join(f"{k} {float(converge_stats['kernels'][k]['epe'])!r} px" for k in
                                  ("multiscale", "remat", "robust", "bf16"))
         + f"; the plain witness {converge_stats['plain_multiscale']['epe']:.4f} px on {card}")
+    log(f"[e2e] reproducibility of a train step at 384x448 B=8 with the kernels (reported): " + "; ".join(f"{k}: {v['identical']['param']}/{v['tensors']} parameters and "
+                                f"{v['identical']['mu']}/{v['tensors']} first moments identical, largest |diff| "
+                                f"{v['max_abs_diff']!r}" for k, v in determinism_stats.items() if "warnings" not in k)
+        + f" on {card}")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": card, "train": train_stats, "gradient_kernels_vs_plain": grad_err,
                       "k5_df1_run_to_run": atomics_rerun, "bitwise_equal_reruns": deterministic, "trainer": trainer_stats, "spatial": spatial_stats,
                       "sequence": seq_stats, "bf16px": bf16px, "remat": remat_stats, "batched_pyramid": batched,
-                      "converge": converge_stats, "legacy": legacy_stats}))
+                      "converge": converge_stats, "legacy": legacy_stats, "determinism": determinism_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,38 +29,64 @@
 // scatters nothing, as the JAX code's zeroed rows do.
 //
 // Design. The TPU kernel could not scatter and swept a candidate-offset tent
-// filter over the frame. Here a call is one cooperative kernel and no other
-// device operation: a persistent grid of as many blocks as the card holds
-// at once (fewer where the call needs fewer) runs three phases, separated
-// by grid-wide barriers:
-//   (a) zero the float32 accumulator (df1 itself in float32, a scratch
-//       buffer in bf16) by 16-byte stores;
-//   (b) scatter and dflow: a group of `lanes` lanes (a power of two, from
-//       ops/cuda/_common.py::warp_bwd_lanes) serves one pixel, each lane 4
-//       channels at a time: g and the four clamped corners by one vector
-//       load each (16 bytes in float32, 8 in bf16), each corner's weight * g
-//       by one 4-float vector atomic, so that two neighbouring lanes fill a
-//       32-byte sector of the accumulator in one instruction. dflow is a
-//       shuffle reduction inside the group. On the H100, 8 bf16 channels a
-//       lane by 16-byte loads (each atomic half-filling a sector, or lanes
-//       trading halves by shuffles to fill it) ran slower than this, and
-//       so did 64-bit offsets. A C that is no multiple of 4, or a tensor off
-//       alignment, takes the same lanes channel by channel (the scalar
-//       tail);
-//   (c) bf16 only: round the accumulator once into df1, 8 channels a
-//       thread (two 16-byte loads, one 16-byte store). bf16 atomics would
-//       round on every addition.
-// The order of the float32 additions, and so the last bits of df1, varies
-// from run to run.
+// filter over the frame, whose sums have one order. Here df1 is a scatter,
+// and it gives the same bits in every launch, at every grid size and on
+// every card: each term w * g (float32, as the plain version forms it)
+// becomes the integer rint(w * g * 2^s), the terms are summed by 64-bit
+// integer atomics (integer addition is associative, so no order of the
+// atomics changes the sum) and each sum is converted back once. The scale
+// 2^s is an image's own (a pixel scatters only into its image), so an
+// image's df1 has the same bits whatever images share its batch. A call is
+// one cooperative kernel and no other device operation: a persistent grid
+// of as many blocks as the card holds at once (fewer where the call needs
+// fewer, at most kMaxBlocks) runs four phases, separated by grid-wide
+// barriers:
+//   (a) zero the int64 scratch (the accumulators and the class words) by
+//       16-byte stores, and find the largest finite |g| of each image over
+//       the rows that scatter (phase 0: max is exact, so its order does
+//       not matter): G / B blocks an image (where the grid has G >= B
+//       blocks; else one block an image, several images a block), one
+//       word a block and image;
+//   (s) a block an image reduces that image's words to max|g| = m 2^e
+//       (m in [0.5, 1)) and writes its scale s = 62 - k - e, with
+//       4 Ho W <= 2^k (ops/cuda/_common.py::warp_bwd_scale mirrors it):
+//       then 4 Ho W max|g| 2^s < 2^62, and no element's sum leaves an
+//       int64 even where every pixel of the image puts all four corners on
+//       it;
+//   (b) the scatter and dflow: a group of `lanes` lanes (a power of
+//       two, ops/cuda/_common.py::warp_bwd_lanes) serves one pixel, lane l
+//       the channels l, l + lanes, ..., so that one 64-bit reduction of the
+//       group covers consecutive accumulators (sm_90 has no vector 64-bit
+//       atomic). A term that is not finite adds nothing and sets its
+//       element's class bits instead (+Inf 1, -Inf 2, both or NaN 3) by a
+//       32-bit atomic OR. dflow is each lane's float32 sum over its
+//       channels in channel order, then a fixed shuffle tree inside the
+//       group: its order depends on C alone, so it too has the same bits in
+//       every launch;
+//   (c) convert: an element of class 0 becomes float32(sum) * 2^-s with its
+//       image's s (one rounding of the integer sum to float32; the scaling
+//       by a power of two is exact unless the result is subnormal), then in
+//       bf16 the one rounding to the model dtype; class 1, 2, 3 give +Inf,
+//       -Inf, NaN, the class any float sum of those terms has in any order.
+// Accuracy: each term is off by at most 2^-(s+1) < 2^(k+e-63), e its image's,
+// so an element that n terms reach is off by at most n 2^(k+e-63) <=
+// n 2^(k-62) of its image's max|g|: with its usual n <= 4 terms 2^(k-60)
+// (2^-44, 6e-14, at the 384x448 training step's finest call, k = 16), at
+// most 4 Ho W terms 2^(2k-62) (1e-9). That bound is absolute, not relative:
+// a term below 2^(k-63) of its image's max|g| (2^-47 at that call) rounds to
+// 0, and an element whose sum is r of that max keeps about n 2^(k-62) / r
+// of relative precision where the float32 sum keeps 2^-24 (at k = 16 and
+// n = 4, below float32's where r < 2^-20, 1e-6). Images are independent:
+// one image's g at 1e-8 of another's loses nothing.
 //
-// Bound on the H100: bytes. It reads g and f1's corners, reads the flow,
-// and writes df1 and dflow: about 3C + 4 values per pixel against 14C
-// operations. The float32 accumulator adds 8C bytes per pixel in bf16.
+// Bound on the H100: bytes. The function reads g, f1's corners and the flow
+// and writes df1 and dflow; this design also reads g a second time (phase
+// 0) and writes, reduces into and reads back 8 bytes of scratch an element
+// of df1 (chip_smoke.py reports that traffic beside the bound).
 #include <cooperative_groups.h>
 
 #include <algorithm>
 #include <atomic>
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -69,72 +95,156 @@ namespace cg = cooperative_groups;
 namespace pwc {
 
 constexpr int kWarpBwdThreads = 256;
+constexpr int kMaxBlocks = 4096;  // the grid's cap, and phase 0's words in the scratch
+constexpr int kSumBits = 62;      // every fixed-point sum stays below 2^kSumBits in magnitude
 constexpr int kMaxDevices = 64;
-constexpr int kChannels = 4;  // a lane's channels at a time: one 4-float atomic a corner
 // offsets are 32-bit (fewer instructions a pixel than 64-bit ones, measured):
-// f1, g, the flow and the accumulator hold at most 2^30 elements, so that
-// every offset, stride step and flow index stays below 2^31
+// f1, g, the flow and df1 hold at most 2^30 elements, so that every element
+// offset, stride step and flow index stays below 2^31; the int64 scratch
+// (8 bytes an element, 2^33 bytes at most) is indexed by the same element
+// offsets, scaled to bytes in 64-bit address arithmetic
 constexpr size_t kMaxElements = size_t{1} << 30;
+// the element classes, two bits each, 16 elements a 32-bit word
+constexpr unsigned kPosInf = 1, kNegInf = 2, kNaN = 3;
 
-// 4 channels as raw bits: 16 bytes of float32, 8 of bf16; widened to
-// float32 where they are used
+// int64 words of the scratch for n elements of df1 in B images: n
+// accumulators, the class words of n elements (2 words of 32 bits an int64),
+// then 32-bit words: phase 0's, one a block and image (at most
+// max(kMaxBlocks, B) <= kMaxBlocks + B), and one scale an image
+// (ops/cuda/_common.py::warp_bwd_scratch)
+inline size_t scratch_words(size_t n, size_t B) { return n + (n + 31) / 32 + kMaxBlocks / 2 + B; }
+
+// 2^x as a float32, x in [-126, 127]
+__device__ __forceinline__ float pow2f(int x) { return __int_as_float((x + 127) << 23); }
+
+// the exponent e of math.frexp: m 2^e, m in [0.5, 1), for the bits of a
+// finite float >= 0 (0 gives 0)
+__device__ __forceinline__ int frexp_exponent(unsigned bits) {
+  if (bits == 0) return 0;
+  const int biased = bits >> 23;
+  return biased > 0 ? biased - 126 : (32 - __clz(bits)) - 149;
+}
+
+// the largest finite |value| of 8 values, as float bits (0 if none)
 template <typename T>
-using Raw = std::conditional_t<std::is_same<T, float>::value, uint4, uint2>;
-
-template <typename T>
-__device__ __forceinline__ Raw<T> load4(const T* p) {
-  return __ldg(reinterpret_cast<const Raw<T>*>(p));
-}
-// channel k of 4 (k a constant after unrolling)
-__device__ __forceinline__ float chan(const uint4& q, int k) {
-  return __uint_as_float(k == 0 ? q.x : k == 1 ? q.y : k == 2 ? q.z : q.w);
-}
-__device__ __forceinline__ float chan(const uint2& q, int k) {  // bf16: the upper half of a float32
-  const unsigned w = k < 2 ? q.x : q.y;
-  return __uint_as_float(k & 1 ? w & 0xffff0000u : w << 16);
+__device__ __forceinline__ unsigned max_bits8(const T* p) {
+  float v[8];
+  load8(p, v);
+  unsigned m = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const unsigned b = __float_as_uint(fabsf(v[k]));
+    if (b < 0x7f800000u) m = max(m, b);
+  }
+  return m;
 }
 
-// acc[0, 4) += w * the 4 channels: one 4-float vector reduction
-template <typename R>
-__device__ __forceinline__ void red4(float* p, float w, const R& q) {
-  atomicAdd(reinterpret_cast<float4*>(p), make_float4(w * chan(q, 0), w * chan(q, 1), w * chan(q, 2), w * chan(q, 3)));
+// df1's term w * g: its fixed point into the accumulator, or, not finite, its class
+__device__ __forceinline__ void add_term(unsigned long long* acc, unsigned* cls, int i, float term, float fa,
+                                         float fb) {
+  if (fabsf(term) <= 3.402823466e38f) {  // false for Inf and NaN
+    atomicAdd(acc + i, static_cast<unsigned long long>(__float2ll_rn(term * fa * fb)));
+  } else {
+    const unsigned c = term != term ? kNaN : term > 0.f ? kPosInf : kNegInf;
+    atomicOr(cls + i / 16, c << (2 * (i % 16)));
+  }
 }
 
-// two floats rounded to bf16, as the 32 bits of a bf16 pair (x low)
-__device__ __forceinline__ unsigned bits(float x, float y) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  return reinterpret_cast<const unsigned&>(h);
+// 2^-s as a double, s in [-98, 208]
+__device__ __forceinline__ double inv_pow2(int s) { return __longlong_as_double(static_cast<long long>(1023 - s) << 52); }
+
+// the largest m of the block's threads, to every thread (warp_max: a shared word a warp)
+__device__ __forceinline__ unsigned block_max(unsigned m, unsigned* warp_max) {
+  m = __reduce_max_sync(0xffffffffu, m);
+  __syncthreads();  // the last reads of warp_max are done
+  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = m;
+  __syncthreads();
+  for (int w = 0; w < kWarpBwdThreads / 32; ++w) m = max(m, warp_max[w]);
+  return m;
 }
 
-// g, flow, dflow: Ho rows; f1, acc, df1: Hf rows; flow row j is frame row
-// j + row0 and scatters only where j + row0 lies in [vlo, vhi]. acc is df1
-// itself for T = float (df1 unused), a float32 scratch buffer for bf16.
-// vec: the lanes load and add 4 channels at once (else one by one).
+// element of class c with fixed-point sum a, back in float32
+__device__ __forceinline__ float value(long long a, unsigned c, double inv) {
+  if (c == 0) return static_cast<float>(static_cast<double>(__ll2float_rn(a)) * inv);
+  return __uint_as_float(c == kPosInf ? 0x7f800000u : c == kNegInf ? 0xff800000u : 0x7fc00000u);
+}
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  *reinterpret_cast<uint2*>(p) = make_uint2(reinterpret_cast<const unsigned&>(lo), reinterpret_cast<const unsigned&>(hi));
+}
+
+// g, flow, dflow: Ho rows; f1, df1: Hf rows; flow row j is frame row j + row0
+// and scatters only where j + row0 lies in [vlo, vhi]. scratch: int64 words
+// (scratch_words(B Hf W C, B)), overwritten.
 template <typename T, typename F>
 __global__ void __launch_bounds__(kWarpBwdThreads)
     warp_bwd_coop_kernel(const T* __restrict__ f1, const F* __restrict__ flow, const T* __restrict__ g,
-                         float* __restrict__ acc, T* __restrict__ df1, F* __restrict__ dflow, int B, int Ho,
-                         int Hf, int W, int C, int row0, int vlo, int vhi, int lanes_log2, int vec) {
-  constexpr int V = kChannels;
+                         long long* __restrict__ scratch, T* __restrict__ df1, F* __restrict__ dflow, int B, int Ho,
+                         int Hf, int W, int C, int row0, int vlo, int vhi, int lanes_log2) {
   cg::grid_group grid = cg::this_grid();
+  __shared__ unsigned warp_max[kWarpBwdThreads / 32];
   const int tid = blockIdx.x * kWarpBwdThreads + threadIdx.x;
   const int nthreads = gridDim.x * kWarpBwdThreads;
   const int n = B * Hf * W * C;
+  const int zeroed = n + (n + 31) / 32;  // the accumulators and class words, in int64 words
+  auto* acc = reinterpret_cast<unsigned long long*>(scratch);
+  auto* cls = reinterpret_cast<unsigned*>(scratch + n);
+  auto* part_max = reinterpret_cast<unsigned*>(scratch + zeroed);
+  auto* scales = reinterpret_cast<int*>(part_max + kMaxBlocks + B);
   const int lane = threadIdx.x % 32;
+
+  // (a) zero the scratch (bypassing L1: the atomics and phase (c) work in L2) ...
+  for (int i = tid; i < zeroed / 2; i += nthreads)
+    __stcg(reinterpret_cast<longlong2*>(scratch) + i, make_longlong2(0, 0));
+  if (zeroed % 2 && tid == 0) __stcg(scratch + zeroed - 1, 0LL);
+  // ... and each image's largest finite |g| over the rows that scatter: rows
+  // [jlo, jhi] of the image, a contiguous run of g, in `per` parts
+  const int row = W * C;
+  const int jlo = max(vlo - row0, 0);
+  const int jhi = min(vhi - row0, Ho - 1);
+  const int run = (jhi - jlo + 1) * row;
+  const bool by8 = row % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const int per = max((int)gridDim.x / B, 1);
+  for (int u = blockIdx.x; u < B * per; u += gridDim.x) {  // uniform in the block
+    const T* p = g + ((u / per) * Ho + jlo) * row;
+    const int stride = per * kWarpBwdThreads;
+    unsigned m = 0;
+    if (by8) {
+      for (int i = u % per * kWarpBwdThreads + threadIdx.x; i < run / 8; i += stride) m = max(m, max_bits8(p + 8 * i));
+    } else {
+      for (int i = u % per * kWarpBwdThreads + threadIdx.x; i < run; i += stride) {
+        const unsigned bits = __float_as_uint(fabsf(to_f32(p[i])));
+        if (bits < 0x7f800000u) m = max(m, bits);
+      }
+    }
+    m = block_max(m, warp_max);
+    if (threadIdx.x == 0) __stcg(part_max + u, m);
+  }
+  grid.sync();
+
+  // (s) each image's max|g| from its parts, and its scale
+  const int k = 64 - __clzll(4LL * Ho * W - 1);
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    unsigned m = 0;
+    for (int i = threadIdx.x; i < per; i += kWarpBwdThreads) m = max(m, __ldcg(part_max + b * per + i));
+    m = block_max(m, warp_max);
+    // s in [-98, 208]: k in [2, 32], e in [-148, 128]
+    if (threadIdx.x == 0) __stcg(scales + b, kSumBits - k - frexp_exponent(m));
+  }
+  grid.sync();
+
+  // (b) the scatter and dflow
   const int lanes = 1 << lanes_log2;
   const int sub = lane & (lanes - 1);
   const int pixels = B * Ho * W;
   const int step = nthreads / 32 * (32 >> lanes_log2);  // warp w takes pixels w * per_warp + k * step
   const float hmax = (float)(Hf - 1);
   const float wmax = (float)(W - 1);
-
-  // (a) zero the accumulator (bypassing L1: phase (c) reads it back)
-  for (int i = tid; i < n / 4; i += nthreads)
-    __stcg(reinterpret_cast<float4*>(acc) + i, make_float4(0.f, 0.f, 0.f, 0.f));
-  for (int i = n / 4 * 4 + tid; i < n; i += nthreads) __stcg(acc + i, 0.f);
-  grid.sync();
-
-  // (b) scatter and dflow
   for (int first = tid / 32 * (32 >> lanes_log2); first < pixels; first += step) {  // uniform in the warp
     const int pix = first + (lane >> lanes_log2);
     const int gy = pix / W % Ho + row0;
@@ -142,7 +252,12 @@ __global__ void __launch_bounds__(kWarpBwdThreads)
     float dfy = 0.f;
     if (pix < pixels && gy >= vlo && gy <= vhi) {
       const int gx = pix % W;
-      const int frame = pix / (Ho * W) * Hf * W;
+      const int img = pix / (Ho * W);
+      const int frame = img * Hf * W;
+      const int s = __ldcg(scales + img);
+      const int sa = min(max(s, -126), 127);
+      const float fa = pow2f(sa);      // w * g * fa * fb = w * g * 2^s, both products exact:
+      const float fb = pow2f(s - sa);  // |w g| <= max|g| keeps them below 2^62
       const float fx = to_f32(flow[pix * 2]);
       const float fy = to_f32(flow[pix * 2 + 1]);
       const float fx0 = floorf(fx);
@@ -162,58 +277,45 @@ __global__ void __launch_bounds__(kWarpBwdThreads)
       const int i01 = (frame + ya * W + xb) * C;
       const int i10 = (frame + yb * W + xa) * C;
       const int i11 = (frame + yb * W + xb) * C;
-      for (int c = sub * V; c < C; c += lanes * V) {
-        if (!vec) {  // the scalar tail: the lane's channels one by one
-          for (int j = c; j < min(c + V, C); ++j) {
-            const float gj = to_f32(g[pix * C + j]);
-            const float p00 = to_f32(f1[i00 + j]), p01 = to_f32(f1[i01 + j]);
-            const float p10 = to_f32(f1[i10 + j]), p11 = to_f32(f1[i11 + j]);
-            dfx = fmaf(gj, wy0 * (p01 - p00) + wy1 * (p11 - p10), dfx);
-            dfy = fmaf(gj, wx0 * (p10 - p00) + wx1 * (p11 - p01), dfy);
-            atomicAdd(acc + i00 + j, w00 * gj);
-            atomicAdd(acc + i01 + j, w01 * gj);
-            atomicAdd(acc + i10 + j, w10 * gj);
-            atomicAdd(acc + i11 + j, w11 * gj);
-          }
-          continue;
-        }
-        const Raw<T> gq = load4(g + pix * C + c);
-        const Raw<T> q00 = load4(f1 + i00 + c), q01 = load4(f1 + i01 + c);
-        const Raw<T> q10 = load4(f1 + i10 + c), q11 = load4(f1 + i11 + c);
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-          const float gk = chan(gq, k);
-          const float p00 = chan(q00, k), p01 = chan(q01, k), p10 = chan(q10, k), p11 = chan(q11, k);
-          dfx = fmaf(gk, wy0 * (p01 - p00) + wy1 * (p11 - p10), dfx);
-          dfy = fmaf(gk, wx0 * (p10 - p00) + wx1 * (p11 - p01), dfy);
-        }
-        red4(acc + i00 + c, w00, gq);
-        red4(acc + i01 + c, w01, gq);
-        red4(acc + i10 + c, w10, gq);
-        red4(acc + i11 + c, w11, gq);
+      for (int c = sub; c < C; c += lanes) {
+        const float gc = to_f32(g[pix * C + c]);
+        const float p00 = to_f32(f1[i00 + c]), p01 = to_f32(f1[i01 + c]);
+        const float p10 = to_f32(f1[i10 + c]), p11 = to_f32(f1[i11 + c]);
+        dfx = fmaf(gc, wy0 * (p01 - p00) + wy1 * (p11 - p10), dfx);
+        dfy = fmaf(gc, wx0 * (p10 - p00) + wx1 * (p11 - p01), dfy);
+        add_term(acc, cls, i00 + c, w00 * gc, fa, fb);
+        add_term(acc, cls, i01 + c, w01 * gc, fa, fb);
+        add_term(acc, cls, i10 + c, w10 * gc, fa, fb);
+        add_term(acc, cls, i11 + c, w11 * gc, fa, fb);
       }
     }
-    for (int s = lanes >> 1; s > 0; s >>= 1) {  // inside the pixel's group only
-      dfx += __shfl_xor_sync(0xffffffffu, dfx, s);
-      dfy += __shfl_xor_sync(0xffffffffu, dfy, s);
+    for (int t = lanes >> 1; t > 0; t >>= 1) {  // inside the pixel's group only
+      dfx += __shfl_xor_sync(0xffffffffu, dfx, t);
+      dfy += __shfl_xor_sync(0xffffffffu, dfy, t);
     }
     if (sub == 0 && pix < pixels) {
       dflow[pix * 2] = from_f32<F>(dfx);
       dflow[pix * 2 + 1] = from_f32<F>(dfy);
     }
   }
+  grid.sync();
 
-  if constexpr (!std::is_same<T, float>::value) {
-    // (c) the one rounding of the float32 sums to the model dtype
-    grid.sync();
-    for (int i = tid; i < n / 8; i += nthreads) {
-      const float4 a = __ldcg(reinterpret_cast<const float4*>(acc) + 2 * i);
-      const float4 b = __ldcg(reinterpret_cast<const float4*>(acc) + 2 * i + 1);
-      *reinterpret_cast<uint4*>(df1 + 8 * i) =
-          make_uint4(bits(a.x, a.y), bits(a.z, a.w), bits(b.x, b.y), bits(b.z, b.w));
-    }
-    for (int i = n / 8 * 8 + tid; i < n; i += nthreads) df1[i] = from_f32<T>(__ldcg(acc + i));
+  // (c) each sum back to float32 (x 2^-s of its image), then into the model dtype, 4 elements a thread
+  const int image = Hf * W * C;
+  for (int i = tid; i < n / 4; i += nthreads) {
+    const int e = 4 * i;
+    const double inv = inv_pow2(__ldcg(scales + e / image));
+    const bool one = e + 3 < (e / image + 1) * image;  // elements e .. e + 3 in one image (else each its own)
+    auto inv_at = [&](int q) { return one ? inv : inv_pow2(__ldcg(scales + (e + q) / image)); };
+    const longlong2 a = __ldcg(reinterpret_cast<const longlong2*>(scratch) + 2 * i);
+    const longlong2 b = __ldcg(reinterpret_cast<const longlong2*>(scratch) + 2 * i + 1);
+    const unsigned c = __ldcg(cls + i / 4) >> (8 * (i % 4));  // elements 4i .. 4i + 3
+    store4(df1 + e, value(a.x, c & 3, inv), value(a.y, (c >> 2) & 3, inv_at(1)), value(b.x, (c >> 4) & 3, inv_at(2)),
+           value(b.y, (c >> 6) & 3, inv_at(3)));
   }
+  for (int i = n / 4 * 4 + tid; i < n; i += nthreads)
+    df1[i] = from_f32<T>(value(__ldcg(scratch + i), (__ldcg(cls + i / 16) >> (2 * (i % 16))) & 3,
+                               inv_pow2(__ldcg(scales + i / image))));
 }
 
 // Blocks of the kernel the card holds at once: SMs x resident blocks an SM,
@@ -238,24 +340,22 @@ cudaError_t resident_blocks(int* blocks) {
   return cudaSuccess;
 }
 
-// The grid: enough blocks for one pass of the scatter (a lane per 4
-// channels of each pixel's group) or of the zeroing (a float4 a thread), at most the
-// resident blocks; ops/cuda/_common.py::warp_bwd_blocks is its model.
+// The grid: enough blocks for one pass of the scatter (`lanes` threads a
+// pixel) or of the conversion (4 elements a thread), at most the resident
+// blocks and kMaxBlocks; ops/cuda/_common.py::warp_bwd_blocks is its model.
 inline unsigned grid_blocks(size_t pixels, int lanes, size_t n, int resident) {
   const size_t t = kWarpBwdThreads;
   const size_t need = std::max((pixels * lanes + t - 1) / t, (n / 4 + t - 1) / t);
-  return (unsigned)std::max<size_t>(1, std::min<size_t>(need, (size_t)resident));
+  return (unsigned)std::max<size_t>(1, std::min<size_t>(need, (size_t)std::min(resident, kMaxBlocks)));
 }
 
 template <typename T, typename F>
-cudaError_t run(const void* f1, const void* flow, const void* g, void* acc, void* df1, void* dflow, int B, int Ho,
-                int Hf, int W, int C, int row0, int vlo, int vhi, int lanes, cudaStream_t stream) {
+cudaError_t run(const void* f1, const void* flow, const void* g, void* scratch, void* df1, void* dflow, int B,
+                int Ho, int Hf, int W, int C, int row0, int vlo, int vhi, int lanes, cudaStream_t stream) {
   int lanes_log2 = 0;
   while ((1 << lanes_log2) < lanes) ++lanes_log2;
   if (lanes < 1 || lanes > 32 || (1 << lanes_log2) != lanes) return cudaErrorInvalidValue;
-  const bool f32 = std::is_same<T, float>::value;
-  float* a = static_cast<float*>(f32 ? df1 : acc);
-  if (a == nullptr || !aligned16(a) || !aligned16(df1)) return cudaErrorInvalidValue;
+  if (scratch == nullptr || !aligned16(scratch) || !aligned16(df1)) return cudaErrorInvalidValue;
   const size_t pixels = (size_t)B * Ho * W;
   const size_t n = (size_t)B * Hf * W * C;
   if (pixels == 0 || n == 0) return cudaSuccess;
@@ -263,14 +363,13 @@ cudaError_t run(const void* f1, const void* flow, const void* g, void* acc, void
   int resident = 0;
   cudaError_t err = resident_blocks<T, F>(&resident);
   if (err != cudaSuccess) return err;
-  int vec = C % kChannels == 0 && aligned16(f1) && aligned16(g);
   auto pf1 = static_cast<const T*>(f1);
   auto pflow = static_cast<const F*>(flow);
   auto pg = static_cast<const T*>(g);
+  auto ps = static_cast<long long*>(scratch);
   auto pdf1 = static_cast<T*>(df1);
   auto pdflow = static_cast<F*>(dflow);
-  void* args[] = {&pf1, &pflow, &pg, &a, &pdf1, &pdflow, &B, &Ho, &Hf, &W, &C, &row0, &vlo, &vhi, &lanes_log2,
-                  &vec};
+  void* args[] = {&pf1, &pflow, &pg, &ps, &pdf1, &pdflow, &B, &Ho, &Hf, &W, &C, &row0, &vlo, &vhi, &lanes_log2};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(warp_bwd_coop_kernel<T, F>),
                                     dim3(grid_blocks(pixels, lanes, n, resident)), dim3(kWarpBwdThreads), args, 0,
                                     stream);
@@ -290,18 +389,17 @@ cudaError_t info(int* threads, int* blocks_per_sm, int* sms) {
 }  // namespace pwc
 
 // f1, g, df1: (B, H, W, C); flow, dflow: (B, H, W, 2) pixels, x first, of
-// dtype 0 (f32) or 1 (bf16) like the rest. acc: (B, H, W, C) float32 scratch
-// for bf16 (its contents are overwritten); unused (may be null) for f32,
-// where df1 is the accumulator. lanes: a power of two up to 32, the lanes
-// that serve one pixel (warp_bwd_lanes).
-extern "C" int pwc_warp_bwd(const void* f1, const void* flow, const void* g, void* acc, void* df1,
+// dtype 0 (f32) or 1 (bf16) like the rest. scratch: 16-byte aligned int64
+// words, pwc_warp_bwd_scratch_words(B H W C, B) of them, overwritten. lanes: a
+// power of two up to 32, the lanes that serve one pixel (warp_bwd_lanes).
+extern "C" int pwc_warp_bwd(const void* f1, const void* flow, const void* g, void* scratch, void* df1,
                             void* dflow, int B, int H, int W, int C, int lanes, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case pwc::kF32:
-      return pwc::run<float, float>(f1, flow, g, acc, df1, dflow, B, H, H, W, C, 0, 0, H - 1, lanes, s);
+      return pwc::run<float, float>(f1, flow, g, scratch, df1, dflow, B, H, H, W, C, 0, 0, H - 1, lanes, s);
     case pwc::kBF16:
-      return pwc::run<__nv_bfloat16, __nv_bfloat16>(f1, flow, g, acc, df1, dflow, B, H, H, W, C, 0, 0, H - 1,
+      return pwc::run<__nv_bfloat16, __nv_bfloat16>(f1, flow, g, scratch, df1, dflow, B, H, H, W, C, 0, 0, H - 1,
                                                     lanes, s);
     default: return cudaErrorInvalidValue;
   }
@@ -309,20 +407,26 @@ extern "C" int pwc_warp_bwd(const void* f1, const void* flow, const void* g, voi
 
 // The tall-frame variant (K9b). f1, df1: (B, Hf, W, C); g: (B, Ho, W, C); flow, dflow: (B, Ho, W, 2)
 // float32 pixels, x first, flow row j at frame row j + row0; rows with j + row0 outside [vlo, vhi] read
-// g as zero (g itself is not written). acc as for pwc_warp_bwd. f1, g and df1 are of one dtype
-// (0 f32 / 1 bf16).
-extern "C" int pwc_warp_bwd_rows(const void* f1, const void* flow, const void* g, void* acc, void* df1,
+// g as zero (g itself is not written). scratch as for pwc_warp_bwd (for B Hf W C elements in B images). f1, g and
+// df1 are of one dtype (0 f32 / 1 bf16).
+extern "C" int pwc_warp_bwd_rows(const void* f1, const void* flow, const void* g, void* scratch, void* df1,
                                  void* dflow, int B, int Ho, int Hf, int W, int C, int row0, int vlo, int vhi,
                                  int lanes, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case pwc::kF32:
-      return pwc::run<float, float>(f1, flow, g, acc, df1, dflow, B, Ho, Hf, W, C, row0, vlo, vhi, lanes, s);
+      return pwc::run<float, float>(f1, flow, g, scratch, df1, dflow, B, Ho, Hf, W, C, row0, vlo, vhi, lanes, s);
     case pwc::kBF16:
-      return pwc::run<__nv_bfloat16, float>(f1, flow, g, acc, df1, dflow, B, Ho, Hf, W, C, row0, vlo, vhi,
+      return pwc::run<__nv_bfloat16, float>(f1, flow, g, scratch, df1, dflow, B, Ho, Hf, W, C, row0, vlo, vhi,
                                             lanes, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// int64 words of the scratch a call on n elements of df1 in B images takes (the
+// wrappers allocate _common.warp_bwd_scratch(n, B); chip_smoke.py checks the two agree).
+extern "C" long long pwc_warp_bwd_scratch_words(long long n, long long B) {
+  return (long long)pwc::scratch_words((size_t)n, (size_t)B);
 }
 
 // For the build log: threads a block, resident blocks an SM and the SMs of

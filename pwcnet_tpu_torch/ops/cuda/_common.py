@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -155,44 +156,57 @@ def cv_bwd_plan(b: int, h: int, w: int, c: int, pad: int = 0) -> int:
 
 
 # The warp backward's launch (csrc/warp_bwd.cu): 256 threads a block, a
-# lane 4 channels of a pixel at a time (one 16-byte float32 or 8-byte bf16
-# vector, one 4-float atomic a corner), a persistent cooperative grid
+# persistent cooperative grid of at most WARP_BWD_MAX_BLOCKS blocks, one
+# channel a lane at a time, df1 summed in 64-bit fixed point
 WARP_BWD_THREADS = 256
-WARP_BWD_CHANNELS = 4
-
-
-WARP_BWD_NARROW_C, WARP_BWD_NARROW_LANES = 64, 8
+WARP_BWD_MAX_BLOCKS = 4096
+# every element's fixed-point sum stays below 2**WARP_BWD_SUM_BITS in magnitude
+WARP_BWD_SUM_BITS = 62
+# an element's class where a term is not finite (0: all finite), two bits each, 16 elements a 32-bit word
+WARP_BWD_POS_INF, WARP_BWD_NEG_INF, WARP_BWD_NAN = 1, 2, 3
 
 
 def warp_bwd_lanes(c: int) -> int:
-    """Lanes that serve one pixel in the warp backward (K5, K9b): its
-    4-channel vectors, ``ceil(C / 4)``, rounded up to a power of two, at
-    most a warp, and at most 8 up to ``C = 64`` (a lane then loops over
-    its vectors). On the H100 8 lanes of two vectors beat 16 of one at the
-    training step's C = 64 call, and a whole warp beat 8 lanes at C = 128."""
-    vectors = -(-c // WARP_BWD_CHANNELS)
-    cap = WARP_BWD_NARROW_LANES if c <= WARP_BWD_NARROW_C else 32
+    """Lanes that serve one pixel in the warp backward (K5, K9b): ``C``
+    rounded up to a power of two, at most a warp; lane ``l`` takes the
+    channels ``l, l + lanes, ...``, so that one 64-bit reduction
+    instruction of the lanes of a pixel covers consecutive accumulators."""
     lanes = 1
-    while lanes < min(vectors, cap):
+    while lanes < min(c, 32):
         lanes *= 2
     return lanes
 
 
-def warp_bwd_vectorised(c: int, *ptrs: int) -> bool:
-    """Whether a warp backward call loads and adds 4 channels at once (the
-    source decides the same way): C a multiple of 4 and f1 and g 16-byte
-    aligned; else the same lanes take their channels one by one (the scalar
-    tail)."""
-    return c % WARP_BWD_CHANNELS == 0 and all(p % 16 == 0 for p in ptrs)
-
-
 def warp_bwd_blocks(pixels: int, lanes: int, n_acc: int, resident: int) -> int:
     """Blocks of the warp backward's persistent grid: enough for one pass of
-    the scatter (``lanes`` threads a pixel) or of the zeroing (4 of the
-    ``n_acc`` accumulator values a thread), at most the ``resident`` blocks
-    the card holds at once (SMs x blocks an SM)."""
+    the scatter (``lanes`` threads a pixel) or of the conversion (4 of the
+    ``n_acc`` accumulators a thread), at most the ``resident`` blocks the
+    card holds at once (SMs x blocks an SM) and ``WARP_BWD_MAX_BLOCKS``."""
     t = WARP_BWD_THREADS
-    return max(1, min(resident, max(-(-pixels * lanes // t), -(-(n_acc // 4) // t))))
+    need = max(-(-pixels * lanes // t), -(-(n_acc // 4) // t))
+    return max(1, min(resident, WARP_BWD_MAX_BLOCKS, need))
+
+
+def warp_bwd_scratch(n_acc: int, b: int) -> int:
+    """int64 elements of the warp backward's scratch for ``n_acc`` values of
+    df1 in ``b`` images: the fixed-point accumulators, the non-finite
+    classes (2 bits an element), phase 0's largest |g| (a 32-bit word a
+    block and image, at most ``WARP_BWD_MAX_BLOCKS + b``) and each image's
+    scale (a 32-bit word)."""
+    return n_acc + -(-n_acc // 32) + WARP_BWD_MAX_BLOCKS // 2 + b
+
+
+def warp_bwd_scale(max_abs_g: float, ho: int, w: int) -> int:
+    """The exponent ``s`` of an image's fixed point in the warp backward:
+    each term ``w * g`` of its df1 becomes the integer ``rint(w * g *
+    2**s)``. With ``max_abs_g = m * 2**e`` (``math.frexp``, m in [0.5, 1))
+    and ``4 Ho W <= 2**k``, ``s = 62 - k - e``, so that ``4 Ho W max|g|
+    2**s < 2**62``: the sum stays inside an int64 even where every pixel of
+    the image puts all four corners on one element. ``max_abs_g`` is the
+    image's largest finite |g| over the rows that scatter (0 gives ``e =
+    0``; every term is 0)."""
+    k = (4 * ho * w - 1).bit_length()
+    return WARP_BWD_SUM_BITS - k - math.frexp(max_abs_g)[1]
 
 
 def warp_bwd_live_rows(ho: int, row0: int, vlo: int, vhi: int) -> torch.Tensor:

@@ -27,8 +27,12 @@ frame, dflow over the h + 2d rows. The plain versions are
 ``warped_cost_volume_global_plain`` and ``warped_rows_bwd_plain``.
 
 K5 and K9b are one cooperative kernel a call and no other device
-operation: it zeroes its float32 accumulator (``df1`` itself in float32, a
-scratch buffer in bf16), scatters, and in bf16 rounds into ``df1``.
+operation. It sums ``df1`` in 64-bit fixed point (each term ``w * g``
+scaled by ``2**_common.warp_bwd_scale(max|g| of its image, Ho, W)`` and
+rounded to an integer) in an int64 scratch buffer, so ``df1`` has the same
+bits in every launch, and an image's the same whatever images share its
+batch; a term that is not finite gives its element the class of the float
+sum (+Inf, -Inf or NaN).
 """
 
 from __future__ import annotations
@@ -95,25 +99,24 @@ def _forward(f0, f1, flow, d: int, save: bool):
 
 
 def _bwd_outputs(name: str, f1: torch.Tensor, g: torch.Tensor):
-    """``(df1, scratch)`` of a warp backward launch: in float32 the kernel
-    accumulates into ``df1`` (no scratch), in bf16 into a float32 scratch
-    buffer. The kernel zeroes either itself; nothing is zeroed here. Its
-    offsets are 32-bit: ``f1`` and ``g`` hold at most 2**30 elements."""
+    """``(df1, scratch)`` of a warp backward launch: the int64 scratch holds
+    the fixed-point sums, their non-finite classes, phase 0's words and the
+    images' scales (``_common.warp_bwd_scratch``); the kernel zeroes what
+    it needs zeroed itself. Its
+    element offsets are 32-bit: ``f1`` and ``g`` hold at most 2**30
+    elements (the scratch, 8 bytes an element, is addressed in 64 bits)."""
     if max(f1.numel(), g.numel()) > 2**30:
         raise ValueError(f"{name}: f1 {tuple(f1.shape)} or g {tuple(g.shape)} holds more than 2**30 elements")
-    df1 = torch.empty_like(f1)
-    if f1.dtype == torch.float32:
-        return df1, None
-    return df1, torch.empty(f1.shape, dtype=torch.float32, device=f1.device)
+    scratch = torch.empty(_common.warp_bwd_scratch(f1.numel(), f1.shape[0]), dtype=torch.int64, device=f1.device)
+    return torch.empty_like(f1), scratch
 
 
 def warp_bwd(f1: torch.Tensor, flow: torch.Tensor, g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K5: ``(df1, dflow)`` of ``bilinear_warp(f1, flow)`` for the cotangent
     ``g`` of the warped map.
 
-    ``df1`` is summed with float32 atomics, so its last bits vary from run
-    to run. A CPU tensor goes to the plain version; a CUDA tensor to the
-    kernel.
+    ``df1`` is summed in fixed point, the same bits in every launch. A CPU
+    tensor goes to the plain version; a CUDA tensor to the kernel.
     """
     if f1.device.type == "cpu":
         return warp_bwd_plain(f1, flow, g)
@@ -125,11 +128,11 @@ def warp_bwd(f1: torch.Tensor, flow: torch.Tensor, g: torch.Tensor) -> tuple[tor
         )
     b, h, w, c = f1.shape
     code = _common.DTYPE_CODES[f1.dtype]
-    df1, acc = _bwd_outputs("warp_bwd", f1, g)
+    df1, scratch = _bwd_outputs("warp_bwd", f1, g)
     dflow = torch.empty_like(flow)
     _common.launch(
         "warp_bwd", "pwc_warp_bwd", _BWD_ARGTYPES, f1.device,
-        f1.data_ptr(), flow.data_ptr(), g.data_ptr(), acc if acc is None else acc.data_ptr(),
+        f1.data_ptr(), flow.data_ptr(), g.data_ptr(), scratch.data_ptr(),
         df1.data_ptr(), dflow.data_ptr(),
         b, h, w, c, _common.warp_bwd_lanes(c), code,
     )
@@ -240,8 +243,8 @@ def warped_rows_bwd_plain(f1_full, flow_ext, vb, dwe, search_range: int = 4):
 def warped_rows_bwd(f1_full, flow_ext, vb, dwe, search_range: int = 4):
     """K9b: ``(df1_full, dflow_ext)`` for the cotangent ``dwe`` of K9's
     h + 2d warped rows: the warp backward on the whole frame, the rows
-    outside ``vb`` reading their cotangent as zero, its ``df1`` summed with
-    float32 atomics (run-to-run variation in the last bits, as K5). A CPU
+    outside ``vb`` reading their cotangent as zero, its ``df1`` summed in
+    fixed point as K5's (the same bits in every launch). A CPU
     tensor goes to the plain version, which zeroes those rows of ``dwe`` in
     place; a CUDA tensor to the kernel, which leaves ``dwe`` as it is."""
     if f1_full.device.type == "cpu":
@@ -258,11 +261,11 @@ def warped_rows_bwd(f1_full, flow_ext, vb, dwe, search_range: int = 4):
             f"dwe {tuple(dwe.shape)} must be (B, Hf, W, C), (B, h + 2d, W, 2) and (B, h + 2d, W, C)"
         )
     code = _common.DTYPE_CODES[f1_full.dtype]
-    df1, acc = _bwd_outputs("warped_rows_bwd", f1_full, dwe)
+    df1, scratch = _bwd_outputs("warped_rows_bwd", f1_full, dwe)
     dflow = torch.empty_like(flow_ext)
     _common.launch(
         "warp_bwd", "pwc_warp_bwd_rows", _ROWS_BWD_ARGTYPES, f1_full.device,
-        f1_full.data_ptr(), flow_ext.data_ptr(), dwe.data_ptr(), acc if acc is None else acc.data_ptr(),
+        f1_full.data_ptr(), flow_ext.data_ptr(), dwe.data_ptr(), scratch.data_ptr(),
         df1.data_ptr(), dflow.data_ptr(),
         b, ho, hf, w, c, -d, *_rows(vb), _common.warp_bwd_lanes(c), code,
     )

@@ -11,6 +11,7 @@ and bf16.
 
     python3 scripts/torch_f32_conv_time.py [--old <dir holding an older csrc/>] [--rounds 2]
                                            [--kernels K3 K6 K7 K4 K5] [--old-k7b tap-major|packed]
+                                           [--k5-lanes 4 8 16 32]
 
 ``--old`` is the ``pwcnet_tpu_torch/csrc`` directory of an earlier commit
 (for example unpacked by ``git archive``); its sources of the chosen
@@ -35,9 +36,12 @@ one kernel, each given in device time by torch.profiler too); K5 at the
 training step's four warped calls and K9b on the second of two shards of
 the same frames, with two edge frames checked only, in float32 and bf16,
 beside grid_sample's backward (``aten::grid_sampler_2d_backward``); the
-old K5 / K9b call is what the old wrapper launched (the accumulator's
-zeros, K9b's row fills, the kernel, in bf16 the rounding kernel), the
-current one also by a bare ctypes call, and each call's device
+old K5 / K9b call is the float-atomic body of before the fixed-point sum
+(one cooperative kernel, a float32 scratch in bf16, 4 channels a lane:
+the interface ``pwc_warp_bwd(f1, flow, g, acc, df1, dflow, B, H, W, C,
+lanes, dtype, stream)`` with its own lane rule), the current one also by
+a bare ctypes call at each lane count that ``--k5-lanes`` names, and each
+call's device
 operations are given in device time and by "queued" events (the calls
 queued behind a sleeping kernel, so the host is out of the way and the
 gaps between a call's kernels count). The old
@@ -136,7 +140,9 @@ K7B_ARGTYPES = {"tap-major": [P, P, PP, PP, PP, P, IP] + [I] * 4 + [P],
 def build_old(old: Path, tmp: Path, kernels, k7b_abi: str = "tap-major") -> dict:
     """Compile the old sources of ``kernels`` into ``tmp``; returns source
     name -> CDLL, the old K7b called through the interface ``k7b_abi``."""
-    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    # -fno-gnu-unique: a function-local static of a template (the cooperative K5's resident-block
+    # cache) would otherwise be one object for the old and the current library in this process
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")] + ["-Xcompiler", "-fno-gnu-unique"]
     procs = {}
     for name in [src for kid in kernels for src in SOURCES[kid]]:
         out = tmp / f"lib{name}_old.so"
@@ -154,8 +160,8 @@ def build_old(old: Path, tmp: Path, kernels, k7b_abi: str = "tap-major") -> dict
         ("estimator_conv", "pwc_estimator_chain"): [P, PP, PP, PP, P, IP] + [I] * 4 + [P],
         ("cost_volume_bwd", "pwc_cost_volume_bwd"): [P] * 6 + [I] * 6 + [P],
         ("cost_volume_bwd", "pwc_cost_volume_hpad_bwd"): [P] * 6 + [I] * 6 + [P],
-        ("warp_bwd", "pwc_warp_bwd"): [P] * 6 + [I] * 5 + [P],
-        ("warp_bwd", "pwc_warp_bwd_rows"): [P] * 6 + [I] * 7 + [P],
+        ("warp_bwd", "pwc_warp_bwd"): [P] * 6 + [I] * 6 + [P],
+        ("warp_bwd", "pwc_warp_bwd_rows"): [P] * 6 + [I] * 10 + [P],
     }
     if "estimator_conv_bwd" in libs:
         argtypes["estimator_conv_bwd", "pwc_estimator_chain_bwd"] = K7B_ARGTYPES[k7b_abi]
@@ -587,14 +593,26 @@ def run_k4(libs, gen, dev, stream, rounds):
                     emit(kernel=kid, variant=variant, shape=shape, per_kernel=conv_split(call, ("cv_bwd_kernel",)))
 
 
-def run_k5(libs, gen, dev, stream, rounds):
+def old_k5_lanes(c):
+    """The lanes a pixel of the float-atomic K5 body: its 4-channel vectors,
+    rounded up to a power of two, at most a warp, at most 8 up to C = 64."""
+    vectors, lanes = -(-c // 4), 1
+    while lanes < min(vectors, 8 if c <= 64 else 32):
+        lanes *= 2
+    return lanes
+
+
+def run_k5(libs, gen, dev, stream, rounds, lane_counts=()):
     """K5 and K9b, old against current, float32 and bf16. The old call is
-    what the old wrapper launched: the float32 accumulator's zeros (and for
-    K9b the two row fills), the kernel, in bf16 the rounding kernel. Each
-    call's largest difference first (float32 atomics: the last bits vary
-    from run to run), then old, current and grid_sample's backward by
-    events in alternating rounds, then each call's device operations by
-    device time (torch.profiler)."""
+    the float-atomic body (its float32 scratch in bf16 allocated once,
+    outside the timing), the current one goes through the wrapper and, at
+    each of ``lane_counts`` (and the wrapper's own), by a bare ctypes call on
+    a scratch allocated once. Each call's largest difference first (the old
+    float32 atomics vary in their last bits from run to run), whether the
+    current call gives the same bits twice and at every lane count, then
+    old, current and grid_sample's backward by events in alternating
+    rounds, then each call's device operations by device time
+    (torch.profiler) and queued events."""
     from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd, warped_rows_bwd
 
     d = 4
@@ -611,54 +629,59 @@ def run_k5(libs, gen, dev, stream, rounds):
             if tall:  # the second of two shards: its rows of the frame, its offset in the flow
                 vb, row0 = (-h, hf - 1 - h), -d
                 flow[..., 1] += h
-                live = _common.warp_bwd_live_rows(ho, row0, *vb).to(dev)[None, :, None, None]
-                g = g * live.to(dtype)  # the rows the old wrapper zeroed, so both read the same g
                 turns = {"current": lambda: warped_rows_bwd(f1, flow, vb, g, d)}
             else:
                 flow, row0 = flow.to(dtype), 0
                 turns = {"current": lambda: warp_bwd(f1, flow, g)}
+            dims = (b, ho, hf, w, c, row0, *vb) if tall else (b, hf, w, c)
             shape = f"{label} {dname} {b}x{ho}x{w}x{c}" + (f" of {hf}" if tall else "")
+            cur = _common.kernel("warp_bwd", "pwc_warp_bwd_rows" if tall else "pwc_warp_bwd",
+                                 [P] * 6 + [I] * (10 if tall else 6) + [P])[0]
+            scratch = torch.empty(_common.warp_bwd_scratch(f1.numel(), b), dtype=torch.int64, device=dev)
+            df1_b, dflow_b = torch.empty_like(f1), torch.empty_like(flow)
+
+            def bare(lanes=_common.warp_bwd_lanes(c)):  # the current kernel by a bare ctypes call
+                if cur(f1.data_ptr(), flow.data_ptr(), g.data_ptr(), scratch.data_ptr(), df1_b.data_ptr(),
+                       dflow_b.data_ptr(), *dims, lanes, code, stream()):
+                    raise SystemExit(f"the current {kid} failed to launch")
+                return df1_b, dflow_b
+
+            new = [t.clone() for t in turns["current"]()]
+            again = turns["current"]()
+            by_lanes = {}
+            for lanes in sorted({_common.warp_bwd_lanes(c), *lane_counts}):  # dflow's order follows the lanes
+                by_lanes[lanes] = [torch.equal(x, y) for x, y in zip(new, bare(lanes))]
+            torch.cuda.synchronize()
+            emit(kernel=kid, check="current twice and by lanes", shape=shape,
+                 bitwise_twice=all(torch.equal(x, y) for x, y in zip(new, again)),
+                 df1_bitwise_by_lanes={k: v[0] for k, v in by_lanes.items()},
+                 dflow_bitwise_by_lanes={k: v[1] for k, v in by_lanes.items()})
             if libs:
                 lib = libs["warp_bwd"]
                 df1, dflow = torch.empty_like(f1), torch.empty_like(flow)
+                acc = torch.empty(f1.shape, dtype=torch.float32, device=dev) if code else None
+                lanes_old = old_k5_lanes(c)
 
                 def old():
-                    acc = torch.zeros(f1.shape, dtype=torch.float32, device=dev)
-                    out = acc if code == 0 else df1
-                    if tall:
-                        g[:, : max(0, vb[0] + d)] = 0
-                        g[:, max(0, vb[1] + d + 1):] = 0
-                        err = lib.pwc_warp_bwd_rows(f1.data_ptr(), flow.data_ptr(), g.data_ptr(), acc.data_ptr(),
-                                                    out.data_ptr(), dflow.data_ptr(), b, ho, hf, w, c, row0, code,
-                                                    stream())
-                    else:
-                        err = lib.pwc_warp_bwd(f1.data_ptr(), flow.data_ptr(), g.data_ptr(), acc.data_ptr(),
-                                               out.data_ptr(), dflow.data_ptr(), b, hf, w, c, code, stream())
+                    args = (f1.data_ptr(), flow.data_ptr(), g.data_ptr(), acc.data_ptr() if code else None,
+                            df1.data_ptr(), dflow.data_ptr())
+                    fn = lib.pwc_warp_bwd_rows if tall else lib.pwc_warp_bwd
+                    err = fn(*args, *dims, lanes_old, code, stream())
                     if err:
-                        raise SystemExit(f"the old {kid} failed to launch")
-                    return out, dflow
-
-                cur = _common.kernel("warp_bwd", "pwc_warp_bwd_rows" if tall else "pwc_warp_bwd",
-                                     [P] * 6 + [I] * (10 if tall else 6) + [P])[0]
-                df1_b, dflow_b = torch.empty_like(f1), torch.empty_like(flow)
-                acc_b = torch.empty(f1.shape, dtype=torch.float32, device=dev) if code else None
-                lanes = _common.warp_bwd_lanes(c)
-                ptrs_b = (f1.data_ptr(), flow.data_ptr(), g.data_ptr(), acc_b.data_ptr() if code else None,
-                          df1_b.data_ptr(), dflow_b.data_ptr())
-
-                def bare():  # the current kernel by a bare ctypes call, as the old one is called
-                    dims = (b, ho, hf, w, c, row0, *vb) if tall else (b, hf, w, c)
-                    if cur(*ptrs_b, *dims, lanes, code, stream()):
-                        raise SystemExit(f"the current {kid} failed to launch")
+                        raise SystemExit(f"the old {kid} failed to launch: CUDA error {err}")
+                    return df1, dflow
 
                 got_old = old()
-                new = turns["current"]()
                 torch.cuda.synchronize()
                 emit(kernel=kid, check="old vs current", shape=shape,
                      max_abs_diff={k: (o.float() - n.float()).abs().max().item()
                                    for k, o, n in zip(("df1", "dflow"), got_old, new)},
                      scale={k: n.float().abs().max().item() for k, n in zip(("df1", "dflow"), new)})
-                turns = {"old": old, **turns, "current bare": bare}
+                turns = {"old": old, **turns}
+            turns["current bare"] = bare
+            for lanes in lane_counts:
+                if lanes != _common.warp_bwd_lanes(c):
+                    turns[f"current bare, {lanes} lanes"] = lambda lanes=lanes: bare(lanes)
             if label == "edge":
                 continue
             turns["grid_sample"] = grid_sample_bwd(torch, f1, flow, g, row0)
@@ -683,6 +706,8 @@ def main():
                     help="which kernels (K7 includes K7b, K4 K8b, K5 K9b)")
     ap.add_argument("--old-k7b", choices=tuple(K7B_ARGTYPES), default="tap-major",
                     help="the C interface of the old K7b: tap-major (before the wgmma body) or packed")
+    ap.add_argument("--k5-lanes", type=int, nargs="*", default=(),
+                    help="K5 / K9b: also time the current body at these lanes a pixel (powers of two up to 32)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA card")
@@ -693,7 +718,8 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    runs = {"K3": run_k3, "K6": run_k6, "K7": lambda *a: (run_k7(*a), run_k7_bf16(*a)), "K4": run_k4, "K5": run_k5}
+    runs = {"K3": run_k3, "K6": run_k6, "K7": lambda *a: (run_k7(*a), run_k7_bf16(*a)), "K4": run_k4,
+            "K5": lambda *a: run_k5(*a, lane_counts=args.k5_lanes)}
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_old(args.old.resolve(), Path(tmp), args.kernels, args.old_k7b) if args.old else {}
         with torch.inference_mode():

@@ -380,10 +380,10 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("shape,fscale", [((2, 14, 33, 32), 3.0), ((1, 10, 12, 5), 40.0), ((1, 12, 14, 128), 0.4),
                                               ((1, 9, 13, 40), 6.0), ((2, 8, 10, 96), 3.0), ((1, 5, 7, 304), 3.0)])
     def test_warp_bwd(self, cuda_device, rng, dtype, shape, fscale):
-        """K5 in one launch, against its plain version: 4-channel vectors,
-        a pixel's last sector half-filled (40 channels: 10 vectors), idle
-        lanes (96: 24 vectors on 32 lanes), lanes that loop (304) and the
-        scalar tail (5)."""
+        """K5 in one launch, against its plain version: a whole warp a
+        pixel (32, 40, 96, 128: lanes that loop), 8 lanes of which 3 idle
+        (5) and lanes that loop ten times (304); a second launch gives the
+        same bits (df1 summed in fixed point)."""
         from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd
         from pwcnet_tpu_torch.ops.warp import warp_bwd_plain
 
@@ -396,6 +396,77 @@ class TestKernelsOnCard:
         assert warp_bwd.launches == before + 1
         for a, b in zip(got, warp_bwd_plain(f1, flow, g)):
             _assert_close(a, b, dtype)
+        assert all(torch.equal(a, b) for a, b in zip(got, warp_bwd(f1, flow, g)))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("case", ["nan", "+inf", "-inf", "+inf and -inf"])
+    @pytest.mark.parametrize("kid", ["K5", "K9b"])
+    def test_warp_bwd_non_finite_g(self, cuda_device, rng, dtype, case, kid):
+        """NaN in g, or +Inf and -Inf whose corners meet, give NaN; +Inf or
+        -Inf alone the infinity: element by element the class of the plain
+        version's float32 sum, the finite elements within tolerance, the
+        same bits in a second launch."""
+        from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd, warped_rows_bwd, warped_rows_bwd_plain
+        from pwcnet_tpu_torch.ops.warp import warp_bwd_plain
+
+        b, h, w, c, d = 2, 8, 9, 40, 2
+        f1 = torch.from_numpy(_normal(rng, (b, h, w, c))).to(cuda_device, dtype)
+        ho = h if kid == "K5" else h // 2 + 2 * d
+        flow = torch.from_numpy(0.3 + 0.2 * rng.random((b, ho, w, 2)).astype(np.float32)).to(cuda_device)
+        g = torch.from_numpy(_normal(rng, (b, ho, w, c))).to(cuda_device, dtype)
+        row = 3 + d if kid == "K9b" else 3
+        if case == "+inf and -inf":  # corners p, p+1, p+W, p+W+1: two elements meet
+            g[1, row, 4, 7], g[1, row, 5, 7] = float("inf"), float("-inf")
+        else:
+            g[1, row, 4, 7] = {"nan": float("nan"), "+inf": float("inf"), "-inf": float("-inf")}[case]
+        if kid == "K5":
+            flow = flow.to(dtype)
+            run, plain = (lambda: warp_bwd(f1, flow, g)), (lambda: warp_bwd_plain(f1, flow, g))
+        else:
+            vb = (0, h - 1)  # the first of two shards of an h-row frame: rows [-d, h/2 + d) read the frame
+            run = lambda: warped_rows_bwd(f1, flow, vb, g, d)  # noqa: E731
+            plain = lambda: warped_rows_bwd_plain(f1, flow, vb, g.clone(), d)  # noqa: E731
+        got, again, want = run(), run(), plain()
+        torch.cuda.synchronize()
+        ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}  # bits: NaN equals itself
+        assert all(torch.equal(a.view(ints[a.dtype]), e.view(ints[e.dtype])) for a, e in zip(got, again))
+        df1, want_df1 = got[0].float(), want[0].float()
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(test(df1), test(want_df1))
+        bad = ~torch.isfinite(want_df1)
+        assert bad.sum().item() == (6 if case == "+inf and -inf" else 4)
+        _assert_close(got[0][~bad], want[0][~bad], dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("kid", ["K5", "K9b"])
+    def test_warp_bwd_each_image_its_own_scale(self, cuda_device, rng, dtype, kid):
+        """One image's g at 1e-8 of the others': each image's df1 and dflow
+        have the bits of a call on that image alone, and the small image's
+        df1 is within tolerance of its own scale (float32 1e-5 of its
+        largest entry, bf16 2 ulps) of the plain version."""
+        from pwcnet_tpu_torch.ops.cuda.warped_cv import warp_bwd, warped_rows_bwd, warped_rows_bwd_plain
+        from pwcnet_tpu_torch.ops.warp import warp_bwd_plain
+
+        b, h, w, c, d = 3, 24, 28, 16, 4
+        f1 = torch.from_numpy(_normal(rng, (b, h, w, c))).to(cuda_device, dtype)
+        ho = h if kid == "K5" else h // 2 + 2 * d
+        flow = torch.from_numpy(_normal(rng, (b, ho, w, 2), 3.0)).to(cuda_device)
+        g = torch.from_numpy(_normal(rng, (b, ho, w, c))).to(cuda_device, dtype)
+        g[1] *= 1e-8
+        if kid == "K5":
+            flow = flow.to(dtype)
+            run = lambda i: warp_bwd(f1[i], flow[i], g[i])  # noqa: E731
+            want = warp_bwd_plain(f1, flow, g)[0]
+        else:
+            vb = (0, h - 1)
+            run = lambda i: warped_rows_bwd(f1[i], flow[i], vb, g[i], d)  # noqa: E731
+            want = warped_rows_bwd_plain(f1, flow, vb, g.clone(), d)[0]
+        got = run(slice(None))
+        for i in range(b):
+            assert all(torch.equal(a[i : i + 1], e) for a, e in zip(got, run(slice(i, i + 1))))
+        scale = want[1].float().abs().max().item()
+        tol = 1e-5 * scale if dtype == torch.float32 else 2 * scale / 128
+        assert (got[0][1].float() - want[1].float()).abs().max().item() <= tol
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("need_dx", [True, False])
@@ -497,8 +568,8 @@ class TestKernelsOnCard:
     def test_remat_step_reruns_k3_and_k7(self, cuda_device, rng, dtype):
         """PWCDCNet(remat=True) with the kernels (K7 on 2 levels) at 128x192
         B=2: the loss as without remat (rtol 1e-6), the gradients within
-        1e-4 of each tensor's largest entry in float32 (the backwards differ
-        only by K5's atomics) and at cosine 0.999 in bf16; K3 8, K7 4 and
+        1e-4 of each tensor's largest entry in float32 (the backwards run
+        other cuDNN calls) and at cosine 0.999 in bf16; K3 8, K7 4 and
         K7b 2 launches a step. Then batched_pyramid: K3 2 a forward, the
         flow as two pyramid calls give it."""
         from pwcnet_tpu_torch.models import PWCDCNet
@@ -846,6 +917,7 @@ class TestKernelsOnCard:
         for a, e in zip(got, want):
             _assert_close(a, e, dtype)
         assert not got[1][:, h + d:].any()  # rows past the frame: no dflow
+        assert all(torch.equal(a, e) for a, e in zip(got, warped_rows_bwd(full, flow, vb, dwe, d)))
 
     def test_autograd_runs_the_shard_kernels(self, cuda_device, rng):
         """A gradient through K8 and K9 launches K8b and K9b and equals
