@@ -81,21 +81,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the step with ``PWCDCNet(remat=True)`` (the pyramid, estimators and
    context net under ``torch.utils.checkpoint``, so the backward reruns K3
    and K7): at B=4 its loss (rtol 1e-6) and every gradient against the step
-   without remat on the same weights (float32 within 1e-4 of each tensor's
-   largest entry, bf16 at [train]'s gates; both bitwise with cuDNN's
-   deterministic algorithms), with and without K7 on 2
+   without remat on the same weights, one step each through
+   ``make_train_step`` with the gradients read by hooks (float32 within
+   1e-4 of each tensor's largest entry, bf16 at [train]'s gates, and both
+   bitwise), with and without K7 on 2
    levels; five steps at B=8 with a falling loss and K1 4x, K2 1x, K3 8x,
    K4 5x, K5 4x, K6 4x per step (with K7 on 2 levels also K7 4x, K7b 2x);
-   ms per step and peak memory with and without remat at B=8 and B=32 in
-   both dtypes, and the remat step's profile (reported); the largest
+   ms per step and peak memory with and without remat at B=8 (in turns)
+   and B=32 (one turn a side) in both dtypes, and the remat step's profile
+   (reported); the largest
    gradient difference of remat against no remat is printed. Then
    ``[determinism]``: two
-   float32 and two bf16 train steps at 384x448 B=8 with the kernels, from
-   one state and batch, by default, with ``cudnn.deterministic`` and under
+   float32 and two bf16 train steps at 384x448 B=8 through
+   ``make_train_step``, each from a fresh state of one seed on one batch,
+   with no flag set here, on six paths (the kernels, the plain path,
+   ``use_fused=False``, the nearest warp, ``--remat``, the legacy
+   ``PWCNet`` with BatchNorm under ``train=True``): every parameter, first
+   moment and buffer must be bitwise the same and ``cudnn.deterministic``
+   the caller's after the step; the kernel path once more under
    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (the ops it
-   warns about listed): the parameter tensors that come out identical and
-   the largest difference (reported, not gated: ``[kernels]``'
-   ``check_determinism`` is the bitwise gate on the port's kernels). Then
+   warns about listed, reported). Then
    ``[converge]``: the SyntheticFlow convergence proof
    (``pwcnet_tpu_torch/train_lib/convergence.py``: 3 levels, 32x32, B=8)
    with the kernels from port seed ``CONVERGE_SEED``, a seed whose four
@@ -105,8 +110,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``CONVERGE_PER_STEP`` (K3 8 under remat); one line per case with its
    steps, EPE, seconds and whether it ended on the 1.862 px constant flow
    (where a failing case from an init that did not escape it ends), each
-   EPE also in full precision (repr), and the multiscale case on the plain
-   path as a witness (reported, not gated);
+   EPE also in full precision (repr); the multiscale case again, its EPE's
+   repr and every parameter bitwise the first run's; and the multiscale
+   case on the plain path as a witness (reported, not gated);
 6. trainer: a FlyingChairs-layout dataset (P6 .ppm pairs and .flo files,
    384x512, a seeded texture shifted by a known flow) is written under a
    temporary directory with numpy alone, and ``pwcnet_tpu_torch.train.main``
@@ -119,7 +125,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``pwcnet_tpu_torch.evaluate.main`` must give the same EPE with the
    kernels on and off; one epoch with ``--remat`` must launch its kernels
    as above per step, log finite losses and write a ``model_1.msgpack``
-   that ``FlowPredictor`` serves; then the loader alone and one more epoch
+   that ``FlowPredictor`` serves; two one-epoch float32 runs from one seed
+   report whether their ``model_1.msgpack`` are byte-identical (and their
+   first batches' SHA-1s); then the loader alone and one more epoch
    with ``--fused-estimator 0`` are timed;
 7. spatial: H-sharding on the one card. In ``[kernels]`` K8 and K8b (the
    cost volume of a row shard against halo-extended rows, and its
@@ -1849,8 +1857,9 @@ def converge_phase(torch, card, device):
     """The SyntheticFlow convergence proof on the card with the kernels:
     its four cases from port seed ``CONVERGE_SEED``, each gated at 0.5 px,
     the launches of every step counted against the 3-level model's; the
-    multiscale case on the plain path from the same seed as a witness
-    (reported, not gated)."""
+    multiscale case again, gated bitwise (its EPE's repr and every final
+    parameter); the multiscale case on the plain path from the same seed as
+    a witness (reported, not gated)."""
     from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from pwcnet_tpu_torch.train_lib import convergence as conv
 
@@ -1884,8 +1893,22 @@ def converge_phase(torch, card, device):
             f"{'on' if r['constant_flow'] else 'off'} the {conv.constant_flow_epe(dset):.4f} px constant flow "
             f"(training batch EPE every 50 steps: {curves[name]}) on {card}")
         res[name]["batch_epe_every_50"] = curves[name]
+    # the multiscale case again: the same EPE bits and every parameter bitwise the first run's
+    first = res["multiscale"]
+    again = conv.run_cases(params, device, use_kernels=True, cases=("multiscale",))["multiscale"]
+    same = sum(torch.equal(v, again["params"][k]) for k, v in first["params"].items())
+    rerun = {"epe": again["epe"], "seconds": again["seconds"], "identical_params": same,
+             "params": len(first["params"])}
+    log(f"  multiscale rerun with the kernels: full-set EPE {float(again['epe'])!r} px (first run "
+        f"{float(first['epe'])!r}), {same}/{len(first['params'])} parameters bitwise the first run's, "
+        f"{again['seconds']:.1f} s")
+    require(repr(float(again["epe"])) == repr(float(first["epe"])) and same == len(first["params"]),
+            "[converge] the multiscale rerun differs from the first run")
+    for r in (*res.values(), again):
+        del r["params"]
     on_start("witness")
     witness = conv.run_cases(params, device, use_kernels=False, cases=("multiscale",))["multiscale"]
+    del witness["params"]
     require(not any(launch_counts().values()), "the plain witness launched a kernel")
     log(f"  witness, plain path: multiscale {witness['steps']} steps, full-set EPE {witness['epe']:.4f} px, "
         f"{witness['seconds']:.1f} s (reported, not gated) on {card}")
@@ -1895,7 +1918,8 @@ def converge_phase(torch, card, device):
                 + ("the constant-flow state: the init did not escape it" if res[name]["constant_flow"]
                    else "not the constant-flow state") + ")")
     total = {k: sum(c.get(k, 0) for c in counts.values()) for k in KERNEL_INFO}
-    return total, {"seed": CONVERGE_SEED, "kernels": res, "plain_multiscale": witness}
+    return total, {"seed": CONVERGE_SEED, "kernels": res, "plain_multiscale": witness, "rerun": rerun,
+                   "rerun_bitwise": rerun["identical_params"] == rerun["params"]}
 
 
 def load_script(name):
@@ -1938,19 +1962,43 @@ def train_batch(torch, np, device, b, seed=20):
     return images, torch.as_tensor(base + 0.5 * wobble).to(device)
 
 
-def train_model(torch, compute_dtype, use_kernels, seed=0, fused_estimator=0, remat=False):
+def train_model(torch, compute_dtype, use_kernels, seed=0, fused_estimator=0, remat=False, fused=True,
+                warp_type="bilinear"):
     """The default PWCDCNet as the JAX trainer builds it with --pallas: K2 at
     level 0, K1 at levels 1-4, K3 on the two finest pyramid levels, and K7 on
-    the ``fused_estimator`` finest estimator levels; ``remat`` as --remat."""
+    the ``fused_estimator`` finest estimator levels; ``remat`` as --remat.
+    ``fused=False`` (the trainer's ``use_fused`` off, and always with
+    ``warp_type='nearest'``): the plain warp and K2 at every level."""
     from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
     from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
     from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
 
     hooks = {}
     if use_kernels:
-        hooks = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume, fused_pyramid_levels=2,
-                     fused_estimator_levels=fused_estimator)
-    return PWCDCNet(compute_dtype=compute_dtype, generator=torch.Generator().manual_seed(seed), remat=remat, **hooks)
+        hooks = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume if fused else None,
+                     fused_pyramid_levels=2, fused_estimator_levels=fused_estimator)
+    return PWCDCNet(compute_dtype=compute_dtype, generator=torch.Generator().manual_seed(seed), remat=remat,
+                    warp_type=warp_type, **hooks)
+
+
+def legacy_train_model(torch, compute_dtype, seed=0):
+    """The legacy PWCNet (6 levels, 'final', BatchNorm, K2's wrapper as its
+    cost volume) as ``make_train_step`` calls a model: with ``train=True``
+    (BatchNorm on the batch's statistics, the running ones updated), giving
+    (final flow, per-level flows)."""
+    from pwcnet_tpu_torch.models.pwcnet import PWCNet
+
+    class Trained(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.net = PWCNet(batch_norm=True, compute_dtype=compute_dtype,
+                              generator=torch.Generator().manual_seed(seed))
+
+        def forward(self, images_0, images_1):
+            final, flows, _ = self.net(images_0, images_1, train=True)
+            return final, flows
+
+    return Trained()
 
 
 def train(torch, np, device):
@@ -2058,29 +2106,35 @@ def remat_phase(torch, np, device):
     against the step without remat on the same weights, (b) five counted
     steps, (c) step time and peak memory with and without it (reported)."""
     from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
-    from pwcnet_tpu_torch.train_lib.step import create_train_state, make_loss_fn, make_train_step
+    from pwcnet_tpu_torch.train_lib.step import create_train_state, make_train_step
 
     dtypes = (torch.bfloat16, torch.float32)
     stats = {"agreement": {}, "steps": {}, "timing": {}, "profile": {}}
 
-    # -- (a) B=4, one seed, so the same weights: the forward runs the same
-    # deterministic kernels with and without remat, so the loss should be
-    # bitwise the same (gated at rtol 1e-6). The backwards run the same
-    # kernels, all of which give the same bits on the same inputs (K5 sums
-    # in fixed point), and cuDNN, whose default algorithms promise no bits:
-    # an H100 read float32 differences up to 1.9e-6 on
-    # optflow_0.conv2d_4.bias (9.9e-7 of a tensor's largest entry). So the
-    # default pass prints the largest difference and its tensor and gates
-    # float32 within 1e-4 of each tensor's largest entry, bf16 at [train]'s
-    # gates; a second pass with cuDNN's deterministic algorithms (inside
-    # this phase only) gates both dtypes at 0
+    # -- (a) B=4, one seed, so the same weights, one step through
+    # make_train_step each: the forward runs the same kernels with and
+    # without remat, so the loss should be bitwise the same (gated at rtol
+    # 1e-6). The backwards run the same kernels, all of which give the same
+    # bits on the same inputs (K5 sums in fixed point), and cuDNN, which the
+    # step runs on its deterministic algorithms: every gradient, read by a
+    # hook on its parameter as autograd hands it to the step, must be
+    # bitwise the same in both dtypes (PR 18, before the step asked for
+    # them, read float32 differences up to 7.6e-6); the float32 gradients
+    # are also held within 1e-4 of each tensor's largest entry, bf16 at
+    # [train]'s gates
     images, flows_gt = train_batch(torch, np, device, 4)
 
     def grads(dt, fe, remat):
-        model = train_model(torch, dt, True, fused_estimator=fe, remat=remat).to(device)
-        total, _ = make_loss_fn(model, decoupled_wd=True)(images, flows_gt)
-        params = dict(model.named_parameters())
-        return total.detach(), dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+        model = train_model(torch, dt, True, fused_estimator=fe, remat=remat)
+        state = create_train_state(model, device=device)
+        got = {}
+        hooks = [p.register_hook(lambda g, k=k: got.__setitem__(k, g.detach().clone()))
+                 for k, p in model.named_parameters()]
+        _, metrics = make_train_step(model)(state, images, flows_gt)
+        for h in hooks:
+            h.remove()
+        require(len(got) == len(hooks), f"{len(got)} of {len(hooks)} gradients read")
+        return metrics["loss"], got
 
     def largest_diff(got, want):
         return max((((got[k] - w).abs().max().item(), k) for k, w in want.items()), default=(0.0, ""))
@@ -2095,30 +2149,17 @@ def remat_phase(torch, np, device):
             log(f"  {name} B=4, remat vs not: loss {float(out[True][0]):.6f} / {float(out[False][0]):.6f} "
                 f"(rel {loss_rel:.3e}, bitwise {bool(torch.equal(out[True][0], out[False][0]))}); gradients of "
                 f"{len(out[True][1])} tensors: worst max|diff|/max|g| {worst:.3e} ({worst_name}), |diff|/|g| "
-                f"{rel_l2:.3e}, cosine {cos:.7f}; largest |diff| {diff!r} ({diff_name or 'none'}), "
+                f"{rel_l2:.3e}, cosine {cos:.7f}; largest |diff| {diff!r} ({diff_name if diff else 'none'}), "
                 f"{sum(torch.equal(out[True][1][k], w) for k, w in out[False][1].items())} tensors bitwise equal")
             require(loss_rel <= 1e-6, f"{name}: the remat loss differs from the loss without it")
-            row = {"loss_rel": loss_rel, "worst_rel": worst, "rel_l2": rel_l2, "cosine": cos,
-                   "max_abs_diff": diff, "max_abs_diff_tensor": diff_name}
+            stats["agreement"][name] = {"loss_rel": loss_rel, "worst_rel": worst, "rel_l2": rel_l2, "cosine": cos,
+                                        "max_abs_diff": diff, "max_abs_diff_tensor": diff_name if diff else None}
             if dt == torch.float32:
                 require(worst <= 1e-4, f"{name}: remat and no-remat float32 gradients disagree")
             else:
                 require(rel_l2 <= 0.03 and cos >= 0.999 and worst <= 0.2,
                         f"{name}: remat and no-remat bfloat16 gradients disagree")
-            deterministic = torch.backends.cudnn.deterministic
-            torch.backends.cudnn.deterministic = True
-            try:
-                again = {remat: grads(dt, fe, remat)[1] for remat in (False, True)}
-            finally:
-                torch.backends.cudnn.deterministic = deterministic
-            row["max_abs_diff_cudnn_deterministic"], row["tensor_cudnn_deterministic"] = largest_diff(
-                again[True], again[False])
-            log(f"  {name} B=4, remat vs not with cudnn.deterministic: largest |diff| "
-                f"{row['max_abs_diff_cudnn_deterministic']!r} ({row['tensor_cudnn_deterministic'] or 'none'})")
-            require(row["max_abs_diff_cudnn_deterministic"] == 0.0,
-                    f"{name}: remat and no-remat gradients differ with cudnn.deterministic")
-            del again
-            stats["agreement"][name] = row
+            require(diff == 0.0, f"{name}: remat and no-remat gradients differ by {diff!r} ({diff_name})")
     del out
 
     # -- (b) five counted remat steps at B=8
@@ -2150,7 +2191,8 @@ def remat_phase(torch, np, device):
     for b in REMAT_BATCHES:
         images, flows_gt = (images, flows_gt) if b == 8 else train_batch(torch, np, device, b)
         for dt in dtypes:
-            for remat in (False, True, True, False):
+            # in turns at B=8; one turn a side at B=32, to keep the whole run inside its time
+            for remat in (False, True, True, False) if b == 8 else (False, True):
                 name = f"{dtype_name(dt)} B={b} {'remat' if remat else 'no remat'}"
                 model = train_model(torch, dt, True, remat=remat)
                 state = create_train_state(model, device=device)
@@ -2178,20 +2220,36 @@ def remat_phase(torch, np, device):
     for dt in dtypes:
         for b in REMAT_BATCHES:
             off, on = (stats["timing"][f"{dtype_name(dt)} B={b} {k}"] for k in ("no remat", "remat"))
-            log(f"  remat at 384x448 {dtype_name(dt)} B={b}: {sum(on['ms']) / 2:.2f} ms per step against "
-                f"{sum(off['ms']) / 2:.2f} ({100 * (sum(on['ms']) / sum(off['ms']) - 1):+.1f}%), peak memory "
+            log(f"  remat at 384x448 {dtype_name(dt)} B={b}: {sum(on['ms']) / len(on['ms']):.2f} ms per step against "
+                f"{sum(off['ms']) / len(off['ms']):.2f} ({100 * (sum(on['ms']) / sum(off['ms']) - 1):+.1f}%), peak memory "
                 f"{on['peak_mib']:.0f} MiB against {off['peak_mib']:.0f} ({100 * (on['peak_mib'] / off['peak_mib'] - 1):+.1f}%)")
     return {k: sum(c[k] for c in counts.values()) for k in got}, stats
 
 
+DETERMINISM_PATHS = ("kernels", "plain", "unfused", "nearest", "remat", "legacy")
+
+
+def determinism_model(torch, path, compute_dtype):
+    """The model of one of ``DETERMINISM_PATHS``: the default kernel path,
+    the plain path (no kernel), ``use_fused=False`` (the plain warp, K2 at
+    every level), the nearest warp (likewise), ``--remat`` with the kernels,
+    and the legacy PWCNet with BatchNorm under ``train=True``."""
+    if path == "legacy":
+        return legacy_train_model(torch, compute_dtype)
+    return train_model(torch, compute_dtype, path != "plain", remat=path == "remat",
+                       fused=path not in ("unfused", "nearest"),
+                       warp_type="nearest" if path == "nearest" else "bilinear")
+
+
 def determinism_phase(torch, np, device):
-    """Two train steps at 384x448 B=8 with the kernels from one seed's
-    state on one batch, in float32 and bf16: by default, with
-    ``cudnn.deterministic``, and under ``torch.use_deterministic_algorithms
-    (True, warn_only=True)``, whose warnings name the ops it has no
-    deterministic version of. Reported, not gated: the parameter tensors
-    (and Adam moments) that come out identical and the largest difference.
-    The bitwise gate on the port's kernels is ``check_determinism``."""
+    """Two train steps at 384x448 B=8 through ``make_train_step``, each from
+    a fresh state of one seed on one batch, in float32 and bf16, on each of
+    ``DETERMINISM_PATHS``, with no flag set here: every parameter, Adam first
+    moment and buffer (the legacy model's BatchNorm statistics) must come
+    out bitwise the same, and the step must leave ``cudnn.deterministic``
+    at the caller's value. Then the default path once more under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, whose
+    warnings name the ops it has no deterministic version of (reported)."""
     import warnings
 
     from pwcnet_tpu_torch.train_lib.step import create_train_state, make_train_step
@@ -2199,48 +2257,56 @@ def determinism_phase(torch, np, device):
     images, flows_gt = train_batch(torch, np, device, 8)
     stats = {}
 
-    def two_steps(dt):
+    def two_steps(path, dt):
         states = []
         for _ in range(2):
-            model = train_model(torch, dt, True)
+            model = determinism_model(torch, path, dt)
             state = create_train_state(model, device=device)
+            caller = torch.backends.cudnn.deterministic
             state, _ = make_train_step(model)(state, images, flows_gt)
             torch.cuda.synchronize()
+            require(torch.backends.cudnn.deterministic == caller,
+                    f"[determinism] {path}: the step left cudnn.deterministic at "
+                    f"{torch.backends.cudnn.deterministic}, the caller's was {caller}")
             # the first moment is (1 - b1) g: one Adam step from zero moments moves each weight by about
             # lr sign(g), which hides a difference in g's last bits, so the moments are compared too
             states.append({**{f"param {k}": v for k, v in model.named_parameters()},
-                           **{f"mu {k}": v for k, v in state.mu.items()}})
+                           **{f"mu {k}": v for k, v in state.mu.items()},
+                           **{f"buffer {k}": v for k, v in model.named_buffers()}})
+            del model, state
         return states
 
-    for mode in ("default", "cudnn.deterministic", "use_deterministic_algorithms"):
-        deterministic = torch.backends.cudnn.deterministic
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            if mode == "cudnn.deterministic":
-                torch.backends.cudnn.deterministic = True
-            if mode == "use_deterministic_algorithms":
-                torch.use_deterministic_algorithms(True, warn_only=True)
-            try:
-                for dt in (torch.float32, torch.bfloat16):
-                    a, b = two_steps(dt)
-                    equal = {part: sum(torch.equal(a[k], b[k]) for k in a if k.startswith(part)) for part in ("param", "mu")}
-                    diff, where = max(((a[k] - b[k]).abs().max().item(), k) for k in a)
-                    name = f"{mode} {dtype_name(dt)}"
-                    log(f"  {name}: of {len(a) // 2} tensors after one step, {equal['param']} parameters and "
-                        f"{equal['mu']} first moments (0.1 g) identical, largest |diff| {diff!r} "
-                        f"({where if diff else 'none'})")
-                    stats[name] = {"identical": equal, "tensors": len(a) // 2, "max_abs_diff": diff,
-                                   "max_abs_diff_tensor": where if diff else None}
-                    del a, b
-            finally:
-                torch.backends.cudnn.deterministic = deterministic
-                torch.use_deterministic_algorithms(False)
-        named = sorted({str(w.message).split(" does not have")[0] for w in caught
-                        if "deterministic" in str(w.message)})
-        if named:
-            log(f"  {mode}: PyTorch warned of " + "; ".join(named))
-        stats[f"{mode} warnings"] = named
+    def compare(name, a, b):
+        equal = {part: sum(torch.equal(a[k], b[k]) for k in a if k.startswith(part))
+                 for part in ("param", "mu", "buffer")}
+        count = {part: sum(k.startswith(part) for k in a) for part in equal}
+        diff, where = max(((a[k].float() - b[k].float()).abs().max().item(), k) for k in a)
+        log(f"  {name}: after one step, {equal['param']}/{count['param']} parameters, {equal['mu']}/{count['mu']} "
+            f"first moments (0.1 g) and {equal['buffer']}/{count['buffer']} buffers identical, largest |diff| "
+            f"{diff!r} ({where if diff else 'none'})")
+        stats[name] = {"identical": equal, "tensors": count, "max_abs_diff": diff,
+                       "max_abs_diff_tensor": where if diff else None}
+        return equal == count
+
+    for path in DETERMINISM_PATHS:
+        for dt in (torch.float32, torch.bfloat16):
+            name = f"{path} {dtype_name(dt)}"
+            require(compare(name, *two_steps(path, dt)), f"[determinism] {name}: two steps from one state differ")
         torch.cuda.empty_cache()
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for dt in (torch.float32, torch.bfloat16):
+                compare(f"use_deterministic_algorithms kernels {dtype_name(dt)}", *two_steps("kernels", dt))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    named = sorted({str(w.message).split(" does not have")[0] for w in caught if "deterministic" in str(w.message)})
+    if named:
+        log("  use_deterministic_algorithms: PyTorch warned of " + "; ".join(named))
+    stats["use_deterministic_algorithms warnings"] = named
+    torch.cuda.empty_cache()
     return stats
 
 
@@ -2378,6 +2444,25 @@ def trainer_phase(torch, np, card, tmp_root):
         resumed[name] = again.epoch_stats[-1]
     log(f"  --resume model_1.msgpack: first batch of epoch 2 has the bytes of the first run's (sha1 {first[1][:12]})")
     stats["resumed_epochs"] = resumed
+
+    # -- two one-epoch float32 runs from one seed (the CLI's default dtype, K7 off): byte-identical
+    # model_1.msgpack? Reported; the first batches' SHA-1s tell the loader from the step
+    f32 = [a if a != "bfloat16" else "float32" for a in base] + ["-e", "1"]
+    runs = []
+    for i in range(2):
+        seen = {}
+        with working_directory(os.path.join(tmp_root, f"float32_{i}")), first_batches_recorded(seen):
+            run = train_cli.main(f32)
+            path = os.path.join(os.path.abspath(run.logdir), "model", "model_1.msgpack")
+        with open(path, "rb") as f:
+            runs.append({"model_1_sha1": hashlib.sha1(f.read()).hexdigest(), "first_batch_sha1": seen.get(0),
+                         "steps": run.state.step})
+    identical = runs[0]["model_1_sha1"] == runs[1]["model_1_sha1"]
+    log(f"  two one-epoch float32 runs from one seed ({runs[0]['steps']} steps each): model_1.msgpack "
+        f"{'byte-identical' if identical else 'differs'} (sha1 {runs[0]['model_1_sha1'][:12]} / "
+        f"{runs[1]['model_1_sha1'][:12]}); first batch sha1 {runs[0]['first_batch_sha1'][:12]} / "
+        f"{runs[1]['first_batch_sha1'][:12]} (reported)")
+    stats["float32_epochs"] = {"identical": identical, "runs": runs}
 
     # -- --remat: one epoch, counted; its checkpoint serves
     torch.cuda.synchronize()
@@ -3223,10 +3308,11 @@ def main() -> int:
         f"0.5 px): " + ", ".join(f"{k} {float(converge_stats['kernels'][k]['epe'])!r} px" for k in
                                  ("multiscale", "remat", "robust", "bf16"))
         + f"; the plain witness {converge_stats['plain_multiscale']['epe']:.4f} px on {card}")
-    log(f"[e2e] reproducibility of a train step at 384x448 B=8 with the kernels (reported): " + "; ".join(f"{k}: {v['identical']['param']}/{v['tensors']} parameters and "
-                                f"{v['identical']['mu']}/{v['tensors']} first moments identical, largest |diff| "
-                                f"{v['max_abs_diff']!r}" for k, v in determinism_stats.items() if "warnings" not in k)
-        + f" on {card}")
+    log(f"[e2e] reproducibility of a train step at 384x448 B=8 (gated, no flag set by this script): " + "; ".join(
+        f"{k} {v['identical']['param']}/{v['tensors']['param']} parameters, {v['identical']['mu']}/"
+        f"{v['tensors']['mu']} first moments identical" for k, v in determinism_stats.items() if "warnings" not in k)
+        + f"; [converge] multiscale rerun bitwise {converge_stats['rerun_bitwise']}; [trainer] two float32 "
+        f"epochs' model_1.msgpack byte-identical {trainer_stats['float32_epochs']['identical']} on {card}")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": card, "train": train_stats, "gradient_kernels_vs_plain": grad_err,
                       "k5_df1_run_to_run": atomics_rerun, "bitwise_equal_reruns": deterministic, "trainer": trainer_stats, "spatial": spatial_stats,

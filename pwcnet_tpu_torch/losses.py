@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import Iterable, Sequence
 
+import numpy as np
 import torch
 
 from pwcnet_tpu_torch.ops.resize import nearest_indices, resize_nearest
@@ -93,15 +94,18 @@ def scored_rows(gt: torch.Tensor, pred: torch.Tensor, frame_rows: int, index: in
     ``gt`` (B, frame_rows / n, W, 2) is shard ``index``'s stripe of the
     ground truth; ``pred`` (B, h, w, 2) is the shard's stripe of a level of
     h * n rows (``sharded``) or the whole level of h rows. A level row is
-    scored where its TF1 nearest-resize source row lies in the stripe."""
+    scored where its TF1 nearest-resize source row lies in the stripe. The
+    source rows rise with the level row, so the scored rows are one run of
+    ``pred``'s, taken by ``narrow`` (its backward writes each row once)."""
     hs, w_full = gt.shape[1], gt.shape[2]
     hp, wp = pred.shape[1], pred.shape[2]
     g0, p0 = index * hs, (index * hp if sharded else 0)
-    src = torch.from_numpy(nearest_indices(frame_rows, hp * n if sharded else hp)[p0 : p0 + hp])
-    keep = torch.nonzero((src >= g0) & (src < g0 + hs)).flatten()
+    src = nearest_indices(frame_rows, hp * n if sharded else hp)[p0 : p0 + hp]
+    keep = np.flatnonzero((src >= g0) & (src < g0 + hs))
+    first = int(keep[0]) if keep.size else 0
     cols = torch.from_numpy(nearest_indices(w_full, wp)).to(gt.device)
-    gt_down = gt.index_select(1, (src[keep] - g0).to(gt.device)).index_select(2, cols)
-    return gt_down, pred.index_select(1, keep.to(pred.device))
+    gt_down = gt.index_select(1, torch.from_numpy(src[keep] - g0).to(gt.device)).index_select(2, cols)
+    return gt_down, pred.narrow(1, first, keep.size)
 
 
 def level_sums(gt: torch.Tensor, preds, frame_rows: int, index: int, n: int, sharded, norm: str) -> torch.Tensor:

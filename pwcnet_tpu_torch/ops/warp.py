@@ -24,11 +24,16 @@ truncates it before adding its grid;
 ``masked_warp_rows`` zeroes the rows outside the global frame, the plain
 half of K9, and ``warp_rows_bwd_plain`` is the plain version of K9b's warp
 backward.
+
+Under autograd every gather here transposes to a sum that gives the same
+bits in every run on the card (``_GatherRows``), as the JAX package's XLA
+scatter does on its chip.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 __all__ = [
     "nearest_warp", "nearest_warp_rows", "bilinear_warp", "bilinear_warp_rows", "masked_warp_rows",
@@ -40,8 +45,54 @@ def _gather_2d(x: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Ten
     """x (B, Hf, W, C); in-frame integer yi/xi (B, Ho, W) -> (B, Ho, W, C)."""
     b, hf, w, c = x.shape
     ho = yi.shape[1]
-    idx = (yi * w + xi).reshape(b, ho * w, 1).expand(b, ho * w, c)
-    return torch.gather(x.reshape(b, hf * w, c), 1, idx).reshape(b, ho, w, c)
+    idx = (yi * w + xi).reshape(b, ho * w)
+    return _GatherRows.apply(x.reshape(b, hf * w, c), idx).reshape(b, ho, w, c)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``x`` (B, N, C) at the rows ``idx`` (B, M) -> (B, M, C), with a
+    backward that gives the same bits in every run: the cotangent's rows
+    summed onto their sources in float32, rounded once to ``x.dtype``.
+
+    ``torch.gather``'s own backward is ``scatter_add_``, whose float atomics
+    add a source's rows in a varying order on a CUDA tensor (PyTorch's
+    ``use_deterministic_algorithms`` docstring lists both). A CUDA tensor
+    takes ``index_put_(accumulate=True)``, which sorts the indices first and
+    adds each source's rows in that order; a CPU tensor keeps
+    ``scatter_add_``, which runs in order there."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows, ctx.dtype = x.shape[1], x.dtype
+        return torch.gather(x, 1, idx[..., None].expand(*idx.shape, x.shape[2]))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        rows_bwd = _rows_bwd_sorted if g.is_cuda else _rows_bwd_scatter
+        return rows_bwd(g, idx, ctx.rows).to(ctx.dtype), None
+
+
+def _rows_bwd_scatter(g: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tensor:
+    """The float32 (B, rows, C) transpose of gathering ``rows`` rows at
+    ``idx`` (B, M), for the cotangent ``g`` (B, M, C), by ``scatter_add_``:
+    ``_GatherRows``' backward on a CPU tensor."""
+    b, m, c = g.shape
+    acc = torch.zeros((b, rows, c), dtype=torch.float32, device=g.device)
+    return acc.scatter_add_(1, idx[..., None].expand(b, m, c), g.float())
+
+
+def _rows_bwd_sorted(g: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tensor:
+    """``_rows_bwd_scatter`` by ``index_put_(accumulate=True)`` on the
+    flattened batch: on a CUDA tensor it sorts the row indices and sums each
+    row's terms in that order (``_GatherRows``' backward there)."""
+    b, m, c = g.shape
+    acc = torch.zeros((b * rows, c), dtype=torch.float32, device=g.device)
+    flat = (idx + rows * torch.arange(b, device=idx.device)[:, None]).reshape(b * m)
+    acc.index_put_((flat,), g.float().reshape(b * m, c), accumulate=True)
+    return acc.reshape(b, rows, c)
 
 
 def _grid(h: int, w: int, device, row0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:

@@ -147,8 +147,9 @@ def run_cases(params: dict, device, use_kernels: bool = False, cases=CASES,
               on_step: Optional[Callable[[str, int, dict], None]] = None,
               on_start: Optional[Callable[[str], None]] = None) -> dict:
     """Run the proof's ``cases`` from ``params``; returns per case (and
-    for the warm start, ``"warm"``) ``{"steps", "epe", "seconds"}``, the
-    seconds of its steps and its full-set EPE. The
+    for the warm start, ``"warm"``) ``{"steps", "epe", "seconds",
+    "params"}``: the seconds of its steps, its full-set EPE and its final
+    parameters (a state dict on ``device``, to hold two runs bit for bit). The
     warm start of ``robust`` and ``bf16`` runs once; ``robust`` continues it
     and ``bf16`` restarts from its parameters on the batches that follow
     it. ``on_start(name)`` runs just before a case's first step,
@@ -165,7 +166,8 @@ def run_cases(params: dict, device, use_kernels: bool = False, cases=CASES,
         hook = None if on_step is None else (lambda i, m: on_step(name, i, m))
         state = train(state, gen, STEPS[name], loss_name, on_step=hook)
         out[name] = {"steps": STEPS[name], "epe": full_set_epe(state.model, dset),
-                     "seconds": time.perf_counter() - t0}
+                     "seconds": time.perf_counter() - t0,
+                     "params": {k: v.detach().clone() for k, v in state.model.state_dict().items()}}
         return state
 
     for name, remat in (("multiscale", False), ("remat", True)):

@@ -183,6 +183,10 @@ def make_train_step(model: torch.nn.Module, mesh=None, **loss_kwargs) -> Callabl
     The weight-decay gradient is added analytically (``gamma * p`` per
     tensor) instead of differentiating the 110 per-tensor reductions; the
     reported loss still includes the term. The metrics stay on the device.
+    A step gives the same bits from the same state and batch in every run
+    on the card, as the JAX step does under XLA: the port's kernels and
+    plain ops sum in a fixed order, and cuDNN runs its deterministic
+    algorithms for the step's forward and backward.
     With ``mesh`` the images and flows are this rank's part of the batch and
     the gradients are summed over all ranks before the decay is added."""
     gamma = loss_kwargs.get("gamma", 4e-4)
@@ -191,8 +195,17 @@ def make_train_step(model: torch.nn.Module, mesh=None, **loss_kwargs) -> Callabl
     def train_step(state: TrainState, images: torch.Tensor, flows_gt: torch.Tensor):
         named = dict(state.model.named_parameters())
         params = list(named.values())
-        total, metrics = loss_fn(images, flows_gt)
-        grads = list(torch.autograd.grad(total, params))
+        # cuDNN's deterministic algorithms for the forward and the backward
+        # (remat's recompute runs inside the grad call): its default float32
+        # weight and data gradients add their terms in an order that varies
+        # between runs. Only this flag is touched; the caller's comes back.
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            total, metrics = loss_fn(images, flows_gt)
+            grads = list(torch.autograd.grad(total, params))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
         if mesh is not None:
             grads = _sum_over_ranks(grads)
         with torch.no_grad():

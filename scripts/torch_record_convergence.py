@@ -158,7 +158,8 @@ def main(argv=None):
             print(f"seed {args.seed} {name}: {r['steps']} steps, full-set EPE {r['epe']:.4f} px, "
                   f"{r['seconds']:.1f} s ({device}{where(device)})")
         if args.json:
-            Path(args.json).write_text(json.dumps({"device": str(device), "seed": args.seed, "cases": res}))
+            cases = {name: {k: v for k, v in r.items() if k != "params"} for name, r in res.items()}
+            Path(args.json).write_text(json.dumps({"device": str(device), "seed": args.seed, "cases": cases}))
     else:
         record(conv, device, args.seed, args.kernels)
 

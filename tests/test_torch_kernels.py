@@ -399,6 +399,32 @@ class TestKernelsOnCard:
         assert all(torch.equal(a, b) for a, b in zip(got, warp_bwd(f1, flow, g)))
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("warp_type", ["bilinear", "nearest"])
+    @pytest.mark.parametrize("shape", [(8, 12, 14, 128), (8, 24, 28, 96), (8, 48, 56, 64), (8, 96, 112, 32)])
+    def test_plain_warp_backward_is_bitwise(self, cuda_device, rng, dtype, warp_type, shape):
+        """The plain warp's backward (the gather's transpose, a sorted
+        ``index_put_``) at the four warped levels of the 384x448 training
+        step, B=8, with edge pixels clamped onto the border: two backwards
+        give the same bits, and they equal the CPU's within the tolerance."""
+        from pwcnet_tpu_torch.ops.warp import warp
+
+        x = _normal(rng, shape)
+        flow = _normal(rng, shape[:3] + (2,), 3.0)
+        flow[:, :, :2, 0] = -40.0  # two columns onto the left border
+        g = _normal(rng, shape)
+
+        def grads(device):
+            a = torch.from_numpy(x).to(device, dtype).requires_grad_()
+            f = torch.from_numpy(flow).to(device).requires_grad_()
+            leaves = (a, f) if warp_type == "bilinear" else (a,)
+            return torch.autograd.grad(warp(a, f, warp_type), leaves, torch.from_numpy(g).to(device, dtype))
+
+        first, second = grads(cuda_device), grads(cuda_device)
+        assert all(torch.equal(p, q) for p, q in zip(first, second))
+        for got, want in zip(first, grads("cpu")):
+            _assert_close(got.cpu(), want, dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("case", ["nan", "+inf", "-inf", "+inf and -inf"])
     @pytest.mark.parametrize("kid", ["K5", "K9b"])
     def test_warp_bwd_non_finite_g(self, cuda_device, rng, dtype, case, kid):
