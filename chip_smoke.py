@@ -103,8 +103,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    warns about listed, reported). Then
    ``[converge]``: the SyntheticFlow convergence proof
    (``pwcnet_tpu_torch/train_lib/convergence.py``: 3 levels, 32x32, B=8)
-   with the kernels from port seed ``CONVERGE_SEED``, a seed whose four
-   cases converge on the CPU's plain path: multiscale float32 and remat
+   with the kernels from the JAX proof's own init, ``PRNGKey(CONVERGE_KEY)``
+   drawn without JAX (``convergence.jax_init``), its parameters' SHA-1
+   gated against ``CONVERGE_INIT_SHA1`` (computed from the JAX package's
+   init by a CPU test): multiscale float32 and remat
    400 steps, robust 150 and bf16 120 after a 300-step warm start, each
    gated below 0.5 px full-set EPE, every step launching exactly
    ``CONVERGE_PER_STEP`` (K3 8 under remat); one line per case with its
@@ -219,10 +221,11 @@ BATCHED_PER_FORWARD = {"K1": 4, "K2": 1, "K3": 2}
 LEGACY_PER_FORWARD = {"K2": 5}
 LEGACY_PER_BACKWARD = {"K4": 5}
 # the [converge] phase: the SyntheticFlow proof of pwcnet_tpu_torch/train_lib/convergence.py
-# from the parameters torch.Generator().manual_seed(CONVERGE_SEED) draws, a seed whose four
-# cases converge on the CPU's plain path (scripts/torch_record_convergence.py --sweep / --cases;
-# the sweep is in PERF.md)
-CONVERGE_SEED = 5
+# from the JAX proof's own init, PRNGKey(CONVERGE_KEY) (tests/test_convergence.py), drawn by the
+# port's prng; the SHA-1 of those parameters (convergence.params_sha1), which
+# tests/test_torch_init.py computes from the JAX package's init
+CONVERGE_KEY = 0
+CONVERGE_INIT_SHA1 = "9142294aa9ef8f8fabda8c4f543b921365c304b1"
 # a step of its 3-level model with 2 fused pyramid levels: K2 at level 0, K1 at level 1, K3 on
 # both frames' two finest levels; backward K4 behind K2 and K1, K5 behind K1, K6 behind each K3
 CONVERGE_PER_STEP = {"K1": 1, "K2": 1, "K3": 4, "K4": 2, "K5": 1, "K6": 4}
@@ -1517,6 +1520,7 @@ def legacy_phase(torch, device, batch_dev):
     from pwcnet_tpu_torch.models.pwcnet import PWCNet
     from pwcnet_tpu_torch.ops.cost_volume import cost_volume
     from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from pwcnet_tpu_torch.prng import PRNGKey
     from pwcnet_tpu_torch.train_lib.step import make_forward
 
     x0 = batch_dev[:, 0].float() / 255.0
@@ -1526,7 +1530,7 @@ def legacy_phase(torch, device, batch_dev):
         """The model on K2 and its plain witness, on the same seeded weights."""
         models = []
         for cv in ({}, {"cost_volume_fn": cost_volume}):
-            m = PWCNet(generator=torch.Generator().manual_seed(0), **kw, **cv)
+            m = PWCNet(key=PRNGKey(0), **kw, **cv)
             models.append(m.to(device=device, dtype=dtype).eval())
         return models
 
@@ -1666,7 +1670,8 @@ def sequence_phase(torch, np, card, device, batch_dev, tmp_root):
     from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from pwcnet_tpu_torch.weights import from_jax_params, to_jax_params
 
-    state = from_jax_params(load_script("torch_bf16_parity").scaled_params(to_jax_params(PWCDCNet().state_dict())))
+    state = from_jax_params(load_script("torch_bf16_parity").scaled_params(
+        to_jax_params(PWCDCNet(init=False).state_dict())))
     pred, pred32 = (FlowPredictor(dtype=dt, device=device) for dt in (torch.bfloat16, torch.float32))
     pred.model.load_state_dict(state)
     pred32.model.load_state_dict(state)
@@ -1855,15 +1860,20 @@ def orbax_round_trip(torch, device, tmp_root):
 
 def converge_phase(torch, card, device):
     """The SyntheticFlow convergence proof on the card with the kernels:
-    its four cases from port seed ``CONVERGE_SEED``, each gated at 0.5 px,
+    its four cases from the JAX proof's init ``PRNGKey(CONVERGE_KEY)``, its
+    SHA-1 gated against ``CONVERGE_INIT_SHA1``, each case gated at 0.5 px,
     the launches of every step counted against the 3-level model's; the
     multiscale case again, gated bitwise (its EPE's repr and every final
-    parameter); the multiscale case on the plain path from the same seed as
+    parameter); the multiscale case on the plain path from the same init as
     a witness (reported, not gated)."""
     from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from pwcnet_tpu_torch.train_lib import convergence as conv
 
-    params = conv.port_init(CONVERGE_SEED)
+    params = conv.jax_init(CONVERGE_KEY)
+    sha1 = conv.params_sha1(params)
+    log(f"  init: PRNGKey({CONVERGE_KEY}), the JAX proof's, drawn without JAX: {len(params)} tensors, "
+        f"SHA-1 {sha1} (want {CONVERGE_INIT_SHA1})")
+    require(sha1 == CONVERGE_INIT_SHA1, f"[converge] the init's SHA-1 {sha1} is not the JAX init's")
     counts = {}
     curves = {}
 
@@ -1918,8 +1928,8 @@ def converge_phase(torch, card, device):
                 + ("the constant-flow state: the init did not escape it" if res[name]["constant_flow"]
                    else "not the constant-flow state") + ")")
     total = {k: sum(c.get(k, 0) for c in counts.values()) for k in KERNEL_INFO}
-    return total, {"seed": CONVERGE_SEED, "kernels": res, "plain_multiscale": witness, "rerun": rerun,
-                   "rerun_bitwise": rerun["identical_params"] == rerun["params"]}
+    return total, {"key": CONVERGE_KEY, "init_sha1": sha1, "kernels": res, "plain_multiscale": witness,
+                   "rerun": rerun, "rerun_bitwise": rerun["identical_params"] == rerun["params"]}
 
 
 def load_script(name):
@@ -1968,16 +1978,18 @@ def train_model(torch, compute_dtype, use_kernels, seed=0, fused_estimator=0, re
     level 0, K1 at levels 1-4, K3 on the two finest pyramid levels, and K7 on
     the ``fused_estimator`` finest estimator levels; ``remat`` as --remat.
     ``fused=False`` (the trainer's ``use_fused`` off, and always with
-    ``warp_type='nearest'``): the plain warp and K2 at every level."""
+    ``warp_type='nearest'``): the plain warp and K2 at every level. The
+    weights are the JAX package's init under ``PRNGKey(seed)``."""
     from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
     from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
     from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
+    from pwcnet_tpu_torch.prng import PRNGKey
 
     hooks = {}
     if use_kernels:
         hooks = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume if fused else None,
                      fused_pyramid_levels=2, fused_estimator_levels=fused_estimator)
-    return PWCDCNet(compute_dtype=compute_dtype, generator=torch.Generator().manual_seed(seed), remat=remat,
+    return PWCDCNet(compute_dtype=compute_dtype, key=PRNGKey(seed), remat=remat,
                     warp_type=warp_type, **hooks)
 
 
@@ -1987,12 +1999,12 @@ def legacy_train_model(torch, compute_dtype, seed=0):
     (BatchNorm on the batch's statistics, the running ones updated), giving
     (final flow, per-level flows)."""
     from pwcnet_tpu_torch.models.pwcnet import PWCNet
+    from pwcnet_tpu_torch.prng import PRNGKey
 
     class Trained(torch.nn.Module):
         def __init__(self):
             super().__init__()
-            self.net = PWCNet(batch_norm=True, compute_dtype=compute_dtype,
-                              generator=torch.Generator().manual_seed(seed))
+            self.net = PWCNet(batch_norm=True, compute_dtype=compute_dtype, key=PRNGKey(seed))
 
         def forward(self, images_0, images_1):
             final, flows, _ = self.net(images_0, images_1, train=True)
@@ -2566,6 +2578,7 @@ def spatial_rank(rank, port, out_dir, chairs_root):
     from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
     from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from pwcnet_tpu_torch.parallel import global_sum, make_mesh, shard_batch
+    from pwcnet_tpu_torch.prng import PRNGKey
     from pwcnet_tpu_torch.train_lib.step import create_train_state, make_loss_fn, make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2614,7 +2627,8 @@ def spatial_rank(rank, port, out_dir, chairs_root):
     # tenths would truncate to no displacement in the nearest warp)
     from pwcnet_tpu_torch.weights import from_jax_params, to_jax_params
 
-    scaled = from_jax_params(load_script("torch_bf16_parity").scaled_params(to_jax_params(PWCDCNet().state_dict())))
+    scaled = from_jax_params(load_script("torch_bf16_parity").scaled_params(
+        to_jax_params(PWCDCNet(init=False).state_dict())))
     for opt, kw in SPATIAL_OPTIONS.items():
         preds = {dt: FlowPredictor(dtype=dt, mesh=mesh, **kw) for dt in (torch.bfloat16, torch.float32)}
         for p in preds.values():
@@ -2699,7 +2713,7 @@ def spatial_rank(rank, port, out_dir, chairs_root):
     report["gradient"] = {}
     for dt in (torch.float32, torch.bfloat16):
         name = dtype_name(dt)
-        model = PWCDCNet(compute_dtype=dt, generator=torch.Generator().manual_seed(0), **spatial_hooks(mesh, True))
+        model = PWCDCNet(compute_dtype=dt, key=PRNGKey(0), **spatial_hooks(mesh, True))
         grads = first_grads(model, True)
         if main:
             want = first_grads(train_model(torch, dt, True), False)
@@ -3175,8 +3189,9 @@ def main() -> int:
     log(f"[determinism] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[converge] the SyntheticFlow convergence proof with the kernels (3 levels, 32x32, B=8) from port seed "
-        f"{CONVERGE_SEED}: multiscale and remat 400 steps, robust 150 and bf16 120 after a 300-step warm start")
+    log(f"[converge] the SyntheticFlow convergence proof with the kernels (3 levels, 32x32, B=8) from the JAX "
+        f"proof's PRNGKey({CONVERGE_KEY}): multiscale and remat 400 steps, robust 150 and bf16 120 after a "
+        "300-step warm start")
     converge_counts, converge_stats = converge_phase(torch, card, device)
     log(f"[converge] done in {time.perf_counter() - t0:.1f} s")
 
@@ -3304,7 +3319,7 @@ def main() -> int:
         f"{spatial_stats['serve_pairs_per_s']:.1f} pairs/s, train step 384x448 B=8 bf16 "
         f"{spatial_stats['train_pairs_per_s']:.1f} pairs/s, predict_sequence B=8 depth 2 "
         f"{spatial_stats['sequence_pairs_per_s']:.1f} pairs/s on {card}")
-    log(f"[e2e] convergence proof with the kernels from port seed {CONVERGE_SEED}, full-set EPE (gate "
+    log(f"[e2e] convergence proof with the kernels from the JAX PRNGKey({CONVERGE_KEY}), full-set EPE (gate "
         f"0.5 px): " + ", ".join(f"{k} {float(converge_stats['kernels'][k]['epe'])!r} px" for k in
                                  ("multiscale", "remat", "robust", "bf16"))
         + f"; the plain witness {converge_stats['plain_multiscale']['epe']:.4f} px on {card}")

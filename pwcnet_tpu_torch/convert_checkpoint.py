@@ -53,7 +53,7 @@ def main(argv=None):
     from pwcnet_tpu_torch.weights import save_tree, to_jax_params
 
     model = PWCDCNet(num_levels=args.num_levels, search_range=args.search_range, use_dc=args.use_dc,
-                     output_level=args.output_level)
+                     output_level=args.output_level, init=False)  # a template of the tree only
     params = load_tf_checkpoint_params(args.tf_checkpoint, to_jax_params(model.state_dict()))
     save_tree(args.output, params)
     print(f"Converted {len(model.state_dict())} tensors -> {args.output}")

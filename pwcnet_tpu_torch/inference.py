@@ -125,7 +125,8 @@ class FlowPredictor:
     ):
         """``use_kernels``: 'auto' runs the CUDA kernels on a CUDA device;
         on the CPU their wrappers run the plain versions anyway. Without a
-        checkpoint the weights are the flax-style init from seed 0.
+        checkpoint the weights are the JAX predictor's: ``model.init`` under
+        ``PRNGKey(0)``, bit for bit; with one, no init is drawn.
         Resolved as the JAX predictor resolves them:
 
         - ``use_fused``: K1 (K9 under H-sharding), the fused bilinear warp +
@@ -177,6 +178,8 @@ class FlowPredictor:
             use_dc=use_dc,
             output_level=output_level,
             batched_pyramid=batched_pyramid,
+            # the JAX predictor's PRNGKey(0) init, drawn only without a checkpoint
+            init=checkpoint is None,
             **hooks,
         )
         if checkpoint is not None:

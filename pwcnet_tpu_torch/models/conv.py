@@ -1,4 +1,4 @@
-"""Conv naming and flax-style initialisation shared by the models.
+"""Conv naming shared by the models.
 
 Conv layers are named ``conv2d``, ``conv2d_1``, ... in TF auto-numbering
 order, as in the JAX package and the reference checkpoints, so state-dict
@@ -13,13 +13,12 @@ per op from its own lists, not the JAX model's.)
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 from torch import nn
 
-__all__ = ["Conv2d", "cast_params", "conv_name", "glorot_init_", "to_nchw", "to_nhwc"]
+__all__ = ["Conv2d", "cast_params", "conv_name", "to_nchw", "to_nhwc"]
 
 
 class Conv2d(nn.Conv2d):
@@ -41,21 +40,6 @@ def cast_params(conv: Conv2d) -> tuple[torch.Tensor, torch.Tensor]:
 
 def conv_name(idx: int) -> str:
     return "conv2d" if idx == 0 else f"conv2d_{idx}"
-
-
-@torch.no_grad()
-def glorot_init_(module: nn.Module, generator: torch.Generator) -> None:
-    """flax's default init for every Conv2d below ``module``: glorot-uniform
-    kernels (fan_in = kh*kw*cin, fan_out = kh*kw*cout) and zero biases,
-    drawn from ``generator`` in module order."""
-    for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            cout, cin, kh, kw = m.weight.shape
-            limit = math.sqrt(6.0 / (kh * kw * (cin + cout)))
-            u = torch.rand(m.weight.shape, generator=generator, dtype=torch.float32)
-            m.weight.copy_(u * (2 * limit) - limit)
-            if m.bias is not None:
-                m.bias.zero_()
 
 
 def to_nhwc(x: torch.Tensor, multiple: int = 1) -> torch.Tensor:

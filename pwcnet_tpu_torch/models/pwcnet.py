@@ -74,13 +74,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from pwcnet_tpu_torch.models.context import ContextNetwork
-from pwcnet_tpu_torch.models.conv import Conv2d, glorot_init_, to_nchw, to_nhwc
+from pwcnet_tpu_torch.models.conv import Conv2d, to_nchw, to_nhwc
 from pwcnet_tpu_torch.models.estimator import DEFAULT_EST_FILTERS, FlowEstimator, FlowEstimatorLegacy
 from pwcnet_tpu_torch.models.pyramid import DEFAULT_FILTERS, FeaturePyramidExtractor, FeaturePyramidExtractorLegacy
 from pwcnet_tpu_torch.ops.cost_volume import cost_volume
 from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
 from pwcnet_tpu_torch.ops.resize import resize_bilinear, upsample2x_bilinear
 from pwcnet_tpu_torch.ops.warp import warp
+from pwcnet_tpu_torch.prng import PRNGKey
+from pwcnet_tpu_torch.weights import init_params
 
 __all__ = ["PWCDCNet", "PWCNet", "flow_scales"]
 
@@ -88,6 +90,11 @@ __all__ = ["PWCDCNet", "PWCNet", "flow_scales"]
 def flow_scales(num_levels: int) -> list:
     """Pixel-unit factor per level, ``20 / 2**(num_levels - l)`` (None at 0)."""
     return [None] + [20.0 / 2 ** (num_levels - l) for l in range(1, num_levels + 1)]
+
+
+def _init(model: nn.Module, key, init: bool) -> None:
+    if init:
+        init_params(model, PRNGKey(0) if key is None else key)
 
 
 def _set_compute_dtype(model: nn.Module, compute_dtype: Optional[torch.dtype]) -> None:
@@ -102,7 +109,10 @@ class PWCDCNet(nn.Module):
 
     Only ``optflow_0 .. optflow_{output_level}`` exist: deeper estimators
     would never run, and the reference checkpoints hold none.
-    ``generator`` seeds the flax-style init (seed 0 when omitted).
+    The parameters are the JAX package's ``model.init(key, ...)``, bit for
+    bit (``weights.init_params``; ``key`` a ``prng.PRNGKey``, ``PRNGKey(0)``
+    when omitted). ``init=False`` draws none, for a caller that loads
+    weights next: they are then PyTorch's own default init.
     """
 
     def __init__(
@@ -116,7 +126,8 @@ class PWCDCNet(nn.Module):
         warp_cv_fn: Optional[Callable] = None,
         fused_pyramid_levels: int = 0,
         fused_estimator_levels: int = 0,
-        generator: Optional[torch.Generator] = None,
+        key=None,
+        init: bool = True,
         compute_dtype: Optional[torch.dtype] = None,
         spatial_guard_fn=None,
         pyramid_level_fn=None,
@@ -152,7 +163,7 @@ class PWCDCNet(nn.Module):
             self.add_module(f"optflow_{l}", est)
             feat = est.out_channels
         self.context = ContextNetwork(2 + feat)
-        glorot_init_(self, generator or torch.Generator().manual_seed(0))
+        _init(self, key, init)
         _set_compute_dtype(self, compute_dtype)
 
     def sharded_levels(self, frame_rows: int) -> list:
@@ -239,9 +250,9 @@ class PWCNet(nn.Module):
 
     Only the estimators (and with ``context='all'`` the context nets) of
     levels ``0 .. output_level`` exist, as flax creates them. ``batch_norm``
-    puts flax's BatchNorm after each hidden estimator conv. ``generator``
-    seeds the flax-style init (seed 0 when omitted); ``compute_dtype`` as
-    in ``PWCDCNet``.
+    puts flax's BatchNorm after each hidden estimator conv. ``key``,
+    ``init`` and ``compute_dtype`` as in ``PWCDCNet``: the parameters and
+    ``batch_stats`` are the JAX model's init for ``key``.
 
     ``cost_volume_fn(f0, f1, d)`` on NHWC tensors defaults to K2's wrapper
     ``ops.cuda.cost_volume.cost_volume_cuda``: the plain version on a CPU
@@ -260,7 +271,8 @@ class PWCNet(nn.Module):
         batch_norm: bool = False,
         output_level: int = 4,
         cost_volume_fn: Callable = cost_volume_cuda,
-        generator: Optional[torch.Generator] = None,
+        key=None,
+        init: bool = True,
         compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
@@ -287,7 +299,7 @@ class PWCNet(nn.Module):
                 self.add_module(f"context_{l}", ContextNetwork(2 + feat))
         if context == "final":
             self.context = ContextNetwork(2 + feat)
-        glorot_init_(self, generator or torch.Generator().manual_seed(0))
+        _init(self, key, init)
         _set_compute_dtype(self, compute_dtype)
 
     def forward(self, images_0: torch.Tensor, images_1: torch.Tensor, train: bool = False):

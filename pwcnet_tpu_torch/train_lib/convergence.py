@@ -16,8 +16,9 @@ batch 8, no schedule:
 Whether the proof holds depends on the init: from some inits every case
 settles on one constant flow (1.862 px, within 1e-3 of the least EPE a
 constant flow reaches, ``constant_flow_epe``) in both packages. The JAX proof
-starts from ``PRNGKey(0)``; ``scripts/torch_record_convergence.py
---sweep`` records which port seeds converge.
+starts from ``PRNGKey(0)``, and so does the port's (``jax_init``, the
+same parameters bit for bit); ``scripts/torch_record_convergence.py
+--sweep`` records which JAX keys converge.
 
 With ``use_kernels`` the model is wired as the trainer wires it on the
 card (K2 at level 0, K1 at level 1, K3 on the two pyramid levels of each
@@ -26,6 +27,7 @@ frame that it fuses; K4, K5 and K6 in the backward).
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import time
 from typing import Callable, Optional
@@ -36,11 +38,12 @@ import torch
 from pwcnet_tpu_torch.data import DataLoader, get_dataset
 from pwcnet_tpu_torch.inference import FUSED_PYRAMID_LEVELS
 from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
+from pwcnet_tpu_torch.prng import PRNGKey
 from pwcnet_tpu_torch.train_lib.step import TrainState, create_train_state, make_eval_step, make_train_step
 
 __all__ = [
     "CFG", "CASES", "EPE_TARGET", "batches", "build_model", "constant_flow_epe", "dataset", "full_set_epe",
-    "on_constant_flow", "port_init", "run_cases", "start_state", "train",
+    "jax_init", "on_constant_flow", "params_sha1", "run_cases", "start_state", "train",
 ]
 
 CFG = dict(num_levels=3, output_level=1, search_range=2)
@@ -71,8 +74,9 @@ def batches(dset, skip: int = 0):
 
 
 def build_model(use_kernels: bool = False, remat: bool = False, compute_dtype=None) -> PWCDCNet:
-    """The proof's PWCDCNet; ``use_kernels`` wires it as the trainer does on
-    the card (the wrappers take CPU tensors to their plain versions)."""
+    """The proof's PWCDCNet, its parameters not drawn (``start_state`` loads
+    them); ``use_kernels`` wires it as the trainer does on the card (the
+    wrappers take CPU tensors to their plain versions)."""
     hooks = {}
     if use_kernels:
         from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
@@ -80,15 +84,25 @@ def build_model(use_kernels: bool = False, remat: bool = False, compute_dtype=No
 
         hooks = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume,
                      fused_pyramid_levels=FUSED_PYRAMID_LEVELS)
-    return PWCDCNet(**CFG, remat=remat, compute_dtype=compute_dtype, **hooks)
+    return PWCDCNet(**CFG, remat=remat, compute_dtype=compute_dtype, init=False, **hooks)
 
 
-def port_init(seed: int) -> dict:
-    """The parameters ``create_train_state`` draws from
-    ``torch.Generator().manual_seed(seed)``."""
-    model = PWCDCNet(**CFG)
-    create_train_state(model, torch.Generator().manual_seed(seed), device="cpu")
+def jax_init(seed: int = 0) -> dict:
+    """The proof's initial parameters from ``PRNGKey(seed)``: those of the
+    JAX ``create_train_state(PWCDCNet(**CFG), PRNGKey(seed), ...)``."""
+    model = build_model()
+    create_train_state(model, PRNGKey(seed), device="cpu")
     return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def params_sha1(params: dict) -> str:
+    """The SHA-1 of a state dict: each name (UTF-8) and then its tensor's
+    float32 bytes in C order, by sorted name."""
+    m = hashlib.sha1()
+    for name in sorted(params):
+        m.update(name.encode("utf-8"))
+        m.update(params[name].detach().to("cpu", torch.float32).contiguous().numpy().tobytes())
+    return m.hexdigest()
 
 
 def start_state(params: dict, device, lr: float = LR, **model_kwargs) -> TrainState:

@@ -30,14 +30,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Sequence, Union
 
 import torch
 
 from pwcnet_tpu_torch import losses
 from pwcnet_tpu_torch.inference import resolve_device
-from pwcnet_tpu_torch.models.conv import glorot_init_
 from pwcnet_tpu_torch.train_lib.schedule import make_lr
+from pwcnet_tpu_torch.weights import init_params
 
 __all__ = ["TrainState", "create_train_state", "make_loss_fn", "make_train_step", "make_eval_step", "make_forward"]
 
@@ -62,16 +62,17 @@ class TrainState:
 
 def create_train_state(
     model: torch.nn.Module,
-    generator: Optional[torch.Generator] = None,
+    key=None,
     learning_rate: float = 1e-4,
     lr_scheduling: bool = True,
     device=None,
 ) -> TrainState:
-    """A fresh state: parameters drawn anew from ``generator`` (flax's
-    default init; left as they are when it is None), float32, on
+    """A fresh state: parameters drawn anew from ``key`` (a
+    ``prng.PRNGKey``: the JAX ``create_train_state(model, key, ...)``'s
+    parameters, bit for bit; left as they are when it is None), float32, on
     ``device`` (CUDA unless the caller asks for the CPU), zero moments."""
-    if generator is not None:
-        glorot_init_(model, generator)
+    if key is not None:
+        init_params(model, key)
     model.to(device=resolve_device(device), dtype=torch.float32)
     params = dict(model.named_parameters())
     return TrainState(

@@ -47,6 +47,7 @@ from pwcnet_tpu_torch.data import DataLoader, device_prefetch, get_dataset
 from pwcnet_tpu_torch.inference import FUSED_PYRAMID_LEVELS, resolve_device, spatial_hooks
 from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
 from pwcnet_tpu_torch.parallel.mesh import mesh_from_args
+from pwcnet_tpu_torch.prng import PRNGKey
 from pwcnet_tpu_torch.orbax_format import require_tensorstore
 from pwcnet_tpu_torch.train_lib.checkpoint import (
     restore_checkpoint_auto, save_checkpoint, save_checkpoint_orbax, wait_for_orbax_saves)
@@ -146,13 +147,16 @@ class Trainer:
             warp_type=args.warp_type,
             use_dc=args.use_dc,
             output_level=args.output_level,
-            generator=torch.Generator().manual_seed(seed),
+            init=False,
             compute_dtype=torch.bfloat16 if bf16 else torch.float32,
             remat=bool(getattr(args, "remat", False)),
             **hooks,
         )
+        # the JAX trainer's init, PRNGKey(--seed); a resume loads every
+        # parameter, so it draws none
         self.state = create_train_state(
             self.model,
+            PRNGKey(seed) if args.resume is None else None,
             learning_rate=args.lr,
             lr_scheduling=args.lr_scheduling,
             device=self.device,

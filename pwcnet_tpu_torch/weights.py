@@ -16,6 +16,12 @@ keeps as buffers of the same names; ``to_jax_variables`` /
 "batch_stats"}``). Both directions are transposes, so a round trip is
 bit-exact.
 
+``init_params(model, key)`` draws a model's parameters as the JAX
+package's ``model.init(key, ...)`` does, bit for bit (``prng``): each
+kernel flax's glorot-uniform over its HWIO shape from
+``fold_in_static(key, (*scope path, 1))`` (a kernel is its scope's first
+parameter), biases zero, BatchNorm scales one, means 0 and variances 1.
+
 ``load_params`` reads a flax msgpack file (params only, or a whole
 TrainState) with ``msgpack`` and numpy alone, an orbax checkpoint directory
 through ``tensorstore`` (``orbax_format``), and a TF checkpoint
@@ -41,7 +47,7 @@ import torch
 
 __all__ = [
     "from_jax_params", "to_jax_params", "from_jax_variables", "to_jax_variables", "from_jax_state",
-    "to_jax_state", "load_params", "load_tree", "save_tree",
+    "to_jax_state", "init_params", "load_params", "load_tree", "save_tree",
 ]
 
 BATCH_STATS = ("mean", "var")
@@ -120,6 +126,28 @@ def from_jax_variables(variables: dict) -> dict:
             raise KeyError(f"unexpected batch statistic {'/'.join(path)}")
         state[".".join(path)] = torch.from_numpy(np.array(arr, dtype=np.float32))
     return state
+
+
+_FILL = {"bias": 0.0, "scale": 1.0, "mean": 0.0, "var": 1.0}
+
+
+@torch.no_grad()
+def init_params(model: torch.nn.Module, key) -> None:
+    """Draw ``model``'s parameters (and BatchNorm statistics) in place from
+    ``key`` (``prng.PRNGKey(seed)``) as flax's ``model.init(key, ...)`` does,
+    float32, through the JAX-layout tree and ``from_jax_variables``."""
+    from pwcnet_tpu_torch import prng
+
+    def draw(tree, path=()):
+        return {
+            name: draw(val, path + (name,)) if isinstance(val, dict)
+            else prng.glorot_uniform(prng.fold_in_static(key, path + (1,)), val.shape) if name == "kernel"
+            else np.full(val.shape, _FILL[name], np.float32)
+            for name, val in tree.items()
+        }
+
+    variables = {col: draw(tree) for col, tree in to_jax_variables(model.state_dict()).items()}
+    model.load_state_dict(from_jax_variables(variables))
 
 
 def _array_from_bytes(data: bytes) -> np.ndarray:

@@ -125,7 +125,7 @@ def measure(path_name: str, h: int, w: int, b: int, use_kernels: bool, device="c
     from pwcnet_tpu_torch.models import PWCDCNet
     from pwcnet_tpu_torch.weights import to_jax_params
 
-    params = scaled_params(to_jax_params(PWCDCNet(**cfg).state_dict()), seed)
+    params = scaled_params(to_jax_params(PWCDCNet(**cfg, init=False).state_dict()), seed)
     got = flows(params, *frames(b, h, w), use_kernels, device, **cfg)
     out = {"path": path_name, "shape": f"{h}x{w} b{b}", **stats(got["float32"], got["bfloat16"]),
            "card": card_name(device)}

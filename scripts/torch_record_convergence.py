@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Record the port's SyntheticFlow convergence curve, and the seed sweep
-behind the card's convergence proof.
+"""Record the port's SyntheticFlow convergence curve, and the sweep of
+JAX keys behind the card's convergence proof.
 
     python scripts/torch_record_convergence.py [--device cpu] [--seed S]
     python scripts/torch_record_convergence.py --device cpu --sweep 0 1 2 3 4 5 6 7 8
@@ -8,13 +8,14 @@ behind the card's convergence proof.
 
 The default run trains the multiscale float32 configuration of the proof
 (``pwcnet_tpu_torch/train_lib/convergence.py``) for 600 steps from the
-parameters that ``torch.Generator().manual_seed(S)`` draws, logs the loss
+parameters that the JAX package's ``PRNGKey(S)`` init draws (the port
+draws them without JAX, bit for bit: ``convergence.jax_init``), logs the loss
 and EPE of the training batch every 10 steps and writes
 ``docs/torch_convergence_synthetic.csv`` and ``.pdf`` (the JAX package's
 curve, ``docs/convergence_synthetic.*``, stays as it is). The PDF needs
 matplotlib; without it the script says so and writes the CSV alone.
 
-``--sweep`` trains the same configuration for 400 steps from each seed
+``--sweep`` trains the same configuration for 400 steps from each key
 given and prints each seed's full-set EPE (``--json`` writes the table).
 ``--cases`` runs the proof's four cases from ``--seed`` and prints each
 one's full-set EPE and seconds. ``--device`` is CUDA unless ``cpu`` is
@@ -34,14 +35,14 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 STEPS, LOG_EVERY, SWEEP_STEPS = 600, 10, 400
-DEFAULT_SEED = 5  # the seed of chip_smoke.py's [converge] phase
+DEFAULT_SEED = 0  # the JAX proof's PRNGKey(0), chip_smoke.py's [converge] key
 
 
 def record(conv, device, seed, use_kernels):
     import torch
 
     dset = conv.dataset()
-    state = conv.start_state(conv.port_init(seed), device, use_kernels=use_kernels)
+    state = conv.start_state(conv.jax_init(seed), device, use_kernels=use_kernels)
     rows = []
 
     def log_step(i, m):
@@ -118,7 +119,7 @@ def sweep(conv, device, seeds, use_kernels, json_path):
     table = []
     for seed in seeds:
         t0 = time.perf_counter()
-        state = conv.train(conv.start_state(conv.port_init(seed), device, use_kernels=use_kernels),
+        state = conv.train(conv.start_state(conv.jax_init(seed), device, use_kernels=use_kernels),
                            conv.batches(dset), SWEEP_STEPS)
         epe = conv.full_set_epe(state.model, dset)
         table.append({"seed": seed, "epe": epe, "converged": epe < conv.EPE_TARGET,
@@ -133,9 +134,9 @@ def sweep(conv, device, seeds, use_kernels, json_path):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--device", default=None, help="cpu, or a CUDA device (the default)")
-    parser.add_argument("--seed", type=int, default=DEFAULT_SEED, help="the port generator's seed of the init")
+    parser.add_argument("--seed", type=int, default=DEFAULT_SEED, help="the init's JAX key, PRNGKey(S)")
     parser.add_argument("--kernels", action="store_true", help="the hand-written kernels (CUDA only)")
-    parser.add_argument("--sweep", type=int, nargs="+", help="seeds to sweep (400 multiscale float32 steps each)")
+    parser.add_argument("--sweep", type=int, nargs="+", help="JAX keys to sweep (400 multiscale float32 steps each)")
     parser.add_argument("--cases", action="store_true", help="the proof's four cases from --seed")
     parser.add_argument("--json", default=None, help="write the sweep's or the cases' table here")
     args = parser.parse_args(argv)
@@ -153,7 +154,7 @@ def main(argv=None):
     if args.sweep:
         sweep(conv, device, args.sweep, args.kernels, args.json)
     elif args.cases:
-        res = conv.run_cases(conv.port_init(args.seed), device, use_kernels=args.kernels)
+        res = conv.run_cases(conv.jax_init(args.seed), device, use_kernels=args.kernels)
         for name, r in res.items():
             print(f"seed {args.seed} {name}: {r['steps']} steps, full-set EPE {r['epe']:.4f} px, "
                   f"{r['seconds']:.1f} s ({device}{where(device)})")

@@ -2,10 +2,11 @@
 (``tests/test_convergence.py``).
 
 Both start from the JAX proof's own init: ``PWCDCNet(**CFG)``'s
-``create_train_state`` under ``PRNGKey(0)``, carried into the port with
-``weights.from_jax_params``. The proof holds from some inits only (from
-others every case settles on a constant flow at 1.862 px, in both
-packages), so a port seed would test the seed, not the port.
+``create_train_state`` under ``PRNGKey(0)``, which the port draws itself
+(``convergence.jax_init``, held bitwise to the JAX state's parameters).
+The proof holds from some inits only (from others every case settles on a
+constant flow at 1.862 px, in both packages), so another key would test
+the key, not the port.
 
 - Tier 1: the first five train steps on the proof's own first five
   batches, multiscale and robust loss, each step's ``loss``, ``data_loss``
@@ -48,13 +49,20 @@ SLOW_THREADS = 4
 
 @pytest.fixture(scope="module")
 def jax_init():
-    """The JAX proof's model and fresh state, and its parameters as a port
-    state dict."""
+    """The JAX proof's model and fresh state, and its parameters as the
+    port draws them (``conv.jax_init(0)``)."""
     model = JaxPWCDCNet(dtype=jnp.float32, **JAX_CFG)
     state = jax_create_train_state(model, jax.random.PRNGKey(0), (1, 32, 32, 3), learning_rate=conv.LR,
                                    lr_scheduling=False)
-    params = {k: v.clone() for k, v in from_jax_params(jax.tree_util.tree_map(np.asarray, state.params)).items()}
-    return model, state, params
+    return model, state, conv.jax_init(0)
+
+
+def test_the_init_is_the_jax_proofs(jax_init):
+    """The port's draw of ``PRNGKey(0)`` is the JAX proof's state, bitwise."""
+    _, state, params = jax_init
+    want = from_jax_params(jax.tree_util.tree_map(np.asarray, state.params))
+    assert params.keys() == want.keys()
+    assert all(torch.equal(params[k], want[k]) for k in want)
 
 
 def test_the_proof_is_the_jax_proofs():

@@ -49,6 +49,7 @@ from pwcnet_tpu_torch.ops.warp import (
     bilinear_warp_rows,
     nearest_warp,
 )
+from pwcnet_tpu_torch.prng import PRNGKey
 from pwcnet_tpu_torch.train_lib import create_train_state, make_loss_fn, make_train_step
 
 torch.set_num_threads(1)
@@ -263,15 +264,15 @@ def _legacy_trained(model):
 
 
 def _models():
-    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    key = PRNGKey(0)
     return {
-        "plain": lambda: PWCDCNet(**TINY, generator=gen()),
-        "kernels": lambda: PWCDCNet(**TINY, generator=gen(), cost_volume_fn=cost_volume_cuda,
+        "plain": lambda: PWCDCNet(**TINY, key=key),
+        "kernels": lambda: PWCDCNet(**TINY, key=key, cost_volume_fn=cost_volume_cuda,
                                     warp_cv_fn=warped_cost_volume, fused_pyramid_levels=2),
-        "unfused": lambda: PWCDCNet(**TINY, generator=gen(), cost_volume_fn=cost_volume_cuda, fused_pyramid_levels=2),
-        "nearest": lambda: PWCDCNet(**TINY, generator=gen(), warp_type="nearest"),
-        "remat": lambda: PWCDCNet(**TINY, generator=gen(), remat=True),
-        "legacy": lambda: _legacy_trained(PWCNet(**TINY, batch_norm=True, generator=gen())),
+        "unfused": lambda: PWCDCNet(**TINY, key=key, cost_volume_fn=cost_volume_cuda, fused_pyramid_levels=2),
+        "nearest": lambda: PWCDCNet(**TINY, key=key, warp_type="nearest"),
+        "remat": lambda: PWCDCNet(**TINY, key=key, remat=True),
+        "legacy": lambda: _legacy_trained(PWCNet(**TINY, batch_norm=True, key=key)),
     }
 
 

@@ -1048,11 +1048,12 @@ def test_nccl_sharded_model_matches_unsharded(two_gpus, tmp_path):
     import json
 
     from pwcnet_tpu_torch.models import PWCDCNet
+    from pwcnet_tpu_torch.prng import PRNGKey
     from pwcnet_tpu_torch.train_lib import make_loss_fn
 
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
-    model = PWCDCNet(generator=torch.Generator().manual_seed(3))
+    model = PWCDCNet(key=PRNGKey(3))
     sd = {f"sd/{k}": v.numpy() for k, v in model.state_dict().items()}
     images = rng.random((2, 2, 512, 128, 3)).astype(np.float32)  # level 0: 4 rows a shard (K8)
     g = rng.standard_normal((2, 512, 128, 2)).astype(np.float32)

@@ -27,10 +27,10 @@ import torch
 
 from pwcnet_tpu.models import PWCDCNet as JaxPWCDCNet
 from pwcnet_tpu_torch.models import PWCDCNet
-from pwcnet_tpu_torch.models.conv import glorot_init_
+from pwcnet_tpu_torch.prng import PRNGKey
 from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
 from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
-from pwcnet_tpu_torch.weights import from_jax_params, load_params, to_jax_params
+from pwcnet_tpu_torch.weights import from_jax_params, init_params, load_params, to_jax_params
 
 torch.set_num_threads(1)
 
@@ -125,17 +125,24 @@ class TestWeights:
         np.testing.assert_array_equal(got, np.asarray(tree["context"]["conv2d"]["bias"], np.float32))
 
     def test_glorot_init_like_flax(self):
-        model = PWCDCNet(**SMALL, generator=torch.Generator().manual_seed(3))
-        again = PWCDCNet(**SMALL, generator=torch.Generator().manual_seed(3))
+        """One key draws one model; each kernel fills its glorot bounds with
+        a uniform's mean and variance; biases are zero; another key draws
+        another model (``tests/test_torch_init.py`` holds the bits to JAX's)."""
+        model = PWCDCNet(**SMALL, key=PRNGKey(3))
+        again = PWCDCNet(**SMALL, key=PRNGKey(3))
         for (name, p), q in zip(model.state_dict().items(), again.state_dict().values()):
-            assert torch.equal(p, q), name
+            assert p.dtype == torch.float32 and torch.equal(p, q), name
             if name.endswith("bias"):
                 assert not p.any()
             else:
                 cout, cin, kh, kw = p.shape
                 limit = np.sqrt(6.0 / (kh * kw * (cin + cout)))
                 assert p.abs().max() <= limit and p.abs().max() > 0.9 * limit
-        glorot_init_(model, torch.Generator().manual_seed(4))
+                if p.numel() >= 1000:  # mean 0 and variance limit**2 / 3, within 5 standard errors
+                    n = p.numel()
+                    assert abs(float(p.mean())) < 5 * limit / np.sqrt(3 * n), name
+                    assert abs(float(p.var()) / (limit**2 / 3) - 1) < 5 * np.sqrt(0.8 / n), name
+        init_params(model, PRNGKey(4))
         assert not torch.equal(model.context.conv2d.weight, again.context.conv2d.weight)
 
 
@@ -281,9 +288,9 @@ class TestNoJax:
             "    'train_lib.trainer', 'train', 'evaluate', 'test', 'parallel', 'parallel.mesh',\n"
             "    'parallel.spatial', 'parallel._comm', 'test_continuous', 'convert_checkpoint',\n"
             "    'train_lib.tf_converter', 'transcode_dataset', 'models', 'models.pwcnet', 'models.pyramid',\n"
-            "    'models.estimator', 'weights', 'orbax_format')}\n"
+            "    'models.estimator', 'weights', 'orbax_format', 'prng')}\n"
             "print(len(names), bad, want - set(names))\n"
-            "sys.exit(1 if bad or len(names) < 49 or want - set(names) else 0)\n"
+            "sys.exit(1 if bad or len(names) < 50 or want - set(names) else 0)\n"
         )
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,

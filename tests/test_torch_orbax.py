@@ -65,7 +65,7 @@ def _jax_state(scheduled: bool, seed: int):
 
 def _port_state(scheduled: bool, seed: int):
     """The port's TrainState of the tiny model, every tensor drawn from ``seed``."""
-    state = create_train_state(PWCDCNet(**TINY), lr_scheduling=scheduled, device="cpu")
+    state = create_train_state(PWCDCNet(**TINY, init=False), lr_scheduling=scheduled, device="cpu")
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for t in [*state.model.parameters(), *state.mu.values(), *state.nu.values()]:

@@ -44,6 +44,7 @@ from pwcnet_tpu.train_lib.schedule import make_lr as jax_make_lr
 from pwcnet_tpu_torch.models import PWCDCNet
 from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
 from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
+from pwcnet_tpu_torch.prng import PRNGKey
 from pwcnet_tpu_torch.train_lib import (
     TrainState,
     create_train_state,
@@ -291,8 +292,8 @@ class TestTrainSteps:
 class TestCreateTrainState:
     def test_fresh_state(self):
         model = PWCDCNet(**TINY)
-        state = create_train_state(model, torch.Generator().manual_seed(5), device="cpu")
-        again = create_train_state(PWCDCNet(**TINY), torch.Generator().manual_seed(5), device="cpu")
+        state = create_train_state(model, PRNGKey(5), device="cpu")
+        again = create_train_state(PWCDCNet(**TINY, init=False), PRNGKey(5), device="cpu")
         assert isinstance(state, TrainState) and state.step == 0 and state.model is model
         assert state.lr() == 1e-4 and callable(state.learning_rate)  # scheduled by default
         assert create_train_state(PWCDCNet(**TINY), lr_scheduling=False, device="cpu").learning_rate == 1e-4

@@ -3,9 +3,10 @@ on the CPU at the tiny model of tests/test_cli.py (``num_levels=3,
 search_range=2, output_level=1``).
 
 Both packages start from one checkpoint, ``model_0.msgpack``, written here
-with the JAX package from a numpy-seeded parameter tree (the two initialise
-from different generators; by the filename rule the file resumes at epoch 0,
-batch 0). The JAX side is a loop of its own ``DataLoader`` and
+with the JAX package from a numpy-seeded parameter tree (by the filename
+rule the file resumes at epoch 0, batch 0); ``tests/test_torch_init.py``
+runs one epoch in each package from one ``--seed`` instead, each drawing
+the same init. The JAX side is a loop of its own ``DataLoader`` and
 ``make_train_step``; the port side is ``pwcnet_tpu_torch.train.main``.
 
 Tolerances, those of tests/test_torch_train.py scaled to the step count N (8
