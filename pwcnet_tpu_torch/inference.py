@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
+from pwcnet_tpu_torch.utils.profiling import span
 from pwcnet_tpu_torch.weights import from_jax_params, load_params, to_jax_params
 
 __all__ = ["factor_crop", "load_image", "resolve_device", "spatial_hooks", "FlowPredictor"]
@@ -294,6 +295,11 @@ class FlowPredictor:
         padding pairs are dropped, so every dispatch holds ``batch`` pairs.
         ``size_handling='pad'`` crops each flow back to its frame.
 
+        Its phases are spans (``utils.profiling``): ``serve.load`` (a frame
+        read and prepared), ``serve.stage`` (the staging tensor filled),
+        ``serve.enqueue`` (copy up, forward, copies back, event) and
+        ``serve.wait`` (the wait on a dispatch's event); none spans a yield.
+
         On a serving mesh every rank passes the same frames and yields every
         pair, whole: each dispatch runs the sharded forward of ``raw_forward``
         (the batch split over ``data`` when ``batch`` divides, else run whole
@@ -329,29 +335,31 @@ class FlowPredictor:
 
         def dispatch(buf, n_valid):
             """buf: batch + 1 (orig_hw, frame) tuples; returns what finalize needs."""
-            uint8 = all(f.dtype == np.uint8 for _, f in buf)
-            staged = torch.empty((len(buf), *buf[0][1].shape), dtype=torch.uint8 if uint8 else torch.float32,
-                                 pin_memory=pin)
-            host = staged.numpy()
-            for k, (_, f) in enumerate(buf):
-                host[k] = f if f.dtype == host.dtype else f.astype(np.float32) / 255.0
-            with torch.inference_mode():
+            with span("serve.stage", n_valid):
+                uint8 = all(f.dtype == np.uint8 for _, f in buf)
+                staged = torch.empty((len(buf), *buf[0][1].shape), dtype=torch.uint8 if uint8 else torch.float32,
+                                     pin_memory=pin)
+                host = staged.numpy()
+                for k, (_, f) in enumerate(buf):
+                    host[k] = f if f.dtype == host.dtype else f.astype(np.float32) / 255.0
+            with span("serve.enqueue", n_valid), torch.inference_mode():
                 t = self._to_device(staged)
                 flow_final, pyramid = self._forward(t[:-1], t[1:])
                 outs = [flow_final, *pyramid] if fetch == "all" else [flow_final]
                 fetched = [torch.empty(o.shape, dtype=torch.float32, pin_memory=pin) for o in outs]
                 for dst, o in zip(fetched, outs):
                     dst.copy_(o, non_blocking=True)
-            done = None
-            if pin:
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
+                done = None
+                if pin:
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
             return staged, fetched, done, [hw for hw, _ in buf[:-1]], n_valid
 
         def finalize(item):
             staged, fetched, done, orig_hws, n_valid = item
-            if done is not None:
-                done.synchronize()
+            with span("serve.wait", n_valid):
+                if done is not None:
+                    done.synchronize()
             flows, *pyramid = [f.numpy() for f in fetched]
             imgs = staged.numpy()
             for i in range(n_valid):
@@ -370,7 +378,8 @@ class FlowPredictor:
         pending: deque = deque()
         buf: list = []
         for src in frames:
-            buf.append(load(src))
+            with span("serve.load"):
+                buf.append(load(src))
             if len(buf) == batch + 1:
                 pending.append(dispatch(buf, batch))
                 buf = buf[-1:]  # the last frame starts the next batch

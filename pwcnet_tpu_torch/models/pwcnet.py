@@ -54,6 +54,10 @@ Options, with the JAX package's meaning:
   batch, so each rank's row shard stays whole.
 - ``forward(..., with_features=True)`` also returns frame 0's pyramid.
 
+Both forwards are spans (``utils.profiling``): ``model.forward`` with
+``model.pyramid``, ``model.level<l>`` (warp, cost volume and estimator of
+level l) and ``model.context`` inside it.
+
 ``PWCNet`` is the legacy variant (the JAX package's ``PWCNet``, the
 reference's original model as it was meant to work): a 2-conv pyramid, a
 zero flow at the deepest level and ``resize_bilinear(flow) * 2`` between
@@ -82,6 +86,7 @@ from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
 from pwcnet_tpu_torch.ops.resize import resize_bilinear, upsample2x_bilinear
 from pwcnet_tpu_torch.ops.warp import warp
 from pwcnet_tpu_torch.prng import PRNGKey
+from pwcnet_tpu_torch.utils.profiling import span
 from pwcnet_tpu_torch.weights import init_params
 
 __all__ = ["PWCDCNet", "PWCNet", "flow_scales"]
@@ -95,6 +100,11 @@ def flow_scales(num_levels: int) -> list:
 def _init(model: nn.Module, key, init: bool) -> None:
     if init:
         init_params(model, PRNGKey(0) if key is None else key)
+
+
+def _level_spans(output_level: int) -> tuple:
+    """The span name of each level, made once so a disabled span allocates nothing."""
+    return tuple(f"model.level{l}" for l in range(output_level + 1))
 
 
 def _set_compute_dtype(model: nn.Module, compute_dtype: Optional[torch.dtype]) -> None:
@@ -163,6 +173,7 @@ class PWCDCNet(nn.Module):
             self.add_module(f"optflow_{l}", est)
             feat = est.out_channels
         self.context = ContextNetwork(2 + feat)
+        self._level_spans = _level_spans(output_level)
         _init(self, key, init)
         _set_compute_dtype(self, compute_dtype)
 
@@ -191,15 +202,20 @@ class PWCDCNet(nn.Module):
         resolution), each (B, h, w, 2); ``with_features`` appends frame 0's
         feature pyramid, deep first, each (B, h, w, C) (row shards where
         the level is sharded)."""
+        with span("model.forward", images_0.shape[0]):
+            return self._forward(images_0, images_1, with_features)
+
+    def _forward(self, images_0, images_1, with_features):
         g = self.spatial_guard_fn
         dtype = self.compute_dtype or self.fp_extractor.conv2d.weight.dtype
-        if self.batched_pyramid:
-            b = images_0.shape[0]
-            pyramid = self._run(self.fp_extractor, to_nchw(torch.cat([images_0, images_1]).to(dtype)), g)
-            pyramid_0, pyramid_1 = [p[:b] for p in pyramid], [p[b:] for p in pyramid]
-        else:
-            pyramid_0 = self._run(self.fp_extractor, to_nchw(images_0.to(dtype)), g)
-            pyramid_1 = self._run(self.fp_extractor, to_nchw(images_1.to(dtype)), g)
+        with span("model.pyramid"):
+            if self.batched_pyramid:
+                b = images_0.shape[0]
+                pyramid = self._run(self.fp_extractor, to_nchw(torch.cat([images_0, images_1]).to(dtype)), g)
+                pyramid_0, pyramid_1 = [p[:b] for p in pyramid], [p[b:] for p in pyramid]
+            else:
+                pyramid_0 = self._run(self.fp_extractor, to_nchw(images_0.to(dtype)), g)
+                pyramid_1 = self._run(self.fp_extractor, to_nchw(images_1.to(dtype)), g)
         scales = flow_scales(self.num_levels)
         sharded = self.sharded_levels(images_0.shape[1] * (g.size if g is not None else 1))
         d = self.search_range
@@ -209,40 +225,42 @@ class PWCDCNet(nn.Module):
         for l, (f0, f1) in enumerate(zip(pyramid_0, pyramid_1)):
             sh = sharded[l]
             rows = g if sh else None
-            # a replicated level fuses the warp only where the model does
-            cv_fn, wcv_fn = (self.cost_volume_fn, self.warp_cv_fn) if g is None or sh else (
-                g.cost_volume_fn, g.warp_cv_fn if self.warp_cv_fn is not None else None)
-            if sh and flows_up is not None and not sharded[l - 1]:
-                flows_up, features_up = g.split(flows_up), g.split(features_up)
-            f0n, f1n = to_nhwc(f0), to_nhwc(f1)
-            if l == 0:
-                cv = (cv_fn or cost_volume)(f0n, f1n, d)
-            else:
-                flow_px = to_nhwc(flows_up * scales[l])
-                if wcv_fn is not None:
-                    cv = wcv_fn(f0n, f1n, flow_px, d)
+            with span(self._level_spans[l]):
+                # a replicated level fuses the warp only where the model does
+                cv_fn, wcv_fn = (self.cost_volume_fn, self.warp_cv_fn) if g is None or sh else (
+                    g.cost_volume_fn, g.warp_cv_fn if self.warp_cv_fn is not None else None)
+                if sh and flows_up is not None and not sharded[l - 1]:
+                    flows_up, features_up = g.split(flows_up), g.split(features_up)
+                f0n, f1n = to_nhwc(f0), to_nhwc(f1)
+                if l == 0:
+                    cv = (cv_fn or cost_volume)(f0n, f1n, d)
                 else:
-                    warped = g.warp(f1n, flow_px, self.warp_type) if sh else warp(f1n, flow_px, self.warp_type)
-                    cv = (cv_fn or cost_volume)(f0n, warped, d)
-            flows, features = self._run(
-                getattr(self, f"optflow_{l}"), to_nchw(cv), f0, flows_up, features_up, rows=rows
-            )
-            if l < self.output_level:
-                # one joint 2+C-channel upsample: bilinear resize is
-                # channelwise, so this equals two separate resizes
-                both = to_nhwc(torch.cat([flows, features], 1))
-                fu = to_nchw(g.upsample(both, 2) if sh else upsample2x_bilinear(both))
-                flows_up, features_up = fu[:, :2], fu[:, 2:]
-                flows_pyramid.append(flows)
-            else:
+                    flow_px = to_nhwc(flows_up * scales[l])
+                    if wcv_fn is not None:
+                        cv = wcv_fn(f0n, f1n, flow_px, d)
+                    else:
+                        warped = g.warp(f1n, flow_px, self.warp_type) if sh else warp(f1n, flow_px, self.warp_type)
+                        cv = (cv_fn or cost_volume)(f0n, warped, d)
+                flows, features = self._run(
+                    getattr(self, f"optflow_{l}"), to_nchw(cv), f0, flows_up, features_up, rows=rows
+                )
+                if l < self.output_level:
+                    # one joint 2+C-channel upsample: bilinear resize is
+                    # channelwise, so this equals two separate resizes
+                    both = to_nhwc(torch.cat([flows, features], 1))
+                    fu = to_nchw(g.upsample(both, 2) if sh else upsample2x_bilinear(both))
+                    flows_up, features_up = fu[:, :2], fu[:, 2:]
+                    flows_pyramid.append(flows)
+                    continue
+            with span("model.context"):
                 flows = self._run(self.context, flows, features, rows=rows)
-                flows_pyramid.append(flows)
-                up = 2 ** (self.num_levels - self.output_level)
-                h, w = flows.shape[2], flows.shape[3]
-                fn = to_nhwc(flows)
-                flows_final = (g.upsample(fn, up) if sh else resize_bilinear(fn, (h * up, w * up))) * 20.0
-                out = flows_final, [to_nhwc(f) for f in flows_pyramid]
-                return (*out, [to_nhwc(f) for f in pyramid_0]) if with_features else out
+            flows_pyramid.append(flows)
+            up = 2 ** (self.num_levels - self.output_level)
+            h, w = flows.shape[2], flows.shape[3]
+            fn = to_nhwc(flows)
+            flows_final = (g.upsample(fn, up) if sh else resize_bilinear(fn, (h * up, w * up))) * 20.0
+            out = flows_final, [to_nhwc(f) for f in flows_pyramid]
+            return (*out, [to_nhwc(f) for f in pyramid_0]) if with_features else out
 
 
 class PWCNet(nn.Module):
@@ -299,6 +317,7 @@ class PWCNet(nn.Module):
                 self.add_module(f"context_{l}", ContextNetwork(2 + feat))
         if context == "final":
             self.context = ContextNetwork(2 + feat)
+        self._level_spans = _level_spans(output_level)
         _init(self, key, init)
         _set_compute_dtype(self, compute_dtype)
 
@@ -312,24 +331,30 @@ class PWCNet(nn.Module):
         the BatchNorm layers normalise by the batch's statistics and update
         their running ones (flax's ``mutable=["batch_stats"]``); the default
         call leaves them as they are, whatever mode the module is in."""
+        with span("model.forward", images_0.shape[0]):
+            return self._forward(images_0, images_1, train)
+
+    def _forward(self, images_0, images_1, train):
         dtype = self.compute_dtype or self.fp_extractor.conv2d.weight.dtype
-        pyramid_0 = self.fp_extractor(to_nchw(images_0.to(dtype)))
-        pyramid_1 = self.fp_extractor(to_nchw(images_1.to(dtype)))
+        with span("model.pyramid"):
+            pyramid_0 = self.fp_extractor(to_nchw(images_0.to(dtype)))
+            pyramid_1 = self.fp_extractor(to_nchw(images_1.to(dtype)))
         flows = []
         flow = None
         for l, (f0, f1) in enumerate(zip(pyramid_0, pyramid_1)):
             b, _, h, w = f0.shape
-            if l == 0:
-                flow = f0.new_zeros((b, h, w, 2))
-            else:
-                flow = resize_bilinear(flow, (h, w)) * 2.0
-            warped = warp(to_nhwc(f1), flow, self.warp_type)
-            cost = self.cost_volume_fn(to_nhwc(f0), warped, self.search_range)
-            feature, flow = getattr(self, f"optflow_{l}")(to_nchw(cost), f0, to_nchw(flow), train=train)
-            if self.context_mode == "all":
-                flow = getattr(self, f"context_{l}")(flow, feature)
-            elif l == self.output_level:
-                flow = self.context(flow, feature)
+            with span(self._level_spans[l]):
+                if l == 0:
+                    flow = f0.new_zeros((b, h, w, 2))
+                else:
+                    flow = resize_bilinear(flow, (h, w)) * 2.0
+                warped = warp(to_nhwc(f1), flow, self.warp_type)
+                cost = self.cost_volume_fn(to_nhwc(f0), warped, self.search_range)
+                feature, flow = getattr(self, f"optflow_{l}")(to_nchw(cost), f0, to_nchw(flow), train=train)
+            if self.context_mode == "all" or l == self.output_level:
+                with span("model.context"):
+                    context = getattr(self, f"context_{l}") if self.context_mode == "all" else self.context
+                    flow = context(flow, feature)
             flow = to_nhwc(flow)
             flows.append(flow)
             if l == self.output_level:

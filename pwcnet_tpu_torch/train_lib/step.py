@@ -37,6 +37,7 @@ import torch
 from pwcnet_tpu_torch import losses
 from pwcnet_tpu_torch.inference import resolve_device
 from pwcnet_tpu_torch.train_lib.schedule import make_lr
+from pwcnet_tpu_torch.utils.profiling import span
 from pwcnet_tpu_torch.weights import init_params
 
 __all__ = ["TrainState", "create_train_state", "make_loss_fn", "make_train_step", "make_eval_step", "make_forward"]
@@ -189,11 +190,18 @@ def make_train_step(model: torch.nn.Module, mesh=None, **loss_kwargs) -> Callabl
     plain ops sum in a fixed order, and cuDNN runs its deterministic
     algorithms for the step's forward and backward.
     With ``mesh`` the images and flows are this rank's part of the batch and
-    the gradients are summed over all ranks before the decay is added."""
+    the gradients are summed over all ranks before the decay is added.
+    The step is a span (``utils.profiling``), ``step``, with ``step.forward``
+    (the loss, model included), ``step.backward``, ``step.allreduce`` (mesh
+    only) and ``step.adam`` (the decay and the update) inside it."""
     gamma = loss_kwargs.get("gamma", 4e-4)
     loss_fn = make_loss_fn(model, decoupled_wd=True, mesh=mesh, **loss_kwargs)
 
     def train_step(state: TrainState, images: torch.Tensor, flows_gt: torch.Tensor):
+        with span("step", images.shape[0]):
+            return _step(state, images, flows_gt)
+
+    def _step(state: TrainState, images: torch.Tensor, flows_gt: torch.Tensor):
         named = dict(state.model.named_parameters())
         params = list(named.values())
         # cuDNN's deterministic algorithms for the forward and the backward
@@ -203,13 +211,16 @@ def make_train_step(model: torch.nn.Module, mesh=None, **loss_kwargs) -> Callabl
         deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
-            total, metrics = loss_fn(images, flows_gt)
-            grads = list(torch.autograd.grad(total, params))
+            with span("step.forward"):
+                total, metrics = loss_fn(images, flows_gt)
+            with span("step.backward"):
+                grads = list(torch.autograd.grad(total, params))
         finally:
             torch.backends.cudnn.deterministic = deterministic
         if mesh is not None:
-            grads = _sum_over_ranks(grads)
-        with torch.no_grad():
+            with span("step.allreduce"):
+                grads = _sum_over_ranks(grads)
+        with span("step.adam"), torch.no_grad():
             grads = torch._foreach_add(grads, params, alpha=gamma)
             mus = [state.mu[k] for k in named]
             nus = [state.nu[k] for k in named]

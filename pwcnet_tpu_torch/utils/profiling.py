@@ -1,99 +1,117 @@
-"""Profiling and timing harnesses (counterpart of ``pwcnet_tpu/utils/profiling.py``).
+"""The port's tracing: spans at its layer boundaries, and the hand kernels'
+launch counters.
 
-- `device_timeit`: mean seconds per call on the device, from CUDA events
-  around a run of many calls (PyTorch returns before the device finishes,
-  so a host clock without a synchronise would time the enqueue);
-- `trace`: context manager around ``torch.profiler`` that writes a Chrome
-  trace of the enclosed block;
-- `op_profile`: per-kernel device-time table of a function, from
-  ``torch.profiler``'s ``key_averages``;
-- `flops_estimate`: floating-point operations of one call, counted by
-  ``torch.utils.flop_counter``.
+- `span(name, pairs=0)`: a context manager around one phase of the program
+  (``serve.load``, ``model.level3``, ``step.backward``, ...). Off, the
+  default, it returns one shared no-op object: no clock is read and
+  nothing is recorded. On (`enable`), it records per name the count, the
+  pairs it was given, the total host seconds and the self seconds (the
+  total less the time its child spans cover) and the name of the span it
+  was opened in. Inside an active ``torch.profiler`` it also enters
+  ``record_function(PREFIX + name)``, so the span sits in the profiler's
+  trace on the same clock as the device work it launched.
+- `enable(on)`, `snapshot()` (name -> ``{"count", "pairs", "total_s",
+  "self_s", "parent"}``) and `reset()`.
 
-The device functions need a CUDA device and raise without one: a CPU time
-is not a device metric.
+The spans live in memory only. Each thread that opens spans keeps its own
+stack of open spans; the totals are shared.
+
+The counters are ``pwcnet_tpu_torch.ops.cuda.launch_counts()`` and
+``reset_launch_counts()``: each hand-kernel wrapper counts the calls in
+which it launched its kernel, always on (an integer add costs less than
+the flag test a span makes).
 """
 
 from __future__ import annotations
 
-import contextlib
-import os
-from typing import Callable
+import threading
+import time
 
-import torch
+import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["device_timeit", "trace", "op_profile", "flops_estimate"]
+__all__ = ["PREFIX", "span", "enable", "snapshot", "reset"]
 
-
-def _require_cuda(what: str) -> None:
-    if not torch.cuda.is_available():
-        raise RuntimeError(f"{what} times the GPU and needs a CUDA device")
+PREFIX = "pwc/"
 
 
-def device_timeit(fn: Callable, *args, iters: int = 50, warmup: bool = True) -> float:
-    """Mean seconds per call of ``fn(*args)`` on the current CUDA device."""
-    _require_cuda("device_timeit")
-    if warmup:
-        fn(*args)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn(*args)
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / 1e3 / iters
+class _Off:
+    """The span of a disabled recorder: enters and leaves, records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
 
 
-@contextlib.contextmanager
-def trace(logdir: str = "torch-trace"):
-    """Capture a torch.profiler trace of the enclosed block into
-    ``<logdir>/trace.json`` (Chrome / Perfetto format)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        try:
-            yield logdir
-        finally:
-            if torch.cuda.is_available():
-                torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+_OFF = _Off()
+_on = False
+_lock = threading.Lock()
+_totals: dict = {}  # name -> [count, pairs, total_ns, self_ns, parent]
+_local = threading.local()
 
 
-def op_profile(fn: Callable, *args, iters: int = 3):
-    """Per-kernel device-time table for ``fn(*args)``: rows ``{"name",
-    "ms_per_iter", "count"}`` sorted by total time."""
-    _require_cuda("op_profile")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+class _Span:
+    __slots__ = ("name", "pairs", "start", "child_ns", "range")
 
-    fn(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn(*args)
-        torch.cuda.synchronize()
-    rows = [
-        {"name": e.key, "ms_per_iter": e.self_device_time_total / 1e3 / iters, "count": e.count}
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
-    ]
-    rows.sort(key=lambda r: -r["ms_per_iter"])
-    return rows
+    def __init__(self, name: str, pairs: int):
+        self.name, self.pairs, self.child_ns, self.range = name, pairs, 0, None
+
+    def __enter__(self):
+        stack = _local.__dict__.setdefault("stack", [])
+        if _autograd_profiler._is_profiler_enabled:
+            self.range = _autograd_profiler.record_function(PREFIX + self.name)
+            self.range.__enter__()
+        stack.append(self)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dur = time.perf_counter_ns() - self.start
+        stack = _local.stack
+        stack.pop()
+        parent = stack[-1] if stack else None
+        if parent is not None:
+            parent.child_ns += dur
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        with _lock:
+            rec = _totals.get(self.name)
+            if rec is None:
+                rec = _totals[self.name] = [0, 0, 0, 0, parent.name if parent is not None else None]
+            rec[0] += 1
+            rec[1] += self.pairs
+            rec[2] += dur
+            rec[3] += dur - self.child_ns
+        return False
 
 
-def flops_estimate(fn: Callable, *args) -> dict:
-    """Operations of one ``fn(*args)`` as ``torch.utils.flop_counter`` counts
-    them (matrix products and convolutions of PyTorch's own operators; the
-    hand-written kernels are opaque to it). ``bytes_accessed`` is not
-    counted by PyTorch and is None."""
-    from torch.utils.flop_counter import FlopCounterMode
+def span(name: str, pairs: int = 0):
+    """A context manager around one phase named ``name`` that covers
+    ``pairs`` rows of work (0 where the phase has no rows of its own)."""
+    if not _on:
+        return _OFF
+    return _Span(name, pairs)
 
-    with FlopCounterMode(display=False) as counter:
-        fn(*args)
-    return {"flops": counter.get_total_flops(), "bytes_accessed": None}
+
+def enable(on: bool) -> None:
+    """Turn the spans on or off (off at import)."""
+    global _on
+    _on = bool(on)
+
+
+def snapshot() -> dict:
+    """What the spans recorded since the last `reset`: name -> ``{"count",
+    "pairs", "total_s", "self_s", "parent"}``, ``parent`` the span the
+    first of them was opened in (None at the top)."""
+    with _lock:
+        return {name: {"count": c, "pairs": p, "total_s": t * 1e-9, "self_s": s * 1e-9, "parent": parent}
+                for name, (c, p, t, s, parent) in _totals.items()}
+
+
+def reset() -> None:
+    """Forget what the spans recorded (spans open now still record)."""
+    with _lock:
+        _totals.clear()

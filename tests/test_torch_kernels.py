@@ -975,18 +975,6 @@ class TestKernelsOnCard:
             for a, b in zip(got, want):
                 _assert_close(a, b, torch.float32)
 
-    def test_profiling_helpers_time_the_card(self, cuda_device, tmp_path):
-        from pwcnet_tpu_torch.utils import profiling
-
-        x = torch.randn((8, 64, 64, 64), device=cuda_device)
-        sec = profiling.device_timeit(lambda a: a @ a, x, iters=5)
-        assert 0 < sec < 1
-        rows = profiling.op_profile(lambda a: a @ a, x, iters=2)
-        assert rows and rows[0]["ms_per_iter"] > 0 and rows[0]["count"] >= 2
-        with profiling.trace(str(tmp_path / "trace")):
-            (x @ x).sum().item()
-        assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
-
     def test_wrappers_refuse_what_the_kernels_do_not_take(self, cuda_device):
         x = torch.zeros((1, 8, 8, 16), device=cuda_device)
         with pytest.raises(ValueError):

@@ -410,17 +410,3 @@ class TestUtils:
         logger.close()
         assert json.loads((tmp_path / "train" / "metrics.jsonl").read_text()) == {
             "step": 3, "loss/pwc": 1.5, "EPE/source": 2.0}
-
-    def test_profiling_counts_operations_and_refuses_to_time_the_cpu(self, monkeypatch, tmp_path):
-        from pwcnet_tpu_torch.utils import profiling
-
-        x, k = torch.zeros(1, 3, 8, 8), torch.zeros(4, 3, 3, 3)
-        flops = profiling.flops_estimate(lambda a: torch.nn.functional.conv2d(a, k, padding=1), x)
-        assert flops == {"flops": 2 * 8 * 8 * 4 * 3 * 9, "bytes_accessed": None}
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-        for fn in (profiling.device_timeit, profiling.op_profile):
-            with pytest.raises(RuntimeError, match="needs a CUDA device"):
-                fn(lambda a: a + 1, x)
-        with profiling.trace(str(tmp_path / "trace")):
-            x + 1
-        assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
