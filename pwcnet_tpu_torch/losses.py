@@ -30,7 +30,7 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
-from pwcnet_tpu_torch.ops.resize import nearest_indices, resize_nearest
+from pwcnet_tpu_torch.ops.resize import device_table, nearest_indices, nearest_tensor, resize_nearest
 
 __all__ = [
     "DEFAULT_WEIGHTS", "l1_loss", "l2_loss", "epe", "level_sums", "multiscale_loss", "multirobust_loss",
@@ -99,13 +99,17 @@ def scored_rows(gt: torch.Tensor, pred: torch.Tensor, frame_rows: int, index: in
     ``pred``'s, taken by ``narrow`` (its backward writes each row once)."""
     hs, w_full = gt.shape[1], gt.shape[2]
     hp, wp = pred.shape[1], pred.shape[2]
-    g0, p0 = index * hs, (index * hp if sharded else 0)
-    src = nearest_indices(frame_rows, hp * n if sharded else hp)[p0 : p0 + hp]
-    keep = np.flatnonzero((src >= g0) & (src < g0 + hs))
-    first = int(keep[0]) if keep.size else 0
-    cols = torch.from_numpy(nearest_indices(w_full, wp)).to(gt.device)
-    gt_down = gt.index_select(1, torch.from_numpy(src[keep] - g0).to(gt.device)).index_select(2, cols)
-    return gt_down, pred.narrow(1, first, keep.size)
+
+    def build(device):
+        g0, p0 = index * hs, (index * hp if sharded else 0)
+        src = nearest_indices(frame_rows, hp * n if sharded else hp)[p0 : p0 + hp]
+        keep = np.flatnonzero((src >= g0) & (src < g0 + hs))
+        first = int(keep[0]) if keep.size else 0
+        return torch.from_numpy(src[keep] - g0).to(device), first, int(keep.size)
+
+    rows, first, count = device_table(("scored_rows", frame_rows, hs, hp, index, n, bool(sharded)), gt.device, build)
+    gt_down = gt.index_select(1, rows).index_select(2, nearest_tensor(w_full, wp, gt.device))
+    return gt_down, pred.narrow(1, first, count)
 
 
 def level_sums(gt: torch.Tensor, preds, frame_rows: int, index: int, n: int, sharded, norm: str) -> torch.Tensor:

@@ -36,6 +36,7 @@ import torch
 
 from pwcnet_tpu_torch import losses
 from pwcnet_tpu_torch.inference import resolve_device
+from pwcnet_tpu_torch.ops.resize import device_table
 from pwcnet_tpu_torch.train_lib.schedule import make_lr
 from pwcnet_tpu_torch.utils.profiling import span
 from pwcnet_tpu_torch.weights import init_params
@@ -157,7 +158,8 @@ def _mesh_loss_fn(model, mesh, loss_name, weights, gamma, epsilon, q, decoupled_
         total = global_sum(torch.cat([sums.detach(), epe_sum.detach()[None]]))
         batch = images.shape[0] * mesh.data
         level = total[:-1] / batch
-        w = torch.tensor(ws, dtype=torch.float32, device=level.device)
+        w = device_table(("loss_weights", tuple(ws)), level.device,
+                         lambda dev: torch.tensor(ws, dtype=torch.float32, device=dev))
         if loss_name == "multiscale":
             data_loss = (w * level).sum()
             objective = (w * sums).sum() / batch

@@ -1,5 +1,5 @@
-"""The port's tracing: spans at its layer boundaries, and the hand kernels'
-launch counters.
+"""The port's tracing: spans at its layer boundaries, the hand kernels'
+launch counters and the index tables' counters.
 
 - `span(name, pairs=0)`: a context manager around one phase of the program
   (``serve.load``, ``model.level3``, ``step.backward``, ...). Off, the
@@ -16,10 +16,17 @@ launch counters.
 The spans live in memory only. Each thread that opens spans keeps its own
 stack of open spans; the totals are shared.
 
-The counters are ``pwcnet_tpu_torch.ops.cuda.launch_counts()`` and
-``reset_launch_counts()``: each hand-kernel wrapper counts the calls in
-which it launched its kernel, always on (an integer add costs less than
-the flag test a span makes).
+The counters, always on (an integer add costs less than the flag test a
+span makes):
+
+- ``pwcnet_tpu_torch.ops.cuda.launch_counts()`` and
+  ``reset_launch_counts()``: each hand-kernel wrapper counts the calls in
+  which it launched its kernel;
+- ``pwcnet_tpu_torch.ops.resize.table_counts()`` and
+  ``reset_table_counts()``: the lookups of the device-resident index
+  tables (the resizes', the sharded loss's rows) and the uploads, the
+  lookups that built a table and copied it to its device. After warm-up
+  the uploads stay flat; the hit share is ``1 - uploads / lookups``.
 """
 
 from __future__ import annotations

@@ -990,6 +990,41 @@ class TestKernelsOnCard:
             pyramid_level_fused(x[:, :7], k, b, kk, b, kk, b)  # odd H
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss_name", ["multiscale", "robust"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_warmed_train_step_never_waits_on_the_card(cuda_device, dtype, loss_name):
+    """PWCDCNet wired as the trainer wires it on the card (K1 and K2 through
+    the hooks, K3 on the fused levels, K4-K6 in the backward): after one
+    step, a step issues nothing that waits on the card, which capturing it
+    in a CUDA graph needs, and copies no index table up: the loss looks up
+    its two tables a level (five levels) and builds none."""
+    from pwcnet_tpu_torch.inference import FUSED_PYRAMID_LEVELS
+    from pwcnet_tpu_torch.models import PWCDCNet
+    from pwcnet_tpu_torch.ops.resize import reset_table_counts, table_counts
+    from pwcnet_tpu_torch.train_lib import create_train_state, make_train_step
+
+    model = PWCDCNet(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume,
+                     fused_pyramid_levels=FUSED_PYRAMID_LEVELS,
+                     compute_dtype=None if dtype == torch.float32 else dtype)
+    state = create_train_state(model, device=cuda_device)
+    step = make_train_step(model, loss_name=loss_name)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    images = torch.rand((2, 2, 128, 192, 3), generator=g, device=cuda_device)
+    flows = torch.randn((2, 128, 192, 2), generator=g, device=cuda_device) * 4.0
+    state, _ = step(state, images, flows)
+    torch.cuda.synchronize()
+    reset_table_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, images, flows)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert table_counts() == {"lookups": 10, "uploads": 0}
+    assert bool(torch.isfinite(metrics["loss"]))
+
+
 @pytest.fixture
 def two_gpus():
     """Two cards or a skip: decided here, at run time, never at import."""

@@ -15,7 +15,10 @@ from pwcnet_tpu import losses as jax_losses
 from pwcnet_tpu.ops.resize import resize_nearest as jax_resize_nearest
 from pwcnet_tpu.train_lib.schedule import make_lr as jax_make_lr
 from pwcnet_tpu_torch import losses
-from pwcnet_tpu_torch.ops.resize import resize_nearest
+from pwcnet_tpu_torch.models import PWCDCNet
+from pwcnet_tpu_torch.ops import resize as resize_mod
+from pwcnet_tpu_torch.ops.resize import nearest_indices, resize_nearest
+from pwcnet_tpu_torch.train_lib import create_train_state, make_train_step
 from pwcnet_tpu_torch.train_lib.schedule import DEFAULT_BOUNDARIES, make_lr, piecewise_halving
 
 torch.set_num_threads(1)
@@ -38,6 +41,13 @@ def _pyramid(rng, b=3, h=16, w=24, levels=5):
 
 def _close(got, want):
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def _numpy_nearest(x, size):
+    """The TF1 nearest resize by the numpy tables, copied up on every call."""
+    ys = torch.from_numpy(resize_mod._nearest_table(x.shape[-3], size[0])).to(x.device)
+    xs = torch.from_numpy(resize_mod._nearest_table(x.shape[-2], size[1])).to(x.device)
+    return x.index_select(-3, ys).index_select(-2, xs)
 
 
 class TestPointLosses:
@@ -86,6 +96,15 @@ class TestPyramidLosses:
         assert losses.multiscale_loss(gt, pyr).item() == 0.0
         assert losses.DEFAULT_WEIGHTS == jax_losses.DEFAULT_WEIGHTS
 
+    @pytest.mark.parametrize("name", ["multiscale_loss", "multirobust_loss"])
+    def test_bitwise_the_numpy_tables(self, rng, name, monkeypatch):
+        """The losses on the device-resident tables give the bits of the
+        same losses with the numpy tables copied up at every level."""
+        gt, pyr = torch.from_numpy(_flows(rng, h=24, w=40)), [torch.from_numpy(p) for p in _pyramid(rng, h=24, w=40)]
+        got = getattr(losses, name)(gt, pyr)
+        monkeypatch.setattr(losses, "resize_nearest", _numpy_nearest)
+        assert torch.equal(got, getattr(losses, name)(gt, pyr))
+
     def test_gradient_matches_jax(self, rng):
         import jax
 
@@ -125,10 +144,66 @@ class TestResizeNearest:
         x = rng.standard_normal((2, *in_hw, 2)).astype(np.float32)
         got = resize_nearest(torch.from_numpy(x), out_hw).numpy()
         np.testing.assert_array_equal(got, np.asarray(jax_resize_nearest(jnp.asarray(x), out_hw)))
+        np.testing.assert_array_equal(got, _numpy_nearest(torch.from_numpy(x), out_hw).numpy())
 
     def test_takes_the_top_left_sample(self):
         x = torch.arange(16.0).reshape(1, 4, 4, 1)
         assert resize_nearest(x, (2, 2)).flatten().tolist() == [0.0, 2.0, 8.0, 10.0]
+
+
+class TestDeviceTables:
+    @pytest.mark.parametrize("in_size,out_size", [(384, 6), (448, 112), (17, 5), (6, 12)])
+    def test_the_numpy_table_uploaded_once(self, in_size, out_size):
+        cpu = torch.device("cpu")
+        table = resize_mod.nearest_tensor(in_size, out_size, cpu)
+        assert table.dtype == torch.int64
+        np.testing.assert_array_equal(table.numpy(), resize_mod._nearest_table(in_size, out_size))
+        before = resize_mod.table_counts()
+        assert resize_mod.nearest_tensor(in_size, out_size, cpu) is table
+        after = resize_mod.table_counts()
+        assert after == {"lookups": before["lookups"] + 1, "uploads": before["uploads"]}
+
+    def test_a_train_step_uploads_each_table_once(self, monkeypatch):
+        """The first step builds one table per distinct (frame size, level
+        size) of the loss; a second step builds none and looks each up
+        again."""
+        monkeypatch.setattr(resize_mod, "_tables", {})
+        resize_mod.reset_table_counts()
+        model = PWCDCNet(num_levels=3, output_level=1, search_range=2)
+        state = create_train_state(model, learning_rate=1e-4, device="cpu")
+        step = make_train_step(model)
+        g = torch.Generator().manual_seed(0)
+        images, flows = torch.rand((2, 2, 16, 24, 3), generator=g), torch.randn((2, 16, 24, 2), generator=g)
+        state, _ = step(state, images, flows)
+        _, pyramid = model(images[:, 0], images[:, 1])
+        distinct = {(16, p.shape[1]) for p in pyramid} | {(24, p.shape[2]) for p in pyramid}
+        assert len(distinct) == 4
+        first = resize_mod.table_counts()
+        assert first == {"lookups": 2 * len(pyramid), "uploads": len(distinct)}
+        state, _ = step(state, images, flows)
+        assert resize_mod.table_counts() == {"lookups": 4 * len(pyramid), "uploads": len(distinct)}
+
+
+class TestScoredRows:
+    @pytest.mark.parametrize("sharded", [True, False])
+    @pytest.mark.parametrize("frame_rows,level_rows", [(32, 8), (48, 12), (40, 10)])
+    def test_two_shards_score_the_rows_they_did(self, rng, frame_rows, level_rows, sharded):
+        """Each of 2 shards gets the rows the numpy-table version gave it,
+        a second call the same cached rows."""
+        n, w_full, wp = 2, 12, 3
+        hp = level_rows // n if sharded else level_rows
+        for index in range(n):
+            gt = torch.from_numpy(_flows(rng, b=2, h=frame_rows // n, w=w_full))
+            pred = torch.from_numpy(_flows(rng, b=2, h=hp, w=wp))
+            hs, g0, p0 = frame_rows // n, index * (frame_rows // n), (index * hp if sharded else 0)
+            src = nearest_indices(frame_rows, hp * n if sharded else hp)[p0 : p0 + hp]
+            keep = np.flatnonzero((src >= g0) & (src < g0 + hs))
+            want_gt = gt.index_select(1, torch.from_numpy(src[keep] - g0)).index_select(
+                2, torch.from_numpy(nearest_indices(w_full, wp)))
+            want_pred = pred.narrow(1, int(keep[0]) if keep.size else 0, keep.size)
+            for _ in range(2):
+                got_gt, got_pred = losses.scored_rows(gt, pred, frame_rows, index, n, sharded)
+                assert torch.equal(got_gt, want_gt) and torch.equal(got_pred, want_pred)
 
 
 class TestSchedule:

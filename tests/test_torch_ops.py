@@ -23,6 +23,7 @@ from pwcnet_tpu.ops.warp import bilinear_warp as jax_bilinear_warp
 from pwcnet_tpu.ops.warp import nearest_warp as jax_nearest_warp
 from pwcnet_tpu_torch.ops.cost_volume import cost_volume
 from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume_plain
+from pwcnet_tpu_torch.ops import resize as resize_mod
 from pwcnet_tpu_torch.ops.resize import resize_bilinear, upsample2x_bilinear
 from pwcnet_tpu_torch.ops.warp import bilinear_warp, nearest_warp, warp
 
@@ -81,6 +82,49 @@ class TestResize:
     def test_same_size_is_identity(self, rng):
         x = _t(_normal(rng, (1, 3, 5, 2)))
         assert resize_bilinear(x, (3, 5)) is x
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize(
+        "shape,size", [((1, 5, 7, 3), (9, 11)), ((1, 8, 12, 4), (5, 7)), ((2, 436, 1024, 2), (448, 1024))])
+    def test_non_integer_is_bitwise_the_numpy_tables(self, rng, shape, size, dtype):
+        """The device-resident tables gather and lerp exactly as the numpy
+        tables copied up on every call did."""
+        x = _t(_normal(rng, shape)).to(dtype)
+        (y_lo, y_hi, y_lerp), (x_lo, x_hi, x_lerp) = (
+            [torch.from_numpy(a) for a in resize_mod._bilinear_table(i, o)] for i, o in zip(shape[1:3], size))
+        top, bot = x.index_select(-3, y_lo), x.index_select(-3, y_hi)
+        tl, tr = top.index_select(-2, x_lo), top.index_select(-2, x_hi)
+        bl, br = bot.index_select(-2, x_lo), bot.index_select(-2, x_hi)
+        wy, wx = y_lerp.to(dtype)[:, None, None], x_lerp.to(dtype)[:, None]
+        t, b = tl + (tr - tl) * wx, bl + (br - bl) * wx
+        assert torch.equal(resize_bilinear(x, size), t + (b - t) * wy)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("in_size,out_size", [(5, 9), (12, 7), (436, 448), (7, 7)])
+    def test_device_tables_are_the_numpy_tables_uploaded_once(self, in_size, out_size, dtype):
+        cpu = torch.device("cpu")
+        low, high, lerp = resize_mod._bilinear_tensors(in_size, out_size, cpu, dtype)
+        want = resize_mod._bilinear_table(in_size, out_size)
+        np.testing.assert_array_equal(low.numpy(), want[0])
+        np.testing.assert_array_equal(high.numpy(), want[1])
+        assert lerp.dtype == dtype and torch.equal(lerp, torch.from_numpy(want[2]).to(dtype))
+        near = resize_mod.nearest_tensor(in_size, out_size, cpu)
+        np.testing.assert_array_equal(near.numpy(), resize_mod._nearest_table(in_size, out_size))
+        before = resize_mod.table_counts()
+        again = resize_mod._bilinear_tensors(in_size, out_size, cpu, dtype)
+        assert all(a is b for a, b in zip(again, (low, high, lerp)))
+        assert resize_mod.nearest_tensor(in_size, out_size, cpu) is near
+        after = resize_mod.table_counts()
+        assert after["uploads"] == before["uploads"] and after["lookups"] == before["lookups"] + 2
+
+    def test_a_table_first_used_in_inference_mode_serves_a_backward(self, rng):
+        size = (13, 17)  # a shape no other test resizes to
+        x = _t(_normal(rng, (1, 6, 8, 2)))
+        with torch.inference_mode():
+            resize_bilinear(x, size)
+        xg = x.clone().requires_grad_()
+        (grad,) = torch.autograd.grad(resize_bilinear(xg, size).sum(), xg)
+        assert grad.shape == x.shape and torch.isfinite(grad).all()
 
 
 class TestCostVolume:
