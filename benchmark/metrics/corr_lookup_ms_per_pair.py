@@ -1,0 +1,9 @@
+"""Device milliseconds a pair of the work launched inside RAFT's
+``model.lookup`` spans (the correlation pyramid's windowed lookups, every
+update's), over the profiled stretch's pairs (device trace). No span, no
+reading."""
+
+
+def read(t):
+    s = (t.extra.get("span_device_s") or {}).get("model.lookup")
+    return 1e3 * s / t.pairs if s and t.pairs else None

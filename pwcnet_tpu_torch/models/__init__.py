@@ -1,11 +1,12 @@
-"""PWCDCNet, the legacy PWCNet and their parts in PyTorch."""
+"""PWCDCNet, the legacy PWCNet, RAFT and their parts in PyTorch."""
 
 from pwcnet_tpu_torch.models.context import ContextNetwork
 from pwcnet_tpu_torch.models.estimator import FlowEstimator, FlowEstimatorLegacy
 from pwcnet_tpu_torch.models.pwcnet import PWCDCNet, PWCNet, flow_scales
 from pwcnet_tpu_torch.models.pyramid import FeaturePyramidExtractor, FeaturePyramidExtractorLegacy
+from pwcnet_tpu_torch.models.raft import RAFT
 
 __all__ = [
     "ContextNetwork", "FeaturePyramidExtractor", "FeaturePyramidExtractorLegacy", "FlowEstimator",
-    "FlowEstimatorLegacy", "PWCDCNet", "PWCNet", "flow_scales",
+    "FlowEstimatorLegacy", "PWCDCNet", "PWCNet", "RAFT", "flow_scales",
 ]

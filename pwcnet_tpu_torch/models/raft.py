@@ -1,0 +1,253 @@
+"""RAFT (Teed & Deng, "Recurrent All-Pairs Field Transforms for Optical
+Flow", ECCV 2020, arXiv:2003.12039) in PyTorch: the full model of
+princeton-vl/RAFT ``core/raft.py``, ``extractor.py``, ``update.py`` and
+``corr.py``, not ``--small``.
+
+- ``fnet``, a residual encoder with instance norm, maps both frames (one
+  2B batch) to 256-channel features at 1/8 resolution; ``cnet``, the same
+  encoder with BatchNorm, maps frame 0 to ``net = tanh(:128)`` and ``inp =
+  relu(128:)``.
+- The all-pairs correlation of the features and its 4-level pyramid
+  (``ops.corr_lookup``), once a forward.
+- ``iters`` updates of the flow at 1/8 resolution, from zero: the lookup
+  of a radius-4 window at ``coords1`` on every level, the motion encoder,
+  the separable ConvGRU and the flow head, whose delta moves ``coords1``.
+- The convex upsample to full resolution: a softmax over the 9 neighbours
+  of each of 64 sub-pixels, weighting ``unfold(8 flow)``. RAFT computes the
+  mask and the upsample at every iteration and returns the last; here both
+  run once, after the last iteration, which gives the same flow.
+
+Module and parameter names are RAFT's (``fnet.layer1.0.conv1``,
+``cnet.norm1.running_mean``, ``update_block.gru.convz1``,
+``update_block.mask.0``, ...), so a published state dict loads without its
+``module.`` prefix. ``cnet``'s BatchNorm always normalises by its running
+statistics, as RAFT's ``freeze_bn`` leaves it (the model serves; it does
+not train here).
+
+Frames are NHWC in [0, 1], mapped by ``2 x - 1`` (RAFT's ``2 (x / 255) -
+1`` of 8-bit frames); H and W must be multiples of 8 (padding is the
+caller's, as RAFT's ``InputPadder`` is). ``forward`` returns ``(flow (B, H,
+W, 2), flow_low (B, H/8, W/8, 2))``, in pixels of their own resolution.
+
+Precision: the model computes in its parameters' dtype (``model.to(
+torch.bfloat16)`` serves in bf16), as RAFT's mixed precision splits it:
+every conv, ``net`` and ``inp`` in that dtype; the correlation, its
+pyramid, the lookup's output, the coordinates, the flow and the upsample's
+softmax and weighted sum in float32; the norms compute their statistics
+and scale in float32. Inside, tensors are NCHW in ``channels_last`` memory,
+and so are the convs' weights.
+
+Spans (``utils.profiling``): ``model.forward`` (B pairs) with
+``model.encode`` (both encoders), ``model.corr`` (product and pyramid) and
+``model.upsample`` once a forward, ``model.lookup`` and ``model.update``
+(motion encoder, GRU, flow head, coordinates) once an iteration.
+
+Initial weights are PyTorch's default init: RAFT's own draw is not
+reproduced, and its published checkpoints are what a user serves.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pwcnet_tpu_torch.models.conv import Conv2d, to_nchw
+from pwcnet_tpu_torch.ops.corr_lookup import corr_pyramid, lookup
+from pwcnet_tpu_torch.utils.profiling import span
+
+__all__ = ["RAFT", "BasicEncoder", "BasicUpdateBlock", "convex_upsample"]
+
+
+class InstanceNorm2d(nn.Module):
+    """``nn.InstanceNorm2d(c)`` (no affine, no running statistics) in any
+    memory format: statistics and scale in float32, the input's dtype out."""
+
+    eps = 1e-5
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        var, mean = torch.var_mean(x.float(), dim=(2, 3), keepdim=True, correction=0)
+        inv = torch.rsqrt(var + self.eps)
+        return torch.addcmul(-mean * inv, x, inv, out=torch.empty_like(x))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that normalises by its running statistics in either
+    mode (RAFT's ``freeze_bn``); the scale in float32, the input's dtype out."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = self.weight.float() / torch.sqrt(self.running_var.float() + self.eps)
+        shift = self.bias.float() - self.running_mean.float() * inv
+        return torch.addcmul(shift[:, None, None], x, inv[:, None, None], out=torch.empty_like(x))
+
+
+def _norm(kind: str, c: int) -> nn.Module:
+    return BatchNorm2d(c) if kind == "batch" else InstanceNorm2d()
+
+
+class ResidualBlock(nn.Module):
+    """Two 3x3 conv-norm-ReLU stages; at stride 2 a 1x1 strided conv and a
+    norm on the shortcut (``norm3``, also ``downsample.1``); ``relu(x + y)``."""
+
+    def __init__(self, cin: int, c: int, norm: str, stride: int = 1):
+        super().__init__()
+        self.conv1 = Conv2d(cin, c, 3, padding=1, stride=stride)
+        self.conv2 = Conv2d(c, c, 3, padding=1)
+        self.norm1, self.norm2 = _norm(norm, c), _norm(norm, c)
+        self.downsample = None
+        if stride != 1:
+            self.norm3 = _norm(norm, c)
+            self.downsample = nn.Sequential(Conv2d(cin, c, 1, stride=stride), self.norm3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.norm1(self.conv1(x)))
+        y = torch.relu(self.norm2(self.conv2(y)))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return torch.relu(x + y)
+
+
+class BasicEncoder(nn.Module):
+    """7x7 stride-2 conv 3 -> 64, norm, ReLU; two residual blocks each at
+    64 (stride 1), 96 (stride 2), 128 (stride 2); a 1x1 conv to ``out``."""
+
+    def __init__(self, out: int, norm: str):
+        super().__init__()
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3)
+        self.norm1 = _norm(norm, 64)
+        cin = 64
+        for i, (c, stride) in enumerate(((64, 1), (96, 2), (128, 2))):
+            self.add_module(f"layer{i + 1}", nn.Sequential(ResidualBlock(cin, c, norm, stride),
+                                                           ResidualBlock(c, c, norm)))
+            cin = c
+        self.conv2 = Conv2d(128, out, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.norm1(self.conv1(x)))
+        return self.conv2(self.layer3(self.layer2(self.layer1(x))))
+
+
+class BasicMotionEncoder(nn.Module):
+    def __init__(self, corr_planes: int):
+        super().__init__()
+        self.convc1 = Conv2d(corr_planes, 256, 1)
+        self.convc2 = Conv2d(256, 192, 3, padding=1)
+        self.convf1 = Conv2d(2, 128, 7, padding=3)
+        self.convf2 = Conv2d(128, 64, 3, padding=1)
+        self.conv = Conv2d(64 + 192, 128 - 2, 3, padding=1)
+
+    def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
+        cor = torch.relu(self.convc2(torch.relu(self.convc1(corr))))
+        flo = torch.relu(self.convf2(torch.relu(self.convf1(flow))))
+        return torch.cat([torch.relu(self.conv(torch.cat([cor, flo], 1))), flow], 1)
+
+
+class SepConvGRU(nn.Module):
+    """A ConvGRU pass of (1, 5) convs, then one of (5, 1) convs."""
+
+    def __init__(self, hidden: int, cin: int):
+        super().__init__()
+        for i, (k, pad) in enumerate((((1, 5), (0, 2)), ((5, 1), (2, 0)))):
+            for gate in "zrq":
+                self.add_module(f"conv{gate}{i + 1}", Conv2d(hidden + cin, hidden, k, padding=pad))
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        for i in (1, 2):
+            hx = torch.cat([h, x], 1)
+            z = torch.sigmoid(getattr(self, f"convz{i}")(hx))
+            r = torch.sigmoid(getattr(self, f"convr{i}")(hx))
+            q = torch.tanh(getattr(self, f"convq{i}")(torch.cat([r * h, x], 1)))
+            h = (1 - z) * h + z * q
+        return h
+
+
+class FlowHead(nn.Module):
+    def __init__(self, cin: int, hidden: int):
+        super().__init__()
+        self.conv1 = Conv2d(cin, hidden, 3, padding=1)
+        self.conv2 = Conv2d(hidden, 2, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(torch.relu(self.conv1(x)))
+
+
+class BasicUpdateBlock(nn.Module):
+    """The motion encoder, the GRU, the flow head and the upsampling mask
+    head (``mask``, run by `RAFT` after the last update only)."""
+
+    def __init__(self, corr_planes: int, hidden: int):
+        super().__init__()
+        self.encoder = BasicMotionEncoder(corr_planes)
+        self.gru = SepConvGRU(hidden, 128 + hidden)
+        self.flow_head = FlowHead(hidden, 256)
+        self.mask = nn.Sequential(Conv2d(128, 256, 3, padding=1), nn.ReLU(), Conv2d(256, 64 * 9, 1))
+
+    def forward(self, net, inp, corr, flow):
+        """-> (the new hidden state, the flow's delta (B, 2, h, w))."""
+        net = self.gru(net, torch.cat([inp, self.encoder(flow, corr)], 1))
+        return net, self.flow_head(net)
+
+
+def convex_upsample(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``flow`` (B, h, w, 2) and ``mask`` (B, 576, h, w) -> (B, 8h, 8w, 2)
+    in float32: output pixel ``(8 y + sy, 8 x + sx)`` is the sum over the 9
+    taps t of ``8 flow`` at (y, x)'s 3x3 neighbours (row-major, zero outside
+    the frame), weighted by the softmax over t of ``mask`` channel ``64 t +
+    8 sy + sx`` (RAFT's ``mask.view(N, 1, 9, 8, 8, H, W)``)."""
+    b, h, w, _ = flow.shape
+    weights = torch.softmax(mask.float().permute(0, 2, 3, 1).reshape(b, h, w, 9, 64), dim=3)
+    padded = F.pad(8 * flow, (0, 0, 1, 1, 1, 1))
+    taps = torch.stack([padded[:, i:i + h, j:j + w] for i in range(3) for j in range(3)], 3)
+    up = torch.matmul(weights.transpose(3, 4), taps)  # (b, h, w, 64, 2)
+    return up.view(b, h, w, 8, 8, 2).permute(0, 1, 3, 2, 4, 5).reshape(b, 8 * h, 8 * w, 2)
+
+
+class RAFT(nn.Module):
+    """RAFT at its published widths: hidden and context 128, features 256,
+    4 correlation levels of radius 4, ``iters`` updates a forward (32, RAFT's
+    Sintel evaluation setting; ``make_forward`` passes only the frames)."""
+
+    hidden_dim = context_dim = 128
+    corr_levels = corr_radius = 4
+
+    def __init__(self, iters: int = 32):
+        super().__init__()
+        self.iters = iters
+        self.fnet = BasicEncoder(256, "instance")
+        self.cnet = BasicEncoder(self.hidden_dim + self.context_dim, "batch")
+        self.update_block = BasicUpdateBlock(self.corr_levels * (2 * self.corr_radius + 1) ** 2, self.hidden_dim)
+        self.to(memory_format=torch.channels_last)  # weights in their inputs' memory format: no conv copies its weight
+
+    def forward(self, images_0: torch.Tensor, images_1: torch.Tensor):
+        """``images_*`` (B, H, W, 3) in [0, 1] -> ``(flow (B, H, W, 2),
+        flow_low (B, H/8, W/8, 2))``, float32."""
+        b, h, w, _ = images_0.shape
+        if h % 8 or w % 8:
+            raise ValueError(f"RAFT needs H and W multiples of 8 (pad the frames first), got {h}x{w}")
+        with span("model.forward", b):
+            return self._forward(images_0, images_1)
+
+    def _forward(self, images_0, images_1):
+        dtype = self.fnet.conv1.weight.dtype
+        with span("model.encode"):
+            frames = to_nchw((2 * torch.cat([images_0, images_1]) - 1).to(dtype))
+            fmap0, fmap1 = self.fnet(frames).float().chunk(2)
+            net, inp = self.cnet(frames[:images_0.shape[0]]).split([self.hidden_dim, self.context_dim], 1)
+            net, inp = torch.tanh(net), torch.relu(inp)
+        with span("model.corr"):
+            pyramid = corr_pyramid(fmap0, fmap1, self.corr_levels)
+        b, _, h, w = fmap0.shape
+        ys, xs = torch.meshgrid(torch.arange(h, device=fmap0.device), torch.arange(w, device=fmap0.device),
+                                indexing="ij")
+        coords0 = torch.stack([xs, ys], -1).float().expand(b, h, w, 2)
+        coords1 = coords0
+        for _ in range(self.iters):
+            with span("model.lookup"):
+                corr = lookup(pyramid, coords1, self.corr_radius)
+            with span("model.update"):
+                flow = coords1 - coords0
+                net, delta = self.update_block(net, inp, corr.to(dtype), to_nchw(flow.to(dtype)))
+                coords1 = coords1 + delta.permute(0, 2, 3, 1).float()
+        with span("model.upsample"):
+            flow = coords1 - coords0
+            return convex_upsample(flow, 0.25 * self.update_block.mask(net)), flow

@@ -1,0 +1,294 @@
+"""RAFT in the port (``pwcnet_tpu_torch.models.raft``, ``ops.corr_lookup``)
+on the CPU, against the benchmark's plain reference
+(``benchmark/reference/raft.py``) on seeded random weights with BatchNorm
+statistics that are not the identity, against loop oracles of the lookup
+and the convex upsample, and the benchmark's RAFT cell driven at a small
+size: its work counts, its check, its spans.
+
+The reference comparisons run at 128x160: RAFT's sampler divides by a
+pyramid level's width less one, and below 128 pixels a side the coarsest
+level is 1 wide, where the reference (as RAFT) reads NaN. The port pads
+such a level and is held at 64x96 by the lookup's oracle instead.
+"""
+
+import math
+import time
+
+import numpy as np
+import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from benchmark import harness, raft_work
+from benchmark.loops import raft as loop
+from benchmark.reference import raft as reference
+from pwcnet_tpu_torch.models.raft import RAFT, convex_upsample
+from pwcnet_tpu_torch.ops.corr_lookup import corr_pyramid, lookup
+from pwcnet_tpu_torch.train_lib.step import make_forward
+from pwcnet_tpu_torch.utils import profiling
+
+CELL = "raft.iters32.bf16"
+CONFIG = harness._json(harness.BENCH / "configs" / "raft.json")
+H, W = 128, 160
+
+
+def _ctx(seed: int, iters: int = 32, readings=()) -> harness.Ctx:
+    cell = harness.load_cell(CELL)
+    cell["config"]["iters"] = iters
+    cell["traffic"].update(height=H, width=W, batch=2, pool=2, warm_batches=1, sample=2)
+    return harness.Ctx(name=CELL, cell=cell, seed=seed, seconds=0.3, trace=False, device=torch.device("cpu"),
+                       t_start=time.perf_counter(), readings=readings)
+
+
+def _pair(seed: int, iters: int, dtype=torch.float32, h=H, w=W):
+    """The port and the reference on the cell's draw of ``seed`` (in
+    ``dtype``; the reference gets the same values in float32), and frames."""
+    ctx = _ctx(seed, iters)
+    tensors = loop.draw(reference.build(ctx.config, "meta"), ctx, dtype)
+    port = RAFT(iters=iters).to(dtype)
+    loop.load(port, tensors)
+    ref = reference.build(ctx.config)
+    loop.load(ref, {k: v.float() for k, v in tensors.items()})
+    frames = harness.stream_frames(ctx.gen(1), 3, h, w, (3, 1), "cpu").float() / 255.0
+    return port, ref, frames[:2], frames[1:]
+
+
+@pytest.mark.parametrize("seed", [3, 2**31 + 5])
+def test_float32_flows_match_the_reference(seed):
+    port, ref, x0, x1 = _pair(seed, 12)
+    with torch.no_grad():
+        flow, low = port(x0, x1)
+        want, want_low = ref(x0, x1)
+    assert flow.shape == (2, H, W, 2) and low.shape == (2, H // 8, W // 8, 2)
+    assert flow.dtype == low.dtype == torch.float32
+    assert want_low.norm(dim=-1).mean() > 0.2  # the flows moved
+    assert float(harness._pair_gaps(flow, want).max()) < 1e-5
+    assert float(harness._pair_gaps(low, want_low).max()) < 1e-5
+
+
+def test_module_names_and_parameter_count_are_rafts():
+    port, ref = RAFT(), reference.build(CONFIG, "meta")
+    names = {k: tuple(v.shape) for k, v in port.state_dict().items()}
+    assert names == {k: tuple(v.shape) for k, v in ref.state_dict().items()}
+    for k in ("fnet.conv1.weight", "fnet.layer1.0.conv1.weight", "cnet.norm1.running_mean",
+              "cnet.layer2.0.norm3.running_var", "cnet.layer2.0.downsample.1.running_var",
+              "update_block.encoder.convc1.weight", "update_block.gru.convz1.weight",
+              "update_block.flow_head.conv2.weight", "update_block.mask.0.weight", "update_block.mask.2.bias"):
+        assert k in names, k
+    assert names["update_block.gru.convz1.weight"] == (128, 384, 1, 5)
+    assert names["update_block.gru.convq2.weight"] == (128, 384, 5, 1)
+    assert not any("fnet" in k and "norm" in k for k in names)  # instance norm: no statistics
+    count = sum(p.numel() for p in port.parameters())
+    assert count == sum(p.numel() for p in ref.parameters()) == CONFIG["parameters"] == 5_257_536
+
+
+def _bilinear_zero(m: np.ndarray, x: float, y: float) -> float:
+    """``m`` (h, w) at (x, y) on pixel centres, zero outside."""
+    x0, y0 = math.floor(x), math.floor(y)
+    out = 0.0
+    for yy, wy in ((y0, 1 - (y - y0)), (y0 + 1, y - y0)):
+        for xx, wx in ((x0, 1 - (x - x0)), (x0 + 1, x - x0)):
+            if 0 <= yy < m.shape[0] and 0 <= xx < m.shape[1]:
+                out += wy * wx * float(m[yy, xx])
+    return out
+
+
+def test_lookup_matches_a_loop_oracle():
+    """The pyramid (64x96 frames: levels 8x12, 4x6, 2x3, 1x1) and the
+    lookup's 324 channels, coordinates in and out of the frame."""
+    g = torch.Generator().manual_seed(0)
+    b, c, h, w, r = 2, 8, 8, 12, 4
+    f1, f2 = torch.randn(b, c, h, w, generator=g), torch.randn(b, c, h, w, generator=g)
+    corr = np.einsum("bcp,bcq->bpq", f1.reshape(b, c, -1).numpy(), f2.reshape(b, c, -1).numpy()) / math.sqrt(c)
+    maps = [corr.reshape(b * h * w, h, w)]
+    while len(maps) < 4:
+        m = maps[-1]
+        hh, ww = m.shape[1] // 2, m.shape[2] // 2
+        maps.append(m[:, :2 * hh, :2 * ww].reshape(-1, hh, 2, ww, 2).mean((2, 4)))
+    pyramid = corr_pyramid(f1, f2, 4)
+    for got, want in zip(pyramid, maps):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got[:, 0, :want.shape[1], :want.shape[2]].numpy(), want, rtol=1e-5, atol=1e-5)
+    coords = torch.rand(b, h, w, 2, generator=g) * torch.tensor([w + 12.0, h + 12.0]) - 6.0
+    out = lookup(pyramid, coords, r)
+    assert out.shape == (b, 4 * 81, h, w) and out.dtype == torch.float32
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    want = np.zeros((b, 4 * 81, h, w))
+    for n in range(b * h * w):
+        bb, yy, xx = n // (h * w), (n // w) % h, n % w
+        x, y = coords[bb, yy, xx].tolist()
+        for k, m in enumerate(maps):
+            for i in range(2 * r + 1):
+                for j in range(2 * r + 1):
+                    want[bb, 81 * k + 9 * i + j, yy, xx] = _bilinear_zero(m[n], x / 2**k + i - r, y / 2**k + j - r)
+    assert np.abs(want).max() > 1 and (want == 0).any()  # taps inside and outside the maps
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_convex_upsample_matches_a_loop_oracle():
+    g = torch.Generator().manual_seed(1)
+    b, h, w = 2, 3, 4
+    flow, mask = torch.randn(b, h, w, 2, generator=g) * 3, torch.randn(b, 576, h, w, generator=g)
+    got = convex_upsample(flow, mask)
+    assert got.shape == (b, 8 * h, 8 * w, 2) and got.dtype == torch.float32
+    want = np.zeros((b, 8 * h, 8 * w, 2))
+    f, m = flow.double().numpy(), mask.double().numpy()
+    for bb in range(b):
+        for oy in range(8 * h):
+            for ox in range(8 * w):
+                y, sy, x, sx = oy // 8, oy % 8, ox // 8, ox % 8
+                logits = np.array([m[bb, 64 * t + 8 * sy + sx, y, x] for t in range(9)])
+                weights = np.exp(logits - logits.max())
+                weights /= weights.sum()
+                for t in range(9):
+                    yy, xx = y + t // 3 - 1, x + t % 3 - 1
+                    if 0 <= yy < h and 0 <= xx < w:
+                        want[bb, oy, ox] += weights[t] * 8 * f[bb, yy, xx]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_bf16_keeps_the_correlation_the_lookup_and_the_coordinates_in_float32(monkeypatch):
+    import pwcnet_tpu_torch.models.raft as raft_module
+
+    seen = []
+
+    def watch(fn):
+        def wrapped(*args):
+            out = fn(*args)
+            seen.append((fn.__name__, [a.dtype for a in args if torch.is_tensor(a)],
+                         [o.dtype for o in (out if isinstance(out, list) else [out])]))
+            return out
+        return wrapped
+
+    monkeypatch.setattr(raft_module, "corr_pyramid", watch(corr_pyramid))
+    monkeypatch.setattr(raft_module, "lookup", watch(lookup))
+    model = RAFT(iters=3).to(torch.bfloat16)
+    x = torch.rand(1, 64, 96, 3)
+    with torch.no_grad():
+        flow, low = model(x, x.flip(2))
+    assert flow.dtype == low.dtype == torch.float32
+    assert seen[0] == ("corr_pyramid", [torch.float32] * 2, [torch.float32] * 4)
+    assert seen[1:] == [("lookup", [torch.float32], [torch.float32])] * 3  # the coordinates in, the taps out
+    assert model.update_block.gru.convz1.weight.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("seed", [7, 2**31 + 7, 4_000_000_001])
+def test_bf16_flow_is_within_4x_the_bf16_rounded_reference(seed):
+    port, ref, x0, x1 = _pair(seed, 12, torch.bfloat16)
+    with torch.no_grad():
+        got = port(x0, x1)[0]
+        want, rounded = ref(x0, x1)[0], ref(x0, x1, "bf16")[0]
+    gap, base = harness._pair_gaps(got, want), harness._pair_gaps(rounded, want)
+    assert (base > 0).all()
+    assert (gap <= 4 * base).all(), (gap, base)
+
+
+def test_frames_not_a_multiple_of_8_are_refused():
+    x = torch.rand(1, 68, 96, 3)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        RAFT(iters=1)(x, x)
+
+
+def test_make_forward_serves_raft():
+    model = RAFT(iters=2)
+    x0, x1 = torch.rand(2, 64, 96, 3), torch.rand(2, 64, 96, 3)
+    flow, low = make_forward(model)(x0, x1)
+    with torch.no_grad():
+        want, want_low = model(x0, x1)
+    assert torch.equal(flow, want) and torch.equal(low, want_low)
+
+
+def test_spans_of_a_forward():
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        with torch.no_grad():
+            RAFT(iters=4)(torch.rand(2, 64, 96, 3), torch.rand(2, 64, 96, 3))
+        got = profiling.snapshot()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert {k: v["count"] for k, v in got.items()} == {
+        "model.forward": 1, "model.encode": 1, "model.corr": 1, "model.lookup": 4, "model.update": 4,
+        "model.upsample": 1}
+    assert got["model.forward"]["pairs"] == 2 and got["model.forward"]["parent"] is None
+    assert all(v["parent"] == "model.forward" for k, v in got.items() if k != "model.forward")
+
+
+# ---------------------------------------------------------- the benchmark
+def test_conv_and_corr_flops_match_the_flop_counter():
+    cfg = dict(CONFIG, iters=2)
+    ref = reference.build(cfg)
+    x = torch.rand(1, H, W, 3)
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        ref(x, x)
+    want = counter.get_total_flops()
+    assert raft_work.conv_flops(cfg, H, W) + raft_work.corr_flops(cfg, H, W) == want
+    assert want < raft_work.pair_flops(cfg, H, W) < 1.02 * want
+
+
+def test_work_counts_at_the_cell_size():
+    """Hand-worked at 448x1024: 56 x 128 = 7168 query pixels."""
+    px = 7168
+    # per pixel: 4 levels x (10 x 10 window + 81 outputs) + 2 coordinates, 4 bytes each
+    assert raft_work.lookup_work(CONFIG, 448, 1024) == (px * (4 * (100 + 81) + 2) * 4, px * 4 * 81 * 7)
+    assert raft_work.lookup_work(CONFIG, 448, 1024)[0] == 20_815_872  # 20.8 MB a pair and update
+    product, *pools = raft_work.corr_volume_work(CONFIG, 448, 1024)
+    assert product == ((2 * px * 256 + px * px) * 4, 2 * px * px * 256 + px * 256)
+    assert [p[0] for p in pools] == [px * (56 * 128 + 28 * 64) * 4, px * (28 * 64 + 14 * 32) * 4,
+                                     px * (14 * 32 + 7 * 16) * 4]
+    assert raft_work.corr_flops(CONFIG, 448, 1024) == 26_306_674_688
+    # 32 updates of 38.36 GFLOP of convs, the encoders' 0.19 TFLOP, the mask once
+    assert 1.42e12 < raft_work.conv_flops(CONFIG, 448, 1024) < 1.43e12
+    # the bound: the product at the float32 peak, the rest at the card's bandwidth
+    assert raft_work.corr_volume_bound(CONFIG, 448, 1024) == pytest.approx(
+        (2 * px * px * 256 + px * 256) / 67e12 + sum(p[0] for p in pools) / 3.35e12)
+    assert raft_work.lookup_bound(CONFIG, 448, 1024) == pytest.approx(32 * 20_815_872 / 3.35e12)
+
+
+def test_the_cell_draws_batchnorm_statistics_that_are_not_the_identity():
+    ctx = _ctx(11)
+    tensors = loop.draw(reference.build(ctx.config, "meta"), ctx, torch.float32)
+    means = [v for k, v in tensors.items() if k.endswith("running_mean")]
+    variances = [v for k, v in tensors.items() if k.endswith("running_var")]
+    assert len(means) == len(variances) == 15  # cnet's norms, each shortcut's once
+    assert all(m.abs().max() > 0.05 for m in means) and all((v - 1).abs().max() > 0.2 for v in variances)
+    again = loop.draw(reference.build(ctx.config, "meta"), _ctx(11), torch.float32)
+    assert all(torch.equal(tensors[k], again[k]) for k in tensors)
+
+
+def _run(ctx):
+    from benchmark.run import run_cell
+
+    return run_cell(ctx)
+
+
+def test_a_sound_run_is_correct():
+    result, checks, _ = _run(_ctx(2**31 + 11, iters=8))
+    assert result["correct"], checks
+    assert result["attempted"] > 0 and result["failed"] == 0
+
+
+def test_the_control_is_not_correct():
+    ctx = _ctx(2**31 + 11, iters=8, readings=("control",))
+    _, _, readings = _run(ctx)
+    assert not harness.judge(readings["control"], ctx.cell["limits"])[0], readings
+
+
+@pytest.mark.parametrize("fault", ["half", "altered"])
+def test_a_broken_timed_path_is_not_correct(fault, monkeypatch):
+    """The forward runs on the first half of each batch (the rest repeats
+    it), or its flows come out 10% too long."""
+    forward = RAFT.forward
+
+    def broken(self, a, b):
+        if fault == "altered":
+            flow, low = forward(self, a, b)
+            return flow * 1.1, low
+        n = a.shape[0] // 2
+        flow, low = forward(self, a[:n], b[:n])
+        return torch.cat([flow, flow[:a.shape[0] - n]]), torch.cat([low, low[:a.shape[0] - n]])
+
+    monkeypatch.setattr(RAFT, "forward", broken)
+    result, checks, _ = _run(_ctx(2**31 + 11, iters=8))
+    assert not result["correct"], checks
