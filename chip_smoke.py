@@ -40,7 +40,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (K5 and K9b sum df1 in fixed point, the rest use no atomics) must give
    the same bits in two launches on the same inputs, K5 and K9b also in a third after
    another kernel has filled the L2 and the SMs, and K5's run-to-run
-   difference in check_training_kernels must be 0;
+   difference in check_training_kernels must be 0; last R1 (RAFT's
+   correlation lookup) against ``lookup_plain`` at the RAFT cell's 1/8 grid
+   of 448x1024 frames, B=1 and 16, one launch a call, exact zeros where
+   every window misses its map, and 32 R1 launches and no other hand
+   kernel in a RAFT(iters=32) bf16 forward at 448x1024, B=1;
 4. serving: FlowPredictor with seeded random weights answers 448x1024
    requests and a 1024x436 (Sintel-sized) request edge-padded to 448x1024,
    then batched raw_forward at B=8 in bf16 and f32; the launch counters
@@ -159,7 +163,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    K7: the cuDNN conv chain; K5, K9b: grid_sample's backward) timed with
    CUDA events at the main-path shapes (B=8, bf16; K3 also
    at the training step's levels), then every kernel again in float32
-   beside cuDNN's float32 chains (TF32 off); pairs/s of the whole forward
+   beside cuDNN's float32 chains (TF32 off); R1 in float32 at the RAFT
+   cell's shape (B=16, one update) beside its bound
+   (``benchmark/raft_work.py`` ``lookup_work``) and ``lookup_plain``;
+   pairs/s of the whole forward
    at 448x1024 B=8; device time by kernel and the device's busy share for
    the forward and for the train step, in bf16 and in float32
    (torch.profiler).
@@ -262,6 +269,9 @@ KERNEL_INFO = {
             "pwcnet_tpu/ops/pallas/warped_cv.py:888"),
 }
 SHARD_KERNELS = ("K8", "K8b", "K9", "K9b")
+# R1, RAFT's correlation lookup (no TPU kernel: the JAX package has no RAFT), checked and timed at the
+# RAFT cell's 1/8 grid of 448x1024 frames; 32 launches a RAFT(iters=32) forward
+RAFT_GRID = (56, 128)
 SHARDS = 2
 # per rank and forward at 448x1024 over 2 shards with use_fused=False or the nearest warp:
 # level 0 (7 rows) whole through K2, levels 1-4 warped by the guard and correlated by K8,
@@ -683,6 +693,120 @@ def time_kernels(torch, F, device, b=8, dtype=None):
                 work=k3_work(b, h, w, cin, c, s)))
     finish_rows(rows, dname)
     return rows, dname
+
+
+def raft_lookup_inputs(torch, b, h, w, device, seed=0):
+    """R1's inputs at RAFT's 1/8 grid (h, w): the pyramid of the product of
+    seeded (B, 256, h, w) features, and coordinates of each pixel moved by a
+    flow of a few pixels, every third by up to 1.5 h and w, every fifth on
+    integer points, every seventh far outside every level's map."""
+    from pwcnet_tpu_torch.ops.corr_lookup import corr_pyramid
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    f1 = torch.randn(b, 256, h, w, generator=g, device=device)
+    f2 = torch.randn(b, 256, h, w, generator=g, device=device)
+    ys, xs = torch.meshgrid(torch.arange(h, device=device), torch.arange(w, device=device), indexing="ij")
+    coords = torch.stack([xs, ys], -1).float() + 3 * torch.randn(b, h, w, 2, generator=g, device=device)
+    flat = coords.view(-1, 2)
+    size = torch.tensor([w, h], device=device)
+    flat[::3] += (torch.rand(flat[::3].shape, generator=g, device=device) * 3 - 1.5) * size
+    flat[::5] = flat[::5].round()
+    flat[::7] = torch.tensor([-9.0 * w, 9.0 * h], device=device)
+    return corr_pyramid(f1, f2, 4), coords
+
+
+def check_raft_lookup(torch, device):
+    """R1 against ``lookup_plain`` on the card at the RAFT cell's 1/8 grid
+    (448x1024 frames: 56x128), B=1 and 16: float32, 1e-5 + 1e-5 of the
+    maps' scale (the plain path samples through cuDNN's grid sampler, which
+    rounds positions and the blend its own way); one launch a call; exact
+    zeros where every window misses its map. Returns the largest error."""
+    from pwcnet_tpu_torch.ops.corr_lookup import lookup, lookup_plain
+    from pwcnet_tpu_torch.ops.cuda.corr_lookup import corr_lookup_cuda
+
+    worst = 0.0
+    for b in (1, 16):
+        pyramid, coords = raft_lookup_inputs(torch, b, RAFT_GRID[0], RAFT_GRID[1], device, seed=b)
+        before = corr_lookup_cuda.launches
+        with torch.inference_mode():
+            got, want = lookup(pyramid, coords), lookup_plain(pyramid, coords)
+        torch.cuda.synchronize()
+        scale = max(float(m.abs().max()) for m in pyramid)
+        err = float((got - want).abs().max())
+        far = got.permute(0, 2, 3, 1).reshape(-1, got.shape[1])[::7]
+        log(f"  R1 corr_lookup B={b} 56x128: max_abs_err {err:.3e} (tol {1e-5 + 1e-5 * scale:.3e}, maps' scale "
+            f"{scale:.3e}); {100 * float((want == 0).float().mean()):.1f}% of the plain taps zero")
+        require(corr_lookup_cuda.launches == before + 1, "R1 is one launch a lookup")
+        require(got.shape == want.shape and got.is_contiguous(memory_format=torch.channels_last),
+                "R1's output is the plain version's shape, channels_last")
+        require(err <= 1e-5 + 1e-5 * scale, f"R1 at B={b} disagrees with lookup_plain")
+        require(bool((far == 0).all()), "R1 reads exact zeros where every window misses its map")
+        worst = max(worst, err)
+    # the plain version on the CPU rounds the taps' positions as R1 does: the first frame within 1e-6 of the scale
+    hw = RAFT_GRID[0] * RAFT_GRID[1]
+    cpu = lookup_plain([m[:hw].cpu() for m in pyramid], coords[:1].cpu())
+    err = float((got[:1].cpu() - cpu).abs().max())
+    log(f"  R1 corr_lookup 56x128, the first frame against lookup_plain on the CPU: max_abs_err {err:.3e} "
+        f"(tol {1e-6 * scale:.3e}), {100 * float((got[:1].cpu() == cpu).float().mean()):.2f}% of the taps equal")
+    require(err <= 1e-6 * scale, "R1 disagrees with lookup_plain on the CPU")
+    return worst
+
+
+def check_raft_forward_launches(torch, device, b=1):
+    """One seeded ``RAFT(iters=32)`` forward in bf16 on 448x1024 frames with
+    the launch counters reset just before it: R1 launches once an update,
+    32 times, and no other hand kernel runs. Returns R1's count."""
+    from pwcnet_tpu_torch.models.raft import RAFT
+    from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from pwcnet_tpu_torch.train_lib.step import make_forward
+
+    torch.manual_seed(0)
+    model = RAFT(iters=32).to(device, torch.bfloat16)
+    g = torch.Generator(device=device).manual_seed(0)
+    x0 = torch.rand(b, 8 * RAFT_GRID[0], 8 * RAFT_GRID[1], 3, generator=g, device=device)
+    reset_launch_counts()
+    flow, _ = make_forward(model)(x0, x0.roll(3, 2))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"  R1 in one RAFT(iters=32) bf16 forward, B={b} 448x1024: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    require(counts["R1"] == 32, "R1 launches once an update of RAFT(iters=32), 32 a forward")
+    require(not any(v for k, v in counts.items() if k != "R1"), "RAFT's forward runs no other hand kernel")
+    require(bool(flow.isfinite().all()), "RAFT's flow is finite")
+    del model, flow
+    return counts["R1"]
+
+
+def time_raft_lookup(torch, device, b=16):
+    """R1 at the RAFT cell's shape (448x1024 frames, B=16, one update's
+    lookup): ms a call (CUDA events), its bound (``benchmark.raft_work.
+    lookup_work``: each level's 10x10 float32 window read and 81 outputs
+    written once, at 3.35 TB/s), the plain version's ms; and the kernel's
+    registers, shared memory and resident blocks an SM."""
+    import ctypes
+    import json as _json
+
+    from benchmark import raft_work
+    from pwcnet_tpu_torch.ops.corr_lookup import lookup, lookup_plain
+    from pwcnet_tpu_torch.ops.cuda import _build
+
+    cfg = _json.loads(open(os.path.join("benchmark", "configs", "raft.json")).read())
+    n_bytes, n_ops = raft_work.lookup_work(cfg, 8 * RAFT_GRID[0], 8 * RAFT_GRID[1])
+    bound_ms, bound_by = bound("float32", b * n_bytes, b * n_ops)
+    info = _build.load("corr_lookup").pwc_corr_lookup_info
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    info.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    require(info(*[ctypes.byref(v) for v in vals]) == 0, "query of R1's attributes")
+    regs, local, smem, blocks = (v.value for v in vals)
+    pyramid, coords = raft_lookup_inputs(torch, b, RAFT_GRID[0], RAFT_GRID[1], device)
+    with torch.inference_mode():
+        ms = cuda_ms(torch, lambda: lookup(pyramid, coords))
+        plain_ms = cuda_ms(torch, lambda: lookup_plain(pyramid, coords), iters=5)
+    log(f"  R1 corr_lookup float32 {b}x56x128 (448x1024 frames): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f}% of it); {regs} registers, {local} B "
+        f"local, {smem} B shared a block, {blocks} blocks of 256 an SM")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "registers": regs,
+            "local_bytes": local, "blocks_per_sm": blocks, "shape": f"{b}x56x128"}
 
 
 def cudnn_level_bwd(torch, g, out, s1, s2, k1, k2, k3, x_shape):
@@ -3141,6 +3265,8 @@ def main() -> int:
     check_non_finite(torch, F, device)
     check_image_scales(torch, F, device)
     deterministic = check_determinism(torch, F, device)
+    r1_err = check_raft_lookup(torch, device)
+    r1_launches = check_raft_forward_launches(torch, device)
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -3221,6 +3347,8 @@ def main() -> int:
     rows32.update(time_training_kernels(torch, device, dtype=torch.float32))
     rows32.update(time_estimator_kernels(torch, F, device, dtype=torch.float32))
     rows32.update(time_shard_kernels(torch, F, device, dtype=torch.float32))
+    log("[time] R1, RAFT's correlation lookup, at the RAFT cell's shape (float32, as RAFT runs it)")
+    r1_time = time_raft_lookup(torch, device)
     for kid in ("K1", "K2", "K6", "K8", "K9"):
         log(f"  {kid} bf16 per " + ("train step" if kid == "K6" else "forward") + ": "
             f"{sum(r['ms'] * r['times'] for r in rows[kid]):.4f} ms over "
@@ -3278,6 +3406,9 @@ def main() -> int:
             "timed_at": timed_at,
             **summed(rows32[kid], "_float32"),
         })
+    kernels.append({"name": "R1 corr_lookup", "route": "cuda", "source": "pwcnet_tpu_torch/csrc/corr_lookup.cu",
+                    "replaces": None, "launches_per_raft_forward": r1_launches, "max_abs_err": r1_err,
+                    "timed_at": "one update's lookup at 448x1024 B=16, float32", **r1_time})
     log(f"[e2e] 448x1024 B=8 serving pairs/s: " + ", ".join(f"{k} {v:.1f}" for k, v in pairs.items())
         + f" on {card}")
     log(f"[e2e] sequence serving 448x1024 bf16 kernels (reported, not claimed): predict_sequence B=8 "

@@ -1,5 +1,10 @@
-"""RAFT's all-pairs correlation, its pyramid and its windowed lookup, in
-plain PyTorch ops on either device (no hand kernel).
+"""RAFT's all-pairs correlation, its pyramid and its windowed lookup.
+
+`corr_pyramid` and `lookup_plain` are plain PyTorch ops on either device;
+`lookup` sends CPU tensors to `lookup_plain` and CUDA tensors to R1, the
+hand kernel ``ops.cuda.corr_lookup.corr_lookup_cuda`` (one launch an
+update, forward only), which computes the same taps with the same
+roundings of their positions.
 
 Contract (princeton-vl/RAFT ``core/corr.py`` ``CorrBlock``):
 
@@ -8,8 +13,9 @@ Contract (princeton-vl/RAFT ``core/corr.py`` ``CorrBlock``):
   as a (B * h * w, 1, h, w) map for each query pixel p; levels 1.. are
   ``avg_pool2d(2, 2)`` of the level above (odd sizes floor). A level with
   a side of 1 is stored with a zero row or column added (see below).
-- `lookup`: for coordinates (x, y) of each query pixel (B, h, w, 2), the
-  ``(2r + 1)**2`` taps of level k at ``(x / 2**k + i - r, y / 2**k + j - r)``,
+- `lookup` (`lookup_plain`): for coordinates (x, y) of each query pixel
+  (B, h, w, 2), the ``(2r + 1)**2`` taps of level k at ``(x / 2**k + i -
+  r, y / 2**k + j - r)``,
   channel ``k (2r + 1)**2 + (2r + 1) i + j`` (the x offset outer), sampled
   bilinearly on pixel centres with zeros outside the map; (B, L (2r + 1)**2,
   h, w) float32, in ``channels_last`` memory.
@@ -33,7 +39,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["corr_pyramid", "lookup"]
+from pwcnet_tpu_torch.ops.cuda.corr_lookup import corr_lookup_cuda
+
+__all__ = ["corr_pyramid", "lookup", "lookup_plain"]
 
 
 def corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int = 4) -> list:
@@ -52,7 +60,17 @@ def corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int = 4) -> l
 
 def lookup(pyramid: list, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
     """``pyramid`` from `corr_pyramid`, ``coords`` (B, h, w, 2) float32 (x,
-    y) -> (B, len(pyramid) (2r + 1)**2, h, w) float32, ``channels_last``."""
+    y) -> (B, len(pyramid) (2r + 1)**2, h, w) float32, ``channels_last``:
+    `lookup_plain` on CPU tensors, R1 on CUDA tensors (which raises on what
+    it does not take: four levels of radius 4, no grad)."""
+    if coords.device.type == "cpu":
+        return lookup_plain(pyramid, coords, radius)
+    return corr_lookup_cuda(pyramid, coords, radius)
+
+
+def lookup_plain(pyramid: list, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    """`lookup` in plain PyTorch ops: each level's grid, ``grid_sample``, and
+    the levels concatenated."""
     b, h, w, _ = coords.shape
     n, k = b * h * w, 2 * radius + 1
     offsets = torch.arange(-radius, radius + 1, device=coords.device, dtype=torch.float32)[:, None]

@@ -13,13 +13,16 @@
   against halo-extended f1, and ``cost_volume.cost_volume_hpad_bwd`` (K8b);
 - ``warped_cv.warped_cost_volume_global``: K9, a row shard's warp + cost
   volume against the whole frame, and ``warped_cv.warped_rows_bwd`` (K9b,
-  the tall-frame warp backward that follows K8b in K9's backward).
+  the tall-frame warp backward that follows K8b in K9's backward);
+- ``corr_lookup.corr_lookup_cuda``: R1, RAFT's correlation lookup (no TPU
+  kernel: the JAX package has no RAFT), forward only.
 
 K1-K3, K7, K8 and K9 are ``torch.autograd.Function``s on CUDA tensors, with
 K4-K6, K7b, K8b and K9b as their backward. Each wrapper sends a CPU tensor to its plain PyTorch
 version and a CUDA tensor to its kernel (or raises): nothing falls back.
-Each keeps a count of the calls in which it launched its kernel in
-``<wrapper>.launches``.
+R1's wrapper takes CUDA tensors only; ``ops.corr_lookup.lookup`` sends
+CPU tensors to its plain version. Each keeps a count of the calls in
+which it launched its kernel in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ __all__ = ["launch_counts", "reset_launch_counts", "wrappers"]
 
 def wrappers() -> dict:
     """Kernel id -> wrapper function."""
+    from pwcnet_tpu_torch.ops.cuda.corr_lookup import corr_lookup_cuda
     from pwcnet_tpu_torch.ops.cuda.cost_volume import (
         cost_volume_bwd, cost_volume_cuda, cost_volume_hpad_bwd, cost_volume_hpad_cuda)
     from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd, estimator_chain_fused
@@ -49,6 +53,7 @@ def wrappers() -> dict:
         "K8b": cost_volume_hpad_bwd,
         "K9": warped_cost_volume_global,
         "K9b": warped_rows_bwd,
+        "R1": corr_lookup_cuda,
     }
 
 

@@ -33,6 +33,7 @@ SOURCES = (
     "cost_volume", "warped_cv", "pyramid_conv",  # K2, K1, K3
     "cost_volume_bwd", "warp_bwd", "pyramid_conv_bwd",  # K4, K5, K6
     "estimator_conv", "estimator_conv_bwd",  # K7 forward and backward
+    "corr_lookup",  # R1, RAFT's correlation lookup
 )
 HEADERS = ("common.cuh", "correlation.cuh", "conv_fma.cuh", "conv3x3_gemm.cuh", "conv3x3_wgmma.cuh", "hopper.cuh")
 NVCC_FLAGS = (

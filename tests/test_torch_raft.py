@@ -11,8 +11,11 @@ level is 1 wide, where the reference (as RAFT) reads NaN. The port pads
 such a level and is held at 64x96 by the lookup's oracle instead.
 """
 
+import functools
+import importlib.util
 import math
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,10 +26,11 @@ from benchmark import harness, raft_work
 from benchmark.loops import raft as loop
 from benchmark.reference import raft as reference
 from pwcnet_tpu_torch.models.raft import RAFT, convex_upsample
-from pwcnet_tpu_torch.ops.corr_lookup import corr_pyramid, lookup
+from pwcnet_tpu_torch.ops.corr_lookup import corr_pyramid, lookup, lookup_plain
 from pwcnet_tpu_torch.train_lib.step import make_forward
 from pwcnet_tpu_torch.utils import profiling
 
+REPO = Path(__file__).resolve().parents[1]
 CELL = "raft.iters32.bf16"
 CONFIG = harness._json(harness.BENCH / "configs" / "raft.json")
 H, W = 128, 160
@@ -213,6 +217,184 @@ def test_spans_of_a_forward():
         "model.upsample": 1}
     assert got["model.forward"]["pairs"] == 2 and got["model.forward"]["parent"] is None
     assert all(v["parent"] == "model.forward" for k, v in got.items() if k != "model.forward")
+
+
+# ---------------------------------------------------------- R1, the lookup's CUDA kernel
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: decided here, at run time, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (R1 is a CUDA kernel with no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@functools.lru_cache(maxsize=1)
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_raft", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _lookup_inputs(b: int, h: int, w: int, device, seed: int = 0):
+    """``chip_smoke.raft_lookup_inputs``: a pyramid of seeded features and
+    coordinates inside the maps, out of them, on integer points and far
+    outside."""
+    return _chip_smoke().raft_lookup_inputs(torch, b, h, w, device, seed)
+
+
+def _scale(pyramid) -> float:
+    return max(float(m.abs().max()) for m in pyramid)
+
+
+def test_lookup_on_cpu_tensors_is_the_plain_version_and_launches_nothing():
+    from pwcnet_tpu_torch.ops.cuda import launch_counts
+
+    pyramid, coords = _lookup_inputs(2, 8, 12, torch.device("cpu"))
+    before = launch_counts()["R1"]
+    got = lookup(pyramid, coords)
+    assert torch.equal(got, lookup_plain(pyramid, coords))
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert launch_counts()["R1"] == before
+
+
+def _r1_box_misses(pyramid, coords):
+    """R1's boxes (``csrc/corr_lookup.cu`` ``lookup_tap``, ``lookup_extent``)
+    in NumPy float32, each operation rounded on its own as the kernel's
+    ``__f*_rn``: on each axis of each level, the taps' floors and the 11-wide
+    box from the extent of the first and last. Returns the corners in the
+    map of taps that reach it which the box would not hold (counted per
+    axis), and whether each query reaches some map."""
+    f32 = np.float32
+    xy = coords.reshape(-1, 2).numpy()
+    offsets = np.arange(-4, 5, dtype=f32)
+    missed, reaching = 0, np.zeros(xy.shape[0], bool)
+    for k, m in enumerate(pyramid):
+        reach = []
+        for a, size in ((0, m.shape[3]), (1, m.shape[2])):
+            span = f32(size - 1)
+            at = (xy[:, a:a + 1] / f32(2**k)).astype(f32) + offsets
+            pos = (((f32(2) * at) / span - f32(1) + f32(1)) * f32(0.5)) * span
+            fl = np.floor(pos)
+            valid = (fl >= -1) & (fl <= span)
+            lo, hi = np.maximum(fl[:, :1], -1), np.minimum(fl[:, -1:] + 1, span)
+            origin = np.where(lo <= hi, lo, 0)
+            count = np.where(lo <= hi, np.minimum(hi - origin + 1, 11), 0)
+            for corner in (fl, fl + 1):
+                in_map = valid & (corner >= 0) & (corner <= span)
+                missed += int((in_map & ((corner < origin) | (corner - origin >= count))).sum())
+            reach.append(valid.any(1))
+        reaching |= reach[0] & reach[1]
+    return missed, reaching
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 8, 12), (1, 16, 20)])
+def test_r1_box_holds_every_corner_in_its_map(b, h, w):
+    """The kernel blends each level's taps from one 11x11 box that it loads
+    from the extent of the first and last taps' floors: every corner in the
+    map of a tap that reaches it lies in the loaded part of the box, and the
+    far coordinates reach no map (so read exact zeros)."""
+    pyramid, coords = _lookup_inputs(b, h, w, torch.device("cpu"), seed=h)
+    missed, reaching = _r1_box_misses(pyramid, coords)
+    assert missed == 0
+    assert not reaching[::7].any() and reaching.mean() > 0.5
+
+
+@pytest.mark.parametrize("fault", ["levels", "radius", "coords", "side_1", "float64", "grad", "cpu"])
+def test_r1_refuses_what_it_does_not_take(fault):
+    """The wrapper's checks, which all run before the launch (so on CPU
+    tensors here): RAFT's 4 levels of radius 4, padded levels, float32, no
+    grad, CUDA tensors."""
+    from pwcnet_tpu_torch.ops.cuda.corr_lookup import corr_lookup_cuda
+
+    pyramid, coords = _lookup_inputs(1, 8, 12, torch.device("cpu"))
+    radius, want = 4, (ValueError, "CUDA device")
+    if fault == "levels":
+        pyramid, want = pyramid[:3], (ValueError, "4 levels of radius 4")
+    elif fault == "radius":
+        radius, want = 3, (ValueError, "4 levels of radius 4")
+    elif fault == "coords":
+        coords, want = coords[..., :1], (ValueError, r"\(B, h, w, 2\)")
+    elif fault == "side_1":
+        pyramid[3], want = pyramid[3][:, :, :1, :1], (ValueError, "sides of at least 2")
+    elif fault == "float64":
+        coords, want = coords.double(), (TypeError, "float32")
+    elif fault == "grad":
+        pyramid[0].requires_grad_(True)
+        want = (RuntimeError, "no backward")
+    before = corr_lookup_cuda.launches
+    with pytest.raises(want[0], match=want[1]):
+        corr_lookup_cuda(pyramid, coords, radius)
+    assert corr_lookup_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(2, 8, 12), (2, 16, 20), (2, 56, 128)])
+def test_r1_matches_the_plain_lookup_on_the_card(cuda_device, b, h, w):
+    """64x96 (levels 8x12 ... 1x1, padded to 2x2), 128x160 and 448x1024
+    frames. Tolerance: float32, 1e-5 + 1e-5 of the maps' scale, since the
+    plain path on the card samples through cuDNN's grid sampler, which
+    rounds the positions and the blend its own way; against the plain
+    version on the CPU, which rounds the positions as the kernel does,
+    1e-6 of the scale."""
+    from pwcnet_tpu_torch.ops.cuda.corr_lookup import corr_lookup_cuda
+
+    pyramid, coords = _lookup_inputs(b, h, w, cuda_device, seed=h)
+    before = corr_lookup_cuda.launches
+    with torch.inference_mode():
+        got = lookup(pyramid, coords)
+        want = lookup_plain(pyramid, coords)
+    torch.cuda.synchronize()
+    assert corr_lookup_cuda.launches == before + 1
+    assert got.shape == (b, 324, h, w) and got.dtype == torch.float32
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    scale = _scale(pyramid)
+    assert float((got - want).abs().max()) <= 1e-5 + 1e-5 * scale
+    outside = got.permute(0, 2, 3, 1).reshape(-1, 324)[::7]
+    assert bool((outside == 0).all()) and bool((want.permute(0, 2, 3, 1).reshape(-1, 324)[::7] == 0).all())
+    assert float(got.abs().max()) > 0.1 * scale  # taps inside the maps too
+    if h * w <= 16 * 20:
+        cpu = lookup_plain([m.cpu() for m in pyramid], coords.cpu())
+        assert float((got.cpu() - cpu).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+def test_r1_reads_past_2_gib_of_level_0(cuda_device):
+    """B=12 at 448x1024: level 0 is 86 016 maps of 56x128 floats, 2.47 GB,
+    so the last frame's maps lie past 2**31 bytes; its queries against the
+    plain version on those maps alone."""
+    b, h, w = 12, 56, 128
+    pyramid, coords = _lookup_inputs(b, h, w, cuda_device, seed=12)
+    assert pyramid[0].numel() * 4 > 2**31
+    with torch.inference_mode():
+        got = lookup(pyramid, coords)[-1:]
+        want = lookup_plain([m[-h * w:] for m in pyramid], coords[-1:])
+    assert float((got - want).abs().max()) <= 1e-5 + 1e-5 * _scale(pyramid)
+    assert float(got.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_r1_launches_once_a_lookup_and_refuses_grad(cuda_device):
+    """One R1 launch a `lookup` call and 32 a `RAFT(iters=32)` forward; a
+    pyramid that requires grad under grad mode is refused."""
+    from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    pyramid, coords = _lookup_inputs(1, 16, 20, cuda_device)
+    reset_launch_counts()
+    with torch.no_grad():
+        lookup(pyramid, coords)
+    assert {k: v for k, v in launch_counts().items() if v} == {"R1": 1}
+    model = RAFT(iters=32).to(cuda_device, torch.bfloat16)
+    x = torch.rand(1, 128, 160, 3, device=cuda_device)
+    reset_launch_counts()
+    flow, _ = make_forward(model)(x, x.roll(3, 2))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts().items() if v} == {"R1": 32}
+    assert bool(flow.isfinite().all())
+    pyramid[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        lookup(pyramid, coords)
 
 
 # ---------------------------------------------------------- the benchmark
