@@ -2098,21 +2098,17 @@ def train_batch(torch, np, device, b, seed=20):
 
 def train_model(torch, compute_dtype, use_kernels, seed=0, fused_estimator=0, remat=False, fused=True,
                 warp_type="bilinear"):
-    """The default PWCDCNet as the JAX trainer builds it with --pallas: K2 at
-    level 0, K1 at levels 1-4, K3 on the two finest pyramid levels, and K7 on
-    the ``fused_estimator`` finest estimator levels; ``remat`` as --remat.
+    """The default PWCDCNet as the trainer builds it with --pallas
+    (``kernel_hooks``): K2 at level 0, K1 at levels 1-4, K3 on the
+    ``FUSED_PYRAMID_LEVELS`` finest pyramid levels, and K7 on the
+    ``fused_estimator`` finest estimator levels; ``remat`` as --remat.
     ``fused=False`` (the trainer's ``use_fused`` off, and always with
     ``warp_type='nearest'``): the plain warp and K2 at every level. The
     weights are the JAX package's init under ``PRNGKey(seed)``."""
-    from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
-    from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
-    from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
+    from pwcnet_tpu_torch.models.pwcnet import PWCDCNet, kernel_hooks
     from pwcnet_tpu_torch.prng import PRNGKey
 
-    hooks = {}
-    if use_kernels:
-        hooks = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume if fused else None,
-                     fused_pyramid_levels=2, fused_estimator_levels=fused_estimator)
+    hooks = kernel_hooks(use_kernels, fused=fused, fused_estimator=fused_estimator, warp_type=warp_type)
     return PWCDCNet(compute_dtype=compute_dtype, key=PRNGKey(seed), remat=remat,
                     warp_type=warp_type, **hooks)
 
@@ -2698,8 +2694,8 @@ def spatial_rank(rank, port, out_dir, chairs_root):
     import torch.distributed as dist
 
     from pwcnet_tpu_torch import evaluate as evaluate_cli, train as train_cli
-    from pwcnet_tpu_torch.inference import FlowPredictor, spatial_hooks
-    from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
+    from pwcnet_tpu_torch.inference import FlowPredictor
+    from pwcnet_tpu_torch.models.pwcnet import PWCDCNet, kernel_hooks
     from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from pwcnet_tpu_torch.parallel import global_sum, make_mesh, shard_batch
     from pwcnet_tpu_torch.prng import PRNGKey
@@ -2837,7 +2833,7 @@ def spatial_rank(rank, port, out_dir, chairs_root):
     report["gradient"] = {}
     for dt in (torch.float32, torch.bfloat16):
         name = dtype_name(dt)
-        model = PWCDCNet(compute_dtype=dt, key=PRNGKey(0), **spatial_hooks(mesh, True))
+        model = PWCDCNet(compute_dtype=dt, key=PRNGKey(0), **kernel_hooks(True, mesh=mesh))
         grads = first_grads(model, True)
         if main:
             want = first_grads(train_model(torch, dt, True), False)

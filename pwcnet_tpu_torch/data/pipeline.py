@@ -401,7 +401,7 @@ def device_prefetch(
     """
     import torch
 
-    from pwcnet_tpu_torch.inference import resolve_device
+    from pwcnet_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
     on_cuda = device.type == "cuda"

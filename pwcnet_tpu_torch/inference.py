@@ -45,14 +45,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
+# FUSED_PYRAMID_LEVELS stays importable from here: benchmark/loops/train.py reads it
+from pwcnet_tpu_torch.models.pwcnet import FUSED_PYRAMID_LEVELS, PWCDCNet, kernel_hooks  # noqa: F401
+from pwcnet_tpu_torch.utils.device import resolve_device
 from pwcnet_tpu_torch.utils.profiling import span
 from pwcnet_tpu_torch.weights import from_jax_params, load_params, to_jax_params
 
-__all__ = ["factor_crop", "load_image", "resolve_device", "spatial_hooks", "FlowPredictor"]
-
-# finest pyramid levels through K3, as the JAX package's accelerator default
-FUSED_PYRAMID_LEVELS = 2
+__all__ = ["factor_crop", "load_image", "resolve_device", "FlowPredictor"]
 
 
 def factor_crop(image: np.ndarray, factor: int = 64) -> np.ndarray:
@@ -68,37 +67,6 @@ def load_image(path: str | os.PathLike) -> np.ndarray:
 
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"), dtype=np.uint8)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device; None means CUDA, which must exist."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pwcnet_tpu_torch runs on the GPU by default; pass "
-                "device='cpu' (--device cpu) to run the plain PyTorch path on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
-
-
-def spatial_hooks(mesh, use_kernels: bool, use_fused: bool = True) -> dict:
-    """PWCDCNet's hooks for H-sharding over ``mesh``'s rows: the spatial
-    cost volume (K8), with ``use_fused`` the warped cost volume (K9, bilinear
-    warp only; without it the guard warps, bilinear or nearest, and K8
-    correlates the warped rows) and, with the kernels, K3 on the two finest
-    pyramid levels per shard; no K7 (as the JAX package)."""
-    from pwcnet_tpu_torch.parallel import (
-        make_spatial_cost_volume, make_spatial_guard, make_spatial_pyramid_level, make_spatial_warped_cv)
-
-    return dict(
-        spatial_guard_fn=make_spatial_guard(mesh, use_kernels),
-        cost_volume_fn=make_spatial_cost_volume(mesh, use_kernels),
-        warp_cv_fn=make_spatial_warped_cv(mesh, use_kernels) if use_fused else None,
-        pyramid_level_fn=make_spatial_pyramid_level(mesh, use_kernels) if use_kernels else None,
-        fused_pyramid_levels=FUSED_PYRAMID_LEVELS if use_kernels else 0,
-        fused_estimator_levels=0,
-    )
 
 
 class FlowPredictor:
@@ -153,25 +121,16 @@ class FlowPredictor:
         self.device = mesh.device if mesh is not None else resolve_device(device)
         if use_kernels == "auto":
             use_kernels = self.device.type == "cuda"
-        spatial_on = mesh is not None and mesh.spatial > 1
-        if use_fused == "auto":
-            use_fused = bool(use_kernels) and warp_type == "bilinear"
-        fused_pyramid = (FUSED_PYRAMID_LEVELS if use_kernels else 0) if fused_pyramid == "auto" else int(fused_pyramid)
-        fused_estimator = 0 if fused_estimator == "auto" else int(fused_estimator)
+        hooks = kernel_hooks(
+            bool(use_kernels),
+            fused=None if use_fused == "auto" else bool(use_fused),
+            fused_estimator=0 if fused_estimator == "auto" else int(fused_estimator),
+            mesh=mesh,
+            warp_type=warp_type,
+        )
+        if fused_pyramid != "auto":
+            hooks["fused_pyramid_levels"] = int(fused_pyramid)
         batched_pyramid = False if batched_pyramid == "auto" else bool(batched_pyramid)
-        hooks = {}
-        if spatial_on:
-            hooks = spatial_hooks(mesh, bool(use_kernels), bool(use_fused))
-        elif use_kernels:
-            from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
-            from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
-
-            hooks = dict(
-                cost_volume_fn=cost_volume_cuda,
-                warp_cv_fn=warped_cost_volume if use_fused else None,
-                fused_estimator_levels=fused_estimator,
-            )
-        hooks["fused_pyramid_levels"] = fused_pyramid
         model = PWCDCNet(
             num_levels=num_levels,
             search_range=search_range,

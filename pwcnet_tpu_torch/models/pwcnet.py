@@ -16,7 +16,8 @@ Training keeps float32 parameters and sets ``compute_dtype=torch.bfloat16``:
 every conv casts its weight and bias at use, so the gradients arrive in
 float32 (the JAX model's ``dtype`` with float32 ``param_dtype``).
 
-Hooks, with the JAX package's meaning:
+Hooks, with the JAX package's meaning (``kernel_hooks`` picks them for
+every builder of the port):
 
 - ``cost_volume_fn(f0, f1, d)`` on NHWC tensors (K2 on the card);
 - ``warp_cv_fn(f0, f1, flow_px, d)``, the fused bilinear warp + cost volume
@@ -89,7 +90,10 @@ from pwcnet_tpu_torch.prng import PRNGKey
 from pwcnet_tpu_torch.utils.profiling import span
 from pwcnet_tpu_torch.weights import init_params
 
-__all__ = ["PWCDCNet", "PWCNet", "flow_scales"]
+__all__ = ["FUSED_PYRAMID_LEVELS", "PWCDCNet", "PWCNet", "flow_scales", "kernel_hooks"]
+
+# finest pyramid levels through K3, as the JAX package's accelerator default
+FUSED_PYRAMID_LEVELS = 2
 
 
 def flow_scales(num_levels: int) -> list:
@@ -263,6 +267,42 @@ class PWCDCNet(nn.Module):
             return (*out, [to_nhwc(f) for f in pyramid_0]) if with_features else out
 
 
+def kernel_hooks(use_kernels: bool, *, fused: Optional[bool] = None, fused_estimator: int = 0, mesh=None,
+                 warp_type: str = "bilinear") -> dict:
+    """``PWCDCNet``'s hook arguments: which implementation of each op it runs.
+    Under H-sharding (``mesh.spatial > 1``) the guard, K8, K9 when ``fused``
+    and K3 per shard with the kernels, no K7 (as the JAX package); else with
+    the kernels K2, K1 when ``fused``, K3 on ``FUSED_PYRAMID_LEVELS`` and K7
+    on ``fused_estimator`` levels; else none. ``fused=None`` is on with the
+    kernels and the bilinear warp; ``fused=True`` with the nearest warp
+    reaches the constructor, which refuses it."""
+    if fused is None:
+        fused = bool(use_kernels) and warp_type == "bilinear"
+    if mesh is not None and mesh.spatial > 1:
+        from pwcnet_tpu_torch.parallel import (
+            make_spatial_cost_volume, make_spatial_guard, make_spatial_pyramid_level, make_spatial_warped_cv)
+
+        return dict(
+            spatial_guard_fn=make_spatial_guard(mesh, use_kernels),
+            cost_volume_fn=make_spatial_cost_volume(mesh, use_kernels),
+            warp_cv_fn=make_spatial_warped_cv(mesh, use_kernels) if fused else None,
+            pyramid_level_fn=make_spatial_pyramid_level(mesh, use_kernels) if use_kernels else None,
+            fused_pyramid_levels=FUSED_PYRAMID_LEVELS if use_kernels else 0,
+            fused_estimator_levels=0,
+        )
+    if not use_kernels:
+        return {}
+    from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
+
+    return dict(
+        cost_volume_fn=cost_volume_cuda,
+        # warp + correlation in one kernel forward, K4 and K5 backward
+        warp_cv_fn=warped_cost_volume if fused else None,
+        fused_pyramid_levels=FUSED_PYRAMID_LEVELS,
+        fused_estimator_levels=fused_estimator,
+    )
+
+
 class PWCNet(nn.Module):
     """The legacy PWC-Net (``pwcnet_tpu/models/pwcnet.py`` ``PWCNet``).
 
@@ -275,7 +315,7 @@ class PWCNet(nn.Module):
     ``cost_volume_fn(f0, f1, d)`` on NHWC tensors defaults to K2's wrapper
     ``ops.cuda.cost_volume.cost_volume_cuda``: the plain version on a CPU
     tensor, K2 on a CUDA tensor, with K4 as its backward. ``PWCDCNet``'s
-    default is None, wired by ``FlowPredictor``; the legacy model has no
+    default is None, wired by ``kernel_hooks``; the legacy model has no
     such entry point, so a bare ``PWCNet().to("cuda")`` runs the kernel.
     Pass ``ops.cost_volume.cost_volume`` for the plain version on the card.
     """

@@ -21,8 +21,7 @@ same parameters bit for bit); ``scripts/torch_record_convergence.py
 --sweep`` records which JAX keys converge.
 
 With ``use_kernels`` the model is wired as the trainer wires it on the
-card (K2 at level 0, K1 at level 1, K3 on the two pyramid levels of each
-frame that it fuses; K4, K5 and K6 in the backward).
+card (``models.pwcnet.kernel_hooks``; K4, K5 and K6 in the backward).
 """
 
 from __future__ import annotations
@@ -36,8 +35,7 @@ import numpy as np
 import torch
 
 from pwcnet_tpu_torch.data import DataLoader, get_dataset
-from pwcnet_tpu_torch.inference import FUSED_PYRAMID_LEVELS
-from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
+from pwcnet_tpu_torch.models.pwcnet import PWCDCNet, kernel_hooks
 from pwcnet_tpu_torch.prng import PRNGKey
 from pwcnet_tpu_torch.train_lib.step import TrainState, create_train_state, make_eval_step, make_train_step
 
@@ -77,14 +75,7 @@ def build_model(use_kernels: bool = False, remat: bool = False, compute_dtype=No
     """The proof's PWCDCNet, its parameters not drawn (``start_state`` loads
     them); ``use_kernels`` wires it as the trainer does on the card (the
     wrappers take CPU tensors to their plain versions)."""
-    hooks = {}
-    if use_kernels:
-        from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
-        from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
-
-        hooks = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume,
-                     fused_pyramid_levels=FUSED_PYRAMID_LEVELS)
-    return PWCDCNet(**CFG, remat=remat, compute_dtype=compute_dtype, init=False, **hooks)
+    return PWCDCNet(**CFG, remat=remat, compute_dtype=compute_dtype, init=False, **kernel_hooks(use_kernels))
 
 
 def jax_init(seed: int = 0) -> dict:

@@ -35,9 +35,9 @@ from typing import Callable, Sequence, Union
 import torch
 
 from pwcnet_tpu_torch import losses
-from pwcnet_tpu_torch.inference import resolve_device
 from pwcnet_tpu_torch.ops.resize import device_table
 from pwcnet_tpu_torch.train_lib.schedule import make_lr
+from pwcnet_tpu_torch.utils.device import resolve_device
 from pwcnet_tpu_torch.utils.profiling import span
 from pwcnet_tpu_torch.weights import init_params
 

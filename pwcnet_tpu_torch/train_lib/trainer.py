@@ -22,8 +22,7 @@
   ``--resume`` continues sample-exactly.
 
 ``args.pallas`` keeps its name and chooses the hand-written CUDA kernels
-(K2 at level 0, K1 above, K3/K6 on the two finest pyramid levels, K7 on the
-``args.fused_estimator`` finest estimator levels) against the plain path.
+(``models.pwcnet.kernel_hooks``) against the plain path.
 
 ``args.remat`` recomputes the pyramid, every estimator and the context
 net in the backward (``PWCDCNet(remat=True)``), under every mesh.
@@ -44,8 +43,7 @@ import numpy as np
 import torch
 
 from pwcnet_tpu_torch.data import DataLoader, device_prefetch, get_dataset
-from pwcnet_tpu_torch.inference import FUSED_PYRAMID_LEVELS, resolve_device, spatial_hooks
-from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
+from pwcnet_tpu_torch.models.pwcnet import PWCDCNet, kernel_hooks
 from pwcnet_tpu_torch.parallel.mesh import mesh_from_args
 from pwcnet_tpu_torch.prng import PRNGKey
 from pwcnet_tpu_torch.orbax_format import require_tensorstore
@@ -54,6 +52,7 @@ from pwcnet_tpu_torch.train_lib.checkpoint import (
 from pwcnet_tpu_torch.train_lib.metrics import MetricsLogger
 from pwcnet_tpu_torch.train_lib.step import create_train_state, make_eval_step, make_train_step
 from pwcnet_tpu_torch.utils.config import ExperimentSaver, timestamp
+from pwcnet_tpu_torch.utils.device import resolve_device
 from pwcnet_tpu_torch.utils.flow_viz import vis_flow_pyramid
 
 __all__ = ["Trainer"]
@@ -121,24 +120,14 @@ class Trainer:
 
     def _build_model(self):
         args = self.args
-        use_kernels = bool(getattr(args, "pallas", False))
-        hooks = {}
-        use_fused = getattr(args, "fused", True) and args.warp_type == "bilinear"
-        if self.mesh is not None and self.mesh.spatial > 1:
-            # K3 per shard, K8, K9 (or the guard's warp); no K7 under H-sharding, as in the JAX package
-            hooks = spatial_hooks(self.mesh, use_kernels, use_fused)
-        elif use_kernels:
-            from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
-            from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
-
-            hooks = dict(
-                cost_volume_fn=cost_volume_cuda,
-                # warp + correlation in one kernel forward, K4 and K5 backward
-                warp_cv_fn=warped_cost_volume if use_fused else None,
-                fused_pyramid_levels=FUSED_PYRAMID_LEVELS,
-                # opt-in, off by default as in the JAX package
-                fused_estimator_levels=int(getattr(args, "fused_estimator", 0) or 0),
-            )
+        hooks = kernel_hooks(
+            bool(getattr(args, "pallas", False)),
+            # --fused takes effect with the bilinear warp only
+            fused=getattr(args, "fused", True) and args.warp_type == "bilinear",
+            # opt-in, off by default as in the JAX package
+            fused_estimator=int(getattr(args, "fused_estimator", 0) or 0),
+            mesh=self.mesh,
+        )
         bf16 = getattr(args, "dtype", "float32") == "bfloat16"
         seed = int(getattr(args, "seed", 0) or 0)
         self.model = PWCDCNet(

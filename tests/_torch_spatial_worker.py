@@ -85,22 +85,12 @@ def task_ops(mesh, inp, cfg, out):
 
 
 def _model(cfg, mesh, state_dict, use_kernels=True):
-    """The model as the trainer wires it: under H-sharding
-    ``spatial_hooks``, fused unless ``cfg["use_fused"]`` is False or the
-    warp is nearest."""
-    from pwcnet_tpu_torch.inference import spatial_hooks
-    from pwcnet_tpu_torch.models.pwcnet import PWCDCNet
-    from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
-    from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
+    """The model as the trainer wires it (``kernel_hooks``), fused unless
+    ``cfg["use_fused"]`` is False or the warp is nearest."""
+    from pwcnet_tpu_torch.models.pwcnet import PWCDCNet, kernel_hooks
 
-    hooks = {}
-    if mesh is not None and mesh.spatial > 1:
-        fused = cfg.get("use_fused", True) and cfg["model"].get("warp_type", "bilinear") == "bilinear"
-        hooks = dict(spatial_hooks(mesh, use_kernels, fused),
-                     fused_pyramid_levels=cfg.get("fused_pyramid_levels", 0))
-    elif use_kernels:
-        hooks = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume)
-    model = PWCDCNet(**cfg["model"], **hooks)
+    fused = cfg.get("use_fused", True) and cfg["model"].get("warp_type", "bilinear") == "bilinear"
+    model = PWCDCNet(**cfg["model"], **kernel_hooks(use_kernels, fused=fused, mesh=mesh))
     model.load_state_dict(state_dict)
     return model
 

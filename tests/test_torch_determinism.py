@@ -38,8 +38,7 @@ from pwcnet_tpu.ops.warp import bilinear_warp_rows as jax_bilinear_warp_rows
 from pwcnet_tpu.ops.warp import nearest_warp as jax_nearest_warp
 from pwcnet_tpu_torch.losses import scored_rows
 from pwcnet_tpu_torch.models import PWCDCNet, PWCNet
-from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
-from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
+from pwcnet_tpu_torch.models.pwcnet import kernel_hooks
 from pwcnet_tpu_torch.ops.resize import nearest_indices, resize_bilinear
 from pwcnet_tpu_torch.ops.warp import (
     _GatherRows,
@@ -267,9 +266,8 @@ def _models():
     key = PRNGKey(0)
     return {
         "plain": lambda: PWCDCNet(**TINY, key=key),
-        "kernels": lambda: PWCDCNet(**TINY, key=key, cost_volume_fn=cost_volume_cuda,
-                                    warp_cv_fn=warped_cost_volume, fused_pyramid_levels=2),
-        "unfused": lambda: PWCDCNet(**TINY, key=key, cost_volume_fn=cost_volume_cuda, fused_pyramid_levels=2),
+        "kernels": lambda: PWCDCNet(**TINY, key=key, **kernel_hooks(True)),
+        "unfused": lambda: PWCDCNet(**TINY, key=key, **kernel_hooks(True, fused=False)),
         "nearest": lambda: PWCDCNet(**TINY, key=key, warp_type="nearest"),
         "remat": lambda: PWCDCNet(**TINY, key=key, remat=True),
         "legacy": lambda: _legacy_trained(PWCNet(**TINY, batch_norm=True, key=key)),

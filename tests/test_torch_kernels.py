@@ -26,6 +26,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from pwcnet_tpu_torch.models.pwcnet import kernel_hooks
 from pwcnet_tpu_torch.ops.cost_volume import cost_volume
 from pwcnet_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
@@ -603,8 +604,7 @@ class TestKernelsOnCard:
 
         images = torch.from_numpy(rng.random((2, 2, 128, 192, 3)).astype(np.float32)).to(cuda_device)
         flows = torch.from_numpy(_normal(rng, (2, 128, 192, 2), 2.0)).to(cuda_device)
-        hooks = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume, fused_pyramid_levels=2,
-                     fused_estimator_levels=2, compute_dtype=dtype)
+        hooks = dict(kernel_hooks(True, fused_estimator=2), compute_dtype=dtype)
         out = {}
         for remat in (False, True):
             model = PWCDCNet(remat=remat, **hooks).to(cuda_device)
@@ -999,14 +999,11 @@ def test_a_warmed_train_step_never_waits_on_the_card(cuda_device, dtype, loss_na
     step, a step issues nothing that waits on the card, which capturing it
     in a CUDA graph needs, and copies no index table up: the loss looks up
     its two tables a level (five levels) and builds none."""
-    from pwcnet_tpu_torch.inference import FUSED_PYRAMID_LEVELS
     from pwcnet_tpu_torch.models import PWCDCNet
     from pwcnet_tpu_torch.ops.resize import reset_table_counts, table_counts
     from pwcnet_tpu_torch.train_lib import create_train_state, make_train_step
 
-    model = PWCDCNet(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume,
-                     fused_pyramid_levels=FUSED_PYRAMID_LEVELS,
-                     compute_dtype=None if dtype == torch.float32 else dtype)
+    model = PWCDCNet(**kernel_hooks(True), compute_dtype=None if dtype == torch.float32 else dtype)
     state = create_train_state(model, device=cuda_device)
     step = make_train_step(model, loss_name=loss_name)
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -1081,16 +1078,15 @@ def test_nccl_sharded_model_matches_unsharded(two_gpus, tmp_path):
     images = rng.random((2, 2, 512, 128, 3)).astype(np.float32)  # level 0: 4 rows a shard (K8)
     g = rng.standard_normal((2, 512, 128, 2)).astype(np.float32)
     flows = (rng.standard_normal((2, 512, 128, 2)) * 2).astype(np.float32)
-    outs = _nccl_ranks("model", tmp_path, dict(images=images, g_final=g, **sd),
-                       {"model": {}, "fused_pyramid_levels": 2})
+    outs = _nccl_ranks("model", tmp_path, dict(images=images, g_final=g, **sd), {"model": {}})
     for o in outs:
         launches = json.loads(str(o["launches"]))
         assert all(launches[k] > 0 for k in ("K3", "K8", "K8b", "K9", "K9b")), launches
     steps = _nccl_ranks("train", tmp_path, dict(images=images, flows=flows, **sd),
-                        {"model": {}, "fused_pyramid_levels": 2, "data": 1, "spatial": 2, "lr": 1e-4,
+                        {"model": {}, "data": 1, "spatial": 2, "lr": 1e-4,
                          "steps": 1, "losses": ["multiscale"]})
 
-    ref = PWCDCNet(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume, fused_pyramid_levels=2)
+    ref = PWCDCNet(**kernel_hooks(True))
     ref.load_state_dict(model.state_dict())
     ref = ref.cuda()
     named = dict(ref.named_parameters())

@@ -27,9 +27,8 @@ import torch
 
 from pwcnet_tpu.models import PWCDCNet as JaxPWCDCNet
 from pwcnet_tpu_torch.models import PWCDCNet
+from pwcnet_tpu_torch.models.pwcnet import kernel_hooks
 from pwcnet_tpu_torch.prng import PRNGKey
-from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
-from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
 from pwcnet_tpu_torch.weights import from_jax_params, init_params, load_params, to_jax_params
 
 torch.set_num_threads(1)
@@ -173,8 +172,7 @@ class TestModel:
         pyramid levels) give the plain model's output on CPU tensors."""
         tree = _jax_tree(SMALL, 16, seed=3)
         a, b = (torch.from_numpy(x) for x in _frames(2, 16))
-        hooked = _port(SMALL, tree, cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume,
-                       fused_pyramid_levels=2)
+        hooked = _port(SMALL, tree, **kernel_hooks(True))
         with torch.no_grad():
             got, want = hooked(a, b), _port(SMALL, tree)(a, b)
         assert torch.equal(got[0], want[0])
@@ -183,7 +181,7 @@ class TestModel:
         with pytest.raises(ValueError):
             PWCDCNet(num_levels=3, output_level=3)
         with pytest.raises(ValueError):
-            PWCDCNet(warp_type="nearest", warp_cv_fn=warped_cost_volume)
+            PWCDCNet(warp_type="nearest", **kernel_hooks(True, fused=True))
 
 
 class TestFlowPredictor:
@@ -296,6 +294,25 @@ class TestNoJax:
         res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
                              timeout=300)
         assert res.returncode == 0, res.stdout + res.stderr
+
+    def test_training_and_data_code_does_not_import_the_serving_entry(self):
+        """The hooks come from ``models.pwcnet`` and the device from
+        ``utils.device``; ``inference`` keeps the constant's old name."""
+        from pwcnet_tpu_torch import inference
+        from pwcnet_tpu_torch.models import pwcnet
+
+        found = []
+        sources = [p for sub in ("data", "train_lib") for p in (REPO / "pwcnet_tpu_torch" / sub).rglob("*.py")]
+        for path in sorted(sources):
+            for node in ast.walk(ast.parse(path.read_text())):
+                if isinstance(node, ast.ImportFrom) and node.module:
+                    names = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+                else:
+                    names = [a.name for a in node.names] if isinstance(node, ast.Import) else []
+                found += [(path.name, n) for n in names if n == "pwcnet_tpu_torch.inference"]
+        assert not found, found
+        assert inference.FUSED_PYRAMID_LEVELS is pwcnet.FUSED_PYRAMID_LEVELS
+        assert not hasattr(inference, "spatial_hooks")
 
     def test_chip_smoke_imports_neither(self):
         tree = ast.parse((REPO / "chip_smoke.py").read_text())

@@ -46,6 +46,7 @@ import pwcnet_tpu_torch.models.pyramid as pyramid_module
 from pwcnet_tpu.models import PWCDCNet as JaxPWCDCNet
 from pwcnet_tpu.train_lib import step as jax_step
 from pwcnet_tpu_torch.models import PWCDCNet
+from pwcnet_tpu_torch.models.pwcnet import kernel_hooks
 from pwcnet_tpu_torch.ops.cuda import estimator_conv, pyramid_conv
 from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
 from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
@@ -61,8 +62,7 @@ TINY_FLAGS = ["--num_levels", "3", "--search_range", "2", "--output_level", "1"]
 HW = 16
 LR = 1e-3
 N_STEPS = 5
-KERNEL_HOOKS = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume, fused_pyramid_levels=2,
-                    fused_estimator_levels=2)
+KERNEL_HOOKS = kernel_hooks(True, fused_estimator=2)
 
 
 def _jax_tree(cfg, hw, seed):
@@ -113,6 +113,41 @@ def _assert_grads_close(got, want, rel):
         assert np.abs(g - w).max() <= rel * np.abs(w).max() + 1e-7, key
 
 
+@pytest.mark.parametrize("mesh", [None, "one-row"])
+@pytest.mark.parametrize("warp_type", ["bilinear", "nearest"])
+@pytest.mark.parametrize("fused_estimator", [0, 2])
+@pytest.mark.parametrize("fused", [None, True, False], ids=["auto", "fused", "unfused"])
+@pytest.mark.parametrize("use_kernels", [True, False], ids=["kernels", "plain"])
+def test_kernel_hooks_table(use_kernels, fused, fused_estimator, warp_type, mesh):
+    """``kernel_hooks`` off a spatial mesh: with the kernels K2, K1 when
+    fused (auto: with the bilinear warp), K3 on two pyramid levels, K7 on
+    ``fused_estimator`` levels; without them no hook. A mesh of one row
+    (data 2, spatial 1) wires as no mesh. An explicit ``fused=True`` with
+    the nearest warp reaches the constructor, which refuses it."""
+    from pwcnet_tpu_torch.models.pwcnet import FUSED_PYRAMID_LEVELS
+    from pwcnet_tpu_torch.parallel.mesh import Mesh
+
+    if mesh == "one-row":
+        mesh = Mesh(data=2, spatial=1, rank=0, device=torch.device("cpu"), rows=None, column=None)
+    hooks = kernel_hooks(use_kernels, fused=fused, fused_estimator=fused_estimator, mesh=mesh, warp_type=warp_type)
+    fuses = fused if fused is not None else warp_type == "bilinear"
+    if not use_kernels:
+        assert hooks == {}
+    else:
+        assert set(hooks) == {"cost_volume_fn", "warp_cv_fn", "fused_pyramid_levels", "fused_estimator_levels"}
+        assert hooks["cost_volume_fn"] is cost_volume_cuda
+        assert hooks["warp_cv_fn"] is (warped_cost_volume if fuses else None)
+        assert hooks["fused_pyramid_levels"] == FUSED_PYRAMID_LEVELS == 2
+        assert hooks["fused_estimator_levels"] == fused_estimator
+    if use_kernels and fuses and warp_type == "nearest":
+        with pytest.raises(ValueError, match="warp_cv_fn fuses the bilinear warp"):
+            PWCDCNet(**TINY, warp_type=warp_type, init=False, **hooks)
+    else:
+        model = PWCDCNet(**TINY, warp_type=warp_type, init=False, **hooks)
+        assert model.fp_extractor.fused_levels == (2 if use_kernels else 0)
+        assert [model.optflow_0.fused, model.optflow_1.fused] == [use_kernels and fused_estimator == 2] * 2
+
+
 @pytest.fixture
 def kernel_functions(monkeypatch):
     """CPU tensors through K3's and K7's card paths (``_on_card``: their
@@ -151,6 +186,22 @@ def kernel_functions(monkeypatch):
     return launches
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test, the caller's count restored after
+    it. At two, PyTorch's CPU convolution backward does not give the same
+    input gradient twice for the 6-level model's level-0 estimator (its
+    1x1 rows): the first tensor to differ between two identical runs is
+    ``optflow_0.conv2d_3``'s input gradient, its output gradient equal.
+    The module sets one thread when it is imported, but a test that runs
+    ``benchmark.run.run_cell`` in the same process may have set two since."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.mark.usefixtures("one_thread")
 class TestRemat:
     @pytest.mark.parametrize("cfg,hw,hooks", [
         (TINY, HW, {}),

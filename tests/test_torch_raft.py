@@ -442,7 +442,11 @@ def test_the_cell_draws_batchnorm_statistics_that_are_not_the_identity():
 def _run(ctx):
     from benchmark.run import run_cell
 
-    return run_cell(ctx)
+    threads = torch.get_num_threads()
+    try:
+        return run_cell(ctx)
+    finally:
+        torch.set_num_threads(threads)  # run_cell sets its own; the next test file runs in this process
 
 
 def test_a_sound_run_is_correct():

@@ -283,7 +283,7 @@ class TestSpatialModel:
         images = rng.random((2, 2) + hw + (3,)).astype(np.float32)
         g = rng.standard_normal((2,) + hw + (2,)).astype(np.float32)
         inp = dict(images=images, g_final=g, **_state_inputs(tree))
-        outs = run_ranks("model", world, tmp_path, inp, {"model": cfg, "fused_pyramid_levels": 2})
+        outs = run_ranks("model", world, tmp_path, inp, {"model": cfg})
         assert outs[0]["sharded"][-1]  # the output level is sharded: the final resize runs on stripes
 
         mesh = _jax_mesh(1, world)
@@ -429,7 +429,7 @@ class TestShardedTrainSteps:
         inputs = dict(images=r["images"], flows=r["flows"], **_state_inputs(r["tree"]))
         outs = run_ranks("train", data * spatial, tmp_path, inputs,
                          {"model": model, "data": data, "spatial": spatial, "lr": TRAIN_LR,
-                          "steps": TRAIN_N, "losses": TRAIN_LOSSES, "fused_pyramid_levels": 2, **extra})
+                          "steps": TRAIN_N, "losses": TRAIN_LOSSES, **extra})
         for loss in TRAIN_LOSSES:
             want_grads, want_metrics, want = ref[loss]
             _assert_tree_close(_port_flat(outs, f"{loss}/grad/"), want_grads, 2e-4)

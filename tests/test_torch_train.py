@@ -42,8 +42,7 @@ from pwcnet_tpu.train_lib import checkpoint as jax_checkpoint
 from pwcnet_tpu.train_lib import step as jax_step
 from pwcnet_tpu.train_lib.schedule import make_lr as jax_make_lr
 from pwcnet_tpu_torch.models import PWCDCNet
-from pwcnet_tpu_torch.ops.cuda.cost_volume import cost_volume_cuda
-from pwcnet_tpu_torch.ops.cuda.warped_cv import warped_cost_volume
+from pwcnet_tpu_torch.models.pwcnet import kernel_hooks
 from pwcnet_tpu_torch.prng import PRNGKey
 from pwcnet_tpu_torch.train_lib import (
     TrainState,
@@ -178,7 +177,7 @@ class TestWholeModelGradient:
         tensors take the plain versions under ordinary autograd."""
         tree = _jax_tree(TINY, HW, seed=1)
         images, flows_gt = _batch(2)
-        hooks = dict(cost_volume_fn=cost_volume_cuda, warp_cv_fn=warped_cost_volume, fused_pyramid_levels=2)
+        hooks = kernel_hooks(True)
         got, _ = _port_grads(_port_state(TINY, tree, **hooks), images, flows_gt)
         want, _ = _port_grads(_port_state(TINY, tree), images, flows_gt)
         _assert_grads_close(got, want, 1e-5)

@@ -17,6 +17,7 @@ everywhere and within 1e-3 * N * lr on average. The evaluate CLIs' EPE (a
 mean over every pixel of a float32 forward) within rtol 1e-4.
 """
 
+import importlib.util
 import json
 import signal
 import sys
@@ -162,6 +163,64 @@ class TestTrainerAgainstJax:
         assert trainer.model.warp_cv_fn is not None and trainer.model.fp_extractor.fused_levels == 2
         rows = [json.loads(l) for l in (_logdir(tmp_path) / "train" / "metrics.jsonl").read_text().splitlines()]
         np.testing.assert_allclose([r["loss/pwc"] for r in rows], shared["losses"], rtol=1e-4)
+
+
+# (use_kernels, fused, fused_estimator, warp_type); fused None is each builder's default
+BUILDER_FLAGS = {
+    "plain": (False, None, 0, "bilinear"),
+    "kernels": (True, None, 0, "bilinear"),
+    "k7": (True, None, 2, "bilinear"),
+    "unfused": (True, False, 0, "bilinear"),
+    "nearest": (True, None, 0, "nearest"),
+}
+BUILDERS = [(b, f) for b in ("FlowPredictor", "Trainer", "convergence", "chip_smoke") for f in BUILDER_FLAGS
+            if b != "convergence" or f in ("plain", "kernels")]  # its build_model takes use_kernels alone
+
+
+def _wiring(model):
+    """Which implementation of each op ``model`` runs."""
+    return (model.cost_volume_fn, model.warp_cv_fn, model.spatial_guard_fn, model.fp_extractor.fused_levels,
+            model.fp_extractor.level_fn, [getattr(model, f"optflow_{l}").fused for l in range(model.output_level + 1)])
+
+
+def _built(builder, use_kernels, fused, fused_estimator, warp_type):
+    """The model ``builder`` makes for these flags, and its configuration."""
+    if builder == "FlowPredictor":
+        from pwcnet_tpu_torch.inference import FlowPredictor
+
+        pred = FlowPredictor(device="cpu", use_kernels=use_kernels, use_fused="auto" if fused is None else fused,
+                             fused_estimator=fused_estimator, warp_type=warp_type, **TINY)
+        return pred.model, TINY
+    if builder == "Trainer":
+        flags = ["--pallas" if use_kernels else "--no-pallas", "--fused-estimator", str(fused_estimator),
+                 "--warp_type", warp_type] + (["--no-fused"] if fused is False else [])
+        return Trainer(port_train_cli.build_parser().parse_args(TRAIN_ARGS + flags)).model, TINY
+    if builder == "convergence":
+        from pwcnet_tpu_torch.train_lib import convergence
+
+        return convergence.build_model(use_kernels), convergence.CFG
+    spec = importlib.util.spec_from_file_location("chip_smoke_builder", REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    # as its DETERMINISM_PATHS call it: unfused with the nearest warp
+    model = chip_smoke.train_model(torch, None, use_kernels, fused_estimator=fused_estimator,
+                                   fused=fused if fused is not None else warp_type == "bilinear", warp_type=warp_type)
+    return model, {}
+
+
+@pytest.mark.parametrize("builder,flags", BUILDERS, ids=[f"{b}-{f}" for b, f in BUILDERS])
+def test_every_builder_wires_as_kernel_hooks(tmp_path, monkeypatch, builder, flags):
+    """FlowPredictor, the Trainer, the convergence proof and chip_smoke.py's
+    train model run the kernels that ``kernel_hooks`` gives for their flags."""
+    from pwcnet_tpu_torch.models.pwcnet import PWCDCNet, kernel_hooks
+
+    monkeypatch.chdir(tmp_path)
+    use_kernels, fused, fused_estimator, warp_type = BUILDER_FLAGS[flags]
+    model, cfg = _built(builder, use_kernels, fused, fused_estimator, warp_type)
+    hooks = kernel_hooks(use_kernels, fused=fused, fused_estimator=fused_estimator, warp_type=warp_type)
+    want = PWCDCNet(**cfg, warp_type=warp_type, init=False, **hooks)
+    assert _wiring(model) == _wiring(want)
+    assert (model.warp_cv_fn is not None) == (use_kernels and fused is None and warp_type == "bilinear")
 
 
 def _trainer(extra=()):
