@@ -43,8 +43,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    difference in check_training_kernels must be 0; last R1 (RAFT's
    correlation lookup) against ``lookup_plain`` at the RAFT cell's 1/8 grid
    of 448x1024 frames, B=1 and 16, one launch a call, exact zeros where
-   every window misses its map, and 32 R1 launches and no other hand
-   kernel in a RAFT(iters=32) bf16 forward at 448x1024, B=1;
+   every window misses its map; R2 and R3 (RAFT's update epilogues and GRU
+   gates) against their plain versions at the same grid, B=1 and 16, bf16
+   and float32, the coordinates' update bit for bit; and R1 32, R2 224, R3
+   128 launches and no other hand kernel in a RAFT(iters=32) bf16 forward
+   at 448x1024, B=1;
 4. serving: FlowPredictor with seeded random weights answers 448x1024
    requests and a 1024x436 (Sintel-sized) request edge-padded to 448x1024,
    then batched raw_forward at B=8 in bf16 and f32; the launch counters
@@ -165,7 +168,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    at the training step's levels), then every kernel again in float32
    beside cuDNN's float32 chains (TF32 off); R1 in float32 at the RAFT
    cell's shape (B=16, one update) beside its bound
-   (``benchmark/raft_work.py`` ``lookup_work``) and ``lookup_plain``;
+   (``benchmark/raft_work.py`` ``lookup_work``) and ``lookup_plain``; R2
+   and R3 in bf16 at each call of one update at that shape beside their
+   bounds (bytes at 3.35 TB/s) and their plain versions;
    pairs/s of the whole forward
    at 448x1024 B=8; device time by kernel and the device's busy share for
    the forward and for the train step, in bf16 and in float32
@@ -272,6 +277,13 @@ SHARD_KERNELS = ("K8", "K8b", "K9", "K9b")
 # R1, RAFT's correlation lookup (no TPU kernel: the JAX package has no RAFT), checked and timed at the
 # RAFT cell's 1/8 grid of 448x1024 frames; 32 launches a RAFT(iters=32) forward
 RAFT_GRID = (56, 128)
+# R2 and R3, RAFT's update epilogues and GRU gates (no TPU kernel either): R2 after each conv of an update,
+# (conv, its channels, the channels of the buffer it writes, the slot's first channel, the slots written;
+# a buffer as wide as the slot is a standalone tensor), then flow_head.conv2's coordinate update; R3 twice a
+# GRU pass. 7 R2 and 4 R3 launches an update
+RAFT_EPILOGUES = (("convc1", 256, 256, 0, 1), ("convc2", 192, 256, 0, 1), ("convf1", 128, 128, 0, 1),
+                  ("convf2", 64, 256, 192, 1), ("conv", 126, 384, 256, 2), ("flow_head.conv1", 256, 256, 0, 1))
+RAFT_PER_FORWARD = {"R1": 32, "R2": 7 * 32, "R3": 4 * 32}
 SHARDS = 2
 # per rank and forward at 448x1024 over 2 shards with use_fused=False or the nearest warp:
 # level 0 (7 rows) whole through K2, levels 1-4 warped by the guard and correlated by K8,
@@ -752,10 +764,100 @@ def check_raft_lookup(torch, device):
     return worst
 
 
+def raft_update_inputs(torch, b, c, width, at, dtype, device, seed):
+    """A conv's output (B, c, 56, 128) of a few units and its bias, and a
+    zeroed channels_last buffer of ``width`` channels whose slot
+    ``[at, at + c)`` the epilogue writes."""
+    from pwcnet_tpu_torch.models.conv import to_nchw
+
+    h, w = RAFT_GRID
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = to_nchw(3 * torch.randn(b, h, w, c, generator=g, device=device)).to(dtype)
+    bias = torch.randn(c, generator=g, device=device).to(dtype)
+    return x, bias, to_nchw(torch.zeros(b, h, w, width, dtype=dtype, device=device))
+
+
+def raft_gate_inputs(torch, b, dtype, device, seed):
+    """The GRU's three pre-activations (B, 128, 56, 128), their biases, the
+    buffers A and Q (384 channels) with ``h`` in A's first 128, and ``z``."""
+    from pwcnet_tpu_torch.models.conv import to_nchw
+
+    h, w = RAFT_GRID
+    g = torch.Generator(device=device).manual_seed(seed)
+    pre = [to_nchw(3 * torch.randn(b, h, w, 128, generator=g, device=device)).to(dtype) for _ in range(3)]
+    biases = [torch.randn(128, generator=g, device=device).to(dtype) for _ in range(3)]
+    a, q = (to_nchw(torch.zeros(b, h, w, 384, dtype=dtype, device=device)) for _ in range(2))
+    a[:, :128].copy_(torch.tanh(torch.randn(b, 128, h, w, generator=g, device=device)))
+    z = to_nchw(torch.empty(b, h, w, 128, dtype=dtype, device=device))
+    return pre, biases, a, q, z
+
+
+def check_raft_update(torch, device):
+    """R2 and R3 against their plain versions on the card at the RAFT cell's
+    1/8 grid (448x1024 frames: 56x128), B=1 and 16, bf16 and float32: R2
+    with ReLU at each epilogue of an update (the motion features into A's
+    and Q's slots in one launch) and with each activation into a
+    128-channel slot of a 384-channel buffer, no other channel touched; the
+    coordinates' update bit for bit; R3's two gates (gate 2 with the
+    contiguous ``net``); one launch a call. Tolerances as ``make_compare``'s.
+    Returns the largest errors by kernel and dtype."""
+    from pwcnet_tpu_torch.ops import raft_update as ops
+    from pwcnet_tpu_torch.ops.cuda.raft_update import conv_epilogue_cuda, gru_gate_zr_cuda
+
+    errs = {"R2": {}, "R3": {}}
+    compare = make_compare(torch, errs)
+    h, w = RAFT_GRID
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            for b in (1, 16):
+                cases = [(name, c, width, at, slots, "relu") for name, c, width, at, slots in RAFT_EPILOGUES]
+                cases += [(f"into A's h slot, {act}", 128, 384, 128, 1, act) for act in ops.ACTS if act != "relu"]
+                for k, (name, c, width, at, slots, act) in enumerate(cases):
+                    x, bias, buf = raft_update_inputs(torch, b, c, width, at, dtype, device, seed=k)
+                    bufs = [buf] + [buf.clone(memory_format=torch.channels_last) for _ in range(slots - 1)]
+                    want = torch.empty_like(x)
+                    ops.conv_epilogue_plain(x, bias, act, want)
+                    before = conv_epilogue_cuda.launches
+                    ops.conv_epilogue(x, bias, act, *[t[:, at:at + c] for t in bufs])
+                    torch.cuda.synchronize()
+                    require(conv_epilogue_cuda.launches == before + 1, "R2 is one launch a call")
+                    for t in bufs:
+                        compare("R2", f"{name} B={b} {dtype_name(dtype)}", t[:, at:at + c], want, dtype)
+                        require(not t[:, :at].any() and not t[:, at + c:].any(), "R2 writes its slot alone")
+                delta, bias, a = raft_update_inputs(torch, b, 2, 384, 382, dtype, device, seed=99)
+                coords = torch.rand(b, h, w, 2, device=device) * torch.tensor([w, h], device=device)
+                plain, flow = coords.clone(), torch.empty_like(delta)
+                ops.coords_update(delta, bias, coords, a[:, 382:])
+                ops.coords_update_plain(delta, bias, plain, flow)
+                torch.cuda.synchronize()
+                require(torch.equal(coords, plain) and torch.equal(a[:, 382:], flow),
+                        "R2's coordinate update is not the plain version's bits")
+                pre, (bz, br, bq), a, q, z = raft_gate_inputs(torch, b, dtype, device, seed=b)
+                a2, q2 = a.clone(memory_format=torch.channels_last), q.clone(memory_format=torch.channels_last)
+                z2, net = torch.empty_like(z), torch.empty_like(z)
+                before = gru_gate_zr_cuda.launches
+                ops.gru_gate_zr(pre[0], pre[1], bz, br, a[:, :128], q[:, :128], z)
+                ops.gru_gate_zr_plain(pre[0], pre[1], bz, br, a2[:, :128], q2[:, :128], z2)
+                label = f"B={b} {dtype_name(dtype)}"
+                compare("R3", f"gate z, r: z {label}", z, z2, dtype)
+                compare("R3", f"gate z, r: r h {label}", q[:, :128], q2[:, :128], dtype)
+                ops.gru_gate_h(pre[2], bq, z2, a[:, :128], net)
+                ops.gru_gate_h_plain(pre[2], bq, z2, a2[:, :128])
+                torch.cuda.synchronize()
+                require(gru_gate_zr_cuda.launches == before + 2, "R3 is one launch a gate")
+                compare("R3", f"gate h {label}", a[:, :128], a2[:, :128], dtype)
+                require(torch.equal(net, a[:, :128]), "R3's second gate writes net as h")
+                require(torch.equal(a[:, 128:], a2[:, 128:]) and not q[:, 128:].any(), "R3 writes its slots alone")
+    log(f"  R2 coordinate update bit for bit at B=1, 16 in bf16 and float32; R2 / R3 largest errors: {errs}")
+    return errs
+
+
 def check_raft_forward_launches(torch, device, b=1):
     """One seeded ``RAFT(iters=32)`` forward in bf16 on 448x1024 frames with
-    the launch counters reset just before it: R1 launches once an update,
-    32 times, and no other hand kernel runs. Returns R1's count."""
+    the launch counters reset just before it: R1 launches once an update, R2
+    seven times (after each conv but the GRU's six), R3 four times (two
+    gates a GRU pass): ``RAFT_PER_FORWARD``, and no other hand kernel runs.
+    Returns the counts."""
     from pwcnet_tpu_torch.models.raft import RAFT
     from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from pwcnet_tpu_torch.train_lib.step import make_forward
@@ -768,13 +870,73 @@ def check_raft_forward_launches(torch, device, b=1):
     flow, _ = make_forward(model)(x0, x0.roll(3, 2))
     torch.cuda.synchronize()
     counts = launch_counts()
-    log(f"  R1 in one RAFT(iters=32) bf16 forward, B={b} 448x1024: "
+    log(f"  R1-R3 in one RAFT(iters=32) bf16 forward, B={b} 448x1024: "
         + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
-    require(counts["R1"] == 32, "R1 launches once an update of RAFT(iters=32), 32 a forward")
-    require(not any(v for k, v in counts.items() if k != "R1"), "RAFT's forward runs no other hand kernel")
+    require({k: v for k, v in counts.items() if v} == RAFT_PER_FORWARD,
+            f"RAFT(iters=32) launches R1-R3 {RAFT_PER_FORWARD} a forward and no other hand kernel")
     require(bool(flow.isfinite().all()), "RAFT's flow is finite")
     del model, flow
-    return counts["R1"]
+    return {k: counts[k] for k in RAFT_PER_FORWARD}
+
+
+def time_raft_update(torch, device, b=16):
+    """R2 and R3 at the RAFT cell's shape (448x1024 frames, B=16), bf16, each
+    call of one update: ms a call (CUDA events) against its bound (the
+    bytes each element read once and each result written once, at 3.35
+    TB/s) and the plain version's ms; one update's sum; each kernel's
+    registers, local memory and resident blocks an SM."""
+    import ctypes
+
+    from pwcnet_tpu_torch.ops import raft_update as ops
+    from pwcnet_tpu_torch.ops.cuda import _build
+
+    info = _build.load("raft_update").pwc_raft_update_info
+    info.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    attrs = []
+    for which, label in enumerate(("epilogue ReLU x8", "gate z, r x8", "gate h x8", "coordinates")):
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        require(info(which, *[ctypes.byref(v) for v in vals]) == 0, "query of R2's / R3's attributes")
+        attrs.append(f"{label}: {vals[0].value} registers, {vals[1].value} B local, {vals[2].value} blocks an SM")
+    log("  R2 / R3 bf16: " + "; ".join(attrs))
+    h, w = RAFT_GRID
+    px, s = b * h * w, 2
+    dtype = torch.bfloat16
+    rows = {}
+
+    def row(name, n_bytes, kernel, plain, times=1):
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ms, plain_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain, iters=5)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "times": times}
+        log(f"  {name} bf16 {b}x{h}x{w}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({n_bytes / 1e6:.1f} MB; {100 * bound_ms / ms:.1f}% of it)")
+
+    with torch.inference_mode():
+        for k, (name, c, width, at, slots) in enumerate(RAFT_EPILOGUES):
+            x, bias, buf = raft_update_inputs(torch, b, c, width, at, dtype, device, seed=k)
+            outs = [buf[:, at:at + c]] + [buf.clone(memory_format=torch.channels_last)[:, at:at + c]
+                                          for _ in range(slots - 1)]
+            row(f"R2 {name}", px * c * (1 + slots) * s, lambda: ops.conv_epilogue(x, bias, "relu", *outs),
+                lambda: ops.conv_epilogue_plain(x, bias, "relu", *outs))
+        delta, bias, a = raft_update_inputs(torch, b, 2, 384, 382, dtype, device, seed=99)
+        q, flow = a.clone(memory_format=torch.channels_last), torch.empty_like(delta)
+        coords = torch.zeros(b, h, w, 2, device=device)
+        flows = (a[:, 382:], q[:, 382:], flow)
+        row("R2 flow_head.conv2 (coordinates)", px * (2 * s + 16 + 3 * 2 * s),
+            lambda: ops.coords_update(delta, bias, coords, *flows),
+            lambda: ops.coords_update_plain(delta, bias, coords, *flows))
+        pre, (bz, br, bq), a, q, z = raft_gate_inputs(torch, b, dtype, device, seed=b)
+        net = torch.empty_like(z)
+        zr = (pre[0], pre[1], bz, br, a[:, :128], q[:, :128], z)
+        row("R3 gate z, r", px * 128 * 5 * s, lambda: ops.gru_gate_zr(*zr), lambda: ops.gru_gate_zr_plain(*zr),
+            times=2)
+        row("R3 gate h", px * 128 * 4 * s, lambda: ops.gru_gate_h(pre[2], bq, z, a[:, :128]),
+            lambda: ops.gru_gate_h_plain(pre[2], bq, z, a[:, :128]))
+        row("R3 gate h with net", px * 128 * 5 * s, lambda: ops.gru_gate_h(pre[2], bq, z, a[:, :128], net),
+            lambda: ops.gru_gate_h_plain(pre[2], bq, z, a[:, :128], net))
+    total = {k: sum(r[k] * r["times"] for r in rows.values()) for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"  R2 + R3, one update at B={b}: kernels {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms ({100 * total['bound_ms'] / total['ms']:.1f}% of it)")
+    return {"calls": rows, "update": total, "shape": f"{b}x{h}x{w}", "attributes": attrs}
 
 
 def time_raft_lookup(torch, device, b=16):
@@ -3091,6 +3253,8 @@ def log_build(report):
             require(counts <= {"0"}, f"ptxas spills registers in K4's {entry}")
         if entry.startswith("warp_bwd_coop_kernel"):
             require(counts <= {"0"}, f"ptxas spills registers in K5's {entry}")
+        if entry.startswith(("raft_epilogue", "raft_gate")):
+            require(counts <= {"0"}, f"ptxas spills registers in R2's / R3's {entry}")
     if report.get("cost_volume_bwd", {}).get("ptxas"):  # built in this run, not cached
         require(any(e.startswith("cv_bwd_kernel") for e in spills), "no ptxas report of K4's cv_bwd_kernel")
     if report.get("warp_bwd", {}).get("ptxas"):
@@ -3262,7 +3426,8 @@ def main() -> int:
     check_image_scales(torch, F, device)
     deterministic = check_determinism(torch, F, device)
     r1_err = check_raft_lookup(torch, device)
-    r1_launches = check_raft_forward_launches(torch, device)
+    r23_errs = check_raft_update(torch, device)
+    raft_launches = check_raft_forward_launches(torch, device)
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -3345,6 +3510,8 @@ def main() -> int:
     rows32.update(time_shard_kernels(torch, F, device, dtype=torch.float32))
     log("[time] R1, RAFT's correlation lookup, at the RAFT cell's shape (float32, as RAFT runs it)")
     r1_time = time_raft_lookup(torch, device)
+    log("[time] R2 and R3, RAFT's update epilogues and gates, at the RAFT cell's shape (bf16)")
+    r23_time = time_raft_update(torch, device)
     for kid in ("K1", "K2", "K6", "K8", "K9"):
         log(f"  {kid} bf16 per " + ("train step" if kid == "K6" else "forward") + ": "
             f"{sum(r['ms'] * r['times'] for r in rows[kid]):.4f} ms over "
@@ -3403,8 +3570,13 @@ def main() -> int:
             **summed(rows32[kid], "_float32"),
         })
     kernels.append({"name": "R1 corr_lookup", "route": "cuda", "source": "pwcnet_tpu_torch/csrc/corr_lookup.cu",
-                    "replaces": None, "launches_per_raft_forward": r1_launches, "max_abs_err": r1_err,
+                    "replaces": None, "launches_per_raft_forward": raft_launches["R1"], "max_abs_err": r1_err,
                     "timed_at": "one update's lookup at 448x1024 B=16, float32", **r1_time})
+    for kid, name in (("R2", "R2 raft_epilogue"), ("R3", "R3 raft_gate")):
+        kernels.append({"name": name, "route": "cuda", "source": "pwcnet_tpu_torch/csrc/raft_update.cu",
+                        "replaces": None, "launches_per_raft_forward": raft_launches[kid],
+                        "max_abs_err_by_dtype": r23_errs[kid], "timed_at": "one update at 448x1024 B=16, bf16",
+                        "calls": {k: v for k, v in r23_time["calls"].items() if k.startswith(kid)}})
     log(f"[e2e] 448x1024 B=8 serving pairs/s: " + ", ".join(f"{k} {v:.1f}" for k, v in pairs.items())
         + f" on {card}")
     log(f"[e2e] sequence serving 448x1024 bf16 kernels (reported, not claimed): predict_sequence B=8 "

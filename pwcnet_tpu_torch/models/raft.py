@@ -12,6 +12,11 @@ princeton-vl/RAFT ``core/raft.py``, ``extractor.py``, ``update.py`` and
 - ``iters`` updates of the flow at 1/8 resolution, from zero: the lookup
   of a radius-4 window at ``coords1`` on every level, the motion encoder,
   the separable ConvGRU and the flow head, whose delta moves ``coords1``.
+  Each conv of the update runs without its bias; an op of
+  ``ops.raft_update`` (on CUDA tensors R2 or R3) adds it, applies the
+  activation or the GRU's gates, and writes the result into its channel
+  slot of the buffers the next conv reads (`UpdateBuffers`, made once a
+  forward), so the update concatenates nothing.
 - The convex upsample to full resolution: a softmax over the 9 neighbours
   of each of 64 sub-pixels, weighting ``unfold(8 flow)``. RAFT computes the
   mask and the upsample at every iteration and returns the last; here both
@@ -34,8 +39,10 @@ torch.bfloat16)`` serves in bf16), as RAFT's mixed precision splits it:
 every conv, ``net`` and ``inp`` in that dtype; the correlation, its
 pyramid, the lookup's output, the coordinates, the flow and the upsample's
 softmax and weighted sum in float32; the norms compute their statistics
-and scale in float32. Inside, tensors are NCHW in ``channels_last`` memory,
-and so are the convs' weights.
+and scale in float32; the update's bias, activation and gate arithmetic in
+float32, rounded once to that dtype (RAFT rounds after the bias, after the
+activation and after each product of the gates). Inside, tensors are NCHW
+in ``channels_last`` memory, and so are the convs' weights.
 
 Spans (``utils.profiling``): ``model.forward`` (B pairs) with
 ``model.encode`` (both encoders), ``model.corr`` (product and pyramid) and
@@ -52,11 +59,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pwcnet_tpu_torch.models.conv import Conv2d, to_nchw
+from pwcnet_tpu_torch.models.conv import Conv2d, cast_params, to_nchw
 from pwcnet_tpu_torch.ops.corr_lookup import corr_pyramid, lookup
+from pwcnet_tpu_torch.ops.raft_update import conv_epilogue, coords_update, gru_gate_h, gru_gate_zr
 from pwcnet_tpu_torch.utils.profiling import span
 
-__all__ = ["RAFT", "BasicEncoder", "BasicUpdateBlock", "convex_upsample"]
+__all__ = ["RAFT", "BasicEncoder", "BasicUpdateBlock", "UpdateBuffers", "convex_upsample"]
 
 
 class InstanceNorm2d(nn.Module):
@@ -127,6 +135,58 @@ class BasicEncoder(nn.Module):
         return self.conv2(self.layer3(self.layer2(self.layer1(x))))
 
 
+def _conv(conv: Conv2d, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``conv`` of ``x`` without its bias -> (the output, the bias), which an
+    op of ``ops.raft_update`` adds."""
+    weight, bias = cast_params(conv)
+    return conv._conv_forward(x, weight, None), bias
+
+
+def _conv_act(conv: Conv2d, x: torch.Tensor, act: str, *outs: torch.Tensor) -> torch.Tensor:
+    """``act(conv(x))`` into each slot of ``outs``, or into a new tensor ->
+    the first slot or that tensor."""
+    y, bias = _conv(conv, x)
+    outs = outs or (torch.empty_like(y),)
+    conv_epilogue(y, bias, act, *outs)
+    return outs[0]
+
+
+class UpdateBuffers:
+    """The update block's inputs, made once a forward, ``channels_last`` in
+    the model's dtype; the convs read them whole, the ops write their slots:
+
+    - ``a`` ``[h | inp | motion | flow]`` (128 + 128 + 126 + 2), which
+      ``convz`` and ``convr`` read; ``q`` ``[r h | inp | motion | flow]``,
+      ``convq``'s; ``inp`` written here, once a forward;
+    - ``m`` ``[cor | flo]`` (192 + 64), the motion encoder's ``conv``'s;
+    - ``flow`` (2 channels), ``convf1``'s; ``z`` (128), the GRU's update
+      gate; ``net``, the hidden state after the second GRU pass, which the
+      flow head and the mask head read.
+
+    The flow slots start at zero (the first update's flow)."""
+
+    def __init__(self, net: torch.Tensor, inp: torch.Tensor, block: "BasicUpdateBlock"):
+        b, hidden, h, w = net.shape
+        context, motion = inp.shape[1], block.encoder.conv.out_channels
+        cor = block.encoder.convc2.out_channels
+
+        def buffer(c: int) -> torch.Tensor:
+            return to_nchw(net.new_zeros(b, h, w, c))
+
+        self.a, self.q = buffer(hidden + context + motion + 2), buffer(hidden + context + motion + 2)
+        self.m = buffer(cor + block.encoder.convf2.out_channels)
+        self.flow, self.z, self.net = buffer(2), buffer(hidden), buffer(hidden)
+        self.h, self.rh = self.a[:, :hidden], self.q[:, :hidden]
+        self.cor, self.flo = self.m[:, :cor], self.m[:, cor:]
+        at = hidden + context
+        self.motion = (self.a[:, at:at + motion], self.q[:, at:at + motion])
+        self.flows = (self.a[:, at + motion:], self.q[:, at + motion:], self.flow)
+        self.net.copy_(net)
+        self.h.copy_(net)
+        self.a[:, hidden:at].copy_(inp)
+        self.q[:, hidden:at].copy_(inp)
+
+
 class BasicMotionEncoder(nn.Module):
     def __init__(self, corr_planes: int):
         super().__init__()
@@ -136,10 +196,12 @@ class BasicMotionEncoder(nn.Module):
         self.convf2 = Conv2d(128, 64, 3, padding=1)
         self.conv = Conv2d(64 + 192, 128 - 2, 3, padding=1)
 
-    def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
-        cor = torch.relu(self.convc2(torch.relu(self.convc1(corr))))
-        flo = torch.relu(self.convf2(torch.relu(self.convf1(flow))))
-        return torch.cat([torch.relu(self.conv(torch.cat([cor, flo], 1))), flow], 1)
+    def forward(self, corr: torch.Tensor, s: UpdateBuffers) -> None:
+        """RAFT's ``cat([relu(conv(cat([cor, flo]))), flow])``: the motion
+        features into their slots of ``s.a`` and ``s.q`` (the flow is there)."""
+        _conv_act(self.convc2, _conv_act(self.convc1, corr, "relu"), "relu", s.cor)
+        _conv_act(self.convf2, _conv_act(self.convf1, s.flow, "relu"), "relu", s.flo)
+        _conv_act(self.conv, s.m, "relu", *s.motion)
 
 
 class SepConvGRU(nn.Module):
@@ -151,14 +213,16 @@ class SepConvGRU(nn.Module):
             for gate in "zrq":
                 self.add_module(f"conv{gate}{i + 1}", Conv2d(hidden + cin, hidden, k, padding=pad))
 
-    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, s: UpdateBuffers) -> None:
+        """RAFT's ``z = sigmoid(convz(cat([h, x])))``, ``r`` likewise, ``q =
+        tanh(convq(cat([r h, x])))``, ``h = (1 - z) h + z q``, twice: ``h`` in
+        its slot of ``s.a``, and in ``s.net`` after the second pass."""
         for i in (1, 2):
-            hx = torch.cat([h, x], 1)
-            z = torch.sigmoid(getattr(self, f"convz{i}")(hx))
-            r = torch.sigmoid(getattr(self, f"convr{i}")(hx))
-            q = torch.tanh(getattr(self, f"convq{i}")(torch.cat([r * h, x], 1)))
-            h = (1 - z) * h + z * q
-        return h
+            z_pre, bz = _conv(getattr(self, f"convz{i}"), s.a)
+            r_pre, br = _conv(getattr(self, f"convr{i}"), s.a)
+            gru_gate_zr(z_pre, r_pre, bz, br, s.h, s.rh, s.z)
+            q_pre, bq = _conv(getattr(self, f"convq{i}"), s.q)
+            gru_gate_h(q_pre, bq, s.z, s.h, s.net if i == 2 else None)
 
 
 class FlowHead(nn.Module):
@@ -167,8 +231,11 @@ class FlowHead(nn.Module):
         self.conv1 = Conv2d(cin, hidden, 3, padding=1)
         self.conv2 = Conv2d(hidden, 2, 3, padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(torch.relu(self.conv1(x)))
+    def forward(self, s: UpdateBuffers, coords: torch.Tensor) -> None:
+        """RAFT's ``delta = conv2(relu(conv1(net)))``, added to ``coords``
+        in place; the new flow into ``s.flows``."""
+        delta, bias = _conv(self.conv2, _conv_act(self.conv1, s.net, "relu"))
+        coords_update(delta, bias, coords, *s.flows)
 
 
 class BasicUpdateBlock(nn.Module):
@@ -182,10 +249,12 @@ class BasicUpdateBlock(nn.Module):
         self.flow_head = FlowHead(hidden, 256)
         self.mask = nn.Sequential(Conv2d(128, 256, 3, padding=1), nn.ReLU(), Conv2d(256, 64 * 9, 1))
 
-    def forward(self, net, inp, corr, flow):
-        """-> (the new hidden state, the flow's delta (B, 2, h, w))."""
-        net = self.gru(net, torch.cat([inp, self.encoder(flow, corr)], 1))
-        return net, self.flow_head(net)
+    def forward(self, s: UpdateBuffers, corr: torch.Tensor, coords: torch.Tensor) -> None:
+        """One update: ``s``'s hidden state, ``coords`` (B, h, w, 2) float32
+        (in place) and ``s``'s flows move on by one step."""
+        self.encoder(corr, s)
+        self.gru(s)
+        self.flow_head(s, coords)
 
 
 def convex_upsample(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -233,21 +302,19 @@ class RAFT(nn.Module):
             frames = to_nchw((2 * torch.cat([images_0, images_1]) - 1).to(dtype))
             fmap0, fmap1 = self.fnet(frames).float().chunk(2)
             net, inp = self.cnet(frames[:images_0.shape[0]]).split([self.hidden_dim, self.context_dim], 1)
-            net, inp = torch.tanh(net), torch.relu(inp)
+            buffers = UpdateBuffers(torch.tanh(net), torch.relu(inp), self.update_block)
         with span("model.corr"):
             pyramid = corr_pyramid(fmap0, fmap1, self.corr_levels)
         b, _, h, w = fmap0.shape
         ys, xs = torch.meshgrid(torch.arange(h, device=fmap0.device), torch.arange(w, device=fmap0.device),
                                 indexing="ij")
         coords0 = torch.stack([xs, ys], -1).float().expand(b, h, w, 2)
-        coords1 = coords0
+        coords1 = coords0.contiguous()  # updated in place
         for _ in range(self.iters):
             with span("model.lookup"):
                 corr = lookup(pyramid, coords1, self.corr_radius)
             with span("model.update"):
-                flow = coords1 - coords0
-                net, delta = self.update_block(net, inp, corr.to(dtype), to_nchw(flow.to(dtype)))
-                coords1 = coords1 + delta.permute(0, 2, 3, 1).float()
+                self.update_block(buffers, corr.to(dtype), coords1)
         with span("model.upsample"):
             flow = coords1 - coords0
-            return convex_upsample(flow, 0.25 * self.update_block.mask(net)), flow
+            return convex_upsample(flow, 0.25 * self.update_block.mask(buffers.net)), flow

@@ -15,13 +15,18 @@
   volume against the whole frame, and ``warped_cv.warped_rows_bwd`` (K9b,
   the tall-frame warp backward that follows K8b in K9's backward);
 - ``corr_lookup.corr_lookup_cuda``: R1, RAFT's correlation lookup (no TPU
-  kernel: the JAX package has no RAFT), forward only.
+  kernel: the JAX package has no RAFT), forward only;
+- ``raft_update.conv_epilogue_cuda``: R2, the bias and activation after
+  each conv of RAFT's update, into channel slots, and the coordinates'
+  update (``coords_update_cuda``, counted with it), forward only;
+- ``raft_update.gru_gate_zr_cuda``: R3, the GRU's gates (with
+  ``gru_gate_h_cuda``, counted with it), forward only.
 
 K1-K3, K7, K8 and K9 are ``torch.autograd.Function``s on CUDA tensors, with
 K4-K6, K7b, K8b and K9b as their backward. Each wrapper sends a CPU tensor to its plain PyTorch
 version and a CUDA tensor to its kernel (or raises): nothing falls back.
-R1's wrapper takes CUDA tensors only; ``ops.corr_lookup.lookup`` sends
-CPU tensors to its plain version. Each keeps a count of the calls in
+R1-R3's wrappers take CUDA tensors only; ``ops.corr_lookup.lookup`` and
+the ops of ``ops.raft_update`` send CPU tensors to their plain versions. Each keeps a count of the calls in
 which it launched its kernel in ``<wrapper>.launches``.
 """
 
@@ -37,6 +42,7 @@ def wrappers() -> dict:
         cost_volume_bwd, cost_volume_cuda, cost_volume_hpad_bwd, cost_volume_hpad_cuda)
     from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd, estimator_chain_fused
     from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_fused
+    from pwcnet_tpu_torch.ops.cuda.raft_update import conv_epilogue_cuda, gru_gate_zr_cuda
     from pwcnet_tpu_torch.ops.cuda.warped_cv import (
         warp_bwd, warped_cost_volume, warped_cost_volume_global, warped_rows_bwd)
 
@@ -54,6 +60,8 @@ def wrappers() -> dict:
         "K9": warped_cost_volume_global,
         "K9b": warped_rows_bwd,
         "R1": corr_lookup_cuda,
+        "R2": conv_epilogue_cuda,
+        "R3": gru_gate_zr_cuda,
     }
 
 

@@ -34,6 +34,7 @@ SOURCES = (
     "cost_volume_bwd", "warp_bwd", "pyramid_conv_bwd",  # K4, K5, K6
     "estimator_conv", "estimator_conv_bwd",  # K7 forward and backward
     "corr_lookup",  # R1, RAFT's correlation lookup
+    "raft_update",  # R2 and R3, RAFT's conv epilogues and GRU gates
 )
 HEADERS = ("common.cuh", "correlation.cuh", "conv_fma.cuh", "conv3x3_gemm.cuh", "conv3x3_wgmma.cuh", "hopper.cuh")
 NVCC_FLAGS = (

@@ -1,9 +1,12 @@
-"""RAFT in the port (``pwcnet_tpu_torch.models.raft``, ``ops.corr_lookup``)
-on the CPU, against the benchmark's plain reference
+"""RAFT in the port (``pwcnet_tpu_torch.models.raft``, ``ops.corr_lookup``,
+``ops.raft_update``) on the CPU, against the benchmark's plain reference
 (``benchmark/reference/raft.py``) on seeded random weights with BatchNorm
-statistics that are not the identity, against loop oracles of the lookup
-and the convex upsample, and the benchmark's RAFT cell driven at a small
-size: its work counts, its check, its spans.
+statistics that are not the identity (the whole model, and one update of
+the block on its buffers), against loop oracles of the lookup, the convex
+upsample and the update's epilogues and gates, and the benchmark's RAFT
+cell driven at a small size: its work counts, its check, its spans. The
+kernels R1-R3 are held on the card (``-m cuda``) against their plain
+versions, and their wrappers' refusals here.
 
 The reference comparisons run at 128x160: RAFT's sampler divides by a
 pyramid level's width less one, and below 128 pixels a side the coarsest
@@ -25,8 +28,13 @@ from torch.utils.flop_counter import FlopCounterMode
 from benchmark import harness, raft_work
 from benchmark.loops import raft as loop
 from benchmark.reference import raft as reference
-from pwcnet_tpu_torch.models.raft import RAFT, convex_upsample
+from pwcnet_tpu_torch.models.conv import to_nchw
+from pwcnet_tpu_torch.models.raft import RAFT, UpdateBuffers, convex_upsample
+from pwcnet_tpu_torch.ops import raft_update as update_ops
 from pwcnet_tpu_torch.ops.corr_lookup import corr_pyramid, lookup, lookup_plain
+from pwcnet_tpu_torch.ops.raft_update import (
+    ACTS, conv_epilogue, conv_epilogue_plain, coords_update, coords_update_plain, gru_gate_h, gru_gate_h_plain,
+    gru_gate_zr, gru_gate_zr_plain)
 from pwcnet_tpu_torch.train_lib.step import make_forward
 from pwcnet_tpu_torch.utils import profiling
 
@@ -376,8 +384,9 @@ def test_r1_reads_past_2_gib_of_level_0(cuda_device):
 
 @pytest.mark.cuda
 def test_r1_launches_once_a_lookup_and_refuses_grad(cuda_device):
-    """One R1 launch a `lookup` call and 32 a `RAFT(iters=32)` forward; a
-    pyramid that requires grad under grad mode is refused."""
+    """One R1 launch a `lookup` call; in a `RAFT(iters=32)` forward R1 32,
+    R2 224 and R3 128, and no other hand kernel; a pyramid that requires
+    grad under grad mode is refused."""
     from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     pyramid, coords = _lookup_inputs(1, 16, 20, cuda_device)
@@ -390,11 +399,375 @@ def test_r1_launches_once_a_lookup_and_refuses_grad(cuda_device):
     reset_launch_counts()
     flow, _ = make_forward(model)(x, x.roll(3, 2))
     torch.cuda.synchronize()
-    assert {k: v for k, v in launch_counts().items() if v} == {"R1": 32}
+    # an update: R1 once, R2 after 7 convs (the flow head's second with the coordinates), R3 twice a GRU pass
+    assert {k: v for k, v in launch_counts().items() if v} == {"R1": 32, "R2": 7 * 32, "R3": 4 * 32}
     assert bool(flow.isfinite().all())
     pyramid[0].requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
         lookup(pyramid, coords)
+
+
+# ---------------------------------------------------------- R2 and R3, the update's epilogues and gates
+_ORACLE = {"identity": lambda v: v, "relu": lambda v: max(v, 0.0), "sigmoid": lambda v: 1 / (1 + math.exp(-v)),
+           "tanh": math.tanh}
+CELL_GRID = (56, 128)  # the RAFT cell's 1/8 grid of 448x1024 frames
+# (channels, the buffer's channels, the slot's first channel): each slot the update writes, the motion features
+# into two buffers; a buffer as wide as the slot is a standalone tensor
+EPILOGUE_SLOTS = ((256, 256, 0), (192, 256, 0), (64, 256, 192), (126, 384, 256), (128, 128, 0))
+
+
+def _buffer(b, c, h, w, dtype=torch.float32, device="cpu"):
+    """(B, C, h, w) zeros in channels_last memory."""
+    return to_nchw(torch.zeros(b, h, w, c, dtype=dtype, device=device))
+
+
+def _conv_out(g, b, c, h, w, dtype=torch.float32, device="cpu", scale=3.0):
+    """A conv's output: seeded values of a few units, channels_last."""
+    return to_nchw(scale * torch.randn(b, h, w, c, generator=g, device=device)).to(dtype)
+
+
+def _gate_inputs(g, b, h, w, c=8, dtype=torch.float32, device="cpu"):
+    """The GRU's pre-activations, biases, and the buffers A and Q with ``h``
+    at channels [0, c) of A (width 3c) and ``r h`` at [0, c) of Q."""
+    z_pre, r_pre, q_pre = (_conv_out(g, b, c, h, w, dtype, device) for _ in range(3))
+    bz, br, bq = (torch.randn(c, generator=g, device=device).to(dtype) for _ in range(3))
+    a, q = _buffer(b, 3 * c, h, w, dtype, device), _buffer(b, 3 * c, h, w, dtype, device)
+    a[:, :c].copy_(torch.tanh(_conv_out(g, b, c, h, w, torch.float32, device)))
+    return z_pre, r_pre, q_pre, bz, br, bq, a, q
+
+
+def _loop(shape, fn):
+    out = np.zeros(shape)
+    for idx in np.ndindex(*shape):
+        out[idx] = fn(idx)
+    return out
+
+
+@pytest.mark.parametrize("act", sorted(ACTS))
+def test_conv_epilogue_plain_matches_a_loop_oracle(act):
+    """``act(x + bias)`` into two slots of two buffers; every other channel
+    of both buffers untouched."""
+    g = torch.Generator().manual_seed(5)
+    b, c, h, w = 2, 6, 3, 4
+    x, bias = _conv_out(g, b, c, h, w), torch.randn(c, generator=g)
+    a, q = _buffer(b, 10, h, w), _buffer(b, 9, h, w)
+    conv_epilogue_plain(x, bias, act, a[:, 2:8], q[:, 3:])
+    want = _loop((b, c, h, w), lambda i: _ORACLE[act](float(x[i]) + float(bias[i[1]])))
+    assert (want < 0).any() or act in ("relu", "sigmoid")
+    np.testing.assert_allclose(a[:, 2:8].numpy(), want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(q[:, 3:], a[:, 2:8])
+    assert not a[:, :2].any() and not a[:, 8:].any() and not q[:, :3].any()
+
+
+def test_coords_update_plain_matches_a_loop_oracle():
+    """The delta rounded to the model's dtype (bf16 here), added to the
+    float32 coordinates; the flow against each pixel's own (x, y), rounded,
+    into three slots."""
+    g = torch.Generator().manual_seed(6)
+    b, h, w = 2, 3, 5
+    delta, bias = _conv_out(g, b, 2, h, w, torch.bfloat16), torch.randn(2, generator=g).to(torch.bfloat16)
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    start = torch.stack([xs, ys], -1).float() + torch.randn(b, h, w, 2, generator=g)
+    coords = start.clone()
+    a, q, flow = (_buffer(b, 6, h, w, torch.bfloat16), _buffer(b, 4, h, w, torch.bfloat16),
+                  _buffer(b, 2, h, w, torch.bfloat16))
+    coords_update_plain(delta, bias, coords, a[:, 4:], q[:, 2:], flow)
+
+    def bf16(v):
+        return float(torch.tensor(v, dtype=torch.float32).to(torch.bfloat16).float())
+
+    moved = _loop((b, h, w, 2), lambda i: np.float32(float(start[i]) + bf16(float(delta[i[0], i[3], i[1], i[2]])
+                                                                             + float(bias[i[3]]))))
+    np.testing.assert_array_equal(coords.numpy(), moved)
+    want = _loop((b, 2, h, w), lambda i: bf16(moved[i[0], i[2], i[3], i[1]] - (i[3], i[2])[i[1]]))
+    for out in (a[:, 4:], q[:, 2:], flow):
+        np.testing.assert_array_equal(out.float().numpy(), want)
+    assert not a[:, :4].any() and not q[:, :2].any()
+
+
+def test_gru_gates_plain_match_a_loop_oracle():
+    """Gate 1's ``z`` and ``r h`` (into Q's slot), then gate 2's ``h`` in
+    place in A's slot and in ``net``."""
+    g = torch.Generator().manual_seed(7)
+    b, h, w, c = 2, 3, 4, 8
+    z_pre, r_pre, q_pre, bz, br, bq, a, q = _gate_inputs(g, b, h, w, c)
+    h0 = a[:, :c].clone()
+    z, net = _buffer(b, c, h, w), _buffer(b, c, h, w)
+    gru_gate_zr_plain(z_pre, r_pre, bz, br, a[:, :c], q[:, :c], z)
+    sig = _ORACLE["sigmoid"]
+    want_z = _loop((b, c, h, w), lambda i: sig(float(z_pre[i]) + float(bz[i[1]])))
+    want_rh = _loop((b, c, h, w), lambda i: sig(float(r_pre[i]) + float(br[i[1]])) * float(h0[i]))
+    np.testing.assert_allclose(z.numpy(), want_z, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(q[:, :c].numpy(), want_rh, rtol=1e-6, atol=1e-6)
+    gru_gate_h_plain(q_pre, bq, z, a[:, :c], net)
+    want_h = _loop((b, c, h, w), lambda i: (1 - float(z[i])) * float(h0[i])
+                   + float(z[i]) * math.tanh(float(q_pre[i]) + float(bq[i[1]])))
+    np.testing.assert_allclose(a[:, :c].numpy(), want_h, rtol=1e-6, atol=1e-6)
+    assert torch.equal(net, a[:, :c])
+    assert not a[:, c:].any() and not q[:, c:].any()
+
+
+def test_update_ops_on_cpu_tensors_are_the_plain_versions_and_launch_nothing():
+    from pwcnet_tpu_torch.ops.cuda import launch_counts
+
+    g = torch.Generator().manual_seed(8)
+    b, h, w, c = 1, 3, 4, 8
+    before = {k: launch_counts()[k] for k in ("R2", "R3")}
+    x, bias = _conv_out(g, b, c, h, w), torch.randn(c, generator=g)
+    got, want = _buffer(b, c, h, w), _buffer(b, c, h, w)
+    conv_epilogue(x, bias, "tanh", got)
+    conv_epilogue_plain(x, bias, "tanh", want)
+    assert torch.equal(got, want)
+    coords, coords_plain = torch.randn(b, h, w, 2, generator=g), None
+    coords_plain = coords.clone()
+    flow, flow_plain = _buffer(b, 2, h, w), _buffer(b, 2, h, w)
+    coords_update(x[:, :2].contiguous(memory_format=torch.channels_last), bias[:2], coords, flow)
+    coords_update_plain(x[:, :2].contiguous(memory_format=torch.channels_last), bias[:2], coords_plain, flow_plain)
+    assert torch.equal(coords, coords_plain) and torch.equal(flow, flow_plain)
+    inputs = _gate_inputs(g, b, h, w, c)
+    z_pre, r_pre, q_pre, bz, br, bq, a, q = inputs
+    a2, q2 = a.clone(memory_format=torch.channels_last), q.clone(memory_format=torch.channels_last)
+    z, z2, net, net2 = (_buffer(b, c, h, w) for _ in range(4))
+    gru_gate_zr(z_pre, r_pre, bz, br, a[:, :c], q[:, :c], z)
+    gru_gate_zr_plain(z_pre, r_pre, bz, br, a2[:, :c], q2[:, :c], z2)
+    gru_gate_h(q_pre, bq, z, a[:, :c], net)
+    gru_gate_h_plain(q_pre, bq, z2, a2[:, :c], net2)
+    assert torch.equal(a, a2) and torch.equal(q, q2) and torch.equal(z, z2) and torch.equal(net, net2)
+    assert {k: launch_counts()[k] for k in ("R2", "R3")} == before
+
+
+def test_update_buffers_lay_out_rafts_concatenations():
+    """A = [h | inp | motion | flow] (128 + 128 + 126 + 2), Q the same with
+    ``r h`` first, M = [cor | flo] (192 + 64); ``inp`` in A and Q, ``h`` in A
+    and ``net``, the flows zero; every buffer channels_last."""
+    block = RAFT(iters=1).update_block
+    g = torch.Generator().manual_seed(9)
+    net, inp = (to_nchw(torch.randn(2, 3, 4, 128, generator=g)) for _ in range(2))
+    s = UpdateBuffers(net, inp, block)
+    assert s.a.shape == s.q.shape == (2, 384, 3, 4) and s.m.shape == (2, 256, 3, 4)
+    for t in (s.a, s.q, s.m, s.flow, s.z, s.net):
+        assert t.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(s.a[:, :128], net) and torch.equal(s.net, net) and not s.q[:, :128].any()
+    assert torch.equal(s.a[:, 128:256], inp) and torch.equal(s.q[:, 128:256], inp)
+    assert [m.data_ptr() for m in s.motion] == [s.a[:, 256].data_ptr(), s.q[:, 256].data_ptr()]
+    assert all(m.shape[1] == 126 for m in s.motion)
+    assert [f.data_ptr() for f in s.flows[:2]] == [s.a[:, 382].data_ptr(), s.q[:, 382].data_ptr()]
+    assert all(not f.any() and f.shape[1] == 2 for f in s.flows) and s.flows[2] is s.flow
+    assert s.cor.shape[1] == 192 and s.flo.data_ptr() == s.m[:, 192].data_ptr() and s.h.data_ptr() == s.a.data_ptr()
+
+
+@pytest.mark.parametrize("seed", [1, 2**31 + 9])
+def test_one_update_matches_the_reference_block(seed):
+    """One update of the port's block on its buffers against the
+    reference's ``BasicUpdateBlock`` (RAFT's concatenations) on the same
+    weights, float32, from a flow that is not zero: the hidden state, the
+    coordinates and the flow slots within 1e-5."""
+    ctx = _ctx(seed, 1)
+    tensors = loop.draw(reference.build(ctx.config, "meta"), ctx, torch.float32)
+    port = RAFT(iters=1)
+    loop.load(port, tensors)
+    ref = reference.build(ctx.config)
+    loop.load(ref, tensors)
+    g = torch.Generator().manual_seed(seed % 2**31)
+    b, h, w = 2, 5, 7
+    net, inp = torch.tanh(torch.randn(b, 128, h, w, generator=g)), torch.relu(torch.randn(b, 128, h, w, generator=g))
+    corr = torch.randn(b, 324, h, w, generator=g)
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    grid = torch.stack([xs, ys], -1).float().expand(b, h, w, 2)
+    coords = grid + 2 * torch.randn(b, h, w, 2, generator=g)
+    cl = torch.channels_last
+    with torch.no_grad():
+        want_net, delta = ref.update_block(net, inp, corr, (coords - grid).permute(0, 3, 1, 2))
+        s = UpdateBuffers(net.contiguous(memory_format=cl), inp.contiguous(memory_format=cl), port.update_block)
+        for f in s.flows:
+            f.copy_((coords - grid).permute(0, 3, 1, 2))
+        got = coords.clone()
+        port.update_block(s, corr.contiguous(memory_format=cl), got)
+    want = coords + delta.permute(0, 2, 3, 1)
+    assert float((want - coords).abs().max()) > 1e-3  # the flow head moved the coordinates
+    assert float((s.net - want_net).abs().max()) < 1e-5 and torch.equal(s.a[:, :128], s.net)
+    assert float((got - want).abs().max()) < 1e-5
+    for f in s.flows:
+        assert float((f - (want - grid).permute(0, 3, 1, 2)).abs().max()) < 1e-5
+
+
+REFUSALS = [(op, fault) for op in ("epilogue", "coords", "gate_zr", "gate_h")
+            for fault in ("cpu", "dtype", "grad", "slot", "shape")] + [("epilogue", "act")]
+
+
+@pytest.mark.parametrize("op,fault", REFUSALS)
+def test_r2_r3_refuse_what_they_do_not_take(op, fault):
+    """The wrappers' checks, which all run before the launch (so on CPU
+    tensors here): no grad, one dtype (float32 or bfloat16), channel slots
+    of channels_last buffers, matching shapes, a known activation, CUDA
+    tensors. Nothing launches."""
+    from pwcnet_tpu_torch.ops.cuda import launch_counts
+    from pwcnet_tpu_torch.ops.cuda import raft_update as cuda_ops
+
+    g = torch.Generator().manual_seed(10)
+    b, h, w, c = 1, 3, 4, 8
+    x, bias = _conv_out(g, b, c, h, w), torch.randn(c, generator=g)
+    z_pre, r_pre, q_pre, bz, br, bq, a, q = _gate_inputs(g, b, h, w, c)
+    args = {
+        "epilogue": [x, bias, "relu", a[:, c:2 * c]],
+        "coords": [x[:, :2].contiguous(memory_format=torch.channels_last), bias[:2], torch.zeros(b, h, w, 2),
+                   a[:, :2]],
+        "gate_zr": [z_pre, r_pre, bz, br, a[:, :c], q[:, :c], _buffer(b, c, h, w)],
+        "gate_h": [q_pre, bq, _buffer(b, c, h, w), a[:, :c], _buffer(b, c, h, w)],
+    }[op]
+    fn = {"epilogue": cuda_ops.conv_epilogue_cuda, "coords": cuda_ops.coords_update_cuda,
+          "gate_zr": cuda_ops.gru_gate_zr_cuda, "gate_h": cuda_ops.gru_gate_h_cuda}[op]
+    want = {"cpu": (ValueError, "CUDA device"), "dtype": (TypeError, "one dtype"),
+            "grad": (RuntimeError, "no backward"), "slot": (ValueError, "channel slot"),
+            "shape": (ValueError, "expected shape"), "act": (ValueError, "act must be one of")}[fault]
+    if fault == "dtype":
+        args[1] = args[1].to(torch.bfloat16)
+    elif fault == "grad":
+        args[0].requires_grad_(True)
+    elif fault == "slot":
+        at = {"epilogue": 3, "coords": 3, "gate_zr": 5, "gate_h": 3}[op]
+        args[at] = args[at].contiguous()  # NCHW memory: not a channel slot
+    elif fault == "shape":
+        args[0] = args[0][:, :, :, :-1]
+    elif fault == "act":
+        args[2] = "gelu"
+    before = {k: launch_counts()[k] for k in ("R2", "R3")}
+    with pytest.raises(want[0], match=want[1]):
+        fn(*args)
+    assert {k: launch_counts()[k] for k in ("R2", "R3")} == before
+
+
+def _bf16_tol(want: torch.Tensor, dtype) -> float:
+    """float32 1e-5 + 1e-5 of the result's scale; bf16 2 ulps of it."""
+    scale = float(want.float().abs().max())
+    return 1e-5 + 1e-5 * scale if dtype == torch.float32 else 2 * scale / 128
+
+
+UPDATE_SHAPES = [(2, *CELL_GRID), (16, *CELL_GRID), (1, 5, 7)]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bf16"])
+@pytest.mark.parametrize("b,h,w", UPDATE_SHAPES)
+@pytest.mark.parametrize("act", sorted(ACTS))
+def test_r2_matches_the_plain_epilogue_on_the_card(cuda_device, act, b, h, w, dtype):
+    """R2 into every slot the update writes (a standalone tensor, the
+    cor and flo slots of M, the motion slots of A and Q at once), against
+    the plain version on the same card: one launch a call, other channels
+    untouched."""
+    from pwcnet_tpu_torch.ops.cuda.raft_update import conv_epilogue_cuda
+
+    g = torch.Generator(device=cuda_device).manual_seed(b * h + w)
+    with torch.inference_mode():
+        for c, width, at in EPILOGUE_SLOTS:
+            x = _conv_out(g, b, c, h, w, dtype, cuda_device)
+            bias = torch.randn(c, generator=g, device=cuda_device).to(dtype)
+            bufs = [_buffer(b, width, h, w, dtype, cuda_device) for _ in range(2 if c == 126 else 1)]
+            want = _buffer(b, c, h, w, dtype, cuda_device)
+            conv_epilogue_plain(x, bias, act, want)
+            before = conv_epilogue_cuda.launches
+            conv_epilogue(x, bias, act, *[t[:, at:at + c] for t in bufs])
+            torch.cuda.synchronize()
+            assert conv_epilogue_cuda.launches == before + 1
+            for t in bufs:
+                err = float((t[:, at:at + c].float() - want.float()).abs().max())
+                assert err <= _bf16_tol(want, dtype), (c, width, at, err)
+                assert not t[:, :at].any() and not t[:, at + c:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bf16"])
+@pytest.mark.parametrize("b,h,w", UPDATE_SHAPES)
+def test_r2_coords_update_is_the_plain_version_bit_for_bit(cuda_device, b, h, w, dtype):
+    """flow_head.conv2's epilogue: the same float32 additions and roundings
+    as the plain version, so the same bits in the coordinates and in the
+    three flow slots."""
+    g = torch.Generator(device=cuda_device).manual_seed(b + h)
+    delta = _conv_out(g, b, 2, h, w, dtype, cuda_device)
+    bias = torch.randn(2, generator=g, device=cuda_device).to(dtype)
+    coords = torch.rand(b, h, w, 2, generator=g, device=cuda_device) * torch.tensor([w, h], device=cuda_device)
+    plain = coords.clone()
+    a, q = _buffer(b, 384, h, w, dtype, cuda_device), _buffer(b, 384, h, w, dtype, cuda_device)
+    flows, want = (a[:, 382:], q[:, 382:], _buffer(b, 2, h, w, dtype, cuda_device)), _buffer(b, 2, h, w, dtype,
+                                                                                              cuda_device)
+    with torch.inference_mode():
+        coords_update(delta, bias, coords, *flows)
+        coords_update_plain(delta, bias, plain, want)
+    torch.cuda.synchronize()
+    assert torch.equal(coords, plain)
+    for f in flows:
+        assert torch.equal(f, want)
+    assert not a[:, :382].any() and not q[:, :382].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bf16"])
+@pytest.mark.parametrize("b,h,w", UPDATE_SHAPES)
+def test_r3_matches_the_plain_gates_on_the_card(cuda_device, b, h, w, dtype):
+    """R3's two gates at the update's widths (h, r h and z of 128 channels in
+    buffers of 384) against the plain versions on the same card, gate 2
+    with and without ``net``; one launch a gate."""
+    from pwcnet_tpu_torch.ops.cuda.raft_update import gru_gate_zr_cuda
+
+    g = torch.Generator(device=cuda_device).manual_seed(3 * b + w)
+    c = 128
+    with torch.inference_mode():
+        z_pre, r_pre, q_pre, bz, br, bq, a, q = _gate_inputs(g, b, h, w, c, dtype, cuda_device)
+        a_plain, q_plain = a.clone(memory_format=torch.channels_last), q.clone(memory_format=torch.channels_last)
+        z, z_plain = _buffer(b, c, h, w, dtype, cuda_device), _buffer(b, c, h, w, dtype, cuda_device)
+        before = gru_gate_zr_cuda.launches
+        gru_gate_zr(z_pre, r_pre, bz, br, a[:, :c], q[:, :c], z)
+        gru_gate_zr_plain(z_pre, r_pre, bz, br, a_plain[:, :c], q_plain[:, :c], z_plain)
+        for got, want in ((z, z_plain), (q[:, :c], q_plain[:, :c])):
+            assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want, dtype)
+        for net in (None, _buffer(b, c, h, w, dtype, cuda_device)):
+            h_plain = a_plain[:, :c].clone()
+            h_got = a.clone(memory_format=torch.channels_last)
+            gru_gate_h(q_pre, bq, z_plain, h_got[:, :c], net)
+            gru_gate_h_plain(q_pre, bq, z_plain, h_plain)
+            assert float((h_got[:, :c].float() - h_plain.float()).abs().max()) <= _bf16_tol(h_plain, dtype)
+            assert torch.equal(h_got[:, c:], a[:, c:])
+            if net is not None:
+                assert torch.equal(net, h_got[:, :c])
+    torch.cuda.synchronize()
+    assert gru_gate_zr_cuda.launches == before + 3
+    assert not q[:, c:].any()
+
+
+@pytest.mark.cuda
+def test_a_bf16_forward_on_the_kernels_is_within_the_cells_limit_of_the_plain_path(cuda_device, monkeypatch):
+    """One bf16 ``RAFT(iters=32)`` forward at the cell's 448x1024 on the
+    cell's draw of weights, B=2: on the kernels (R1-R3) and on the plain path
+    (every op of the update and the lookup sent to its plain version on the
+    card), each held to the cell's ``flow_gap_ratio`` limit against the
+    float32 reference, and the two paths within that limit of each other."""
+    import pwcnet_tpu_torch.models.raft as raft_module
+
+    ctx = _ctx(2**31 + 21)
+    ctx.device = cuda_device
+    tensors = loop.draw(reference.build(ctx.config, "meta"), ctx, torch.bfloat16)
+    model = RAFT(iters=32).to(cuda_device, torch.bfloat16)
+    loop.load(model, tensors)
+    frames = harness.stream_frames(ctx.gen(1), 3, 448, 1024, (3, 1), cuda_device).float() / 255.0
+    x0, x1 = frames[:2], frames[1:]
+    got = make_forward(model)(x0, x1)[0]
+    for name in ("conv_epilogue", "coords_update", "gru_gate_zr", "gru_gate_h"):
+        monkeypatch.setattr(raft_module, name, getattr(update_ops, f"{name}_plain"))
+    monkeypatch.setattr(raft_module, "lookup", lookup_plain)
+    plain = make_forward(model)(x0, x1)[0]
+    del model
+    ref = reference.build(ctx.config, cuda_device)
+    loop.load(ref, {k: v.float() for k, v in tensors.items()})
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, benchmark=True, allow_tf32=False):
+        want, rounded = ref(x0, x1)[0], ref(x0, x1, "bf16")[0]
+    limit = harness.load_cell(CELL)["limits"]["flow_gap_ratio"]
+    base = harness._pair_gaps(rounded, want)
+    assert (base > 0).all()
+    for flow in (got, plain):
+        assert (harness._pair_gaps(flow, want) <= limit * base).all()
+    assert (harness._pair_gaps(got, plain) <= limit * base).all(), (harness._pair_gaps(got, plain), base)
+    assert float(harness._pair_gaps(got, plain).max()) > 0  # the paths round differently: not one path twice
 
 
 # ---------------------------------------------------------- the benchmark
