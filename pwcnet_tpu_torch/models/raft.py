@@ -51,6 +51,9 @@ Spans (``utils.profiling``): ``model.forward`` (B pairs) with
 
 Initial weights are PyTorch's default init: RAFT's own draw is not
 reproduced, and its published checkpoints are what a user serves.
+
+GMFlow (``models/gmflow.py``) shares `BasicEncoder` and `ResidualBlock`
+(with ``bias=False``), the instance norm and `convex_upsample`.
 """
 
 from __future__ import annotations
@@ -95,12 +98,14 @@ def _norm(kind: str, c: int) -> nn.Module:
 
 class ResidualBlock(nn.Module):
     """Two 3x3 conv-norm-ReLU stages; at stride 2 a 1x1 strided conv and a
-    norm on the shortcut (``norm3``, also ``downsample.1``); ``relu(x + y)``."""
+    norm on the shortcut (``norm3``, also ``downsample.1``); ``relu(x + y)``.
+    ``bias=False`` leaves the 3x3 convs without a bias (GMFlow's); the
+    shortcut's conv keeps its own."""
 
-    def __init__(self, cin: int, c: int, norm: str, stride: int = 1):
+    def __init__(self, cin: int, c: int, norm: str, stride: int = 1, bias: bool = True):
         super().__init__()
-        self.conv1 = Conv2d(cin, c, 3, padding=1, stride=stride)
-        self.conv2 = Conv2d(c, c, 3, padding=1)
+        self.conv1 = Conv2d(cin, c, 3, padding=1, stride=stride, bias=bias)
+        self.conv2 = Conv2d(c, c, 3, padding=1, bias=bias)
         self.norm1, self.norm2 = _norm(norm, c), _norm(norm, c)
         self.downsample = None
         if stride != 1:
@@ -117,16 +122,18 @@ class ResidualBlock(nn.Module):
 
 class BasicEncoder(nn.Module):
     """7x7 stride-2 conv 3 -> 64, norm, ReLU; two residual blocks each at
-    64 (stride 1), 96 (stride 2), 128 (stride 2); a 1x1 conv to ``out``."""
+    64 (stride 1), 96 (stride 2), 128 (stride 2); a 1x1 conv to ``out``.
+    ``bias=False`` is GMFlow's ``CNNEncoder``: the 7x7 conv and the blocks'
+    3x3 convs without a bias, the shortcuts' and the output conv with one."""
 
-    def __init__(self, out: int, norm: str):
+    def __init__(self, out: int, norm: str, bias: bool = True):
         super().__init__()
-        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=bias)
         self.norm1 = _norm(norm, 64)
         cin = 64
         for i, (c, stride) in enumerate(((64, 1), (96, 2), (128, 2))):
-            self.add_module(f"layer{i + 1}", nn.Sequential(ResidualBlock(cin, c, norm, stride),
-                                                           ResidualBlock(c, c, norm)))
+            self.add_module(f"layer{i + 1}", nn.Sequential(ResidualBlock(cin, c, norm, stride, bias),
+                                                           ResidualBlock(c, c, norm, bias=bias)))
             cin = c
         self.conv2 = Conv2d(128, out, 1)
 
