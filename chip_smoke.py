@@ -47,7 +47,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    gates) against their plain versions at the same grid, B=1 and 16, bf16
    and float32, the coordinates' update bit for bit; and R1 32, R2 224, R3
    128 launches and no other hand kernel in a RAFT(iters=32) bf16 forward
-   at 448x1024, B=1;
+   at 448x1024, B=1; R4 (GMFlow's global matching and propagation)
+   against the float64 product at the GMFlow cell's 7168 keys (B=2, the
+   grid and a flow as the value) and a ragged 54x126 grid (B=1), within
+   4e-6 of the output's largest magnitude, at 7168 keys within twice the
+   float32 memory-efficient attention's error, one launch a call;
 4. serving: FlowPredictor with seeded random weights answers 448x1024
    requests and a 1024x436 (Sintel-sized) request edge-padded to 448x1024,
    then batched raw_forward at B=8 in bf16 and f32; the launch counters
@@ -170,7 +174,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    cell's shape (B=16, one update) beside its bound
    (``benchmark/raft_work.py`` ``lookup_work``) and ``lookup_plain``; R2
    and R3 in bf16 at each call of one update at that shape beside their
-   bounds (bytes at 3.35 TB/s) and their plain versions;
+   bounds (bytes at 3.35 TB/s) and their plain versions; R4 at the GMFlow
+   cell's shape (B=16, 7168 keys) beside its bound (the bf16 product or
+   the exponentials), its plain version and the float32 memory-efficient
+   attention it replaced;
    pairs/s of the whole forward
    at 448x1024 B=8; device time by kernel and the device's busy share for
    the forward and for the train step, in bf16 and in float32
@@ -969,6 +976,117 @@ def time_raft_lookup(torch, device, b=16):
         f"local, {smem} B shared a block, {blocks} blocks of 256 an SM")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "registers": regs,
             "local_bytes": local, "blocks_per_sm": blocks, "shape": f"{b}x56x128"}
+
+
+GMFLOW_GRID = (56, 128)  # the GMFlow cell's 1/8 grid of 448x1024 frames: 7168 keys
+
+
+def global_attention_inputs(torch, b, h, w, device, seed=0, flow=False, spread=1.0):
+    """R4's inputs: bf16 q, k (b, h w, 128) with scores of standard
+    deviation ``spread``, and the pixel grid expanded over the batch (batch
+    stride 0) or a smooth signed flow of up to about 40 px, float32."""
+    from pwcnet_tpu_torch.models.gmflow import coords_grid
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = h * w
+    q = (spread * torch.randn((b, n, 128), generator=gen, device=device)).to(torch.bfloat16)
+    k = torch.randn((b, n, 128), generator=gen, device=device).to(torch.bfloat16)
+    grid = coords_grid(h, w, device)
+    if not flow:
+        return q, k, grid.expand(b, n, 2)
+    phase = torch.rand((b, 1, 2), generator=gen, device=device) * 2 * math.pi
+    waves = torch.sin(2 * math.pi * grid / torch.tensor([w, h], device=device) + phase)
+    v = torch.tensor([12.0, -7.0], device=device) + torch.tensor([25.0, 20.0], device=device) * waves
+    return q, k, v + torch.randn((b, n, 2), generator=gen, device=device)
+
+
+def global_attention_f64(torch, q, k, v):
+    """float64 ``softmax(q k^T / sqrt(128)) v``, a batch row at a time."""
+    return torch.stack([torch.softmax(qi @ ki.T / math.sqrt(128), -1) @ vi
+                        for qi, ki, vi in zip(q.double(), k.double(), v.double())])
+
+
+def global_attention_library(torch, q, k, v):
+    """The float32 memory-efficient attention that R4 replaced (q, k widened,
+    v padded to 8 columns): the yardstick, never on the port's path."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        out = F.scaled_dot_product_attention(q.float()[:, None], k.float()[:, None], F.pad(v.float(), (0, 6))[:, None],
+                                             scale=1 / math.sqrt(128))
+    return out[:, 0, :, :2]
+
+
+def check_global_attention(torch, device):
+    """R4 against the float64 product on the card at the GMFlow cell's 7168
+    keys, B=2 (the grid and a flow as the value, scores of standard
+    deviation 1 and 4) and at a ragged 54x126 grid, B=1: within 4e-6 of max
+    |ref|, and at 7168 keys no worse than twice the float32 memory-efficient
+    call. One launch a call. Returns the largest error over max |ref|."""
+    from pwcnet_tpu_torch.ops.attention import global_attention
+    from pwcnet_tpu_torch.ops.cuda.global_attention import global_attention_cuda
+
+    worst = 0.0
+    for (b, h, w), flow, spread in [((2, *GMFLOW_GRID), False, 1.0), ((2, *GMFLOW_GRID), True, 1.0),
+                                    ((2, *GMFLOW_GRID), False, 4.0), ((2, *GMFLOW_GRID), True, 4.0),
+                                    ((1, 54, 126), False, 2.0), ((1, 54, 126), True, 2.0)]:
+        q, k, v = global_attention_inputs(torch, b, h, w, device, seed=h + int(spread), flow=flow, spread=spread)
+        before = global_attention_cuda.launches
+        with torch.inference_mode():
+            got = global_attention(q, k, v)
+            lib = global_attention_library(torch, q, k, v)
+        torch.cuda.synchronize()
+        require(global_attention_cuda.launches == before + 1, "R4 is one launch a call")
+        ref = global_attention_f64(torch, q, k, v)
+        scale = float(ref.abs().max())
+        err, lib_err = float((got - ref).abs().max()), float((lib - ref).abs().max())
+        log(f"  R4 global_attention B={b} {h}x{w} value {'flow' if flow else 'grid'} score std {spread}: max_abs_err "
+            f"{err:.3e} ({err / scale:.2e} of max |ref| {scale:.2f}; memory-efficient float32 {lib_err:.3e})")
+        require(err <= 4e-6 * scale, f"R4 at B={b} {h}x{w} is not within 4e-6 of the float64 product")
+        if h * w == GMFLOW_GRID[0] * GMFLOW_GRID[1]:
+            require(err <= 2 * lib_err, "R4 is more than twice as far from the float64 product as the library")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def time_global_attention(torch, device, b=16):
+    """R4 at the GMFlow cell's shape (448x1024 frames, B=16, 7168 keys; the
+    grid as the value): ms a call (CUDA events), its bound (the bf16
+    product's 2 B N^2 128 operations at 989 TFLOP/s, or B N^2 exponentials
+    at 16 a clock an SM at the card's largest SM clock, whichever is
+    longer), the plain version's ms (the scores written out in float32)
+    and the float32 memory-efficient call's; the kernel's registers, shared
+    memory and resident blocks an SM."""
+    import ctypes
+
+    from pwcnet_tpu_torch.ops.attention import _plain, global_attention
+    from pwcnet_tpu_torch.ops.cuda import _build
+
+    n = GMFLOW_GRID[0] * GMFLOW_GRID[1]
+    info = _build.load("global_attention").pwc_global_attention_info
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    info.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    require(info(*[ctypes.byref(v) for v in vals]) == 0, "query of R4's attributes")
+    regs, local, smem, blocks = (v.value for v in vals)
+    clock_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                     capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tensor_ms = 2 * b * n * n * 128 / PEAK_OPS["bfloat16"] * 1e3
+    exp_ms = b * n * n / (16 * sms * clock_mhz * 1e6) * 1e3
+    q, k, v = global_attention_inputs(torch, b, *GMFLOW_GRID, device)
+    with torch.inference_mode():
+        ms = cuda_ms(torch, lambda: global_attention(q, k, v))
+        plain_ms = cuda_ms(torch, lambda: _plain(q, k, v, None, 1 / math.sqrt(128), torch.float32), iters=3, warmup=1)
+        library_ms = cuda_ms(torch, lambda: global_attention_library(torch, q, k, v), iters=5, warmup=1)
+    bound_ms = max(tensor_ms, exp_ms)
+    log(f"  R4 global_attention {b}x{n} keys (448x1024 frames): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"memory-efficient float32 {library_ms:.4f} ms; bound {bound_ms:.4f} ms (bf16 product {tensor_ms:.4f} ms, "
+        f"exponentials {exp_ms:.4f} ms at {clock_mhz:.0f} MHz on {sms} SMs; {100 * bound_ms / ms:.1f}% of it); "
+        f"{regs} registers, {local} B local, {smem} B shared a block, {blocks} blocks of 288 an SM")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "tensor_bound_ms": tensor_ms, "exp_bound_ms": exp_ms, "registers": regs, "local_bytes": local,
+            "blocks_per_sm": blocks, "shape": f"{b}x{n}"}
 
 
 def cudnn_level_bwd(torch, g, out, s1, s2, k1, k2, k3, x_shape):
@@ -3255,6 +3373,8 @@ def log_build(report):
             require(counts <= {"0"}, f"ptxas spills registers in K5's {entry}")
         if entry.startswith(("raft_epilogue", "raft_gate")):
             require(counts <= {"0"}, f"ptxas spills registers in R2's / R3's {entry}")
+        if entry.startswith("global_attention_kernel"):
+            require(counts <= {"0"}, f"ptxas spills registers in R4's {entry}")
     if report.get("cost_volume_bwd", {}).get("ptxas"):  # built in this run, not cached
         require(any(e.startswith("cv_bwd_kernel") for e in spills), "no ptxas report of K4's cv_bwd_kernel")
     if report.get("warp_bwd", {}).get("ptxas"):
@@ -3428,6 +3548,7 @@ def main() -> int:
     r1_err = check_raft_lookup(torch, device)
     r23_errs = check_raft_update(torch, device)
     raft_launches = check_raft_forward_launches(torch, device)
+    r4_err = check_global_attention(torch, device)
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -3512,6 +3633,8 @@ def main() -> int:
     r1_time = time_raft_lookup(torch, device)
     log("[time] R2 and R3, RAFT's update epilogues and gates, at the RAFT cell's shape (bf16)")
     r23_time = time_raft_update(torch, device)
+    log("[time] R4, GMFlow's global matching and propagation, at the GMFlow cell's shape")
+    r4_time = time_global_attention(torch, device)
     for kid in ("K1", "K2", "K6", "K8", "K9"):
         log(f"  {kid} bf16 per " + ("train step" if kid == "K6" else "forward") + ": "
             f"{sum(r['ms'] * r['times'] for r in rows[kid]):.4f} ms over "
@@ -3577,6 +3700,9 @@ def main() -> int:
                         "replaces": None, "launches_per_raft_forward": raft_launches[kid],
                         "max_abs_err_by_dtype": r23_errs[kid], "timed_at": "one update at 448x1024 B=16, bf16",
                         "calls": {k: v for k, v in r23_time["calls"].items() if k.startswith(kid)}})
+    kernels.append({"name": "R4 global_attention", "route": "cuda", "source": "pwcnet_tpu_torch/csrc/global_attention.cu",
+                    "replaces": None, "max_abs_err_of_max_ref": r4_err,
+                    "timed_at": "one product at 448x1024 B=16 (7168 keys), bf16 q and k, float32 value", **r4_time})
     log(f"[e2e] 448x1024 B=8 serving pairs/s: " + ", ".join(f"{k} {v:.1f}" for k, v in pairs.items())
         + f" on {card}")
     log(f"[e2e] sequence serving 448x1024 bf16 kernels (reported, not claimed): predict_sequence B=8 "

@@ -15,6 +15,11 @@
 // The weights are packed by the wrappers as [K/16][tap][2][N][8] (the same
 // layout along N): lbo N * 16, sbo 128.
 //
+// R4 (global_attention.cu) reads its operands in the 128-byte swizzled
+// K-major layout instead (wg_desc_sw128): rows of 64 bf16 (128 bytes) as
+// TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B, 8 rows (1024 bytes) a
+// core-matrix group, each 16-byte chunk of row r stored at chunk ^ (r % 8).
+//
 // Accumulators: thread t of the warpgroup holds d[N/2] of an m64nN product;
 // d[i] is row 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2), column
 // 8 * (i / 4) + 2 * (t % 4) + i % 2 (acc_row, acc_col).
@@ -97,6 +102,15 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ uint64_t wg_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// The same for a K-major operand in the 128-byte swizzle, 1024-byte aligned
+// groups of 8 rows of 128 bytes: the stride between groups is 1024 bytes, the
+// leading offset is unused (1), and a K step of 16 bf16 inside a row adds 32
+// bytes to the start address (the hardware swizzles the address it forms).
+__device__ __forceinline__ uint64_t wg_desc_sw128(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -185,6 +199,16 @@ struct Wgmma<128> {
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db));
+  }
+
+  // the same where `accumulate` is 0 overwrites d (the first K step of a product: no zeroing pass)
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate));
   }
 };
 
@@ -312,10 +336,12 @@ static TensorMapEncodeFn tensor_map_encoder = nullptr;
 
 // A 4-D bf16 tensor map, dims and boxes innermost first, strides in bytes
 // of dims 1..3; `estride` the traversal stride of each dim (1, or 2 to take
-// every second element). Out-of-bounds elements load as zeros.
+// every second element); `swizzle` how the box is laid out in shared memory.
+// Out-of-bounds elements load as zeros.
 inline cudaError_t make_map_4d(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
                                const uint64_t (&strides)[3], const uint32_t (&box)[4],
-                               const uint32_t (&estride)[4]) {
+                               const uint32_t (&estride)[4],
+                               CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   if (tensor_map_encoder == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -326,7 +352,7 @@ inline cudaError_t make_map_4d(CUtensorMap* map, const void* base, const uint64_
   }
   const CUresult res = tensor_map_encoder(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, estride,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -43,7 +43,9 @@ rounded), the flow and the upsample's softmax and weighted sum; and the
 transformer's residual stream (the positions' sum, each LayerNorm's
 output, each layer's ``source + message``), as ``torch.autocast`` keeps
 it: each Linear rounds its input to the model's dtype, and the features
-leave the transformer rounded once.
+leave the transformer rounded once. On the card the global matching and
+propagation run R4, which takes bf16 q and k only: GMFlow serves there in
+bf16.
 
 Departures, none of which changes the result: features are NHWC tokens
 (GMFlow permutes NCHW to (B, HW, C) and back); the sine embedding of a

@@ -13,20 +13,22 @@ shifted, and over a whole frame with a float32 value.
   over all N keys, GMFlow's global matching (v the pixel grid) and its
   flow propagation (v the flow). The value and the output stay float32.
 
-On CUDA tensors both run ``F.scaled_dot_product_attention`` restricted to
-the flash and memory-efficient backends, so no call falls back to the math
-backend, which writes the scores out; a shape those backends refuse
-raises. Windows are the heads of a (B, windows, L, C) call; the shifted
-mask is one (1, windows, L, L) tensor in q's dtype, which only the
-memory-efficient backend takes (-100 is exact in bf16). The global call
-runs in float32 on the memory-efficient backend (the flash backend has no
-float32): q and k are the model's values widened, v is padded to 8
-columns. A bf16 call would round its output to bf16, 0.25 px at the grid's
-coordinates of 64-127, and splitting v into bf16 high and low parts
-would not help: each part's output is rounded to bf16 again. On CPU
-tensors both are plain: the scores written out in float32, the softmax,
-the product with v (the window's probabilities in q's dtype, as the fused
-kernels round them).
+On CUDA tensors the windows run ``F.scaled_dot_product_attention``
+restricted to the flash and memory-efficient backends, so no call falls
+back to the math backend, which writes the scores out; a shape those
+backends refuse raises. Windows are the heads of a (B, windows, L, C)
+call; the shifted mask is one (1, windows, L, L) tensor in q's dtype,
+which only the memory-efficient backend takes (-100 is exact in bf16).
+The global product runs R4 (``ops.cuda.global_attention``, one
+hand-written kernel a call, no fallback): bf16 q and k of 128 channels,
+the scores summed in float32 on the tensor cores (a product of two bf16
+values is exact in float32), a float32 online softmax, and the 2-column
+value summed in float32 with probabilities never rounded; the output is
+float32. (A bf16 output would miss the grid's coordinates of 64-127 by up
+to 0.25 px.) So GMFlow on the card runs in bf16: R4 refuses float32 q and
+k. On CPU tensors both are plain: the scores written out in float32, the
+softmax, the product with v (the window's probabilities in q's dtype, as
+the fused kernels round them).
 
 `attention_counts()` counts the calls by path: ``window`` and ``global``
 (the fused calls) and ``plain`` (either kind, on the plain path);
@@ -41,12 +43,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from pwcnet_tpu_torch.ops.cuda.global_attention import global_attention_cuda
+
 __all__ = ["window_attention", "global_attention", "shift_window_mask", "split_windows", "merge_windows",
            "attention_counts", "reset_attention_counts"]
 
 _COUNTS = {"window": 0, "global": 0, "plain": 0}
 MASKED = -100.0  # GMFlow's value between tokens of different regions of a shifted window (not -inf)
-VALUE_COLUMNS = 8  # the memory-efficient kernel's value width is a multiple of its 16-byte alignment
 
 
 def attention_counts() -> dict:
@@ -133,13 +136,10 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, splits: 
 
 def global_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``softmax(q k^T / sqrt(C)) v`` over all N keys: q, k (B, N, C), v
-    (B, N, Cv) float32 -> (B, N, Cv) float32."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    (B, N, Cv) float32 -> (B, N, Cv) float32; on CUDA tensors R4 (C = 128,
+    Cv = 2, bf16 q and k)."""
     if not _fused(q):
         _COUNTS["plain"] += 1
-        return _plain(q, k, v.float(), None, scale, torch.float32)
+        return _plain(q, k, v.float(), None, 1.0 / math.sqrt(q.shape[-1]), torch.float32)
     _COUNTS["global"] += 1
-    cv = v.shape[-1]
-    padded = F.pad(v.float(), (0, -cv % VALUE_COLUMNS))
-    out = _sdpa(q.float()[:, None], k.float()[:, None], padded[:, None], None, scale)
-    return out[:, 0, :, :cv]
+    return global_attention_cuda(q, k, v)

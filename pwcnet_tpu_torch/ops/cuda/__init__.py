@@ -20,13 +20,18 @@
   each conv of RAFT's update, into channel slots, and the coordinates'
   update (``coords_update_cuda``, counted with it), forward only;
 - ``raft_update.gru_gate_zr_cuda``: R3, the GRU's gates (with
-  ``gru_gate_h_cuda``, counted with it), forward only.
+  ``gru_gate_h_cuda``, counted with it), forward only;
+- ``global_attention.global_attention_cuda``: R4, GMFlow's global matching
+  and propagation, ``softmax(q k^T / sqrt(128)) v`` with bf16 q, k and a
+  float32 2-column v (no TPU kernel: the JAX package has no GMFlow),
+  forward only.
 
 K1-K3, K7, K8 and K9 are ``torch.autograd.Function``s on CUDA tensors, with
 K4-K6, K7b, K8b and K9b as their backward. Each wrapper sends a CPU tensor to its plain PyTorch
 version and a CUDA tensor to its kernel (or raises): nothing falls back.
-R1-R3's wrappers take CUDA tensors only; ``ops.corr_lookup.lookup`` and
-the ops of ``ops.raft_update`` send CPU tensors to their plain versions. Each keeps a count of the calls in
+R1-R4's wrappers take CUDA tensors only; ``ops.corr_lookup.lookup``, the
+ops of ``ops.raft_update`` and ``ops.attention.global_attention`` send CPU
+tensors to their plain versions. Each keeps a count of the calls in
 which it launched its kernel in ``<wrapper>.launches``.
 """
 
@@ -41,6 +46,7 @@ def wrappers() -> dict:
     from pwcnet_tpu_torch.ops.cuda.cost_volume import (
         cost_volume_bwd, cost_volume_cuda, cost_volume_hpad_bwd, cost_volume_hpad_cuda)
     from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd, estimator_chain_fused
+    from pwcnet_tpu_torch.ops.cuda.global_attention import global_attention_cuda
     from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_fused
     from pwcnet_tpu_torch.ops.cuda.raft_update import conv_epilogue_cuda, gru_gate_zr_cuda
     from pwcnet_tpu_torch.ops.cuda.warped_cv import (
@@ -62,6 +68,7 @@ def wrappers() -> dict:
         "R1": corr_lookup_cuda,
         "R2": conv_epilogue_cuda,
         "R3": gru_gate_zr_cuda,
+        "R4": global_attention_cuda,
     }
 
 

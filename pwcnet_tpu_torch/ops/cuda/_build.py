@@ -35,6 +35,7 @@ SOURCES = (
     "estimator_conv", "estimator_conv_bwd",  # K7 forward and backward
     "corr_lookup",  # R1, RAFT's correlation lookup
     "raft_update",  # R2 and R3, RAFT's conv epilogues and GRU gates
+    "global_attention",  # R4, GMFlow's global matching and propagation
 )
 HEADERS = ("common.cuh", "correlation.cuh", "conv_fma.cuh", "conv3x3_gemm.cuh", "conv3x3_wgmma.cuh", "hopper.cuh")
 NVCC_FLAGS = (

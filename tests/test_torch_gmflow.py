@@ -4,7 +4,7 @@
 float32 tightly, bf16 against the rounded reference's gap; the parameter
 count and names at published widths; the shifted mask and the positions;
 the fused route's layout (the CPU's own attention in place of the card's
-restricted one) and its counts; the benchmark's GMFlow cell driven at a
+restricted one, R4's math in place of R4) and its counts; the benchmark's GMFlow cell driven at a
 small size: its work counts, its check and the faults the check must
 catch; and the card's bf16 forward at the cell's size (``-m cuda``).
 
@@ -136,10 +136,20 @@ def _sdpa_anywhere(q, k, v, mask, scale):
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
 
 
+def _r4_anywhere(q, k, v):
+    """R4's math on the CPU, with its layout: (B, N, 128) q and k, a (B, N,
+    2) float32 value -> (B, N, 2) float32, ``softmax(q k^T / sqrt(128)) v``
+    with float32 scores."""
+    assert q.shape == k.shape and q.shape[2] == 128 and v.shape == (*q.shape[:2], 2) and v.dtype == torch.float32
+    scores = torch.matmul(q.float(), k.float().transpose(1, 2)) / 128**0.5
+    return torch.matmul(torch.softmax(scores, -1), v)
+
+
 def test_the_fused_route_lays_out_what_the_plain_route_computes(monkeypatch):
     """With the route of CUDA tensors taken on the CPU (the restricted call
-    swapped for the CPU's own), a float32 forward equals the plain one and
-    counts 12 window and 2 global calls; the plain one counts 14 plain."""
+    swapped for the CPU's own, R4's entry for its math), a float32 forward
+    equals the plain one and counts 12 window and 2 global calls; the plain
+    one counts 14 plain."""
     port, _, x0, x1 = _pair(11)
     attention.reset_attention_counts()
     with torch.no_grad():
@@ -147,6 +157,7 @@ def test_the_fused_route_lays_out_what_the_plain_route_computes(monkeypatch):
     assert attention.attention_counts() == {"window": 0, "global": 0, "plain": 14}
     monkeypatch.setattr(attention, "_fused", lambda x: True)
     monkeypatch.setattr(attention, "_sdpa", _sdpa_anywhere)
+    monkeypatch.setattr(attention, "global_attention_cuda", _r4_anywhere)
     attention.reset_attention_counts()
     with torch.no_grad():
         fused = port(x0, x1)[0]
@@ -361,9 +372,12 @@ def _limit() -> float:
 def test_a_bf16_forward_on_the_card_is_within_the_cells_limit(cuda_device, monkeypatch):
     """One bf16 ``GMFlow()`` forward at the cell's 448x1024 on the cell's
     draw of weights, B=2: on the fused attention (12 window and 2 global
-    calls, none plain) and on the plain path (the route of CPU tensors on
-    the card), each held to the cell's ``flow_gap_ratio`` limit against the
-    float32 reference, and the two paths within that limit of each other."""
+    calls, none plain; the global ones R4's 2 launches) and on the plain
+    path (the route of CPU tensors on the card), each held to the cell's
+    ``flow_gap_ratio`` limit against the float32 reference, and the two
+    paths within that limit of each other."""
+    from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
     ctx = _ctx(2**31 + 21)
     ctx.device = cuda_device
     tensors = loop.draw(reference.build(CONFIG, "meta"), ctx, torch.bfloat16)
@@ -372,8 +386,10 @@ def test_a_bf16_forward_on_the_card_is_within_the_cells_limit(cuda_device, monke
     frames = harness.stream_frames(ctx.gen(1), 3, 448, 1024, (3, 1), cuda_device).float() / 255.0
     x0, x1 = frames[:2], frames[1:]
     attention.reset_attention_counts()
+    reset_launch_counts()
     got = make_forward(model)(x0, x1)[0]
     assert attention.attention_counts() == {"window": 12, "global": 2, "plain": 0}
+    assert {k: v for k, v in launch_counts().items() if v} == {"R4": 2}
     monkeypatch.setattr(attention, "_fused", lambda x: False)
     plain = make_forward(model)(x0, x1)[0]
     del model
