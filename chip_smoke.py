@@ -51,7 +51,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    against the float64 product at the GMFlow cell's 7168 keys (B=2, the
    grid and a flow as the value) and a ragged 54x126 grid (B=1), within
    4e-6 of the output's largest magnitude, at 7168 keys within twice the
-   float32 memory-efficient attention's error, one launch a call;
+   float32 memory-efficient attention's error, one launch a call; R5 (GMA's
+   softmax over a block of float32 scores into bf16 probabilities) at the
+   GMA cell's B=4 and 32640 keys, a block of ``score_rows`` rows of real
+   bf16 scores written into the strided rows of a (B, N, N) tensor, against
+   the plain softmax within one bf16 rounding, no other row touched; R6
+   (GMA's aggregation epilogue) against its plain version bit for bit at the
+   cell's 136x240 grid, B=4, into the global slots of 512-channel buffers,
+   bf16 and float32; and R1 32, R2 224, R3 128, R5 1 and R6 32 launches
+   and no other hand kernel in a GMA(iters=32) bf16 forward at 448x1024,
+   B=1;
 4. serving: FlowPredictor with seeded random weights answers 448x1024
    requests and a 1024x436 (Sintel-sized) request edge-padded to 448x1024,
    then batched raw_forward at B=8 in bf16 and f32; the launch counters
@@ -177,7 +186,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bounds (bytes at 3.35 TB/s) and their plain versions; R4 at the GMFlow
    cell's shape (B=16, 7168 keys) beside its bound (the bf16 product or
    the exponentials), its plain version and the float32 memory-efficient
-   attention it replaced;
+   attention it replaced; R5 on one block of rows and R6 on one update at
+   the GMA cell's shape (B=4, 1088x1920) beside their bounds (bytes at 3.35
+   TB/s), their plain versions and, for R5, ``torch.softmax`` alone;
    pairs/s of the whole forward
    at 448x1024 B=8; device time by kernel and the device's busy share for
    the forward and for the train step, in bf16 and in float32
@@ -1087,6 +1098,178 @@ def time_global_attention(torch, device, b=16):
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "tensor_bound_ms": tensor_ms, "exp_bound_ms": exp_ms, "registers": regs, "local_bytes": local,
             "blocks_per_sm": blocks, "shape": f"{b}x{n}"}
+
+
+GMA_GRID = (136, 240)  # the GMA cell's 1/8 grid of 1088x1920 frames: 32640 keys
+GMA_BATCH = 4
+GMA_PER_FORWARD = {**RAFT_PER_FORWARD, "R5": 1, "R6": 32}  # at 448x1024, B=1: one block of score rows
+
+
+def attention_softmax_inputs(torch, device, spread, seed):
+    """R5's inputs at the GMA cell's shape: the float32 scores of the second
+    block of rows (``score_rows(4, 32640)`` rows a batch element) from bf16
+    q, k of 128 channels (cuBLAS, as ``global_softmax`` makes them), scores
+    of standard deviation about ``spread``; the block's first row and rows."""
+    from pwcnet_tpu_torch.ops.attention import score_rows
+
+    b, n = GMA_BATCH, GMA_GRID[0] * GMA_GRID[1]
+    rows = score_rows(b, n)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = (spread * torch.randn((b, rows, 128), generator=gen, device=device)).to(torch.bfloat16)
+    k = torch.randn((b, n, 128), generator=gen, device=device).to(torch.bfloat16)
+    r0 = rows  # the second block
+    return torch.bmm(q, k.transpose(1, 2), out_dtype=torch.float32), r0, rows
+
+
+def check_attention_softmax(torch, device):
+    """R5 against the plain softmax (``torch.softmax`` of the scaled float32
+    scores) on the card at the GMA cell's B=4 and 32640 keys: one block of
+    ``score_rows`` rows written into the strided rows of a (B, N, N) bf16
+    tensor at its second block, scores of standard deviation 1 and 8: each
+    probability within one bf16 rounding of the plain one (1e-7 more), every
+    other row untouched, one launch a call. Returns the largest error less
+    that rounding."""
+    from pwcnet_tpu_torch.ops.cuda.global_attention import attention_softmax_cuda
+
+    b, n = GMA_BATCH, GMA_GRID[0] * GMA_GRID[1]
+    scale = 1 / math.sqrt(128)
+    p = torch.zeros((b, n, n), dtype=torch.bfloat16, device=device)
+    worst = -math.inf
+    for spread in (1.0, 8.0):
+        scores, r0, rows = attention_softmax_inputs(torch, device, spread, seed=int(spread))
+        before = attention_softmax_cuda.launches
+        attention_softmax_cuda(scores, scale, p[:, r0:r0 + rows])
+        torch.cuda.synchronize()
+        require(attention_softmax_cuda.launches == before + 1, "R5 is one launch a call")
+        want = torch.softmax(scores * scale, dim=-1)
+        err = float(((p[:, r0:r0 + rows].float() - want).abs() - want * 2**-8).max())
+        top = float(want.amax(-1).median())
+        log(f"  R5 attention_softmax B={b} {rows} rows x {n} keys, score std {spread}: largest error less one bf16 "
+            f"rounding {err:.3e} (median row's largest probability {top:.3g})")
+        require(err <= 1e-7, f"R5 at score std {spread} is not within one bf16 rounding of the plain softmax")
+        require(not p[:, :r0].any() and not p[:, r0 + rows:].any(), "R5 writes its rows alone")
+        worst = max(worst, err)
+        del scores, want
+    del p
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_aggregate_epilogue(torch, device):
+    """R6 against ``aggregate_epilogue_plain`` bit for bit on the card at
+    the GMA cell's 136x240 grid, B=4 (and a ragged 5x7, B=1), bf16 and
+    float32: ``mf + gamma agg`` from the ``[motion | flow]`` slot of a
+    512-channel buffer into the global slots of it and of a second one,
+    every other channel untouched, one launch a call."""
+    from pwcnet_tpu_torch.models.conv import to_nchw
+    from pwcnet_tpu_torch.ops.cuda.raft_update import aggregate_epilogue_cuda
+    from pwcnet_tpu_torch.ops.raft_update import aggregate_epilogue, aggregate_epilogue_plain
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, (h, w) in ((GMA_BATCH, GMA_GRID), (1, (5, 7))):
+            gen = torch.Generator(device=device).manual_seed(h)
+            a = to_nchw(torch.randn(b, h, w, 512, generator=gen, device=device).to(dtype))
+            a2 = a.clone(memory_format=torch.channels_last)
+            q, q2 = (to_nchw(torch.zeros(b, h, w, 512, dtype=dtype, device=device)) for _ in range(2))
+            agg = 4 * torch.randn(b, h * w, 128, generator=gen, device=device)
+            gamma = torch.tensor([0.5], device=device).to(dtype)
+            before = aggregate_epilogue_cuda.launches
+            with torch.inference_mode():
+                aggregate_epilogue(a[:, 256:384], agg, gamma, a[:, 384:], q[:, 384:])
+                aggregate_epilogue_plain(a2[:, 256:384], agg, gamma, a2[:, 384:], q2[:, 384:])
+            torch.cuda.synchronize()
+            require(aggregate_epilogue_cuda.launches == before + 1, "R6 is one launch a call")
+            require(torch.equal(a, a2) and torch.equal(q, q2),
+                    f"R6 at B={b} {h}x{w} {dtype_name(dtype)} is not the plain epilogue's bits")
+    log("  R6 aggregate_epilogue bit for bit at B=4 136x240 and B=1 5x7, bf16 and float32")
+
+
+def check_gma_forward_launches(torch, device, b=1):
+    """One seeded ``GMA(iters=32)`` forward in bf16 on 448x1024 frames with
+    the launch counters reset just before it: RAFT's R1-R3, R5 once (one
+    block of score rows at 7168 keys) and R6 once an update:
+    ``GMA_PER_FORWARD``, and no other hand kernel. Returns the counts."""
+    from pwcnet_tpu_torch.models.gma import GMA
+    from pwcnet_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from pwcnet_tpu_torch.train_lib.step import make_forward
+
+    torch.manual_seed(0)
+    model = GMA(iters=32).to(device, torch.bfloat16)
+    with torch.no_grad():
+        model.update_block.aggregator.gamma.fill_(0.5)
+    g = torch.Generator(device=device).manual_seed(0)
+    x0 = torch.rand(b, 8 * RAFT_GRID[0], 8 * RAFT_GRID[1], 3, generator=g, device=device)
+    reset_launch_counts()
+    flow, _ = make_forward(model)(x0, x0.roll(3, 2))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"  R1-R6 in one GMA(iters=32) bf16 forward, B={b} 448x1024: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    require({k: v for k, v in counts.items() if v} == GMA_PER_FORWARD,
+            f"GMA(iters=32) launches {GMA_PER_FORWARD} a forward and no other hand kernel")
+    require(bool(flow.isfinite().all()), "GMA's flow is finite")
+    del model, flow
+    return {k: counts[k] for k in ("R5", "R6")}
+
+
+def time_attention_softmax(torch, device):
+    """R5 on one block of rows at the GMA cell's shape (B=4, 32640 keys,
+    ``score_rows`` rows, score std 4): ms a call (CUDA events) against its
+    bound (each float32 score read once and each bf16 probability written
+    once, at 3.35 TB/s), the plain version's ms (``_softmax_plain``'s block:
+    the scale, ``torch.softmax`` and the copy into the strided rows) and
+    ``torch.softmax`` alone on the float32 block (the library's kernel,
+    float32 out); the blocks a forward."""
+    from pwcnet_tpu_torch.ops.cuda.global_attention import attention_softmax_cuda
+
+    b, n = GMA_BATCH, GMA_GRID[0] * GMA_GRID[1]
+    scale = 1 / math.sqrt(128)
+    scores, r0, rows = attention_softmax_inputs(torch, device, 4.0, seed=4)
+    p = torch.empty((b, n, n), dtype=torch.bfloat16, device=device)
+    out = p[:, r0:r0 + rows]
+
+    def plain():
+        out.copy_(torch.softmax(scores * scale, dim=-1))
+
+    with torch.inference_mode():
+        ms = cuda_ms(torch, lambda: attention_softmax_cuda(scores, scale, out))
+        plain_ms = cuda_ms(torch, plain, iters=5)
+        library_ms = cuda_ms(torch, lambda: torch.softmax(scores, dim=-1), iters=5)
+    n_bytes = scores.numel() * (4 + 2)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    blocks = -(-n // rows)
+    log(f"  R5 attention_softmax {b}x{rows} rows x {n} keys: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.softmax alone {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({n_bytes / 1e9:.3f} GB; "
+        f"{100 * bound_ms / ms:.1f}% of it); {blocks} blocks a forward")
+    del p, scores
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "times": blocks,
+            "shape": f"{b}x{rows}x{n}"}
+
+
+def time_aggregate_epilogue(torch, device):
+    """R6 on one update at the GMA cell's shape (B=4, 136x240), bf16: ms a
+    call (CUDA events) against its bound (``mf`` and ``agg`` read once, both
+    slots written once, at 3.35 TB/s) and the plain version's ms; 32 calls
+    a forward."""
+    from pwcnet_tpu_torch.models.conv import to_nchw
+    from pwcnet_tpu_torch.ops.raft_update import aggregate_epilogue, aggregate_epilogue_plain
+
+    b, (h, w) = GMA_BATCH, GMA_GRID
+    gen = torch.Generator(device=device).manual_seed(6)
+    a = to_nchw(torch.randn(b, h, w, 512, generator=gen, device=device).to(torch.bfloat16))
+    q = to_nchw(torch.zeros(b, h, w, 512, dtype=torch.bfloat16, device=device))
+    agg = torch.randn(b, h * w, 128, generator=gen, device=device)
+    gamma = torch.tensor([0.5], device=device).to(torch.bfloat16)
+    args = (a[:, 256:384], agg, gamma, a[:, 384:], q[:, 384:])
+    with torch.inference_mode():
+        ms = cuda_ms(torch, lambda: aggregate_epilogue(*args))
+        plain_ms = cuda_ms(torch, lambda: aggregate_epilogue_plain(*args), iters=5)
+    n_bytes = b * h * w * 128 * (2 + 4 + 2 * 2)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  R6 aggregate_epilogue bf16 {b}x{h}x{w}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB; {100 * bound_ms / ms:.1f}% of it); 32 calls a forward")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "times": 32, "shape": f"{b}x{h}x{w}"}
 
 
 def cudnn_level_bwd(torch, g, out, s1, s2, k1, k2, k3, x_shape):
@@ -3375,12 +3558,20 @@ def log_build(report):
             require(counts <= {"0"}, f"ptxas spills registers in R2's / R3's {entry}")
         if entry.startswith("global_attention_kernel"):
             require(counts <= {"0"}, f"ptxas spills registers in R4's {entry}")
+        if entry.startswith("attention_softmax_kernel"):
+            require(counts <= {"0"}, f"ptxas spills registers in R5's {entry}")
+        if entry.startswith("raft_aggregate_kernel"):
+            require(counts <= {"0"}, f"ptxas spills registers in R6's {entry}")
     if report.get("cost_volume_bwd", {}).get("ptxas"):  # built in this run, not cached
         require(any(e.startswith("cv_bwd_kernel") for e in spills), "no ptxas report of K4's cv_bwd_kernel")
     if report.get("warp_bwd", {}).get("ptxas"):
         require(any(e.startswith("warp_bwd_coop_kernel") for e in spills), "no ptxas report of K5's kernel")
     if report.get("estimator_conv_bwd", {}).get("ptxas"):
         require(any(e.startswith("conv3x3_wgmma_kernel") for e in spills), "no ptxas report of K7b's bf16 kernel")
+    if report.get("global_attention", {}).get("ptxas"):
+        require(any(e.startswith("attention_softmax_kernel") for e in spills), "no ptxas report of R5's kernel")
+    if report.get("raft_update", {}).get("ptxas"):
+        require(any(e.startswith("raft_aggregate_kernel") for e in spills), "no ptxas report of R6's kernel")
     k3 = _build.load("pyramid_conv").pwc_pyramid_level_smem_bytes
     k3.argtypes = [ctypes.c_int] * 2
     k6 = _build.load("pyramid_conv_bwd").pwc_pyramid_level_bwd_smem_bytes
@@ -3549,6 +3740,9 @@ def main() -> int:
     r23_errs = check_raft_update(torch, device)
     raft_launches = check_raft_forward_launches(torch, device)
     r4_err = check_global_attention(torch, device)
+    r5_err = check_attention_softmax(torch, device)
+    check_aggregate_epilogue(torch, device)
+    gma_launches = check_gma_forward_launches(torch, device)
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -3635,6 +3829,9 @@ def main() -> int:
     r23_time = time_raft_update(torch, device)
     log("[time] R4, GMFlow's global matching and propagation, at the GMFlow cell's shape")
     r4_time = time_global_attention(torch, device)
+    log("[time] R5 and R6, GMA's softmax over a block of scores and its aggregation epilogue, at the GMA cell's shape")
+    r5_time = time_attention_softmax(torch, device)
+    r6_time = time_aggregate_epilogue(torch, device)
     for kid in ("K1", "K2", "K6", "K8", "K9"):
         log(f"  {kid} bf16 per " + ("train step" if kid == "K6" else "forward") + ": "
             f"{sum(r['ms'] * r['times'] for r in rows[kid]):.4f} ms over "
@@ -3703,6 +3900,14 @@ def main() -> int:
     kernels.append({"name": "R4 global_attention", "route": "cuda", "source": "pwcnet_tpu_torch/csrc/global_attention.cu",
                     "replaces": None, "max_abs_err_of_max_ref": r4_err,
                     "timed_at": "one product at 448x1024 B=16 (7168 keys), bf16 q and k, float32 value", **r4_time})
+    kernels.append({"name": "R5 attention_softmax", "route": "cuda",
+                    "source": "pwcnet_tpu_torch/csrc/global_attention.cu", "replaces": None,
+                    "launches_per_gma_forward_448x1024": gma_launches["R5"], "max_err_less_bf16_rounding": r5_err,
+                    "timed_at": "one block of rows at 1088x1920 B=4 (32640 keys), float32 scores", **r5_time})
+    kernels.append({"name": "R6 aggregate_epilogue", "route": "cuda",
+                    "source": "pwcnet_tpu_torch/csrc/raft_update.cu", "replaces": None,
+                    "launches_per_gma_forward_448x1024": gma_launches["R6"], "max_abs_err": 0.0,
+                    "timed_at": "one update at 1088x1920 B=4, bf16", **r6_time})
     log(f"[e2e] 448x1024 B=8 serving pairs/s: " + ", ".join(f"{k} {v:.1f}" for k, v in pairs.items())
         + f" on {card}")
     log(f"[e2e] sequence serving 448x1024 bf16 kernels (reported, not claimed): predict_sequence B=8 "

@@ -42,6 +42,20 @@
 //     one issues its product while the other runs its softmax.
 //   - Keys past N score -inf; rows past N are computed and not written, so
 //     any N works. Nothing but the output is written to device memory.
+//
+// R5 (`attention_softmax_kernel`, since GMA): GMA's attention, once a forward,
+// written out as bf16 probabilities for the 32 aggregations that read it
+// (ops/attention.py `global_softmax`; its plain version is `_softmax_plain`).
+// cuBLAS writes one block of rows of float32 scores q k^T (bf16 products,
+// float32 sums); this kernel turns each row into softmax(scale * scores) over
+// its N keys, in float32, and rounds each probability once to bf16 into its
+// row of the (B, N, N) probabilities. One block a row: each thread keeps an
+// online maximum and sum of exponentials over its strided share of the row,
+// the block merges them, then reads the row again (from L2: two blocks of 1024
+// threads an SM hold 264 rows of 130 KB at N = 32640, under the 50 MB L2) and
+// writes exp(scale * x - max) / sum. Bound: memory, 4 bytes read and 2
+// written a score (2.13 GB of probabilities a 1088x1920 pair: 0.95 ms at
+// 3.35 TB/s, the scores' write by cuBLAS besides).
 #include "hopper.cuh"
 
 #include <atomic>
@@ -252,7 +266,121 @@ cudaError_t ga_map(CUtensorMap* map, const void* x, int batch, int n) {
   return make_map_4d(map, x, dims, strides, box, estride, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+constexpr int kSmThreads = 1024;  // R5: threads a row
+
+// merges (m2, s2) into (m, s): the running maximum of scaled scores and the sum of exp(x - maximum)
+__device__ __forceinline__ void merge_softmax(float& m, float& s, float m2, float s2) {
+  if (m2 == -INFINITY) return;
+  if (m == -INFINITY) {
+    m = m2, s = s2;
+    return;
+  }
+  const float mx = fmaxf(m, m2);
+  s = s * expf(m - mx) + s2 * expf(m2 - mx);
+  m = mx;
+}
+
+template <int V>
+__device__ __forceinline__ void load_scores(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_probs(__nv_bfloat16* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]), b = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 raw;
+    raw.x = *reinterpret_cast<unsigned*>(&a);
+    raw.y = *reinterpret_cast<unsigned*>(&b);
+    *reinterpret_cast<uint2*>(p) = raw;
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// scores: (rows, n) float32, contiguous; row i = (b, r) with b = i / rows_per_batch, r = i % rows_per_batch,
+// its probabilities at out + b * out_batch + r * out_row
+template <int V>
+__global__ void __launch_bounds__(kSmThreads)
+    attention_softmax_kernel(const float* __restrict__ scores, __nv_bfloat16* __restrict__ out, int n,
+                             int rows_per_batch, long long out_batch, long long out_row, float scale) {
+  __shared__ float part_m[kSmThreads / 32], part_s[kSmThreads / 32];
+  const long long row = blockIdx.x;
+  const float* x = scores + row * n;
+  const long long b = row / rows_per_batch;
+  __nv_bfloat16* o = out + b * out_batch + (row - b * rows_per_batch) * out_row;
+  float m = -INFINITY, s = 0.f;
+  for (int i = threadIdx.x * V; i < n; i += kSmThreads * V) {
+    float v[V];
+    load_scores<V>(x + i, v);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float t = v[j] * scale;
+      if (t > m) {
+        s = s * expf(m - t) + 1.f;
+        m = t;
+      } else {
+        s += expf(t - m);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, off), s2 = __shfl_xor_sync(0xffffffffu, s, off);
+    merge_softmax(m, s, m2, s2);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) part_m[warp] = m, part_s[warp] = s;
+  __syncthreads();
+  if (warp == 0) {
+    m = part_m[lane], s = part_s[lane];  // kSmThreads / 32 == 32 warps
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m, off), s2 = __shfl_xor_sync(0xffffffffu, s, off);
+      merge_softmax(m, s, m2, s2);
+    }
+    if (lane == 0) part_m[0] = m, part_s[0] = s;
+  }
+  __syncthreads();
+  m = part_m[0];
+  const float inv = 1.f / part_s[0];
+  for (int i = threadIdx.x * V; i < n; i += kSmThreads * V) {
+    float v[V];
+    load_scores<V>(x + i, v);
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = expf(v[j] * scale - m) * inv;
+    store_probs<V>(o + i, v);
+  }
+}
+static_assert(kSmThreads == 32 * 32, "the second merge takes one warp's lanes, one a warp");
+
 }  // namespace pwc
+
+// R5: scores (rows, n) float32, contiguous; out bf16, row i (= (b, r), b = i / rows_per_batch) at
+// out + b * out_batch + r * out_row, n contiguous elements. Float4 loads where n, the strides and the pointers
+// allow them.
+extern "C" int pwc_attention_softmax(const void* scores, void* out, int rows, int rows_per_batch, int n,
+                                     long long out_batch, long long out_row, float scale, void* stream) {
+  if (rows <= 0 || rows_per_batch <= 0 || n <= 0 || scores == nullptr || out == nullptr) return cudaErrorInvalidValue;
+  const bool wide = n % 4 == 0 && out_batch % 4 == 0 && out_row % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(scores) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const float*>(scores);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  if (wide) {
+    pwc::attention_softmax_kernel<4><<<rows, pwc::kSmThreads, 0, st>>>(x, o, n, rows_per_batch, out_batch, out_row,
+                                                                         scale);
+  } else {
+    pwc::attention_softmax_kernel<1><<<rows, pwc::kSmThreads, 0, st>>>(x, o, n, rows_per_batch, out_batch, out_row,
+                                                                         scale);
+  }
+  return cudaGetLastError();
+}
 
 // q, k: (batch, n, 128) bf16, contiguous, 16-byte aligned; v: float32 (batch, n, 2) with rows of 2
 // contiguous values, 8-byte aligned, batch b at v + b * v_batch (v_batch 0: one value for every row);

@@ -14,6 +14,10 @@
 //   R3 `raft_gate_zr_kernel`: z = sigmoid(z_pre + b_z), r = sigmoid(r_pre + b_r), r h into its slot and z
 //      to a tensor; `raft_gate_h_kernel`: h = (1 - z) h + z tanh(q_pre + b_q) in place, and to a second
 //      tensor where given.
+//   R6 `raft_aggregate_kernel` (GMA's update, since GMA): out = mf + gamma * agg, mf the motion features'
+//      slot (126 + the flow's 2 channels), agg the float32 aggregation (attention x to_v(mf)), gamma a
+//      scalar, into the global slots of A and Q; the product and the sum each rounded in float32 (no
+//      fused multiply-add, as the plain version computes them), then once to the model's dtype.
 // Arithmetic in float32, one rounding a result. About 1.06 GB an update at B=16, with the float32 lookup's
 // cast to bf16 (0.22 GB) still outside.
 //
@@ -109,6 +113,36 @@ raft_epilogue_kernel(const T* __restrict__ x, const T* __restrict__ bias, int c,
     for (int j = 0; j < V; ++j) v[j] = activate<ACT>(v[j] + b[j]);
     store_vec<T, V>(o0.ptr + p * o0.stride + k, v);
     if (o1.ptr != nullptr) store_vec<T, V>(o1.ptr + p * o1.stride + k, v);
+  }
+}
+
+// V float32 values, by 16-byte loads where V is 8 (the pointer 16-byte aligned) and as one access otherwise
+template <int V>
+__device__ __forceinline__ void load_f32(const float* p, float (&v)[V]) {
+  if constexpr (V == 8) {
+    load8(p, v);
+  } else {
+    load_vec<float, V>(p, v);
+  }
+}
+
+// R6: mf (a slot), agg (n, c) float32 contiguous, gamma one value; out = mf + gamma agg into one or two slots
+template <typename T, int V>
+__global__ void __launch_bounds__(kEpilogueThreads)
+raft_aggregate_kernel(const T* __restrict__ mf, long long smf, const float* __restrict__ agg,
+                      const T* __restrict__ gamma, int c, Slot<T> o0, Slot<T> o1, unsigned items) {
+  const float g = to_f32(*gamma);
+  const unsigned vecs = c / V;
+  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < items; i += gridDim.x * blockDim.x) {
+    const unsigned p = i / vecs;
+    const int k = static_cast<int>(i - p * vecs) * V;
+    float m[V], a[V];
+    load_vec<T, V>(mf + p * smf + k, m);
+    load_f32<V>(agg + static_cast<size_t>(p) * c + k, a);
+#pragma unroll
+    for (int j = 0; j < V; ++j) m[j] = __fadd_rn(m[j], __fmul_rn(g, a[j]));
+    store_vec<T, V>(o0.ptr + p * o0.stride + k, m);
+    if (o1.ptr != nullptr) store_vec<T, V>(o1.ptr + p * o1.stride + k, m);
   }
 }
 
@@ -311,6 +345,30 @@ cudaError_t gate_h(const void* qp, const void* bq, const void* z, void* h, long 
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t aggregate(const void* mf, long long smf, const void* agg, const void* gamma, int c, void* o0,
+                      long long s0, void* o1, long long s1, long long n, cudaStream_t stream) {
+  int v = vector_width(sizeof(T), {c, smf, s0, s1}, {mf, o0, o1});
+  while (v > 1 && reinterpret_cast<uintptr_t>(agg) % (std::min(v, 4) * 4) != 0) v /= 2;  // agg's float4 loads
+  const long long items = n * (c / v);
+  if (items > kMaxItems) return cudaErrorInvalidValue;
+  const auto* mp = static_cast<const T*>(mf);
+  const auto* ap = static_cast<const float*>(agg);
+  const auto* gp = static_cast<const T*>(gamma);
+  const Slot<T> a{static_cast<T*>(o0), s0}, b{static_cast<T*>(o1), s1};
+  const unsigned grid = grid_for(items);
+#define PWC_AGGREGATE(V) \
+  raft_aggregate_kernel<T, V><<<grid, kEpilogueThreads, 0, stream>>>(mp, smf, ap, gp, c, a, b, items)
+  if constexpr (sizeof(T) <= 2) {
+    if (v == 8) PWC_AGGREGATE(8);
+  }
+  if (v == 4) PWC_AGGREGATE(4);
+  if (v == 2) PWC_AGGREGATE(2);
+  if (v == 1) PWC_AGGREGATE(1);
+#undef PWC_AGGREGATE
+  return cudaGetLastError();
+}
+
 }  // namespace pwc
 
 // Each entry point: dtype 0 float32, 1 bfloat16 (every tensor but coords); slots as (pointer, pixel stride
@@ -352,6 +410,19 @@ extern "C" int pwc_raft_gate_h(int dtype, const void* qp, const void* bq, const 
   const auto st = static_cast<cudaStream_t>(stream);
   if (dtype == pwc::kF32) return pwc::gate_h<float>(qp, bq, z, h, sh, net, c, n, st);
   if (dtype == pwc::kBF16) return pwc::gate_h<__nv_bfloat16>(qp, bq, z, h, sh, net, c, n, st);
+  return cudaErrorInvalidValue;
+}
+
+// R6: mf a slot (pointer, pixel stride), agg (n, c) float32 contiguous, gamma one value of the model's dtype,
+// o0 and o1 slots (o1 null: not written).
+extern "C" int pwc_raft_aggregate(int dtype, const void* mf, long long smf, const void* agg, const void* gamma,
+                                  int c, void* o0, long long s0, void* o1, long long s1, long long n, void* stream) {
+  if (n <= 0 || c <= 0 || mf == nullptr || agg == nullptr || gamma == nullptr || o0 == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == pwc::kF32) return pwc::aggregate<float>(mf, smf, agg, gamma, c, o0, s0, o1, s1, n, st);
+  if (dtype == pwc::kBF16) return pwc::aggregate<__nv_bfloat16>(mf, smf, agg, gamma, c, o0, s0, o1, s1, n, st);
   return cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,8 @@
-"""PWCDCNet, the legacy PWCNet, RAFT, GMFlow and their parts in PyTorch."""
+"""PWCDCNet, the legacy PWCNet, RAFT, GMFlow, GMA and their parts in PyTorch."""
 
 from pwcnet_tpu_torch.models.context import ContextNetwork
 from pwcnet_tpu_torch.models.estimator import FlowEstimator, FlowEstimatorLegacy
+from pwcnet_tpu_torch.models.gma import GMA
 from pwcnet_tpu_torch.models.gmflow import GMFlow
 from pwcnet_tpu_torch.models.pwcnet import PWCDCNet, PWCNet, flow_scales
 from pwcnet_tpu_torch.models.pyramid import FeaturePyramidExtractor, FeaturePyramidExtractorLegacy
@@ -9,5 +10,5 @@ from pwcnet_tpu_torch.models.raft import RAFT
 
 __all__ = [
     "ContextNetwork", "FeaturePyramidExtractor", "FeaturePyramidExtractorLegacy", "FlowEstimator",
-    "FlowEstimatorLegacy", "GMFlow", "PWCDCNet", "PWCNet", "RAFT", "flow_scales",
+    "FlowEstimatorLegacy", "GMA", "GMFlow", "PWCDCNet", "PWCNet", "RAFT", "flow_scales",
 ]

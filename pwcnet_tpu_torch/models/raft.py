@@ -53,7 +53,14 @@ Initial weights are PyTorch's default init: RAFT's own draw is not
 reproduced, and its published checkpoints are what a user serves.
 
 GMFlow (``models/gmflow.py``) shares `BasicEncoder` and `ResidualBlock`
-(with ``bias=False``), the instance norm and `convex_upsample`.
+(with ``bias=False``), the instance norm and `convex_upsample`. GMA
+(``models/gma.py``) is this model with an attention once a forward and an
+aggregation in each update: it shares the encoders, the correlation and
+its lookup, the motion encoder, `SepConvGRU` (at 512 input channels), the
+flow and mask heads, the epilogues of ``ops.raft_update``, `UpdateBuffers`
+(``a`` and ``q`` wider by the block's ``global_width``, 0 here), the
+upsample and this forward (``buffers_type`` and `RAFT._attend` are its
+hooks).
 """
 
 from __future__ import annotations
@@ -170,7 +177,10 @@ class UpdateBuffers:
       gate; ``net``, the hidden state after the second GRU pass, which the
       flow head and the mask head read.
 
-    The flow slots start at zero (the first update's flow)."""
+    ``inp`` and ``mf`` are the ``inp`` and ``[motion | flow]`` slots of
+    ``a``. ``a`` and ``q`` end in ``block.global_width`` more channels
+    (none in RAFT's block). The flow slots start at zero (the first
+    update's flow)."""
 
     def __init__(self, net: torch.Tensor, inp: torch.Tensor, block: "BasicUpdateBlock"):
         b, hidden, h, w = net.shape
@@ -180,14 +190,15 @@ class UpdateBuffers:
         def buffer(c: int) -> torch.Tensor:
             return to_nchw(net.new_zeros(b, h, w, c))
 
-        self.a, self.q = buffer(hidden + context + motion + 2), buffer(hidden + context + motion + 2)
+        at, mf = hidden + context, motion + 2
+        self.a, self.q = buffer(at + mf + block.global_width), buffer(at + mf + block.global_width)
         self.m = buffer(cor + block.encoder.convf2.out_channels)
         self.flow, self.z, self.net = buffer(2), buffer(hidden), buffer(hidden)
         self.h, self.rh = self.a[:, :hidden], self.q[:, :hidden]
         self.cor, self.flo = self.m[:, :cor], self.m[:, cor:]
-        at = hidden + context
         self.motion = (self.a[:, at:at + motion], self.q[:, at:at + motion])
-        self.flows = (self.a[:, at + motion:], self.q[:, at + motion:], self.flow)
+        self.flows = (self.a[:, at + motion:at + mf], self.q[:, at + motion:at + mf], self.flow)
+        self.inp, self.mf = self.a[:, hidden:at], self.a[:, at:at + mf]
         self.net.copy_(net)
         self.h.copy_(net)
         self.a[:, hidden:at].copy_(inp)
@@ -247,7 +258,11 @@ class FlowHead(nn.Module):
 
 class BasicUpdateBlock(nn.Module):
     """The motion encoder, the GRU, the flow head and the upsampling mask
-    head (``mask``, run by `RAFT` after the last update only)."""
+    head (``mask``, run by `RAFT` after the last update only).
+    ``global_width``: the channels the GRU reads after ``[h | inp | motion
+    | flow]``, none here."""
+
+    global_width = 0
 
     def __init__(self, corr_planes: int, hidden: int):
         super().__init__()
@@ -285,13 +300,16 @@ class RAFT(nn.Module):
 
     hidden_dim = context_dim = 128
     corr_levels = corr_radius = 4
+    update_block_type = BasicUpdateBlock
+    buffers_type = UpdateBuffers
 
     def __init__(self, iters: int = 32):
         super().__init__()
         self.iters = iters
         self.fnet = BasicEncoder(256, "instance")
         self.cnet = BasicEncoder(self.hidden_dim + self.context_dim, "batch")
-        self.update_block = BasicUpdateBlock(self.corr_levels * (2 * self.corr_radius + 1) ** 2, self.hidden_dim)
+        self.update_block = self.update_block_type(self.corr_levels * (2 * self.corr_radius + 1) ** 2,
+                                                   self.hidden_dim)
         self.to(memory_format=torch.channels_last)  # weights in their inputs' memory format: no conv copies its weight
 
     def forward(self, images_0: torch.Tensor, images_1: torch.Tensor):
@@ -299,7 +317,7 @@ class RAFT(nn.Module):
         flow_low (B, H/8, W/8, 2))``, float32."""
         b, h, w, _ = images_0.shape
         if h % 8 or w % 8:
-            raise ValueError(f"RAFT needs H and W multiples of 8 (pad the frames first), got {h}x{w}")
+            raise ValueError(f"{type(self).__name__} needs H and W multiples of 8 (pad the frames first), got {h}x{w}")
         with span("model.forward", b):
             return self._forward(images_0, images_1)
 
@@ -309,7 +327,8 @@ class RAFT(nn.Module):
             frames = to_nchw((2 * torch.cat([images_0, images_1]) - 1).to(dtype))
             fmap0, fmap1 = self.fnet(frames).float().chunk(2)
             net, inp = self.cnet(frames[:images_0.shape[0]]).split([self.hidden_dim, self.context_dim], 1)
-            buffers = UpdateBuffers(torch.tanh(net), torch.relu(inp), self.update_block)
+            buffers = self.buffers_type(torch.tanh(net), torch.relu(inp), self.update_block)
+        self._attend(buffers)
         with span("model.corr"):
             pyramid = corr_pyramid(fmap0, fmap1, self.corr_levels)
         b, _, h, w = fmap0.shape
@@ -325,3 +344,8 @@ class RAFT(nn.Module):
         with span("model.upsample"):
             flow = coords1 - coords0
             return convex_upsample(flow, 0.25 * self.update_block.mask(buffers.net)), flow
+
+    def _attend(self, s: UpdateBuffers) -> None:
+        """What a model computes from the context features ``s.inp`` once a
+        forward, before the updates, into ``s``: nothing in RAFT (GMA: the
+        attention)."""

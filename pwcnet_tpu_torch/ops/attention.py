@@ -1,5 +1,6 @@
-"""Single-head attention for GMFlow: inside split windows, plain and
-shifted, and over a whole frame with a float32 value.
+"""Single-head attention for GMFlow and GMA: inside split windows, plain
+and shifted, over a whole frame with a float32 value, and GMA's attention
+written out once and read by every update.
 
 - `window_attention(q, k, v, splits, mask)`: q, k, v (B, H, W, C) split
   into ``splits x splits`` windows (GMFlow's ``split_feature``), attention
@@ -12,6 +13,13 @@ shifted, and over a whole frame with a float32 value.
   N, Cv) float32 -> float32 (B, N, Cv): ``softmax(q k^T / sqrt(C)) v``
   over all N keys, GMFlow's global matching (v the pixel grid) and its
   flow propagation (v the flow). The value and the output stay float32.
+- `global_softmax(q, k)`: q, k (B, N, C) -> (B, N, N) probabilities in q's
+  dtype, ``softmax(q k^T / sqrt(C))`` over all N keys (GMA's ``Attention``),
+  computed in blocks of rows so that no float32 (B, N, N) tensor is ever
+  whole (at most ``SCORE_BLOCK_BYTES`` of float32 scores at a time). The
+  scale is applied to the float32 scores, not to q.
+- `aggregate(p, v)`: p (B, N, N), v (B, N, Cv) -> float32 (B, N, Cv), ``p
+  v`` with float32 sums (GMA's ``Aggregate`` product, each update).
 
 On CUDA tensors the windows run ``F.scaled_dot_product_attention``
 restricted to the flash and memory-efficient backends, so no call falls
@@ -26,13 +34,20 @@ values is exact in float32), a float32 online softmax, and the 2-column
 value summed in float32 with probabilities never rounded; the output is
 float32. (A bf16 output would miss the grid's coordinates of 64-127 by up
 to 0.25 px.) So GMFlow on the card runs in bf16: R4 refuses float32 q and
-k. On CPU tensors both are plain: the scores written out in float32, the
-softmax, the product with v (the window's probabilities in q's dtype, as
-the fused kernels round them).
+k. GMA's two operations on CUDA tensors take bf16 operands only (no
+float32 GEMM, which would run at 67 TFLOP/s): each block of rows of scores
+is one cuBLAS bf16 ``bmm`` with float32 output, then R5 (``ops.cuda.
+global_attention.attention_softmax_cuda``), a float32 softmax over the row
+rounded once to bf16 into the probabilities; the aggregation is one cuBLAS
+bf16 ``bmm`` with float32 output. On CPU tensors all are plain: the scores
+written out in float32 (GMA's in the same row blocks), the softmax, the
+product with v (the window's and GMA's probabilities in q's dtype, as the
+fused kernels round them).
 
-`attention_counts()` counts the calls by path: ``window`` and ``global``
-(the fused calls) and ``plain`` (either kind, on the plain path);
-`reset_attention_counts()` sets them to zero.
+`attention_counts()` counts the calls by path: ``window``, ``global``,
+``scores`` (`global_softmax`) and ``aggregate`` (the fused calls) and
+``plain`` (any kind, on the plain path); `reset_attention_counts()` sets
+them to zero.
 """
 
 from __future__ import annotations
@@ -43,17 +58,20 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from pwcnet_tpu_torch.ops.cuda.global_attention import global_attention_cuda
+from pwcnet_tpu_torch.ops.cuda.global_attention import attention_softmax_cuda, global_attention_cuda
 
-__all__ = ["window_attention", "global_attention", "shift_window_mask", "split_windows", "merge_windows",
-           "attention_counts", "reset_attention_counts"]
+__all__ = ["window_attention", "global_attention", "global_softmax", "aggregate", "shift_window_mask",
+           "split_windows", "merge_windows", "attention_counts", "reset_attention_counts", "score_rows",
+           "SCORE_BLOCK_BYTES"]
 
-_COUNTS = {"window": 0, "global": 0, "plain": 0}
+_COUNTS = {"window": 0, "global": 0, "scores": 0, "aggregate": 0, "plain": 0}
+SCORE_BLOCK_BYTES = 1 << 30  # float32 scores held at once by `global_softmax`
 MASKED = -100.0  # GMFlow's value between tokens of different regions of a shifted window (not -inf)
 
 
 def attention_counts() -> dict:
-    """Calls by path since the last reset: ``window``, ``global``, ``plain``."""
+    """Calls by path since the last reset: ``window``, ``global``, ``scores``,
+    ``aggregate``, ``plain``."""
     return dict(_COUNTS)
 
 
@@ -143,3 +161,66 @@ def global_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
         return _plain(q, k, v.float(), None, 1.0 / math.sqrt(q.shape[-1]), torch.float32)
     _COUNTS["global"] += 1
     return global_attention_cuda(q, k, v)
+
+
+def score_rows(b: int, n: int) -> int:
+    """Rows of each batch element a block of `global_softmax` takes: as many
+    as ``SCORE_BLOCK_BYTES`` of float32 scores hold, at least one."""
+    return max(1, min(n, SCORE_BLOCK_BYTES // (4 * b * n)))
+
+
+def _bf16_only(name: str, *tensors: torch.Tensor) -> None:
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(f"{name} on CUDA tensors takes bfloat16 operands (its products run on the tensor cores), "
+                        f"got {sorted({str(t.dtype) for t in tensors})}")
+
+
+def _softmax_plain(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    b, n, _ = q.shape
+    p = q.new_empty((b, n, n))
+    rows = score_rows(b, n)
+    kt = k.float().transpose(1, 2)
+    for r0 in range(0, n, rows):
+        scores = torch.matmul(q[:, r0:r0 + rows].float(), kt) * scale
+        p[:, r0:r0 + rows] = torch.softmax(scores, dim=-1)
+    return p
+
+
+def global_softmax(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``softmax(q k^T / sqrt(C))`` over all N keys: q, k (B, N, C) -> (B,
+    N, N) in q's dtype, the scores and the softmax in float32, each
+    probability rounded once; on CUDA tensors cuBLAS and R5 (bf16 q and k)."""
+    if q.dim() != 3 or k.shape != q.shape:
+        raise ValueError(f"global_softmax: q and k must be (B, N, C) alike, got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if not _fused(q):
+        _COUNTS["plain"] += 1
+        return _softmax_plain(q, k, scale)
+    _bf16_only("global_softmax", q, k)
+    _COUNTS["scores"] += 1
+    b, n, _ = q.shape
+    p = q.new_empty((b, n, n))
+    rows = score_rows(b, n)
+    block = torch.empty(b * rows * n, dtype=torch.float32, device=q.device)
+    kt = k.transpose(1, 2)
+    for r0 in range(0, n, rows):
+        r = min(rows, n - r0)
+        scores = block[:b * r * n].view(b, r, n)
+        torch.bmm(q[:, r0:r0 + r], kt, out_dtype=torch.float32, out=scores)
+        attention_softmax_cuda(scores, scale, p[:, r0:r0 + r])
+    return p
+
+
+def aggregate(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``p v``: p (B, N, N), v (B, N, Cv) in one dtype -> float32 (B, N,
+    Cv), summed in float32; on CUDA tensors one cuBLAS bf16 product."""
+    if p.dim() != 3 or v.dim() != 3 or p.shape[2] != v.shape[1] or p.shape[0] != v.shape[0]:
+        raise ValueError(f"aggregate: p must be (B, N, N) and v (B, N, Cv), got {tuple(p.shape)} and "
+                         f"{tuple(v.shape)}")
+    if not _fused(p):
+        _COUNTS["plain"] += 1
+        return torch.matmul(p.float(), v.float())
+    _bf16_only("aggregate", p, v)
+    _COUNTS["aggregate"] += 1
+    return torch.bmm(p, v, out_dtype=torch.float32)

@@ -24,15 +24,19 @@
 - ``global_attention.global_attention_cuda``: R4, GMFlow's global matching
   and propagation, ``softmax(q k^T / sqrt(128)) v`` with bf16 q, k and a
   float32 2-column v (no TPU kernel: the JAX package has no GMFlow),
-  forward only.
+  forward only;
+- ``global_attention.attention_softmax_cuda``: R5, GMA's attention softmax,
+  float32 score rows to bf16 probabilities, forward only;
+- ``raft_update.aggregate_epilogue_cuda``: R6, GMA's ``mf + gamma agg``
+  into the update's global slots, forward only.
 
 K1-K3, K7, K8 and K9 are ``torch.autograd.Function``s on CUDA tensors, with
 K4-K6, K7b, K8b and K9b as their backward. Each wrapper sends a CPU tensor to its plain PyTorch
 version and a CUDA tensor to its kernel (or raises): nothing falls back.
-R1-R4's wrappers take CUDA tensors only; ``ops.corr_lookup.lookup``, the
-ops of ``ops.raft_update`` and ``ops.attention.global_attention`` send CPU
-tensors to their plain versions. Each keeps a count of the calls in
-which it launched its kernel in ``<wrapper>.launches``.
+R1-R6's wrappers take CUDA tensors only; ``ops.corr_lookup.lookup``, the
+ops of ``ops.raft_update``, and ``ops.attention.global_attention`` and
+``global_softmax`` send CPU tensors to their plain versions. Each keeps a
+count of the calls in which it launched its kernel in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -46,9 +50,10 @@ def wrappers() -> dict:
     from pwcnet_tpu_torch.ops.cuda.cost_volume import (
         cost_volume_bwd, cost_volume_cuda, cost_volume_hpad_bwd, cost_volume_hpad_cuda)
     from pwcnet_tpu_torch.ops.cuda.estimator_conv import estimator_chain_bwd, estimator_chain_fused
-    from pwcnet_tpu_torch.ops.cuda.global_attention import global_attention_cuda
+    from pwcnet_tpu_torch.ops.cuda.global_attention import attention_softmax_cuda, global_attention_cuda
     from pwcnet_tpu_torch.ops.cuda.pyramid_conv import pyramid_level_bwd, pyramid_level_fused
-    from pwcnet_tpu_torch.ops.cuda.raft_update import conv_epilogue_cuda, gru_gate_zr_cuda
+    from pwcnet_tpu_torch.ops.cuda.raft_update import (
+        aggregate_epilogue_cuda, conv_epilogue_cuda, gru_gate_zr_cuda)
     from pwcnet_tpu_torch.ops.cuda.warped_cv import (
         warp_bwd, warped_cost_volume, warped_cost_volume_global, warped_rows_bwd)
 
@@ -69,6 +74,8 @@ def wrappers() -> dict:
         "R2": conv_epilogue_cuda,
         "R3": gru_gate_zr_cuda,
         "R4": global_attention_cuda,
+        "R5": attention_softmax_cuda,
+        "R6": aggregate_epilogue_cuda,
     }
 
 

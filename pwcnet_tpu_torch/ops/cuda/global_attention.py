@@ -8,6 +8,12 @@ Replaces no TPU kernel: the JAX package has no GMFlow. The plain version is
 sends CPU tensors there and CUDA tensors here. The kernel computes the
 forward only: under grad mode with an input that requires grad it raises
 (GMFlow serves under ``torch.inference_mode``).
+
+R5 (``attention_softmax_cuda``, same source, since GMA): a block of rows of
+float32 scores (cuBLAS's, ``ops.attention.global_softmax``) to
+``softmax(scale x)`` over each row, in float32, each probability rounded
+once to bf16 into its row of the (B, N, N) probabilities; forward only, as
+R4. Its plain version is ``ops.attention._softmax_plain``.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 from pwcnet_tpu_torch.ops.cuda import _common
 from pwcnet_tpu_torch.ops.cuda._common import I, P
 
-__all__ = ["global_attention_cuda"]
+__all__ = ["attention_softmax_cuda", "global_attention_cuda"]
 
 CHANNELS = 128  # q and k's channels and the value's columns, which the kernel is built for
 VALUE_COLUMNS = 2
@@ -59,3 +65,35 @@ def global_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 
 
 global_attention_cuda.launches = 0
+
+
+def attention_softmax_cuda(scores: torch.Tensor, scale: float, out: torch.Tensor) -> None:
+    """R5: ``out = softmax(scale * scores, -1)`` rounded to bf16; ``scores``
+    (B, R, N) float32, contiguous; ``out`` (B, R, N) bf16 with rows of N
+    contiguous elements at any row and batch stride (rows ``r0:r0 + R`` of
+    the (B, N, N) probabilities). One launch a call; raises on what the
+    kernel does not take."""
+    name = "attention_softmax_cuda"
+    if scores.dim() != 3 or out.shape != scores.shape:
+        raise ValueError(f"{name}: scores and out must be (B, R, N) alike, got {tuple(scores.shape)} and "
+                         f"{tuple(out.shape)}")
+    if scores.dtype != torch.float32 or out.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: scores must be float32 and out bfloat16, got {scores.dtype} and {out.dtype}")
+    if _common.wants_grad(scores):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it without grad (torch.no_grad or "
+                           "torch.inference_mode) or on tensors that do not require grad")
+    b, r, n = scores.shape
+    if not scores.is_contiguous() or out.stride(2) != 1:
+        raise ValueError(f"{name}: scores must be contiguous and each row of out contiguous")
+    if scores.device.type != "cuda" or out.device != scores.device:
+        raise ValueError(f"{name}: both tensors must be on one CUDA device")
+    if b * r > 2**31 - 1:
+        raise ValueError(f"{name}: {b * r} rows exceed a launch's grid")
+    if scores.numel():
+        _common.launch("global_attention", "pwc_attention_softmax",
+                       [P, P, I, I, I, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float, P], scores.device,
+                       scores.data_ptr(), out.data_ptr(), b * r, r, n, out.stride(0), out.stride(1), float(scale))
+        attention_softmax_cuda.launches += 1
+
+
+attention_softmax_cuda.launches = 0

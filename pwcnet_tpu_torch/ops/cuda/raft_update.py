@@ -8,6 +8,8 @@
 - R3, ``gru_gate_zr_cuda``: ``z = sigmoid(z_pre + b_z)``, ``r h`` with ``r
   = sigmoid(r_pre + b_r)``; ``gru_gate_h_cuda``: ``h = (1 - z) h + z
   tanh(q_pre + b_q)`` in place.
+- R6, ``aggregate_epilogue_cuda`` (GMA's update): ``mf + gamma agg`` into
+  the global slots, ``agg`` the float32 aggregation.
 
 Replaces no TPU kernel: the JAX package has no RAFT. The plain versions are
 in ``pwcnet_tpu_torch.ops.raft_update``, which sends CPU tensors there and
@@ -21,7 +23,8 @@ C]``), or a whole ``channels_last`` tensor. Every tensor but the
 coordinates is in the model's dtype, float32 or bfloat16, on one device.
 
 Launch counts: R2's two entry points count in
-``conv_epilogue_cuda.launches``, R3's two in ``gru_gate_zr_cuda.launches``.
+``conv_epilogue_cuda.launches``, R3's two in ``gru_gate_zr_cuda.launches``,
+R6 in ``aggregate_epilogue_cuda.launches``.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import torch
 from pwcnet_tpu_torch.ops.cuda import _common
 from pwcnet_tpu_torch.ops.cuda._common import I, P
 
-__all__ = ["ACTS", "conv_epilogue_cuda", "coords_update_cuda", "gru_gate_h_cuda", "gru_gate_zr_cuda"]
+__all__ = ["ACTS", "aggregate_epilogue_cuda", "conv_epilogue_cuda", "coords_update_cuda", "gru_gate_h_cuda",
+           "gru_gate_zr_cuda"]
 
 ACTS = {"identity": 0, "relu": 1, "sigmoid": 2, "tanh": 3}  # csrc/raft_update.cu `Act`
 L = ctypes.c_longlong
@@ -205,5 +209,37 @@ def gru_gate_h_cuda(q_pre: torch.Tensor, bq: torch.Tensor, z: torch.Tensor, h: t
     gru_gate_zr_cuda.launches += 1
 
 
+def aggregate_epilogue_cuda(mf: torch.Tensor, agg: torch.Tensor, gamma: torch.Tensor, *outs: torch.Tensor) -> None:
+    """R6: ``out = mf + gamma agg`` for each of one or two slots ``outs``;
+    ``mf`` a slot (B, C, h, w), ``agg`` (B, h w, C) float32, contiguous,
+    ``gamma`` (1,) in the slots' dtype. The product and the sum each
+    rounded in float32, the result once to the slots' dtype. One launch a
+    call."""
+    name = "aggregate_epilogue_cuda"
+    if not 1 <= len(outs) <= 2:
+        raise ValueError(f"{name}: one or two slots, got {len(outs)}")
+    _check(name, (gamma,), (mf, *outs), (mf, agg, gamma))
+    b, c, h, w = mf.shape
+    _same_shape(name, (1,), gamma)
+    _same_shape(name, (b, h * w, c), agg)
+    _same_shape(name, mf.shape, *outs)
+    if agg.dtype != torch.float32:
+        raise TypeError(f"{name}: agg must be float32, got {agg.dtype}")
+    _on_cuda(name, (gamma,), (mf, *outs))
+    if agg.device != gamma.device or not agg.is_contiguous():
+        raise ValueError(f"{name}: agg must be contiguous on the slots' device")
+    n = b * h * w
+    _items(name, n, c)
+    if n == 0:
+        return
+    _common.launch(
+        _LIB, "pwc_raft_aggregate", [I, P, L, P, P, I, P, L, P, L, L, P], mf.device,
+        _common.DTYPE_CODES[mf.dtype], mf.data_ptr(), mf.stride(3), agg.data_ptr(), gamma.data_ptr(), c,
+        *_slot_args(outs, 2), n,
+    )
+    aggregate_epilogue_cuda.launches += 1
+
+
 conv_epilogue_cuda.launches = 0
 gru_gate_zr_cuda.launches = 0
+aggregate_epilogue_cuda.launches = 0

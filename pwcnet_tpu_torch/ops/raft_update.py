@@ -17,6 +17,10 @@ the kernels do.
   = sigmoid(r_pre + b_r)`` into the slot ``rh``.
 - `gru_gate_h`: ``h = (1 - z) h + z tanh(q_pre + b_q)`` in place in the
   slot ``h``, and into ``net`` where given.
+- `aggregate_epilogue` (GMA's update; on CUDA tensors R6): ``mf + gamma
+  agg`` into each of one or two slots, ``mf`` the motion features' slot,
+  ``agg`` the float32 aggregation (B, h w, C), ``gamma`` (1,); the product
+  and the sum each rounded in float32, then once to the slots' dtype.
 
 ``x`` and the pre-activations are conv outputs (B, C, h, w) without their
 bias; ``bias`` (C,); a slot is a (B, C, h, w) view of a ``channels_last``
@@ -29,11 +33,11 @@ from __future__ import annotations
 import torch
 
 from pwcnet_tpu_torch.ops.cuda.raft_update import (
-    ACTS, conv_epilogue_cuda, coords_update_cuda, gru_gate_h_cuda, gru_gate_zr_cuda)
+    ACTS, aggregate_epilogue_cuda, conv_epilogue_cuda, coords_update_cuda, gru_gate_h_cuda, gru_gate_zr_cuda)
 
 __all__ = [
-    "ACTS", "conv_epilogue", "conv_epilogue_plain", "coords_update", "coords_update_plain", "gru_gate_h",
-    "gru_gate_h_plain", "gru_gate_zr", "gru_gate_zr_plain",
+    "ACTS", "aggregate_epilogue", "aggregate_epilogue_plain", "conv_epilogue", "conv_epilogue_plain", "coords_update",
+    "coords_update_plain", "gru_gate_h", "gru_gate_h_plain", "gru_gate_zr", "gru_gate_zr_plain",
 ]
 
 _FNS = {"identity": lambda v: v, "relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh}
@@ -95,3 +99,16 @@ def gru_gate_h_plain(q_pre, bq, z, h, net=None) -> None:
     h.copy_(new)
     if net is not None:
         net.copy_(new)
+
+
+def aggregate_epilogue(mf, agg, gamma, *outs) -> None:
+    if mf.device.type == "cpu":
+        return aggregate_epilogue_plain(mf, agg, gamma, *outs)
+    return aggregate_epilogue_cuda(mf, agg, gamma, *outs)
+
+
+def aggregate_epilogue_plain(mf, agg, gamma, *outs) -> None:
+    b, c, h, w = mf.shape
+    y = mf.float() + gamma.float() * agg.view(b, h, w, c).permute(0, 3, 1, 2)
+    for out in outs:
+        out.copy_(y)

@@ -266,7 +266,8 @@ def make_eval_step(model: torch.nn.Module, mesh=None, **loss_kwargs) -> Callable
 def make_forward(model: torch.nn.Module, with_pyramid: bool = True) -> Callable:
     """Inference: (images_0, images_1) -> whatever ``model`` returns
     (``PWCDCNet``: final flow and pyramid; ``PWCNet``: also frame 0's
-    features; ``RAFT`` and ``GMFlow``: the final flow and the flow at 1/8
+    features; ``RAFT``, ``GMA`` (RAFT's forward with its attention and
+    aggregation) and ``GMFlow``: the final flow and the flow at 1/8
     resolution), under ``torch.inference_mode`` on the model's own
     parameters. ``with_pyramid`` is accepted and unused, as in the JAX
     package; unlike it, the function takes no parameters argument (the

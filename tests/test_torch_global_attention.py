@@ -109,7 +109,7 @@ def test_cpu_tensors_take_the_plain_route(value):
     attention.reset_attention_counts()
     before = global_attention_cuda.launches
     got = attention.global_attention(q, k, v)
-    assert attention.attention_counts() == {"window": 0, "global": 0, "plain": 1}
+    assert attention.attention_counts() == {"window": 0, "global": 0, "scores": 0, "aggregate": 0, "plain": 1}
     assert global_attention_cuda.launches == before
     assert torch.equal(got, attention._plain(q, k, v, None, 1 / math.sqrt(128), torch.float32))
     assert float((got - _reference(q, k, v)).abs().max()) < 1e-4
@@ -167,7 +167,7 @@ def test_r4_launches_once_a_call_and_refuses_grad(cuda_device):
         attention.global_attention(q, k, v)
         attention.global_attention(q, k, v.contiguous())
     assert {kid: c for kid, c in launch_counts().items() if c} == {"R4": 2}
-    assert attention.attention_counts() == {"window": 0, "global": 2, "plain": 0}
+    assert attention.attention_counts() == {"window": 0, "global": 2, "scores": 0, "aggregate": 0, "plain": 0}
     q.requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
         attention.global_attention(q, k, v)

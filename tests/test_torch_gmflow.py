@@ -154,14 +154,14 @@ def test_the_fused_route_lays_out_what_the_plain_route_computes(monkeypatch):
     attention.reset_attention_counts()
     with torch.no_grad():
         plain = port(x0, x1)[0]
-    assert attention.attention_counts() == {"window": 0, "global": 0, "plain": 14}
+    assert attention.attention_counts() == {"window": 0, "global": 0, "scores": 0, "aggregate": 0, "plain": 14}
     monkeypatch.setattr(attention, "_fused", lambda x: True)
     monkeypatch.setattr(attention, "_sdpa", _sdpa_anywhere)
     monkeypatch.setattr(attention, "global_attention_cuda", _r4_anywhere)
     attention.reset_attention_counts()
     with torch.no_grad():
         fused = port(x0, x1)[0]
-    assert attention.attention_counts() == {"window": 12, "global": 2, "plain": 0}
+    assert attention.attention_counts() == {"window": 12, "global": 2, "scores": 0, "aggregate": 0, "plain": 0}
     assert float(harness._pair_gaps(fused, plain).max()) < 1e-5
 
 
@@ -388,7 +388,7 @@ def test_a_bf16_forward_on_the_card_is_within_the_cells_limit(cuda_device, monke
     attention.reset_attention_counts()
     reset_launch_counts()
     got = make_forward(model)(x0, x1)[0]
-    assert attention.attention_counts() == {"window": 12, "global": 2, "plain": 0}
+    assert attention.attention_counts() == {"window": 12, "global": 2, "scores": 0, "aggregate": 0, "plain": 0}
     assert {k: v for k, v in launch_counts().items() if v} == {"R4": 2}
     monkeypatch.setattr(attention, "_fused", lambda x: False)
     plain = make_forward(model)(x0, x1)[0]

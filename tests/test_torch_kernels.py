@@ -199,7 +199,7 @@ class TestWrappersOnCpu:
         assert torch.equal(pyramid_level_fused(x, *tp), pyramid_level_plain(x, *tp))
         counts = launch_counts()
         assert set(counts) == {"K1", "K2", "K3", "K4", "K5", "K6", "K7", "K7b", "K8", "K8b", "K9", "K9b", "R1", "R2",
-                               "R3", "R4"}
+                               "R3", "R4", "R5", "R6"}
         assert not any(counts.values())
 
     def test_shard_wrappers_route_cpu_to_plain(self, rng):

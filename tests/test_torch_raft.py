@@ -29,6 +29,7 @@ from benchmark import harness, raft_work
 from benchmark.loops import raft as loop
 from benchmark.reference import raft as reference
 from pwcnet_tpu_torch.models.conv import to_nchw
+from pwcnet_tpu_torch.models.gma import GMA
 from pwcnet_tpu_torch.models.raft import RAFT, UpdateBuffers, convex_upsample
 from pwcnet_tpu_torch.ops import raft_update as update_ops
 from pwcnet_tpu_torch.ops.corr_lookup import corr_pyramid, lookup, lookup_plain
@@ -536,15 +537,26 @@ def test_update_ops_on_cpu_tensors_are_the_plain_versions_and_launch_nothing():
     assert {k: launch_counts()[k] for k in ("R2", "R3")} == before
 
 
-def test_update_buffers_lay_out_rafts_concatenations():
+@pytest.mark.parametrize("model", [RAFT, GMA], ids=["RAFT", "GMA"])
+def test_update_buffers_lay_out_rafts_concatenations(model):
     """A = [h | inp | motion | flow] (128 + 128 + 126 + 2), Q the same with
     ``r h`` first, M = [cor | flo] (192 + 64); ``inp`` in A and Q, ``h`` in A
-    and ``net``, the flows zero; every buffer channels_last."""
-    block = RAFT(iters=1).update_block
+    and ``net``, the flows zero; every buffer channels_last. GMA's A and Q
+    end in the global slot (128 more channels, 512 as its GRU reads);
+    RAFT's have none."""
+    block = model(iters=1).update_block
     g = torch.Generator().manual_seed(9)
     net, inp = (to_nchw(torch.randn(2, 3, 4, 128, generator=g)) for _ in range(2))
-    s = UpdateBuffers(net, inp, block)
-    assert s.a.shape == s.q.shape == (2, 384, 3, 4) and s.m.shape == (2, 256, 3, 4)
+    s = model.buffers_type(net, inp, block)
+    width = 512 if model is GMA else 384
+    assert s.a.shape == s.q.shape == (2, width, 3, 4) and s.m.shape == (2, 256, 3, 4)
+    assert block.gru.convz1.in_channels == width
+    assert s.mf.data_ptr() == s.a[:, 256].data_ptr() and s.mf.shape[1] == 128
+    if model is GMA:
+        assert [t.data_ptr() for t in s.globals] == [s.a[:, 384].data_ptr(), s.q[:, 384].data_ptr()]
+        assert all(t.shape[1] == 128 and not t.any() for t in s.globals)
+    else:
+        assert type(s) is UpdateBuffers and not hasattr(s, "globals") and not hasattr(s, "attention")
     for t in (s.a, s.q, s.m, s.flow, s.z, s.net):
         assert t.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(s.a[:, :128], net) and torch.equal(s.net, net) and not s.q[:, :128].any()
@@ -554,6 +566,37 @@ def test_update_buffers_lay_out_rafts_concatenations():
     assert [f.data_ptr() for f in s.flows[:2]] == [s.a[:, 382].data_ptr(), s.q[:, 382].data_ptr()]
     assert all(not f.any() and f.shape[1] == 2 for f in s.flows) and s.flows[2] is s.flow
     assert s.cor.shape[1] == 192 and s.flo.data_ptr() == s.m[:, 192].data_ptr() and s.h.data_ptr() == s.a.data_ptr()
+
+
+@pytest.mark.parametrize("model", [RAFT, GMA], ids=["RAFT", "GMA"])
+def test_rafts_update_ops_a_forward_are_unchanged_by_the_shared_code(model, monkeypatch):
+    """The ops a forward of the shared update issues, counted on the plain
+    path: RAFT's R2 calls (six epilogues and the coordinates' update) and
+    R3 calls (two gates a GRU pass) an update, as before GMA, and no
+    aggregation; GMA the same and one aggregation's epilogue an update."""
+    import pwcnet_tpu_torch.models.gma as gma_module
+    import pwcnet_tpu_torch.models.raft as raft_module
+
+    calls = {}
+
+    def counted(module, name):
+        fn = getattr(module, name)
+
+        def wrapper(*args):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args)
+
+        monkeypatch.setattr(module, name, wrapper)
+
+    for name in ("conv_epilogue", "coords_update", "gru_gate_zr", "gru_gate_h"):
+        counted(raft_module, name)
+    counted(gma_module, "aggregate_epilogue")
+    with torch.no_grad():
+        model(iters=3)(torch.rand(1, 64, 96, 3), torch.rand(1, 64, 96, 3))
+    want = {"conv_epilogue": 6 * 3, "coords_update": 3, "gru_gate_zr": 2 * 3, "gru_gate_h": 2 * 3}
+    if model is GMA:
+        want["aggregate_epilogue"] = 3
+    assert calls == want
 
 
 @pytest.mark.parametrize("seed", [1, 2**31 + 9])
